@@ -1,0 +1,50 @@
+"""Parameter trees between the two frameworks, as numpy.
+
+``params_from_jax`` takes a JAX parameter tree already turned into numpy
+(``jax.tree.map(np.asarray, params)``) and returns the same nested dict of
+torch tensors; ``params_to_jax`` goes back.  Values are copied bit for bit,
+bfloat16 included (numpy holds it as ``ml_dtypes.bfloat16``, which torch
+reads through a 16-bit integer view).  The port never imports JAX: this is
+how parity tests give both sides the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceSpec, resolve_device
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes           # numpy's bfloat16 (installed with JAX)
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_jax(tree, device: DeviceSpec = "cpu"):
+    """Nested dict/list of numpy arrays -> the same structure of tensors."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, dev) for v in tree)
+    return _to_tensor(tree, dev)
+
+
+def params_to_jax(tree):
+    """Nested dict/list of tensors -> the same structure of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_jax(v) for v in tree)
+    return _to_numpy(tree)

@@ -1,0 +1,129 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds, not minutes.  Libraries are
+built at first use into ``build/torch_kernels/`` at the root of the checkout
+(listed in ``.gitignore``), named by a hash of the source and flags so an
+edited source is rebuilt.  ``build_all`` starts one ``nvcc`` per source, all
+at once.
+
+Every C entry point launches on the stream it is given (PyTorch's current
+stream), allocates nothing, and returns ``cudaGetLastError()``; ``check``
+raises on a non-zero code.  ``launch_counts`` holds one integer per kernel,
+incremented by the wrapper exactly where it launches (``count``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable, Optional
+
+import torch
+
+_HERE = pathlib.Path(__file__).resolve().parent
+
+#: kernel name -> (source relative to this package, extra nvcc flags)
+SOURCES: Dict[str, tuple] = {
+    # -fmad=false: no contraction beyond the __fmaf_rn calls written out —
+    # the z stream is bitwise-specified (see zo_affine.cu)
+    "zo_affine": ("zo_fused/csrc/zo_affine.cu", ("-fmad=false",)),
+    "flash_attention": ("flash_attention/csrc/flash_attention.cu", ()),
+    "paged_gather": ("paged/csrc/paged_gather.cu", ()),
+}
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC")
+
+launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def count(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def build_dir() -> pathlib.Path:
+    return _HERE.parents[2] / "build" / "torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                           "from source on a machine with the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src, extra = SOURCES[name]
+    h = hashlib.sha256((_HERE / src).read_bytes())
+    h.update(repr((_FLAGS, extra)).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> float:
+    """Compile every missing library, one ``nvcc`` per source started
+    together; returns the wall seconds taken.  Raises with the compiler's
+    output if any build fails."""
+    t0 = time.perf_counter()
+    names = list(SOURCES if names is None else names)
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        src, extra = SOURCES[name]
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_FLAGS, *extra, "-o", str(tmp), str(_HERE / src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built first if needed (cached per process)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(path))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,148 @@
+"""Architecture registry — the port of ``repro.models.registry``, dense
+family: ``Bundle`` gives ``init`` / ``loss_fn`` / ``prefill_fn`` /
+``chunk_prefill_fn`` / ``decode_fn`` with the JAX signatures (``vmap``
+becomes a batch dimension written out)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Union
+
+import torch
+
+from repro_torch.device import DeviceSpec, resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+_REGISTRY: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Arch:
+    """A registered architecture: production config + reduced smoke config."""
+    arch_id: str
+    cfg: ModelConfig
+    smoke_cfg: ModelConfig
+    notes: str = ""
+
+
+def register(arch_id: str, cfg: ModelConfig, smoke_cfg: ModelConfig,
+             notes: str = "") -> Arch:
+    arch = Arch(arch_id, cfg, smoke_cfg, notes)
+    _REGISTRY[arch_id] = arch
+    return arch
+
+
+def get(arch_id: str) -> Arch:
+    if arch_id not in _REGISTRY:
+        import repro_torch.configs  # noqa: F401  (registers everything)
+    return _REGISTRY[arch_id]
+
+
+def all_archs() -> dict:
+    import repro_torch.configs  # noqa: F401
+    return dict(_REGISTRY)
+
+
+class Bundle:
+    """Callable surface for one ``ModelConfig`` (dense family)."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is ported with the other-families "
+                "slice; this slice carries the dense family only")
+        self.cfg = cfg
+
+    # ---- init ---------------------------------------------------------- #
+    def init(self, seed: Union[int, torch.Generator] = 0,
+             device: DeviceSpec = None) -> dict:
+        """Random params from a ``torch.Generator`` (an int seeds a fresh
+        one on ``device``).  JAX's threefry-normal init is not reproduced:
+        give both frameworks the same weights through ``repro_torch.convert``."""
+        if isinstance(seed, torch.Generator):
+            gen = seed
+        else:
+            gen = torch.Generator(device=resolve_device(device))
+            gen.manual_seed(int(seed))
+        return transformer.init_params(self.cfg, gen)
+
+    # ---- training loss ---------------------------------------------------- #
+    def loss_fn(self, objective: str = "ce") -> Callable:
+        if objective != "ce":
+            raise NotImplementedError(
+                f"objective {objective!r} is ported with the training slice; "
+                "this slice has token cross-entropy ('ce')")
+        return transformer.train_loss_fn(self.cfg)
+
+    # ---- serving ---------------------------------------------------------- #
+    def prefill_fn(self) -> Callable:
+        """(params, {"tokens": (B,S)}) -> (last logits (B,1,V), cache)."""
+        cfg = self.cfg
+
+        def prefill(params, batch):
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            cache = attn_lib.init_cache(cfg, B, max(S, cfg.max_seq),
+                                        cfg.param_dtype, tokens.device)
+            r = transformer.forward(cfg, params, tokens=tokens, cache=cache,
+                                    cache_pos=None)
+            return r.logits[:, -1:], r.cache
+
+        return prefill
+
+    def chunk_prefill_fn(self) -> Callable:
+        """Suffix prefill against pre-populated per-request caches — the
+        paged engine's batched-prefill primitive.
+
+        batch: ``"tokens"`` (B,S) right-padded suffixes; ``"cache"`` stacked
+        (L,B,cap,KV,hd) with per-request ``"pos"`` (L,B,cap) (rows [0,plen_b)
+        hold request b's prefix KV, the rest −1); ``"cache_pos"`` (B,) the
+        prefix lengths.  Request b runs at positions plen_b + arange(S) and
+        writes its suffix KV at rows [plen_b, plen_b+S) — JAX vmaps the
+        single-request forward over b; here b is the batch axis.  Returns
+        (logits (B,S,V), cache), the cache updated in place."""
+        cfg = self.cfg
+        if cfg.sliding_window != 0:
+            raise NotImplementedError(
+                f"chunk_prefill_fn: sliding_window={cfg.sliding_window} has "
+                "no absolute-position KV rows to resume from")
+
+        def chunk_prefill(params, batch):
+            tokens, plens = batch["tokens"], batch["cache_pos"]
+            S = tokens.shape[1]
+            positions = (plens.to(torch.int32)[:, None]
+                         + torch.arange(S, dtype=torch.int32,
+                                        device=tokens.device)[None])
+            r = transformer.forward(cfg, params, tokens=tokens,
+                                    positions=positions, cache=batch["cache"],
+                                    cache_pos=plens)
+            return r.logits, r.cache
+
+        return chunk_prefill
+
+    def decode_fn(self) -> Callable:
+        """(params, {"token" (B,1), "cache", "cache_pos"}) -> (logits,
+        cache): ``cache_pos`` (B,) decodes every row at its own position
+        (continuous batching); a scalar decodes the batch in lockstep."""
+        cfg = self.cfg
+
+        def decode(params, batch):
+            pos = batch["cache_pos"]
+            if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+                positions = pos[:, None].to(torch.int32)
+            else:
+                positions = torch.tensor([int(pos)], dtype=torch.int32,
+                                         device=batch["token"].device)
+            r = transformer.forward(cfg, params, tokens=batch["token"],
+                                    positions=positions, cache=batch["cache"],
+                                    cache_pos=pos)
+            return r.logits, r.cache
+
+        return decode
+
+
+def bundle(cfg_or_arch) -> Bundle:
+    cfg = cfg_or_arch.cfg if isinstance(cfg_or_arch, Arch) else cfg_or_arch
+    return Bundle(cfg)
+

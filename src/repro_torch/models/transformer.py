@@ -1,0 +1,148 @@
+"""Decoder-only transformer, dense family — the port of
+``repro.models.transformer``.
+
+Params keep the JAX layout, block leaves stacked over layers on axis 0:
+
+    {"embed": (V, d),
+     "layers": {"ln1": …, "attn": …, "mlp": …, "ln2": …},
+     "ln_f": …, ["head": (d, V)]}
+
+so the leaf order (and hence every z stream's leaf seed) is the JAX one.
+The layer loop is a Python loop over the stacked leaves (``jax.lax.scan``
+has no counterpart to need); a cache, when given, is written in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.common import (apply_norm, dense_init, embed_init,
+                                       norm_params, sinusoidal_at)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.ffn import ffn, ffn_params
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.n_experts:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is ported with the other-families slice; "
+            "this slice carries the dense family only")
+
+
+# --------------------------------------------------------------------------- #
+# Init
+# --------------------------------------------------------------------------- #
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random dense params on ``gen.device`` (N(0, 1/fan_in) projections,
+    N(0, 0.02²) embedding, zero biases and norm offsets)."""
+    _check_dense(cfg)
+    dtype, dev, L = cfg.param_dtype, gen.device, cfg.n_layers
+    layers = {
+        "ln1": norm_params(cfg, cfg.d_model, dtype, dev, layers=L),
+        "attn": attn_lib.attention_params(cfg, gen, dtype, L),
+        "ln2": norm_params(cfg, cfg.d_model, dtype, dev, layers=L),
+        "mlp": ffn_params(cfg, gen, dtype, L),
+    }
+    params = {
+        "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
+        "layers": layers,
+        "ln_f": norm_params(cfg, cfg.d_model, dtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                    dtype)
+    return params
+
+
+def layer_slice(tree: dict, i: int) -> dict:
+    """Layer ``i``'s view of the stacked leaves (no copy)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------- #
+# One block, full forward
+# --------------------------------------------------------------------------- #
+def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, cache,
+          cache_pos):
+    h = apply_norm(cfg, x, p["ln1"])
+    attn_out, new_cache = attn_lib.self_attention(cfg, p["attn"], h,
+                                                  positions, cache, cache_pos)
+    x = x + attn_out
+    x = x + ffn(cfg, p["mlp"], apply_norm(cfg, x, p["ln2"]))
+    return x, new_cache
+
+
+class ForwardResult(NamedTuple):
+    logits: torch.Tensor
+    cache: Optional[dict]
+
+
+def forward(cfg: ModelConfig, params: dict, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            cache: Optional[dict] = None, cache_pos=None) -> ForwardResult:
+    """tokens (B,S) int or embeds (B,S,d); ``cache`` stacked over layers
+    (leading L axis) and updated in place."""
+    _check_dense(cfg)
+    if embeds is None:
+        x = params["embed"][tokens.long()]
+        scale = torch.sqrt(torch.tensor(float(cfg.d_model),
+                                        dtype=torch.float32)).to(x.dtype)
+        x = x * scale.to(x.device)
+    else:
+        x = embeds.to(cfg.param_dtype)
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    if not cfg.use_rope:
+        x = x + sinusoidal_at(positions, cfg.d_model, x.dtype)[None]
+
+    for i in range(cfg.n_layers):
+        cache_l = (None if cache is None else
+                   {"k": cache["k"][i], "v": cache["v"][i],
+                    "pos": cache["pos"][i]})
+        x, _ = block(cfg, layer_slice(params["layers"], i), x, positions,
+                     cache_l, cache_pos)
+
+    x = apply_norm(cfg, x, params["ln_f"])
+    head = params.get("head")
+    if head is None:
+        head = params["embed"].T
+    return ForwardResult(x @ head, cache)
+
+
+# --------------------------------------------------------------------------- #
+# Losses
+# --------------------------------------------------------------------------- #
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Teacher-forcing cross entropy with padded-vocab masking, f32
+    logsumexp."""
+    lg = logits.to(torch.float32)
+    if cfg.padded_vocab != cfg.vocab_size:
+        lg = lg.clone()
+        lg[..., cfg.vocab_size:] = -1e30
+    if cfg.logit_softcap > 0:
+        lg = cfg.logit_softcap * torch.tanh(lg / cfg.logit_softcap)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
+    nll = logz - gold
+    if loss_mask is not None:
+        m = loss_mask.to(torch.float32)
+        return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return torch.mean(nll)
+
+
+def train_loss_fn(cfg: ModelConfig):
+    """(params, batch) -> scalar loss — the function MeZO's two forward
+    passes evaluate."""
+    def loss_fn(params, batch):
+        r = forward(cfg, params, tokens=batch.get("tokens"),
+                    embeds=batch.get("embeds"))
+        return lm_loss(cfg, r.logits, batch["labels"], batch.get("loss_mask"))
+    return loss_fn
+

@@ -1,0 +1,101 @@
+"""The z-stream identity — the port of ``repro.perturb.stream``.
+
+A stream is a pure function of ``(run_seed, step, seed_index, leaf_index)``.
+JAX derives it with threefry ``fold_in`` chains on PRNG keys; the counter-hash
+backend then folds the final key into one int32 seed.  The port reproduces
+that host-side, with a pure-Python threefry-2x32 (20 rounds, rotations
+(13, 15, 26, 6)/(17, 29, 16, 24), key-schedule parity 0x1BD11BDA) — exact
+integer code, so the seeds equal JAX's bit for bit:
+
+    PRNGKey(s)     = (0, s & 0xFFFFFFFF)                  (|s| < 2**31)
+    fold_in(k, d)  = threefry2x32(k, (0, d & 0xFFFFFFFF))
+    counter_seed   = int32(key[0] ^ key[1])
+    leaf_seed(i)   = int32(counter_seed + 0x1000003 · i)  (wraparound)
+
+Keys are plain ``(k0, k1)`` tuples of Python ints; nothing here touches a
+tensor or a device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+_MASK = 0xFFFFFFFF
+# Multiplier decorrelating per-leaf counter streams (the zo_fused schedule).
+_LEAF_STRIDE = 0x1000003
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Key = Tuple[int, int]
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(key: Key, count: Key) -> Key:
+    """One threefry-2x32 block (Salmon et al., 2011), as ``jax.random``
+    computes it for a 2-word count."""
+    k0, k1 = key[0] & _MASK, key[1] & _MASK
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (count[0] + ks[0]) & _MASK
+    x1 = (count[1] + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def prng_key(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` for a seed that fits int32."""
+    seed = int(seed)
+    if not -(1 << 31) <= seed < (1 << 31):
+        raise ValueError(f"seed {seed} does not fit int32")
+    return 0, seed & _MASK
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)`` for int32 ``data``."""
+    return threefry2x32(key, (0, int(data) & _MASK))
+
+
+def step_key(base_key: Key, step: int) -> Key:
+    """Per-step key: the paper's 'sample random seed s' for step t."""
+    return fold_in(base_key, step)
+
+
+def _as_int32(x: int) -> int:
+    x &= _MASK
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+class StreamRef(NamedTuple):
+    """Identity of one per-seed perturbation stream (``key`` is the fully
+    derived threefry key).  ``selection`` / ``phase`` exist for signature
+    parity with ``repro.perturb.StreamRef``; this slice replays full-tree
+    ledgers only, so a ref carrying a selection is refused by the backend."""
+    key: Key
+    selection: object = None
+    phase: int = 0
+
+    @classmethod
+    def derive(cls, base_key: Key, step: int,
+               seed_index: Optional[int] = None) -> "StreamRef":
+        """run key → step t → (optional) seed j."""
+        key = step_key(base_key, step)
+        if seed_index is not None:
+            key = fold_in(key, seed_index)
+        return cls(key)
+
+    def counter_seed(self) -> int:
+        """The key folded into one int32 seed (``key[0] ^ key[1]``)."""
+        return _as_int32(self.key[0] ^ self.key[1])
+
+    def leaf_seed(self, leaf_index: int) -> int:
+        """Per-leaf int32 counter seed (int32 wraparound, as in JAX)."""
+        return leaf_seed(self.counter_seed(), leaf_index)
+
+
+def leaf_seed(seed: int, leaf_index: int) -> int:
+    return _as_int32(int(seed) + _LEAF_STRIDE * int(leaf_index))
