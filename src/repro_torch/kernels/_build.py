@@ -4,14 +4,15 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds, not minutes.  Libraries are
 built at first use into ``build/torch_kernels/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of the source and flags so an
-edited source is rebuilt.  ``build_all`` starts one ``nvcc`` per source, all
-at once.
+(listed in ``.gitignore``), named by a hash of the source, the headers
+beside it and the flags, so an edited source is rebuilt.  ``build_all``
+starts one ``nvcc`` per source, all at once.
 
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; ``check``
 raises on a non-zero code.  ``launch_counts`` holds one integer per kernel,
-incremented by the wrapper exactly where it launches (``count``).
+incremented by the wrapper exactly where it launches (``count``); one
+library may hold several kernels, each with its own count.
 """
 from __future__ import annotations
 
@@ -28,18 +29,26 @@ import torch
 
 _HERE = pathlib.Path(__file__).resolve().parent
 
-#: kernel name -> (source relative to this package, extra nvcc flags)
+# -fmad=false: no contraction beyond the __fmaf_rn calls written out — the
+# z stream is bitwise-specified (see zo_fused/csrc/zo_stream.cuh)
+_NO_FMAD = ("-fmad=false",)
+
+#: library name -> (source relative to this package, extra nvcc flags,
+#: the kernels it launches — one launch count each)
 SOURCES: Dict[str, tuple] = {
-    # -fmad=false: no contraction beyond the __fmaf_rn calls written out —
-    # the z stream is bitwise-specified (see zo_affine.cu)
-    "zo_affine": ("zo_fused/csrc/zo_affine.cu", ("-fmad=false",)),
-    "flash_attention": ("flash_attention/csrc/flash_attention.cu", ()),
-    "paged_gather": ("paged/csrc/paged_gather.cu", ()),
+    "zo_affine": ("zo_fused/csrc/zo_affine.cu", _NO_FMAD, ("zo_affine",)),
+    "zo_multi": ("zo_fused/csrc/zo_multi.cu", _NO_FMAD,
+                 ("zo_affine_chain", "zo_affine_multi", "zo_affine_batched")),
+    "zo_sqnorm": ("zo_fused/csrc/zo_sqnorm.cu", _NO_FMAD, ("zo_sqnorm",)),
+    "flash_attention": ("flash_attention/csrc/flash_attention.cu", (),
+                        ("flash_attention",)),
+    "paged_gather": ("paged/csrc/paged_gather.cu", (), ("paged_gather",)),
 }
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
-launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+launch_counts: Dict[str, int] = {k: 0 for _, _, ks in SOURCES.values()
+                                 for k in ks}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -65,8 +74,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src, extra = SOURCES[name]
+    src, extra, _ = SOURCES[name]
     h = hashlib.sha256((_HERE / src).read_bytes())
+    for header in sorted((_HERE / src).parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(repr((_FLAGS, extra)).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
@@ -83,7 +94,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> float:
         out = _lib_path(name)
         if out.exists():
             continue
-        src, extra = SOURCES[name]
+        src, extra, _ = SOURCES[name]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_FLAGS, *extra, "-o", str(tmp), str(_HERE / src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -15,10 +15,14 @@ specified to the bit, and this module reproduces JAX's bits exactly:
   f32 — Boldo–Melquiond), so it agrees with ``__fmaf_rn`` on every element,
   not just on most.
 
-``zo_affine`` is the one entry point: a CPU tensor takes the plain version
-(chunked so temporaries stay small), a CUDA tensor launches the hand-written
-kernel (``csrc/zo_affine.cu``) or raises.  The counter is the flat index of
-the unpadded leaf as uint32, so no blocked/padded view is needed.
+``zo_affine`` (K1) and ``zo_affine_batched`` (K5, the B-stream fan-out
+with one shared (a, b)) are the entry points: a CPU tensor takes the plain
+version (chunked so temporaries stay small), a CUDA tensor launches the
+hand-written kernel (``csrc/zo_affine.cu``, ``csrc/zo_multi.cu``) or raises.
+The counter is the flat index of the unpadded leaf as uint32, so no
+blocked/padded view is needed.  The other multi-seed kernels (K3, K4, K6)
+are in ``multi.py``; all of them share one z generator
+(``csrc/zo_stream.cuh``).
 """
 from __future__ import annotations
 
@@ -34,6 +38,9 @@ _MASK = 0xFFFFFFFF
 _CHUNK = 1 << 20                        # plain-version elements per pass
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DIST_CODES = {"gaussian": 0, "rademacher": 1}
+#: streams per launch of the multi-seed kernels (ZO_MAX_STREAMS in
+#: ``csrc/zo_multi.cu``); a longer list is split into consecutive launches
+MAX_STREAMS = 64
 
 
 def _f32(v) -> float:
@@ -151,8 +158,9 @@ def _check_dist(dist: str) -> None:
     if dist not in DIST_CODES:
         raise NotImplementedError(
             f"zo_affine has no generator for dist={dist!r} (implemented: "
-            "gaussian, rademacher); sphere needs the zo_sqnorm kernel (K6), "
-            "ported with the multi-seed slice")
+            "gaussian, rademacher); sphere is the gaussian stream rescaled "
+            "by sqrt(d)/||z||, which the perturbation backend folds into b "
+            "(||z||^2 from the zo_sqnorm kernel) — call with dist='gaussian'")
 
 
 def z_from_counter(idx: torch.Tensor, seed: int, dist: str) -> torch.Tensor:
@@ -196,6 +204,16 @@ def zo_affine_plain(x: torch.Tensor, seed: int, a: float, b: float,
     return y
 
 
+def _check_leaf(x: torch.Tensor, what: str) -> None:
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{what} takes float32/bfloat16/float16 leaves, "
+                        f"got {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError(f"{what}: the CUDA kernel takes contiguous leaves")
+
+
 # --------------------------------------------------------------------------- #
 # The CUDA kernel's wrapper
 # --------------------------------------------------------------------------- #
@@ -219,18 +237,14 @@ def zo_affine(x: torch.Tensor, seed: int, a: float, b: float,
     place (the paper's in-place trick).  CPU tensors take the plain version;
     CUDA tensors launch K1."""
     _check_dist(dist)
-    if x.dtype not in DTYPE_CODES:
-        raise TypeError(f"zo_affine takes float32/bfloat16/float16 leaves, "
-                        f"got {x.dtype}")
+    _check_leaf(x, "zo_affine")
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype
                             or out.device != x.device):
         raise ValueError("zo_affine: out must match x in shape, dtype and "
                          "device")
     if x.device.type == "cpu":
         return zo_affine_plain(x, seed, a, b, dist, out)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"zo_affine: no kernel for device {x.device}")
-    if not x.is_contiguous() or (out is not None and not out.is_contiguous()):
+    if out is not None and not out.is_contiguous():
         raise ValueError("zo_affine: the CUDA kernel takes contiguous leaves")
     y = torch.empty_like(x) if out is None else out
     if x.numel() == 0:
@@ -241,6 +255,63 @@ def zo_affine(x: torch.Tensor, seed: int, a: float, b: float,
                         _f32(b), DIST_CODES[dist], _build.stream_of(x))
     _build.check(lib, err, "zo_affine")
     _build.count("zo_affine")
+    return y
+
+
+def _u32_array(vals):
+    return (ctypes.c_uint32 * len(vals))(*[int(v) & _MASK for v in vals])
+
+
+def _f32_array(vals):
+    return (ctypes.c_float * len(vals))(*[_f32(v) for v in vals])
+
+
+def _multi_lib():
+    lib = _build.load("zo_multi")
+    if not getattr(lib, "_typed", False):
+        vp, i64, i, f = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_float)
+        for name in ("zo_affine_multi", "zo_affine_chain"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, i64, i, vp, vp, vp, i, i, vp]
+            fn.restype = i
+        lib.zo_affine_batched.argtypes = [vp, vp, i64, i, vp, i, f, f, i, vp]
+        lib.zo_affine_batched.restype = i
+        lib._typed = True
+    return lib
+
+
+def zo_affine_batched_plain(x: torch.Tensor, seeds, a: float, b: float,
+                            dist: str = "gaussian") -> torch.Tensor:
+    """Plain K5: the stacked K1 singles y[j] = zo_affine(x, seeds[j], a, b)."""
+    return torch.stack([zo_affine_plain(x, s, a, b, dist) for s in seeds])
+
+
+def zo_affine_batched(x: torch.Tensor, seeds, a: float, b: float,
+                      dist: str = "gaussian") -> torch.Tensor:
+    """K5 (port of ``zo_affine_2d_batched``): y[j] = a·x + b·z(seeds[j]) with
+    one shared (a, b), shape ``(len(seeds), *x.shape)``; each slice is
+    bitwise the K1 single.  x is read once for all streams."""
+    _check_dist(dist)
+    _check_leaf(x, "zo_affine_batched")
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("zo_affine_batched needs at least one seed")
+    if x.device.type == "cpu":
+        return zo_affine_batched_plain(x, seeds, a, b, dist)
+    y = torch.empty((len(seeds),) + tuple(x.shape), dtype=x.dtype,
+                    device=x.device)
+    if x.numel() == 0:
+        return y
+    lib = _multi_lib()
+    for j0 in range(0, len(seeds), MAX_STREAMS):
+        part = seeds[j0:j0 + MAX_STREAMS]
+        err = lib.zo_affine_batched(
+            _build.ptr(x), _build.ptr(y[j0]), x.numel(), DTYPE_CODES[x.dtype],
+            _u32_array(part), len(part), _f32(a), _f32(b), DIST_CODES[dist],
+            _build.stream_of(x))
+        _build.check(lib, err, "zo_affine_batched")
+        _build.count("zo_affine_batched")
     return y
 
 

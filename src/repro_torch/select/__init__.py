@@ -1,5 +1,6 @@
-"""Parameter selection — so far only the replay identity check of
-``repro.select``; the selections themselves come with the selection slice."""
+"""Parameter selection — so far the replay identity check of
+``repro.select`` and ``resolve_selection`` for the full tree; the other
+selections come with the selection slice."""
 from __future__ import annotations
 
 from typing import Optional
@@ -31,3 +32,15 @@ def check_replay_selection(recorded: Optional[str], active: Optional[str],
             "silently apply the updates to a different parameter support.  "
             f"Re-create the optimizer with selection={recorded!r} (e.g. "
             f"zo.mezo(..., selection={recorded!r})).")
+
+
+def resolve_selection(selection) -> None:
+    """``None`` or ``"full"`` → ``None`` (the full tree, as
+    ``repro.select.resolve_selection`` normalizes it); any other selection
+    is refused until the selection slice ports it."""
+    if selection is None or selection == "full":
+        return None
+    spec = getattr(selection, "spec", selection)
+    raise NotImplementedError(
+        f"parameter selection {spec!r} is ported with the selection slice "
+        "(ROADMAP Queue 1, Slice C); the port trains the full tree only")

@@ -6,13 +6,22 @@ from __future__ import annotations
 
 def composition_for_ledger(led):
     """The ZO composition whose replay reproduces ``led``'s run, rebuilt from
-    the header coordinates alone (as ``repro.serve.tenants`` does).
+    the header coordinates alone, as ``repro.serve.tenants`` does.
 
-    The port has one backend so far, the counter stream (``pallas+z2``), and
-    single-stream full-selection replay, so it always builds
-    ``mezo(backend="pallas")``; a ledger recorded under another backend,
-    selection or seed count is then refused by ``StepProgram.replay`` with
-    JAX's error (``BackendMismatchError`` / ``SelectionMismatchError`` /
-    ``ValueError``) rather than replayed wrong."""
+    The header's ``backend`` is the stream id (``"pallas+z2"``) while the
+    factories take the registry name, so the ``+zN`` suffix is stripped for
+    construction; ``check_replay_backend`` still compares full stream ids at
+    replay time.  ``batch_seeds > 1`` → ``fzoo(batch_seeds=B)``, else
+    ``mezo``; ``StepProgram.replay`` on the replay plan adopts the ledger's
+    ``n_groups``.  A non-full selection is refused (the selection slice)."""
     from repro_torch import zo
-    return zo.mezo(backend="pallas")
+    from repro_torch.select import resolve_selection
+    if led.sel_phase:
+        raise NotImplementedError(
+            f"ledger selection {led.selection!r} with phase offset "
+            f"{led.sel_phase} is ported with the selection slice")
+    resolve_selection(led.selection)
+    backend = led.backend.partition("+z")[0]
+    if led.batch_seeds > 1:
+        return zo.fzoo(batch_seeds=led.batch_seeds, backend=backend)
+    return zo.mezo(backend=backend)

@@ -2,9 +2,10 @@
 
 The counter-hash z stream of leaf ``i`` is seeded by ``leaf_seed(seed, i)``,
 so the leaf index must be exactly the one ``jax.tree_util`` assigns: dict keys
-sorted, depth first.  Lists and tuples flatten in order; ``None`` is an empty
-subtree (jax treats it as having no leaves).  Paths render as
-``jax.tree_util.keystr`` does (``['layers']['attn']['wq']``).
+sorted, depth first.  Lists, tuples and named tuples flatten in order;
+``None`` is an empty subtree (jax treats it as having no leaves).  Paths
+render as ``jax.tree_util.keystr`` does (``['layers']['attn']['wq']``, and
+``.field`` for a named tuple's field).
 """
 from __future__ import annotations
 
@@ -16,8 +17,15 @@ import torch
 PyTree = Any
 
 
-def _is_node(x) -> bool:
-    return isinstance(x, (dict, list, tuple)) or x is None
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _rebuild(t, values):
+    """A sequence node of ``t``'s type holding ``values``."""
+    if _is_namedtuple(t):
+        return type(t)(*values)
+    return type(t)(values)
 
 
 def flatten_with_path(tree: PyTree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -28,6 +36,11 @@ def flatten_with_path(tree: PyTree, prefix: str = "") -> List[Tuple[str, Any]]:
         out = []
         for k in sorted(tree):
             out.extend(flatten_with_path(tree[k], f"{prefix}[{k!r}]"))
+        return out
+    if _is_namedtuple(tree):
+        out = []
+        for name, v in zip(tree._fields, tree):
+            out.extend(flatten_with_path(v, f"{prefix}.{name}"))
         return out
     if isinstance(tree, (list, tuple)):
         out = []
@@ -53,10 +66,35 @@ def tree_map_with_index(fn: Callable[[int, Any], Any], tree: PyTree) -> PyTree:
             done = {k: rec(t[k]) for k in sorted(t)}
             return {k: done[k] for k in t}
         if isinstance(t, (list, tuple)):
-            return type(t)(rec(v) for v in t)
+            return _rebuild(t, [rec(v) for v in t])
         return fn(next(counter), t)
 
     return rec(tree)
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``jax.tree_util.tree_map``: ``fn`` over corresponding leaves of trees
+    of one structure (the first tree's)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, [tree_map(fn, v, *(r[i] for r in rest))
+                               for i, v in enumerate(tree)])
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like: PyTree, leaves) -> PyTree:
+    """``like``'s structure holding ``leaves`` (in jax flatten order)."""
+    leaves = list(leaves)
+    return tree_map_with_index(lambda i, _: leaves[i], like)
+
+
+def tree_clone(tree: PyTree) -> PyTree:
+    """A copy of every tensor leaf (other leaves are shared)."""
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                    tree)
 
 
 def is_floating(x) -> bool:

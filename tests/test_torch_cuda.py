@@ -12,7 +12,19 @@ import torch
 from repro_torch.kernels.flash_attention.kernel import (flash_attention,
                                                         flash_attention_plain)
 from repro_torch.kernels.paged.gather import paged_gather, paged_gather_plain
-from repro_torch.kernels.zo_fused.kernel import zo_affine, zo_affine_plain
+from repro_torch.kernels.zo_fused.kernel import (zo_affine,
+                                                 zo_affine_batched,
+                                                 zo_affine_batched_plain,
+                                                 zo_affine_plain)
+from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
+                                                zo_affine_chain_plain,
+                                                zo_affine_multi,
+                                                zo_affine_multi_plain,
+                                                zo_sqnorm, zo_sqnorm_plain)
+
+SEEDS = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
+A = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
+B = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
 
 
 @pytest.fixture
@@ -51,3 +63,33 @@ def test_cuda_paged_gather_bitwise(cuda):
     assert torch.equal(paged_gather(x, table, 16),
                        paged_gather_plain(x, torch.tensor(table, device=cuda),
                                           16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+@pytest.mark.parametrize("nb", [1, 2, 8])
+def test_cuda_multi_seed_kernels_bitwise(cuda, dtype, dist, nb):
+    """K3 chain (in place too), K4 fan-out and K5 batched fan-out against
+    their plain versions."""
+    x = torch.randn(262_147, device=cuda).to(dtype)
+    s, a, b = SEEDS[:nb], A[:nb], B[:nb]
+    assert torch.equal(zo_affine_chain(x, s, a, b, dist),
+                       zo_affine_chain_plain(x, s, a, b, dist))
+    y = x.clone()
+    zo_affine_chain(y, s, a, b, dist, out=y)
+    assert torch.equal(y, zo_affine_chain_plain(x, s, a, b, dist))
+    assert torch.equal(zo_affine_multi(x, s, a, b, dist),
+                       zo_affine_multi_plain(x, s, a, b, dist))
+    assert torch.equal(zo_affine_batched(x, s, a[0], b[0], dist),
+                       zo_affine_batched_plain(x, s, a[0], b[0], dist))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 131_072, 300_001])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+def test_cuda_sqnorm_bitwise(cuda, n, dist):
+    k = zo_sqnorm(n, 1234, dist, cuda)
+    assert k.device.type == "cuda"
+    assert torch.equal(k, zo_sqnorm_plain(n, 1234, dist, cuda))

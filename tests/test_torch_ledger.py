@@ -16,7 +16,7 @@ from repro.models import all_archs, bundle
 from repro.serve.tenants import composition_for_ledger as jax_composition
 from repro_torch import convert, zo
 from repro_torch.core import TrajectoryLedger, replay
-from repro_torch.exec import PlanMismatchError
+from repro_torch.exec import PlanMismatchError, StepProgram
 from repro_torch.perturb import BackendMismatchError
 from repro_torch.select import SelectionMismatchError
 from repro_torch.serve.tenants import composition_for_ledger
@@ -129,8 +129,12 @@ def test_backend_single_stream_contract_matches_jax(smoke_params, dist):
     got = jax.tree_util.tree_leaves(convert.params_to_jax(tp))
     for w, g in zip(want, got):
         assert np.array_equal(w.view(np.uint32), g.view(np.uint32))
+    # sphere is in both backends' dist set now (K6 measures ‖z‖²); the
+    # kernels themselves take gaussian/rademacher only
+    assert "sphere" in tb.dists and "sphere" in jb.dists
     with pytest.raises(NotImplementedError, match="sphere"):
-        tb.perturb(tp, tref, 1e-3, "sphere")
+        from repro_torch.kernels.zo_fused.kernel import zo_affine
+        zo_affine(next(iter(tp.values())), 0, 1.0, 1e-3, "sphere")
 
 
 def test_replay_refusals_match_jax(smoke_params):
@@ -139,7 +143,10 @@ def test_replay_refusals_match_jax(smoke_params):
     led = TrajectoryLedger(base_seed=0, grad_dtype="float32", backend="xla")
     led.append(0, 1.0, 1e-3)
     with pytest.raises(BackendMismatchError, match="'xla' perturbation"):
-        replay(params, led, composition_for_ledger(led))
+        replay(params, led, opt)
+    # the header names the xla stream, which the port refuses to build
+    with pytest.raises(NotImplementedError, match="backend='pallas'"):
+        composition_for_ledger(led)
     led = TrajectoryLedger(base_seed=0, backend="pallas+z1")
     led.append(0, 1.0, 1e-3)
     with pytest.raises(BackendMismatchError, match="z-generator arithmetic"):
@@ -151,8 +158,10 @@ def test_replay_refusals_match_jax(smoke_params):
     led = TrajectoryLedger(base_seed=0, backend="pallas+z2", n_groups=2,
                            exec_plan="seed_parallel")
     led.append(0, [1.0, 2.0], 1e-3)
+    # the replay plan adopts the ledger's n_groups (as in JAX); a program on
+    # the local plan is the resume path and must match it
     with pytest.raises(PlanMismatchError, match="n_groups=2"):
-        replay(params, led, opt)
+        replay(params, led, StepProgram(opt))
     led = TrajectoryLedger(base_seed=0, backend="pallas+z2",
                            selection="block_cyclic(2)")
     led.append(0, 1.0, 1e-3)
