@@ -4,12 +4,14 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
 
-In order: prints the card's name and power limit; builds the five CUDA
+In order: prints the card's name and power limit; builds the six CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
 parallel); holds every kernel against its plain torch version on the card —
 K1 ``zo_affine``, K3 ``zo_affine_chain``, K4 ``zo_affine_multi``, K5
-``zo_affine_batched``, K6 ``zo_sqnorm`` and K12 ``paged_gather`` bitwise, K1
-and K3–K6 also against fixtures that JAX computed (``tests/data``, K6 within
+``zo_affine_batched``, K6 ``zo_sqnorm``, the sub-leaf K7
+``zo_affine_rows``, K8 ``zo_affine_multi_rows``, K9 ``zo_affine_chain_rows``,
+K10 ``zo_sqnorm_rows`` and K12 ``paged_gather`` bitwise, K1 and K3–K10 also
+against fixtures that JAX computed (``tests/data``, K6 and K10 within
 ``SQNORM_RTOL``), K2 ``flash_attention`` within a stated tolerance.  Then it
 drives the port's paths at the full width of qwen2-0.5b (random bf16
 weights from a seeded ``torch.Generator``, all 24 layers, ``pallas_flash``
@@ -24,15 +26,25 @@ just after:
   dist="sphere")`` (K6, K4, K3, K2), (d) ``mezo`` under ``seed_parallel(2)``
   on the one card (K3 for the group updates);
 * serve the fine-tune: ``composition_for_ledger`` on phase (b)'s ledger →
-  batched replay (K3) → the paged engine (K2, K12).
+  batched replay (K3) → the paged engine (K2, K12);
+* train under a parameter selection (``repro_torch.select``): (e) ``mezo``
+  spsa under ``rows(block=1,k=4)`` (K7, K2), (f) ``fzoo(8)`` under it (K8,
+  K9, K2), (g) ``fzoo(8, sphere)`` under it (K10, K8, K9, K2), (h) ``mezo``
+  under ``peft("lora")`` (r 8, α 16 on wq / wv) on the merged tree (K1, K2);
+* serve the rows fine-tune: phase (f)'s MZOL5 ledger through
+  ``composition_for_ledger`` (K9) → the paged engine (K2, K12).
 
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
-equal; fzoo replay bitwise equal to the trained θ; sequential-spsa replay
-within a stated bound in bf16 ulps of the trained θ; the spsa step's peak
-memory within 10 % of one forward's; every kernel launched on its path.
+equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
+within a stated bound in bf16 ulps of the trained θ; the spsa steps' peak
+memory (full and rows) within 10 % of one forward's; after one rows step
+every unselected element is θ₀'s; after the LoRA phase every base leaf is
+θ₀'s; the served fine-tunes equal the trained θ bitwise; every kernel
+launched on its path.
 
 Prints the step times, the ``kernels`` JSON line (launches, error, kernel /
-plain / library times in ms and the roofline bound), and as its last line
+plain / library times in ms — kernel times are medians of CUDA-event pairs
+over ``reps`` launches — and the roofline bound), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; there
 is no fallback to the CPU or to a plain version on any path.
 """
@@ -50,6 +62,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "data" / "zo_golden.npz"
 MULTI_GOLDEN = ROOT / "tests" / "data" / "zo_multi_golden.npz"
+ROWS_GOLDEN = ROOT / "tests" / "data" / "zo_rows_golden.npz"
 RUN_DIR = ROOT / "build" / "chip_smoke_runs"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the roofline bound's rates
@@ -75,7 +88,11 @@ TRAIN_BATCH, TRAIN_SEQ = 16, 256
 SEED = 0
 LR, EPS = 1e-6, 1e-3
 B_SEEDS = 8
-STEPS = {"a_spsa": 20, "b_fzoo": 4, "c_sphere": 3, "d_sp2": 8}
+STEPS = {"a_spsa": 20, "b_fzoo": 4, "c_sphere": 3, "d_sp2": 8,
+         "e_rows_spsa": 20, "f_rows_fzoo": 4, "g_rows_sphere": 4,
+         "h_lora": 20}
+ROWS = "rows(block=1,k=4)"
+LORA_RANK, LORA_ALPHA = 8, 16.0
 MLP_LEAF = (24, 896, 4864)           # the stacked MLP weight (w1 / w3)
 # live and replay of a sequential-spsa ledger round differently in bf16.
 # Every rounding happens at a magnitude of at most |θ| + ε·Z_MAX (the chain
@@ -86,7 +103,9 @@ MLP_LEAF = (24, 896, 4864)           # the stacked MLP weight (w1 / w3)
 # (a): live θ+εz, θ−εz, restore-update = 3, replay 1 → 2·2 per step.
 # (d): 2 groups × 3 live roundings + the 2-stream K3 fold (2), replay 2 →
 # 5·2 per step.
-ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0}
+# (e) and (h) are the (a) chain on the selected elements / the LoRA leaves.
+ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0, "e_rows_spsa": 4.0,
+                 "h_lora": 4.0}
 Z_MAX = 6.0
 MEM_SLACK = 1.10
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
@@ -104,19 +123,23 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn()`` over ``reps`` runs, by CUDA events, after one
-    warm-up run."""
+    """Median ms of ``fn()`` over ``reps`` runs, each between its own pair of
+    CUDA events, after one warm-up run."""
+    import statistics
+
     import torch
     fn()
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
+    pairs = []
     for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
         fn()
-    e1.record()
+        e1.record()
+        pairs.append((e0, e1))
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def host_ms(fn) -> float:
@@ -296,6 +319,120 @@ def check_k6(torch, np, km) -> None:
     log(f"K6 zo_sqnorm: bitwise vs plain (n up to {cases[-2][0]}, gaussian/"
         f"rademacher), within {worst:.2e} relative of JAX's zo_sqnorm_ref "
         f"(tolerance {km.SQNORM_RTOL})")
+
+
+def _rows_be(shape, R: int) -> int:
+    width = 1
+    for d in shape[1:]:
+        width *= d
+    return R * width
+
+
+def check_k7_k10(torch, np, kr) -> None:
+    """K7 rows affine, K8 rows fan-out, K9 rows chain and K10 rows sqnorm
+    vs their plain versions, bitwise: 2-D, 3-D stacked and 1-D odd leaves,
+    f32/bf16/f16 × gaussian/rademacher, R ∈ {1, 3, 96}, k ∈ {1, 2, 3},
+    every phase; the embedding and MLP leaves at qwen2-0.5b's real shapes
+    under rows(block=1, k=4); a 70-stream K9 chain; and the JAX-computed
+    fixture (K10 within SQNORM_RTOL)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    n_cases = 0
+    for shape in ((301, 67), (3, 170, 29), (100_003,)):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = torch.randn(shape, generator=g, device="cuda").to(dt)
+            for dist in ("gaussian", "rademacher"):
+                for R in (1, 3, 96):
+                    be = _rows_be(shape, R)
+                    for k in (1, 2, 3):
+                        for ph in range(k):
+                            if kr.selected_count(x.numel(), be, k, ph):
+                                _hold_rows(torch, kr, x, be, k, ph, dist,
+                                           f"{dt} {dist} {shape} R={R} k={k} "
+                                           f"phase={ph}")
+                                n_cases += 1
+    for shape in ((151_936, 896), MLP_LEAF):
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        be = _rows_be(shape, 1)
+        for ph in range(4):
+            if not same_bits(kr.zo_affine_rows(x, 5, 1.0, 1e-3, be, 4, ph),
+                             kr.zo_affine_rows_plain(x, 5, 1.0, 1e-3, be, 4,
+                                                     ph)):
+                fail(f"K7 {shape} rows(1,4) phase {ph}: kernel != plain")
+            k10 = kr.zo_sqnorm_rows(x.numel(), 5, be, 4, ph, "gaussian",
+                                    "cuda")
+            if not same_bits(k10, kr.zo_sqnorm_rows_plain(
+                    x.numel(), 5, be, 4, ph, "gaussian", "cuda")):
+                fail(f"K10 {shape} rows(1,4) phase {ph}: kernel != plain")
+        if shape == MLP_LEAF:
+            _hold_rows(torch, kr, x, be, 4, 1, "gaussian",
+                       f"the {MLP_LEAF} bf16 leaf at B=8")
+        del x
+    n_long = 70
+    x = torch.randn(70_001, generator=g, device="cuda").to(torch.bfloat16)
+    seeds = list(range(n_long))
+    if not same_bits(
+            kr.zo_affine_chain_rows(x, seeds, [1.0] * n_long, [1e-3] * n_long,
+                                    3, 2, 1),
+            kr.zo_affine_chain_rows_plain(x, seeds, [1.0] * n_long,
+                                          [1e-3] * n_long, 3, 2, 1)):
+        fail(f"K9 with {n_long} streams (two launches) != plain")
+    gold = np.load(ROWS_GOLDEN)
+    seeds = [int(v) for v in gold["seeds"]]
+    worst, i = 0.0, 0
+    while f"plan_{i}" in gold.files:
+        _, k, ph, be = (int(v) for v in gold[f"plan_{i}"])
+        for name, dt, iv in (("f32", torch.float32, np.int32),
+                             ("bf16", torch.bfloat16, np.int16)):
+            x = torch.from_numpy(gold[f"{name}_x_{i}"].view(iv).copy())
+            x = x.view(dt).cuda()
+            for what, got in (
+                    ("affine", kr.zo_affine_rows(x, seeds[0],
+                                                 float(gold["a"][0]),
+                                                 float(gold["b"][0]), be, k,
+                                                 ph)),
+                    ("multi", kr.zo_affine_multi_rows(x, seeds, gold["a"],
+                                                      gold["b"], be, k, ph)),
+                    ("chain", kr.zo_affine_chain_rows(x, seeds, gold["a"],
+                                                      gold["b"], be, k, ph))):
+                if not np.array_equal(bits_of(got).cpu().numpy(),
+                                      gold[f"{name}_{what}_{i}"].view(iv)):
+                    fail(f"K7-K9 {what} {name} plan {i} != the JAX golden "
+                         "fixture")
+        n = gold[f"f32_x_{i}"].size
+        got = kr.zo_sqnorm_rows(n, seeds[1], be, k, ph, "gaussian",
+                                "cuda").item()
+        want = float(gold[f"sq_{i}"])
+        rel = abs(got - want) / want
+        worst = max(worst, rel)
+        if rel > kr.SQNORM_RTOL:
+            fail(f"K10 plan {i}: {got} vs JAX {want}: rel err {rel}")
+        i += 1
+    log(f"K7 zo_affine_rows, K8 zo_affine_multi_rows, K9 zo_affine_chain_rows,"
+        f" K10 zo_sqnorm_rows: bitwise vs plain ({n_cases} plans: f32/bf16/"
+        "f16 × gaussian/rademacher, 2-D/3-D/1-D odd leaves, R ∈ {1, 3, 96}, "
+        "k ∈ {1, 2, 3}, every phase; the embedding and MLP leaves under "
+        f"rows(1,4); {n_long} streams), vs the JAX golden fixture (K10 "
+        f"within {worst:.2e} relative, tolerance {kr.SQNORM_RTOL})")
+
+
+def _hold_rows(torch, kr, x, be, k, ph, dist, what) -> None:
+    s, a, b = SEEDS8, A8, B8
+    y = x.clone()
+    kr.zo_affine_rows(y, s[0], a[0], b[0], be, k, ph, dist, out=y)
+    pairs = (
+        ("K7", y, lambda: kr.zo_affine_rows_plain(x, s[0], a[0], b[0], be, k,
+                                                  ph, dist)),
+        ("K8", kr.zo_affine_multi_rows(x, s, a, b, be, k, ph, dist),
+         lambda: kr.zo_affine_multi_rows_plain(x, s, a, b, be, k, ph, dist)),
+        ("K9", kr.zo_affine_chain_rows(x, s, a, b, be, k, ph, dist),
+         lambda: kr.zo_affine_chain_rows_plain(x, s, a, b, be, k, ph, dist)),
+        ("K10", kr.zo_sqnorm_rows(x.numel(), s[1], be, k, ph, dist, "cuda"),
+         lambda: kr.zo_sqnorm_rows_plain(x.numel(), s[1], be, k, ph, dist,
+                                         "cuda")))
+    for name, got, plain in pairs:
+        if not same_bits(got, plain()):
+            fail(f"{name} {what}: kernel != plain")
+        del got
 
 
 def check_k12(torch, kp, L: int, n_blocks: int, D: int) -> None:
@@ -501,6 +638,17 @@ def make_opts():
                                      dist="sphere", backend="pallas"), None),
         "d_sp2": (lambda: zo.mezo(lr=LR, eps=EPS, backend="pallas"),
                   lambda: zexec.seed_parallel(2)),
+        "e_rows_spsa": (lambda: zo.mezo(lr=LR, eps=EPS, backend="pallas",
+                                        selection=ROWS), None),
+        "f_rows_fzoo": (lambda: zo.fzoo(lr=LR, eps=EPS, batch_seeds=B_SEEDS,
+                                        backend="pallas", selection=ROWS),
+                        None),
+        "g_rows_sphere": (lambda: zo.fzoo(lr=LR, eps=EPS,
+                                          batch_seeds=B_SEEDS, dist="sphere",
+                                          backend="pallas", selection=ROWS),
+                          None),
+        "h_lora": (lambda: zo.mezo(lr=LR, eps=EPS, backend="pallas",
+                                   selection="peft(lora)"), None),
     }
 
 
@@ -509,7 +657,13 @@ REQUIRED = {"a_spsa": ("zo_affine", "flash_attention"),
                        "flash_attention"),
             "c_sphere": ("zo_sqnorm", "zo_affine_multi", "zo_affine_chain",
                          "flash_attention"),
-            "d_sp2": ("zo_affine_chain", "zo_affine", "flash_attention")}
+            "d_sp2": ("zo_affine_chain", "zo_affine", "flash_attention"),
+            "e_rows_spsa": ("zo_affine_rows", "flash_attention"),
+            "f_rows_fzoo": ("zo_affine_multi_rows", "zo_affine_chain_rows",
+                            "flash_attention"),
+            "g_rows_sphere": ("zo_sqnorm_rows", "zo_affine_multi_rows",
+                              "zo_affine_chain_rows", "flash_attention"),
+            "h_lora": ("zo_affine", "flash_attention")}
 
 
 class StepClock:
@@ -530,8 +684,11 @@ def train_phase(torch, cfg, params0, name, make_opt, make_plan, _build,
     from repro_torch.data.pipeline import DataSpec, Pipeline
     from repro_torch.exec import StepProgram
     from repro_torch.models import bundle
+    from repro_torch.models.peft import peft_loss_fn
     from repro_torch.train.loop import train
     params = _clone_tree(params0)
+    loss_fn = (peft_loss_fn(cfg, "lora") if name == "h_lora"
+               else bundle(cfg).loss_fn())
     opt = make_opt()
     prog = StepProgram(opt, make_plan()) if make_plan else opt
     ledger = TrajectoryLedger(base_seed=SEED, grad_dtype="float32",
@@ -544,7 +701,7 @@ def train_phase(torch, cfg, params0, name, make_opt, make_plan, _build,
                              vocab=cfg.vocab_size, seed=SEED), device="cuda")
     clock = StepClock()
     _build.reset_launch_counts()
-    res = train(bundle(cfg).loss_fn(), params, prog, pipe,
+    res = train(loss_fn, params, prog, pipe,
                 total_steps=STEPS[name], ckpt=ckpt, ledger=ledger,
                 monitor=clock.mon, log_every=1, seed=SEED)
     torch.cuda.synchronize()
@@ -617,10 +774,11 @@ def check_replays(torch, name, params0, trained, ledger, opt_factory):
     del r1, r2
 
 
-def memory_and_busy(torch, cfg, params0):
+def memory_and_busy(torch, cfg, params0, selection=None):
     """Peak device memory of one spsa step vs one forward on the same batch
     (no_grad), on a scratch copy of θ₀; and the device-busy share of a
-    step under torch.profiler."""
+    step under torch.profiler.  Under a ``selection``, the first step must
+    leave every unselected element at θ₀'s bits."""
     from repro_torch import zo
     from repro_torch.data.pipeline import DataSpec, Pipeline
     from repro_torch.models import bundle
@@ -630,13 +788,16 @@ def memory_and_busy(torch, cfg, params0):
                               vocab=cfg.vocab_size, seed=SEED),
                      device="cuda").batch(0)
     loss_fn = bundle(cfg).loss_fn()
-    opt = zo.mezo(lr=LR, eps=EPS, backend="pallas")
+    opt = zo.mezo(lr=LR, eps=EPS, backend="pallas", selection=selection)
+    what = "spsa" if selection is None else f"spsa {selection}"
     state = opt.init(params, seed=SEED)
     step = opt.step_fn(loss_fn)
     with torch.no_grad():
         loss_fn(params, batch).item()                    # warm-up
     params, state, _ = step(params, state, batch)
     torch.cuda.synchronize()
+    if selection is not None:
+        _check_unselected(torch, opt.selection, params, params0)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         loss_fn(params, batch).item()
@@ -647,10 +808,10 @@ def memory_and_busy(torch, cfg, params0):
     torch.cuda.synchronize()
     stp = torch.cuda.max_memory_allocated() - base
     if stp > MEM_SLACK * fwd:
-        fail(f"spsa step peak {stp / 2**30:.3f} GiB > {MEM_SLACK} × one "
+        fail(f"{what} step peak {stp / 2**30:.3f} GiB > {MEM_SLACK} × one "
              f"forward's {fwd / 2**30:.3f} GiB")
-    log(f"memory: one spsa step peaks at {stp / 2**30:.3f} GiB, one forward "
-        f"(no_grad) at {fwd / 2**30:.3f} GiB — ratio {stp / fwd:.4f} "
+    log(f"memory: one {what} step peaks at {stp / 2**30:.3f} GiB, one "
+        f"forward (no_grad) at {fwd / 2**30:.3f} GiB — ratio {stp / fwd:.4f} "
         "(the parameters under training and the activations, over what was "
         "allocated before)")
     holder = {"p": params, "s": state}
@@ -658,15 +819,41 @@ def memory_and_busy(torch, cfg, params0):
     def one():
         holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
 
-    line = busy_line("one spsa step (16 × 256 tokens, 24 layers)",
+    line = busy_line(f"one {what} step (16 × 256 tokens, 24 layers)",
                      *device_busy(torch, one, 2))
     log(line)
     del holder, params
     return stp, fwd
 
 
+def _check_unselected(torch, sel, params, params0) -> None:
+    """After step 0 (phase ``sel.phase_at(0)``) every element the selection
+    did not pick holds θ₀'s bits, and the picked ones moved."""
+    from repro_torch.tree_utils import tree_leaves
+    phase = sel.phase_at(0)
+    mask = sel.leaf_mask(params0, phase)
+    moved = 0
+    for i, (p, p0) in enumerate(zip(tree_leaves(params), tree_leaves(params0))):
+        rb = sel.block_mask(p0, phase)
+        if not mask[i]:
+            picked = torch.zeros(p0.numel(), dtype=torch.bool, device="cuda")
+        else:
+            e = torch.arange(p0.numel(), device="cuda")
+            picked = rb.element_mask(e)
+        a, b = bits_of(p).reshape(-1), bits_of(p0).reshape(-1)
+        if not torch.equal(a[~picked], b[~picked]):
+            fail(f"{sel.spec}: an unselected element of leaf {i} moved in "
+                 "step 1")
+        moved += int((a[picked] != b[picked]).sum())
+    if moved == 0:
+        fail(f"{sel.spec}: step 1 moved no selected element")
+    log(f"{sel.spec}: after step 1 every unselected element is θ₀'s, "
+        f"{moved} selected elements moved")
+
+
 def serve_finetune(torch, np, cfg, params0, trained_b, ledger_b, prompts,
-                   _build, counts):
+                   _build, counts, kernels=("zo_affine_chain",),
+                   what="fzoo"):
     """Serve the fzoo fine-tune: rebuild the composition from the ledger
     header, replay it (K3) onto θ₀, serve through the paged engine."""
     from repro_torch.core import replay
@@ -677,15 +864,17 @@ def serve_finetune(torch, np, cfg, params0, trained_b, ledger_b, prompts,
     replay(params, ledger_b, composition_for_ledger(ledger_b))
     _, reqs, wall = serve(cfg, params, prompts[:4], True, new_tokens=8)
     torch.cuda.synchronize()
-    add_counts(counts, _build, ("zo_affine_chain", "flash_attention",
-                                "paged_gather"), "serve the fine-tune")
+    add_counts(counts, _build, tuple(kernels) + ("flash_attention",
+                                                 "paged_gather"),
+               f"serve the {what} fine-tune")
     for a, b in zip(tree_leaves(params), tree_leaves(trained_b)):
         if not same_bits(a, b):
-            fail("the served fine-tune != the trained fzoo θ")
+            fail(f"the served fine-tune != the trained {what} θ")
     if any(len(r.out_ids) != 8 for r in reqs):
         fail("a fine-tune request did not produce its tokens")
-    log(f"served the fzoo fine-tune ({len(ledger_b)} MZOL3 records replayed "
-        f"through composition_for_ledger): {len(reqs)} requests, "
+    magic = ledger_b.to_bytes()[:5].decode()
+    log(f"served the {what} fine-tune ({len(ledger_b)} {magic} records "
+        f"replayed through composition_for_ledger): {len(reqs)} requests, "
         f"{sum(len(r.out_ids) for r in reqs)} tokens in {wall:.3f} s")
 
 
@@ -700,10 +889,10 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs on the card")
-    if not (SRC / "repro_torch").is_dir() or not GOLDEN.exists() \
-            or not MULTI_GOLDEN.exists():
-        fail(f"run from the root of a checkout ({SRC / 'repro_torch'}, "
-             f"{GOLDEN} or {MULTI_GOLDEN} missing)")
+    if not (SRC / "repro_torch").is_dir() or not all(
+            f.exists() for f in (GOLDEN, MULTI_GOLDEN, ROWS_GOLDEN)):
+        fail(f"run from the root of a checkout ({SRC / 'repro_torch'} or a "
+             f"fixture under {GOLDEN.parent} missing)")
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -720,6 +909,8 @@ def main() -> None:
     from repro_torch.kernels.paged import gather as kp
     from repro_torch.kernels.zo_fused import kernel as kz
     from repro_torch.kernels.zo_fused import multi as km
+    from repro_torch.kernels.zo_fused import rows as kr
+    from repro_torch.select import parse_selection
     build_s = _build.build_all()
     log(f"built {len(_build.SOURCES)} CUDA sources "
         f"({len(_build.launch_counts)} kernels) in {build_s:.1f} s")
@@ -728,6 +919,7 @@ def main() -> None:
     k2_err = check_k2(torch, kf)
     check_k3_k4_k5(torch, np, kz, km)
     check_k6(torch, np, km)
+    check_k7_k10(torch, np, kr)
     if args.kernels_only:
         log(f"kernels only: all checks passed in "
             f"{time.perf_counter() - t_start:.1f} s on {card}")
@@ -765,22 +957,44 @@ def main() -> None:
     # ---- memory and device-busy share of the spsa step ----------------- #
     memory_and_busy(torch, cfg, params0)
 
-    # ---- paths 2-5: train (a)-(d) -------------------------------------- #
+    # ---- paths 2-5 and 7-10: train (a)-(d), then (e)-(h) under a ------- #
+    # ---- selection; path 6: serve the fzoo fine-tune ------------------- #
+    from repro_torch.models.peft import init_lora, peft_params
     opts = make_opts()
     trained, ledgers, step_ms = {}, {}, {}
     for name in STEPS:
         make_opt, make_plan = opts[name]
-        p, led, _, ms = train_phase(torch, cfg, params0, name, make_opt,
+        p0 = params0
+        if name == "e_rows_spsa":
+            memory_and_busy(torch, cfg, params0, selection=ROWS)
+        if name == "h_lora":
+            lora = init_lora(cfg, torch.Generator(device="cuda").manual_seed(
+                1), rank=LORA_RANK, alpha=LORA_ALPHA)
+            p0 = peft_params(params0, lora, "lora")
+        p, led, _, ms = train_phase(torch, cfg, p0, name, make_opt,
                                     make_plan, _build, counts)
-        check_replays(torch, name, params0, p, led, make_opt)
+        check_replays(torch, name, p0, p, led, make_opt)
         step_ms[name] = ms
-        if name == "b_fzoo":
+        if name == "h_lora":
+            for a, b in zip(tree_leaves(p["base"]), tree_leaves(params0)):
+                if not same_bits(a, b):
+                    fail("h_lora: a base leaf moved under peft(lora)")
+            log(f"h_lora: every base leaf is θ₀'s bitwise after "
+                f"{STEPS[name]} steps ({len(tree_leaves(lora))} LoRA leaves "
+                "trained, _scale included)")
+            del lora
+        if name in ("b_fzoo", "f_rows_fzoo"):
             trained[name], ledgers[name] = p, led
-        del p
+        del p, p0
+        if name == "d_sp2":
+            serve_finetune(torch, np, cfg, params0, trained["b_fzoo"],
+                           ledgers["b_fzoo"], prompts, _build, counts)
+            del trained["b_fzoo"]
 
-    # ---- path 6: serve the fine-tune ----------------------------------- #
-    serve_finetune(torch, np, cfg, params0, trained["b_fzoo"],
-                   ledgers["b_fzoo"], prompts, _build, counts)
+    # ---- path 11: serve the rows fine-tune ----------------------------- #
+    serve_finetune(torch, np, cfg, params0, trained["f_rows_fzoo"],
+                   ledgers["f_rows_fzoo"], prompts, _build, counts,
+                   kernels=("zo_affine_chain_rows",), what="rows fzoo")
     del trained
 
     # ---- kernel times at the main paths' shapes ------------------------ #
@@ -827,6 +1041,42 @@ def main() -> None:
         "zo_sqnorm": (cuda_ms(k6_pass, 10), host_ms(
             lambda: k6_pass(km.zo_sqnorm_plain))),
     }
+
+    # the rows kernels over all leaves under rows(block=1, k=4), phase 0
+    rsel = parse_selection(ROWS)
+    plans = [rsel.block_mask(p, 0) for p in leaves]
+    n_sel = sum(rb.selected_elems() for rb in plans)
+    sel_bytes = sum(rb.selected_elems() * p.element_size()
+                    for rb, p in zip(plans, leaves))
+
+    def k7_record(fn=kr.zo_affine_rows):
+        for i, (p, rb) in enumerate(zip(leaves, plans)):
+            fn(p, seeds[i][0], 1.0, 1e-12, rb.block_elems, rb.k, rb.phase,
+               out=p)
+
+    def k9_update(fn=kr.zo_affine_chain_rows):
+        for i, (p, rb) in enumerate(zip(leaves, plans)):
+            fn(p, seeds[i], ones, tiny, rb.block_elems, rb.k, rb.phase, out=p)
+
+    def k8_fanout(fn=kr.zo_affine_multi_rows):
+        for i, (p, rb) in enumerate(zip(leaves, plans)):
+            fn(p, seeds[i], ones, tiny, rb.block_elems, rb.k, rb.phase)
+
+    def k10_pass(fn=kr.zo_sqnorm_rows):
+        for i, (p, rb) in enumerate(zip(leaves, plans)):
+            fn(p.numel(), seeds[i][0], rb.block_elems, rb.k, rb.phase,
+               "gaussian", "cuda")
+
+    times.update({
+        "zo_affine_rows": (cuda_ms(k7_record, 10), host_ms(
+            lambda: k7_record(kr.zo_affine_rows_plain))),
+        "zo_affine_chain_rows": (cuda_ms(k9_update, 5), host_ms(
+            lambda: k9_update(kr.zo_affine_chain_rows_plain))),
+        "zo_affine_multi_rows": (cuda_ms(k8_fanout, 5), host_ms(
+            lambda: k8_fanout(kr.zo_affine_multi_rows_plain))),
+        "zo_sqnorm_rows": (cuda_ms(k10_pass, 10), host_ms(
+            lambda: k10_pass(kr.zo_sqnorm_rows_plain))),
+    })
 
     g = torch.Generator(device="cuda").manual_seed(6)
     S = TRAIN_SEQ
@@ -882,7 +1132,19 @@ def main() -> None:
              0.0, None, (1 + B_SEEDS) * leaf_bytes, flops * B_SEEDS * n_all,
              F32_FLOPS),
             ("zo_sqnorm", zf + "zo_sqnorm.cu", zr + "multi.py:200", 0.0,
-             None, 0, k6_ops, F32_FLOPS)):
+             None, 0, k6_ops, F32_FLOPS),
+            # the rows kernels: K7 / K9 read and write the selected elements
+            # once; K8 reads θ once and writes B copies of it; K10 moves
+            # nothing; z on the selected elements only
+            ("zo_affine_rows", zf + "zo_rows.cu", zr + "rows.py:161", 0.0,
+             None, 2 * sel_bytes, flops * n_sel, F32_FLOPS),
+            ("zo_affine_multi_rows", zf + "zo_rows.cu", zr + "rows.py:219",
+             0.0, None, (1 + B_SEEDS) * leaf_bytes, flops * B_SEEDS * n_sel,
+             F32_FLOPS),
+            ("zo_affine_chain_rows", zf + "zo_rows.cu", zr + "rows.py:287",
+             0.0, None, 2 * sel_bytes, flops * B_SEEDS * n_sel, F32_FLOPS),
+            ("zo_sqnorm_rows", zf + "zo_rows.cu", zr + "rows.py:355", 0.0,
+             None, 0, (flops - 3 + 2) * n_sel, F32_FLOPS)):
         ms, pms = times[name]
         bms, by = bound(nb, ops, rate)
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -906,10 +1168,13 @@ def main() -> None:
         f"zo_affine_chain = one {B_SEEDS}-stream update over all leaves; "
         f"zo_affine_multi / zo_affine_batched = one {B_SEEDS}-stream fan-out "
         f"over all leaves; zo_sqnorm = one stream's ||z||^2 over all leaves "
-        f"({n_all} elements); flash_attention = the training shape "
-        f"({TRAIN_BATCH}, {S}, {cfg.n_heads}, {cfg.hd}) bf16; paged_gather "
-        f"= one decode-step gather of {tab.size} blocks × {L} layers; "
-        f"launches summed over the six counted paths")
+        f"({n_all} elements); the *_rows kernels the same work under {ROWS} "
+        f"at phase 0 ({n_sel} selected elements); flash_attention = the "
+        f"training shape ({TRAIN_BATCH}, {S}, {cfg.n_heads}, {cfg.hd}) bf16; "
+        f"paged_gather = one decode-step gather of {tab.size} blocks × {L} "
+        f"layers; kernel ms = median of 10 (K1, K6, K7, K10), 5 (K3-K5, K8, "
+        f"K9) or 20 (K2, K12) CUDA-event pairs; plain ms = one host-clock "
+        f"run; launches summed over the eleven counted paths")
     log("training step ms: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in step_ms.items())
         + f" — on {card}; smoke took {time.perf_counter() - t_start:.1f} s")

@@ -18,8 +18,9 @@ from repro_torch.device import DeviceSpec, resolve_device
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
-        return t.view(torch.bfloat16).to(device)
+        # ascontiguousarray makes a 0-d array 1-d: restore the shape
+        bits = np.ascontiguousarray(a).view(np.int16).reshape(a.shape)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 

@@ -58,35 +58,41 @@ def group_stream_key(base_key: Key, step: int, group: int,
 # --------------------------------------------------------------------------- #
 def apply_group_update(params: PyTree, skey0: Key, group: int, n_groups: int,
                        coeff, decay_term, batch_seeds: int, dist: str,
-                       backend) -> PyTree:
+                       backend, selection=None, phase: int = 0) -> PyTree:
     """One group's rank-1 update(s): ``coeff`` is the η-scaled scalar, or the
-    (B,) vector of a batched-seed estimator."""
+    (B,) vector of a batched-seed estimator.  ``selection``/``phase`` scope
+    it to the step's selected parameters (the phase is the STEP's, shared
+    by every group)."""
     gkey = group_key(skey0, group, n_groups)
     if batch_seeds == 1:
-        return backend.apply_rank1(params, StreamRef(gkey), coeff,
-                                   decay_term, dist)
+        return backend.apply_rank1(params, StreamRef(gkey, selection, phase),
+                                   coeff, decay_term, dist)
     return apply_rank1_batch(params, gkey, coeff, decay_term, dist,
-                             backend=backend)
+                             backend=backend, selection=selection,
+                             phase=phase)
 
 
 def apply_group_updates(params: PyTree, skey0: Key, coeffs: Sequence,
                         decay_term, n_groups: int, batch_seeds: int,
-                        dist: str, backend) -> PyTree:
-    """All groups of one step in group order as ONE ``affine_many`` call;
-    decoupled decay once, on stream 0 of group 0 (``add_weight_decay``'s
-    seed-0 rule); a batched group's coefficients are ``coeff_j / B``."""
+                        dist: str, backend, selection=None,
+                        phase: int = 0) -> PyTree:
+    """All groups of one step in group order as ONE ``affine_many`` call
+    (K3, or K9 under a partial rows plan); decoupled decay once, on stream 0
+    of group 0 (``add_weight_decay``'s seed-0 rule); a batched group's
+    coefficients are ``coeff_j / B``; every stream scoped to the step's
+    selection and phase."""
     refs, cs, ds = [], [], []
     for g in range(n_groups):
         gkey = group_key(skey0, g, n_groups)
         decay_g = decay_term if g == 0 else 0.0
         if batch_seeds == 1:
-            refs.append(StreamRef(gkey))
+            refs.append(StreamRef(gkey, selection, phase))
             cs.append(coeffs[g])
             ds.append(decay_g)
             continue
         cvec = np.asarray(coeffs[g], f32)
         for j in range(batch_seeds):
-            refs.append(StreamRef(fold_in(gkey, j)))
+            refs.append(StreamRef(fold_in(gkey, j), selection, phase))
             cs.append(f32(cvec[j] / f32(batch_seeds)))
             ds.append(decay_g if j == 0 else 0.0)
     return backend.affine_many(params, refs, cs, ds, dist)
@@ -213,10 +219,14 @@ class StepProgram:
         n = self.plan.n_groups
         backend = opt.backend
         batch_seeds = opt.batch_seeds
+        sel = opt.selection
 
         @torch.no_grad()
         def step(params: PyTree, state: ZOState, batch):
             skey0 = step_key(state.base_key, state.step)
+            # the schedule phase is a function of the step counter alone,
+            # so it is the same under every plan
+            phase = opt.phase_at(state.step)
             p = params
             est_state, tf_state = state.est_state, state.tf_state
             gs, losses, coeffs = [], [], []
@@ -226,7 +236,7 @@ class StepProgram:
             for g in range(n):
                 skey = group_key(skey0, g, n)
                 e = est.estimate(loss_fn, p, slice_group(batch, g, n), skey,
-                                 est_state)
+                                 est_state, phase=phase)
                 est_state = e.est_state
                 ctx = TransformCtx(step=state.step, base_key=state.base_key,
                                    key=skey, seed_index=g, n_seeds=n,
@@ -245,7 +255,8 @@ class StepProgram:
                 aux.update(e.aux)
                 lr_metric = u.lr
             p = apply_group_updates(p, skey0, coeffs, decay0, n, batch_seeds,
-                                    est.dist, backend)
+                                    est.dist, backend, selection=sel,
+                                    phase=phase)
             g_mean = f32(np.mean(np.stack(gs)))
             new_state = ZOState(state.step + 1, state.base_key, est_state,
                                 tf_state, g_mean)
@@ -312,24 +323,29 @@ class StepProgram:
         wd = f32(opt.weight_decay)
         p = params0
         for i in range(from_idx, to_idx):
-            skey0 = step_key(base_key, int(ledger.steps[i]))
+            step = int(ledger.steps[i])
+            skey0 = step_key(base_key, step)
+            # each record's schedule phase from its step, as the live step
+            # derived it
+            phase = opt.phase_at(step)
             g = np.asarray(ledger.grads[i], f32)
             lr = f32(ledger.lrs[i])
             if n == 1:
                 # single-group entries: the optimizer's own replay primitive
-                p = opt.replay_update(p, skey0, g, lr)
+                p = opt.replay_update(p, skey0, g, lr, phase=phase)
                 continue
             g_mat = g.reshape(n, batch_seeds)
             coeffs = [(lr / f32(n)) * (g_mat[k] if batch_seeds > 1
                                        else g_mat[k, 0]) for k in range(n)]
             p = apply_group_updates(p, skey0, coeffs, lr * wd, n,
                                     batch_seeds, opt.estimator.dist,
-                                    opt.backend)
+                                    opt.backend, selection=opt.selection,
+                                    phase=phase)
         return p
 
-    def replay_update(self, params, skey, g, lr):
+    def replay_update(self, params, skey, g, lr, phase: int = 0):
         """Single-entry delegation (kept for protocol compatibility)."""
-        return self.opt.replay_update(params, skey, g, lr)
+        return self.opt.replay_update(params, skey, g, lr, phase=phase)
 
 
 def as_step_program(optimizer, plan: Optional[ExecPlan] = None) -> StepProgram:

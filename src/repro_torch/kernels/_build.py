@@ -40,6 +40,9 @@ SOURCES: Dict[str, tuple] = {
     "zo_multi": ("zo_fused/csrc/zo_multi.cu", _NO_FMAD,
                  ("zo_affine_chain", "zo_affine_multi", "zo_affine_batched")),
     "zo_sqnorm": ("zo_fused/csrc/zo_sqnorm.cu", _NO_FMAD, ("zo_sqnorm",)),
+    "zo_rows": ("zo_fused/csrc/zo_rows.cu", _NO_FMAD,
+                ("zo_affine_rows", "zo_affine_multi_rows",
+                 "zo_affine_chain_rows", "zo_sqnorm_rows")),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu", (),
                         ("flash_attention",)),
     "paged_gather": ("paged/csrc/paged_gather.cu", (), ("paged_gather",)),

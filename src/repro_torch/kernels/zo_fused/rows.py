@@ -1,0 +1,340 @@
+"""The sub-leaf zo_fused kernels K7–K10 — the port of
+``repro.kernels.zo_fused.rows``: the affine kernels restricted to the
+row-blocks that a ``rows(block=R, k=K)`` selection picks at a phase.
+
+A leaf of n elements is cut into blocks of ``block_elems`` (= R · row
+width) flat elements; element e is selected iff
+``(e // block_elems) % k == phase``.  The kernels walk the SELECTED elements
+only: compact index j ∈ [0, sel) maps to
+
+    e = (phase + (j // block_elems) · k) · block_elems + j % block_elems
+
+(bounded by n for a ragged last block), and z of element e is the counter
+stream at e — so every selected value is bitwise what the whole-leaf kernel
+writes there, and unselected elements are never read, generated or written.
+JAX's 131 072-element tile plan, its gather of selected tiles and its
+``dynamic_update_slice`` stitch were TPU BlockSpec artifacts and are not
+carried over.
+
+* K7 ``zo_affine_rows``: y = a·x + b·z(seed) on selected elements, in place
+  (``out=x``); the plain version is K1's plain arithmetic gathered at the
+  selected elements;
+* K8 ``zo_affine_multi_rows``: a new (B, …) output, a_j·x + b_j·z_j on
+  selected elements and x's bits elsewhere; the plain version is the stacked
+  K7 singles;
+* K9 ``zo_affine_chain_rows``: the K3 fold on selected elements, in place,
+  cast through x's dtype between streams, at most ``MAX_STREAMS`` per
+  launch; the plain version is the sequential K7 fold;
+* K10 ``zo_sqnorm_rows``: Σ z² over the selected elements in f32, in the
+  fixed two-pass order of K6 over the COMPACT index (tiles of
+  ``TILE_ELEMS`` compact indices; column t of the (128, 1024) view of a
+  tile summed top to bottom, the 1024 sums halved, the tile sums folded in
+  order), which the plain version repeats op for op.  JAX sums over
+  flat-index tiles, so K10 meets ``zo_sqnorm_rows_ref`` within
+  ``SQNORM_RTOL``.
+
+Each wrapper takes the plain version for a CPU tensor and launches its CUDA
+kernel (``csrc/zo_rows.cu``) for a CUDA one, or raises.  The kernels share
+``csrc/zo_stream.cuh`` with K1 and K3–K6.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.zo_fused.kernel import (_CHUNK, _MASK, DIST_CODES,
+                                                 DTYPE_CODES, MAX_STREAMS,
+                                                 _check_dist, _check_leaf,
+                                                 _f32, _f32_array, _fma,
+                                                 _u32_array, z_from_counter)
+from repro_torch.kernels.zo_fused.multi import (_PER_THREAD, _TILE_THREADS,
+                                                SQNORM_RTOL, TILE_ELEMS,
+                                                _fold_f32, _streams)
+
+
+# --------------------------------------------------------------------------- #
+# The plan: which elements, in which compact order
+# --------------------------------------------------------------------------- #
+def _plan(n: int, block_elems: int, k: int, phase: int) -> tuple:
+    """Validated ``(n, be, k, phase)`` with ``be`` clamped to n (one block
+    either way when be ≥ n, so the selection is unchanged)."""
+    n, be, k, phase = int(n), int(block_elems), int(k), int(phase)
+    if be < 1 or k < 1 or not 0 <= phase < k:
+        raise ValueError(f"rows plan needs block_elems >= 1, k >= 1 and "
+                         f"0 <= phase < k; got block_elems={be}, k={k}, "
+                         f"phase={phase}")
+    if n >= 1 << 32:
+        raise ValueError(f"a {n}-element leaf exceeds the 2^32 counter "
+                         "indices of the z stream")
+    return n, min(be, max(n, 1)), k, phase
+
+
+def selected_count(n: int, block_elems: int, k: int, phase: int) -> int:
+    """Selected elements of an n-element leaf (the ragged last block counts
+    its real elements only)."""
+    n, be, k, phase = _plan(n, block_elems, k, phase)
+    n_blocks = -(-n // be)
+    if phase >= n_blocks:
+        return 0
+    count = len(range(phase, n_blocks, k)) * be
+    if (n_blocks - 1 - phase) % k == 0:
+        count -= n_blocks * be - n            # the last block is selected
+    return count
+
+
+def compact_to_flat(j: torch.Tensor, block_elems: int, k: int,
+                    phase: int) -> torch.Tensor:
+    """Flat element index of compact index ``j`` (int64 tensor)."""
+    q = torch.div(j, block_elems, rounding_mode="floor")
+    return (phase + q * k) * block_elems + (j - q * block_elems)
+
+
+def _selected_or_raise(n: int, be: int, k: int, phase: int,
+                       what: str) -> int:
+    sel = selected_count(n, be, k, phase)
+    if sel == 0:
+        raise ValueError(
+            f"{what}: the rows plan selects nothing of a {n}-element leaf "
+            f"(block_elems={be}, k={k}, phase={phase}); the selection layer "
+            "excludes such a leaf from the phase")
+    return sel
+
+
+# --------------------------------------------------------------------------- #
+# Plain torch versions (the specification)
+# --------------------------------------------------------------------------- #
+def zo_affine_rows_plain(x: torch.Tensor, seed: int, a: float, b: float,
+                         block_elems: int, k: int, phase: int,
+                         dist: str = "gaussian",
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain K7: K1's y = fma(a, x, round(b·z)) at the selected elements,
+    x's bits elsewhere.  ``out`` may be ``x`` (in place)."""
+    _check_dist(dist)
+    n, be, k, phase = _plan(x.numel(), block_elems, k, phase)
+    sel = _selected_or_raise(n, be, k, phase, "zo_affine_rows")
+    y = x.clone() if out is None else out
+    if out is not None and y.data_ptr() != x.data_ptr():
+        y.copy_(x)
+    flat = x.reshape(-1)
+    yflat = y.view(-1)
+    a32 = torch.tensor(_f32(a), dtype=torch.float32, device=x.device)
+    b32 = _f32(b)
+    for lo in range(0, sel, _CHUNK):
+        j = torch.arange(lo, min(lo + _CHUNK, sel), dtype=torch.int64,
+                         device=x.device)
+        e = compact_to_flat(j, be, k, phase)
+        z = z_from_counter(e & _MASK, seed, dist)
+        yflat[e] = _fma(a32, flat[e].to(torch.float32), z * b32).to(x.dtype)
+    return y
+
+
+def zo_affine_multi_rows_plain(x: torch.Tensor, seeds, a, b,
+                               block_elems: int, k: int, phase: int,
+                               dist: str = "gaussian") -> torch.Tensor:
+    """Plain K8: the stacked K7 singles."""
+    seeds, a, b = _streams(seeds, a, b)
+    return torch.stack([
+        zo_affine_rows_plain(x, s, aj, bj, block_elems, k, phase, dist)
+        for s, aj, bj in zip(seeds, a, b)])
+
+
+def zo_affine_chain_rows_plain(x: torch.Tensor, seeds, a, b,
+                               block_elems: int, k: int, phase: int,
+                               dist: str = "gaussian",
+                               out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Plain K9: the sequential K7 fold, each step written in x's dtype.
+    ``out`` may be ``x``."""
+    seeds, a, b = _streams(seeds, a, b)
+    y = x.clone() if out is None else out
+    if out is not None and y.data_ptr() != x.data_ptr():
+        y.copy_(x)
+    for s, aj, bj in zip(seeds, a, b):
+        zo_affine_rows_plain(y, s, aj, bj, block_elems, k, phase, dist,
+                             out=y)
+    return y
+
+
+def zo_sqnorm_rows_plain(n: int, seed: int, block_elems: int, k: int,
+                         phase: int, dist: str = "gaussian",
+                         device="cpu") -> torch.Tensor:
+    """Plain K10 in the kernel's order (module docstring); a 0-d f32 tensor
+    on ``device``."""
+    _check_dist(dist)
+    n, be, k, phase = _plan(n, block_elems, k, phase)
+    sel = _selected_or_raise(n, be, k, phase, "zo_sqnorm_rows")
+    tiles = -(-sel // TILE_ELEMS)
+    group = max(1, _CHUNK // TILE_ELEMS)
+    parts = []
+    for t0 in range(0, tiles, group):
+        t1 = min(tiles, t0 + group)
+        lo, hi = t0 * TILE_ELEMS, t1 * TILE_ELEMS
+        j = torch.arange(lo, min(hi, sel), dtype=torch.int64, device=device)
+        z = z_from_counter(compact_to_flat(j, be, k, phase) & _MASK, seed,
+                           dist)
+        # indices at or past sel add +0, as in the kernel
+        sq = torch.zeros(hi - lo, dtype=torch.float32, device=device)
+        sq[:j.numel()] = z * z
+        sq = sq.view(t1 - t0, _PER_THREAD, _TILE_THREADS)
+        acc = torch.zeros(t1 - t0, _TILE_THREADS, dtype=torch.float32,
+                          device=device)
+        for q in range(_PER_THREAD):
+            acc = acc + sq[:, q]
+        h = _TILE_THREADS // 2
+        while h:
+            acc = acc[:, :h] + acc[:, h:2 * h]
+            h //= 2
+        parts.append(acc[:, 0])
+    total = _fold_f32(torch.cat(parts).cpu().numpy())
+    return torch.tensor(total, dtype=torch.float32, device=device)
+
+
+# --------------------------------------------------------------------------- #
+# The CUDA kernels' wrappers
+# --------------------------------------------------------------------------- #
+def _lib():
+    lib = _build.load("zo_rows")
+    if not getattr(lib, "_typed", False):
+        vp, i64, i, u32, f = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                              ctypes.c_uint32, ctypes.c_float)
+        lib.zo_affine_rows.argtypes = [vp, vp, i64, i, u32, u32, u32, u32, f,
+                                       f, i, vp]
+        for name in ("zo_affine_chain_rows", "zo_affine_multi_rows"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, i64, i, u32, u32, u32, vp, vp, vp, i, i,
+                           vp]
+        lib.zo_sqnorm_rows.argtypes = [vp, vp, i64, u32, u32, u32, u32, i, vp]
+        for name in ("zo_affine_rows", "zo_affine_chain_rows",
+                     "zo_affine_multi_rows", "zo_sqnorm_rows"):
+            getattr(lib, name).restype = i
+        lib._typed = True
+    return lib
+
+
+def _in_place_target(x: torch.Tensor, out: Optional[torch.Tensor],
+                     what: str) -> torch.Tensor:
+    """The tensor the kernel writes: ``out`` (holding x's bits first) or a
+    copy of x — unselected elements keep x's bits either way."""
+    if out is None:
+        return x.clone()
+    if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device:
+        raise ValueError(f"{what}: out must match x in shape, dtype and "
+                         "device")
+    if x.device.type == "cuda" and not out.is_contiguous():
+        raise ValueError(f"{what}: the CUDA kernel takes contiguous leaves")
+    if out.data_ptr() != x.data_ptr():
+        out.copy_(x)
+    return out
+
+
+def zo_affine_rows(x: torch.Tensor, seed: int, a: float, b: float,
+                   block_elems: int, k: int, phase: int,
+                   dist: str = "gaussian",
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7 (port of ``zo_affine_2d_rows``): y = a·x + b·z(seed) on the
+    selected elements, x's bits elsewhere; ``out=x`` writes in place and
+    touches only the selected elements."""
+    _check_dist(dist)
+    _check_leaf(x, "zo_affine_rows")
+    if x.device.type == "cpu":
+        return zo_affine_rows_plain(x, seed, a, b, block_elems, k, phase,
+                                    dist, out)
+    n, be, k, phase = _plan(x.numel(), block_elems, k, phase)
+    sel = _selected_or_raise(n, be, k, phase, "zo_affine_rows")
+    y = _in_place_target(x, out, "zo_affine_rows")
+    lib = _lib()
+    err = lib.zo_affine_rows(_build.ptr(y), _build.ptr(y), sel,
+                             DTYPE_CODES[x.dtype], be, k, phase,
+                             int(seed) & _MASK, _f32(a), _f32(b),
+                             DIST_CODES[dist], _build.stream_of(x))
+    _build.check(lib, err, "zo_affine_rows")
+    _build.count("zo_affine_rows")
+    return y
+
+
+def zo_affine_multi_rows(x: torch.Tensor, seeds, a, b, block_elems: int,
+                         k: int, phase: int,
+                         dist: str = "gaussian") -> torch.Tensor:
+    """K8 (port of ``zo_affine_multi_2d_rows``): y[j] = a_j·x + b_j·z(seeds[j])
+    on the selected elements and x's bits elsewhere, shape
+    ``(len(seeds), *x.shape)``; x is read once, z generated only where
+    selected."""
+    _check_dist(dist)
+    _check_leaf(x, "zo_affine_multi_rows")
+    seeds, a, b = _streams(seeds, a, b)
+    if x.device.type == "cpu":
+        return zo_affine_multi_rows_plain(x, seeds, a, b, block_elems, k,
+                                          phase, dist)
+    n, be, k, phase = _plan(x.numel(), block_elems, k, phase)
+    _selected_or_raise(n, be, k, phase, "zo_affine_multi_rows")
+    y = torch.empty((len(seeds),) + tuple(x.shape), dtype=x.dtype,
+                    device=x.device)
+    lib = _lib()
+    for j0 in range(0, len(seeds), MAX_STREAMS):
+        j1 = min(j0 + MAX_STREAMS, len(seeds))
+        err = lib.zo_affine_multi_rows(
+            _build.ptr(x), _build.ptr(y[j0]), n, DTYPE_CODES[x.dtype], be, k,
+            phase, _u32_array(seeds[j0:j1]), _f32_array(a[j0:j1]),
+            _f32_array(b[j0:j1]), j1 - j0, DIST_CODES[dist],
+            _build.stream_of(x))
+        _build.check(lib, err, "zo_affine_multi_rows")
+        _build.count("zo_affine_multi_rows")
+    return y
+
+
+def zo_affine_chain_rows(x: torch.Tensor, seeds, a, b, block_elems: int,
+                         k: int, phase: int, dist: str = "gaussian",
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K9 (port of ``zo_affine_chain_2d_rows``): the B-stream fold on the
+    selected elements in one read and one write of them; ``out=x`` writes
+    in place.  Bitwise the sequential K7 fold; more than ``MAX_STREAMS``
+    streams run as consecutive launches."""
+    _check_dist(dist)
+    _check_leaf(x, "zo_affine_chain_rows")
+    seeds, a, b = _streams(seeds, a, b)
+    if x.device.type == "cpu":
+        return zo_affine_chain_rows_plain(x, seeds, a, b, block_elems, k,
+                                          phase, dist, out)
+    n, be, k, phase = _plan(x.numel(), block_elems, k, phase)
+    sel = _selected_or_raise(n, be, k, phase, "zo_affine_chain_rows")
+    y = _in_place_target(x, out, "zo_affine_chain_rows")
+    lib = _lib()
+    for j0 in range(0, len(seeds), MAX_STREAMS):
+        j1 = min(j0 + MAX_STREAMS, len(seeds))
+        err = lib.zo_affine_chain_rows(
+            _build.ptr(y), _build.ptr(y), sel, DTYPE_CODES[x.dtype], be, k,
+            phase, _u32_array(seeds[j0:j1]), _f32_array(a[j0:j1]),
+            _f32_array(b[j0:j1]), j1 - j0, DIST_CODES[dist],
+            _build.stream_of(x))
+        _build.check(lib, err, "zo_affine_chain_rows")
+        _build.count("zo_affine_chain_rows")
+    return y
+
+
+def zo_sqnorm_rows(n: int, seed: int, block_elems: int, k: int, phase: int,
+                   dist: str = "gaussian", device="cpu") -> torch.Tensor:
+    """K10 (port of ``zo_sqnorm_2d_rows``): ‖z(seed) on the selected
+    elements of an n-element leaf‖², a 0-d f32 tensor on ``device`` — the
+    plain version on the CPU, the CUDA kernel on the card."""
+    _check_dist(dist)
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return zo_sqnorm_rows_plain(n, seed, block_elems, k, phase, dist,
+                                    dev)
+    if dev.type != "cuda":
+        raise RuntimeError(f"zo_sqnorm_rows: no kernel for device {dev}")
+    n, be, k, phase = _plan(n, block_elems, k, phase)
+    sel = _selected_or_raise(n, be, k, phase, "zo_sqnorm_rows")
+    partials = torch.empty(-(-sel // TILE_ELEMS), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = lib.zo_sqnorm_rows(_build.ptr(partials), _build.ptr(out), sel, be,
+                             k, phase, int(seed) & _MASK, DIST_CODES[dist],
+                             _build.stream_of(out))
+    _build.check(lib, err, "zo_sqnorm_rows")
+    _build.count("zo_sqnorm_rows")
+    return out

@@ -7,10 +7,12 @@ supports plus ``--device``: registry model (random weights from a seeded
 data, checkpoint manager + scalar ledger, heartbeat.
 
 ``--backend`` defaults to ``xla`` as in JAX, and that stream is not ported
-yet: pass ``--backend pallas``.  Options of later slices (``--optimizer
-mezo-adam|adam|sgd``, ``--select`` other than ``full``, ``--objective``
-other than ``ce``, ``--model-family`` other than ``dense``) exit with a
-message naming the slice.
+yet: pass ``--backend pallas``.  ``--select`` takes every selection spec of
+``repro_torch.select`` (``auto`` → the registry's per-family default) and is
+recorded in the checkpoint meta and the MZOL5 ledger header.  Options of
+later slices (``--optimizer mezo-adam|adam|sgd``, ``--objective`` other
+than ``ce``, ``--model-family`` other than ``dense``) exit with a message
+naming the slice.
 """
 from __future__ import annotations
 
@@ -49,7 +51,18 @@ def main(argv=None):
                     help="perturbation backend; the port has 'pallas' (the "
                          "counter stream) — 'xla', JAX's default, comes with "
                          "a later slice")
-    ap.add_argument("--select", default="full")
+    ap.add_argument("--select", default="full",
+                    help="parameter selection (repro_torch.select) for the ZO "
+                         "optimizers: 'full', 'leaves(<regex>)', "
+                         "'block_cyclic(<k>)' (rotating leaf blocks, ~1/k of "
+                         "the tree perturbed per step), "
+                         "'rows(block=<R>,k=<K>)' (row-blocks of R rows "
+                         "inside every leaf, ~1/K of each tensor per step), "
+                         "'peft(lora|prefix)' for a merged PEFT tree, "
+                         "'moe_experts(<G>)' (router frozen, one expert "
+                         "group per step), or 'auto' for the registry's "
+                         "per-family default; recorded in ckpt meta + the "
+                         "MZOL5 ledger header")
     ap.add_argument("--objective", default="ce",
                     choices=["ce", "accuracy", "f1"])
     ap.add_argument("--exec-plan", default="local",
@@ -66,13 +79,15 @@ def main(argv=None):
                          "the plain torch versions of the kernels)")
     args = ap.parse_args(argv)
 
+    if args.select != "full" and args.optimizer != "mezo":
+        # every other optimizer would train the full tree (mezo-adam's
+        # applier transform refuses selections at composition time)
+        sys.exit(f"--select {args.select!r} requires --optimizer mezo "
+                 f"(got {args.optimizer!r})")
     if args.optimizer != "mezo":
         sys.exit(f"--optimizer {args.optimizer}: mezo-adam comes with the "
                  "mezo_adam slice and adam/sgd with the backprop-baseline "
                  "slice (ROADMAP Queue 1); the port trains --optimizer mezo")
-    if args.select != "full":
-        sys.exit(f"--select {args.select!r}: parameter selections come with "
-                 "the selection slice (ROADMAP Queue 1, Slice C)")
     if args.objective != "ce":
         sys.exit(f"--objective {args.objective!r}: the non-differentiable "
                  "objectives come with the objectives slice (core/nondiff)")
@@ -90,6 +105,10 @@ def main(argv=None):
     arch = all_archs()[args.arch]
     cfg = arch.smoke_cfg if args.smoke else arch.cfg
     b = bundle(cfg)
+    if args.select == "auto":
+        # the registry's per-family default (full for the dense family)
+        args.select = b.default_selection()
+        print(f"[train] --select auto -> {args.select!r}")
     params = b.init(args.seed, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[train] {cfg.name}: {n_params / 1e6:.1f} M params, "
@@ -100,13 +119,19 @@ def main(argv=None):
                     device=device)
     if args.estimator == "fzoo":
         opt = zo.fzoo(lr=args.lr or 1e-6, eps=args.eps,
-                      batch_seeds=args.batch_seeds, backend=args.backend)
+                      batch_seeds=args.batch_seeds, backend=args.backend,
+                      selection=args.select)
     else:
         opt = zo.mezo(lr=args.lr or 1e-5, eps=args.eps,
-                      estimator=args.estimator, backend=args.backend)
+                      estimator=args.estimator, backend=args.backend,
+                      selection=args.select)
+    if args.select != "full":
+        print(f"[train] parameter selection: {opt.selection_spec}")
     ledger = TrajectoryLedger(base_seed=args.seed, grad_dtype="float32",
                               backend=opt.backend_name,
-                              batch_seeds=opt.batch_seeds)
+                              batch_seeds=opt.batch_seeds,
+                              selection=opt.selection_spec,
+                              sel_phase=opt.selection_phase)
     if args.exec_plan == "seed_parallel":
         if args.batch % args.n_groups:
             sys.exit(f"--batch {args.batch} must divide evenly into "

@@ -67,6 +67,13 @@ class Bundle:
             gen.manual_seed(int(seed))
         return transformer.init_params(self.cfg, gen)
 
+    def default_selection(self) -> str:
+        """Per-family default ``repro_torch.select`` spec, the value behind
+        ``--select auto``: ``full`` for the dense family, the one this
+        bundle carries (JAX's rule gives MoE ``moe_experts(G)``; that family
+        is a later slice)."""
+        return "full"
+
     # ---- training loss ---------------------------------------------------- #
     def loss_fn(self, objective: str = "ce") -> Callable:
         if objective != "ce":

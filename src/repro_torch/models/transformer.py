@@ -67,12 +67,22 @@ def layer_slice(tree: dict, i: int) -> dict:
 # --------------------------------------------------------------------------- #
 def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, cache,
           cache_pos):
+    """One decoder block on layer ``p``'s leaves: (x_out, cache)."""
     h = apply_norm(cfg, x, p["ln1"])
     attn_out, new_cache = attn_lib.self_attention(cfg, p["attn"], h,
                                                   positions, cache, cache_pos)
     x = x + attn_out
     x = x + ffn(cfg, p["mlp"], apply_norm(cfg, x, p["ln2"]))
     return x, new_cache
+
+
+def embed_tokens(cfg: ModelConfig, params: dict,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``tokens`` scaled by sqrt(d) in the param dtype."""
+    x = params["embed"][tokens.long()]
+    scale = torch.sqrt(torch.tensor(float(cfg.d_model),
+                                    dtype=torch.float32)).to(x.dtype)
+    return x * scale.to(x.device)
 
 
 class ForwardResult(NamedTuple):
@@ -89,10 +99,7 @@ def forward(cfg: ModelConfig, params: dict, *,
     (leading L axis) and updated in place."""
     _check_dense(cfg)
     if embeds is None:
-        x = params["embed"][tokens.long()]
-        scale = torch.sqrt(torch.tensor(float(cfg.d_model),
-                                        dtype=torch.float32)).to(x.dtype)
-        x = x * scale.to(x.device)
+        x = embed_tokens(cfg, params, tokens)
     else:
         x = embeds.to(cfg.param_dtype)
     S = x.shape[1]

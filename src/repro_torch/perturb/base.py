@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.perturb.stream import StreamRef
-from repro_torch.tree_utils import PyTree, tree_clone, tree_map
+from repro_torch.tree_utils import PyTree, tree_map, tree_map_with_index
 
 
 class BackendMismatchError(RuntimeError):
@@ -114,14 +114,22 @@ class PerturbBackend:
         (each leaf of the result has shape ``(len(refs), *leaf.shape)``);
         θ is left as it was.  ``scale`` is a shared scalar or one per ref.
 
-        This default stacks ``perturb`` singles, each on a copy of θ —
-        bitwise the sequential path by construction; backends override it
-        with a fused kernel under that contract."""
+        This default stacks ``perturb`` singles, each on a copy of the
+        leaves the first ref's selection picks (an unselected leaf is never
+        written, so it is shared, not copied) — bitwise the sequential path
+        by construction; backends override it with a fused kernel under
+        that contract."""
         self.check_dist(dist)
         if not refs:
             raise ValueError("perturb_many needs at least one StreamRef")
         per = per_stream_scales(scale, len(refs))
-        cols = [self.perturb(tree_clone(params), r,
+        mask = refs[0].selection_mask(params)
+
+        def copy(i, p):
+            picked = mask is None or mask[i]
+            return p.clone() if picked and isinstance(p, torch.Tensor) else p
+
+        cols = [self.perturb(tree_map_with_index(copy, params), r,
                              scale if per is None else per[j], dist)
                 for j, r in enumerate(refs)]
         return tree_map(lambda *xs: torch.stack(xs), *cols)

@@ -6,15 +6,31 @@ their plain torch versions on the CPU, bitwise-equal to each other and to
 the JAX ``pallas`` backend.  It therefore records the same stream id,
 ``pallas+z2``, and ledgers move between the two frameworks both ways.
 
-Which kernel serves which method:
+Selection-aware, as ``PallasBackend`` is (``pallas.py:266-514``): a
+``StreamRef`` carrying a ``repro_torch.select.Selection`` scopes every
+method to the selected leaves — an unselected leaf gets no launch at all
+(no z, no write, no decoupled decay) — and, under ``rows``, to the selected
+row-blocks of each leaf.  A leaf whose row-blocks are all selected takes the
+whole-leaf kernels (``_leaf_blocks``), which keeps ``rows(block=R, k=1)``
+bitwise ≡ ``full``.
 
-* ``perturb`` / ``fused_restore_update`` / ``apply_rank1`` / ``leaf_z`` →
-  K1 ``zo_affine``;
-* ``perturb_many`` with a shared scale → K5 ``zo_affine_batched``; with
-  per-stream scales (spsa's ±ε pair) or ``sphere`` → K4 ``zo_affine_multi``;
-* ``affine_many`` → K3 ``zo_affine_chain``;
-* ``sphere``: pass 1, ‖z‖² of each leaf → K6 ``zo_sqnorm``; pass 2 folds
+Which kernel serves which method (whole leaf | partial rows plan):
+
+* ``perturb`` / ``fused_restore_update`` / ``apply_rank1`` → K1
+  ``zo_affine`` | K7 ``zo_affine_rows``; ``leaf_z`` → K1;
+* ``perturb_many`` with a shared scale → K5 ``zo_affine_batched``, with
+  per-stream scales (spsa's ±ε pair) or ``sphere`` → K4 ``zo_affine_multi``
+  | K8 ``zo_affine_multi_rows`` either way;
+* ``affine_many`` → K3 ``zo_affine_chain`` | K9 ``zo_affine_chain_rows``;
+* ``sphere``: pass 1, ‖z‖² of each selected leaf → K6 ``zo_sqnorm`` | K10
+  ``zo_sqnorm_rows`` with d counting the selected elements; pass 2 folds
   sqrt(d)/‖z‖ into the affine b of the gaussian stream.
+
+One deliberate difference from JAX: under a partial rows plan JAX's
+``perturb_many`` stacks K7 singles instead of using its multi-rows kernel
+(``pallas.py:444-459``), because XLA:CPU contracts the two graphs into FMAs
+differently.  Here K7 and K8 share ``csrc/zo_stream.cuh``, so K8 ≡ stacked
+K7 holds by construction, and ``perturb_many`` uses K8.
 
 Every scalar is a separately rounded f32 formed in the order
 ``PallasBackend`` pins (``_pin_scalars``, ``pallas.py:250-263``): e.g.
@@ -25,9 +41,8 @@ in f32 on the host.
 Writes go IN PLACE into the caller's leaves (the paper's in-place trick):
 each single-stream method and ``affine_many`` return the same tree they were
 given, updated; ``perturb_many`` returns new stacked leaves and leaves θ
-alone.  Non-floating leaves are left alone (in ``perturb_many`` they ride
-along as broadcast views).  Parameter selections come with the selection
-slice; a ``StreamRef`` carrying one is refused.
+alone.  Non-floating and unselected leaves are left alone (in
+``perturb_many`` they ride along as broadcast views).
 """
 from __future__ import annotations
 
@@ -39,6 +54,9 @@ import torch
 from repro_torch.kernels.zo_fused.kernel import zo_affine, zo_affine_batched
 from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
                                                 zo_affine_multi, zo_sqnorm)
+from repro_torch.kernels.zo_fused.rows import (zo_affine_chain_rows,
+                                               zo_affine_multi_rows,
+                                               zo_affine_rows, zo_sqnorm_rows)
 from repro_torch.perturb.base import (PerturbBackend, _check_many,
                                       per_stream_scales)
 from repro_torch.perturb.stream import StreamRef, leaf_seed
@@ -48,45 +66,72 @@ from repro_torch.tree_utils import (PyTree, is_floating, tree_leaves,
 f32 = np.float32
 
 
-def _full_tree(ref: StreamRef) -> None:
-    if ref.selection is not None:
-        raise NotImplementedError(
-            "parameter selections are ported with the selection slice; "
-            "this backend updates the full tree only")
+def _leaf_blocks(blocks, i: int):
+    """Leaf ``i``'s partial rows plan, or ``None`` for whole-leaf semantics
+    (no ``rows`` selection, or every block of the leaf selected — the route
+    that keeps ``rows(..., k=1)`` bitwise ≡ ``full``)."""
+    if blocks is None:
+        return None
+    rb = blocks[i]
+    if rb is None or rb.all_selected:
+        return None
+    return rb
+
+
+def _active(p, mask, i: int) -> bool:
+    return is_floating(p) and (mask is None or mask[i])
 
 
 class CounterBackend(PerturbBackend):
-    """Counter-hash z streams through the zo_fused kernels K1, K3–K6."""
+    """Counter-hash z streams through the zo_fused kernels K1 and K3–K10."""
 
     name = "pallas"
     dists = frozenset({"gaussian", "rademacher", "sphere"})
     stream_version = 2
 
     def _map(self, params: PyTree, ref: StreamRef, a, b, dist: str) -> PyTree:
-        _full_tree(ref)
         seed = ref.counter_seed()
+        mask, blocks = ref.selection_mask(params), ref.selection_blocks(params)
         a, b = float(f32(a)), float(f32(b))
-        return tree_map_with_index(
-            lambda i, p: zo_affine(p, leaf_seed(seed, i), a, b, dist, out=p)
-            if is_floating(p) else p, params)
+
+        def one(i, p):
+            if not _active(p, mask, i):
+                return p
+            rb = _leaf_blocks(blocks, i)
+            if rb is None:
+                return zo_affine(p, leaf_seed(seed, i), a, b, dist, out=p)
+            return zo_affine_rows(p, leaf_seed(seed, i), a, b,
+                                  rb.block_elems, rb.k, rb.phase, dist, out=p)
+
+        return tree_map_with_index(one, params)
 
     def _sphere_scale(self, params: PyTree, ref: StreamRef) -> np.float32:
-        """sqrt(d)/‖z(ref)‖ over the floating leaves — pass 1 of the sphere
-        rescale: one K6 per leaf on the gaussian counter stream the affine
-        kernels read, the leaf norms folded in leaf order in f32."""
-        _full_tree(ref)
+        """sqrt(d)/‖z(ref)‖ over the selected floating leaves — pass 1 of
+        the sphere rescale: one K6 per whole leaf (K10 per partial rows
+        plan, d counting its selected elements) on the gaussian counter
+        stream the affine kernels read, the norms folded in leaf order in
+        f32."""
         seed = ref.counter_seed()
+        mask, blocks = ref.selection_mask(params), ref.selection_blocks(params)
         d, parts = 0, []
         for i, p in enumerate(tree_leaves(params)):
-            if not is_floating(p):
+            if not _active(p, mask, i):
                 continue
-            d += p.numel()
-            parts.append(zo_sqnorm(p.numel(), leaf_seed(seed, i), "gaussian",
-                                   p.device))
+            rb = _leaf_blocks(blocks, i)
+            if rb is None:
+                d += p.numel()
+                parts.append(zo_sqnorm(p.numel(), leaf_seed(seed, i),
+                                       "gaussian", p.device))
+            else:
+                d += rb.selected_elems()
+                parts.append(zo_sqnorm_rows(
+                    p.numel(), leaf_seed(seed, i), rb.block_elems, rb.k,
+                    rb.phase, "gaussian", p.device))
         if not parts:
             raise ValueError(
-                "sphere perturbation needs at least one floating leaf (the "
-                "sqrt(d)/‖z‖ rescale is undefined on an empty subspace)")
+                "sphere perturbation needs at least one selected floating "
+                "leaf (the sqrt(d)/‖z‖ rescale is undefined on an empty "
+                "subspace)")
         sq = None
         for part in torch.stack(parts).cpu().numpy():
             sq = f32(part) if sq is None else f32(sq + f32(part))
@@ -139,14 +184,14 @@ class CounterBackend(PerturbBackend):
     def perturb_many(self, params: PyTree, refs: Sequence[StreamRef], scale,
                      dist: str = "gaussian") -> PyTree:
         """Shared scale → K5 per leaf; per-stream scales or sphere → K4 per
-        leaf (each stream's b_j = scale_j·sph_j).  Bitwise-equal to stacked
-        ``perturb`` singles."""
+        leaf (each stream's b_j = scale_j·sph_j); a partial rows plan → K8
+        either way.  Bitwise-equal to stacked ``perturb`` singles."""
         self.check_dist(dist)
         if not refs:
             raise ValueError("perturb_many needs at least one StreamRef")
-        for r in refs:
-            _full_tree(r)
         n = len(refs)
+        mask = refs[0].selection_mask(params)
+        blocks = refs[0].selection_blocks(params)
         seeds0 = [r.counter_seed() for r in refs]
         per = per_stream_scales(scale, n)
         kdist = dist
@@ -155,41 +200,58 @@ class CounterBackend(PerturbBackend):
             per = [f32(f32(s) * self._sphere_scale(params, r))
                    for s, r in zip(base, refs)]
             kdist = "gaussian"
+        b_list = ([float(f32(scale))] * n if per is None
+                  else [float(f32(s)) for s in per])
 
         def one(i, p):
-            if not is_floating(p):
+            if not _active(p, mask, i):
                 return p.expand((n,) + tuple(p.shape))
             seeds = [leaf_seed(s, i) for s in seeds0]
+            rb = _leaf_blocks(blocks, i)
+            if rb is not None:
+                return zo_affine_multi_rows(p, seeds, [1.0] * n, b_list,
+                                            rb.block_elems, rb.k, rb.phase,
+                                            kdist)
             if per is None:
                 return zo_affine_batched(p, seeds, 1.0, float(f32(scale)),
                                          kdist)
-            return zo_affine_multi(p, seeds, [1.0] * n,
-                                   [float(f32(s)) for s in per], kdist)
+            return zo_affine_multi(p, seeds, [1.0] * n, b_list, kdist)
 
         return tree_map_with_index(one, params)
 
     def affine_many(self, params: PyTree, refs: Sequence[StreamRef],
                     coeffs: Sequence, decay_terms: Sequence,
                     dist: str = "gaussian") -> PyTree:
-        """K3 per leaf, in place: the B streams folded in one read and one
-        write of θ — bitwise the base class's sequential ``apply_rank1``
-        fold (the same f32 scalars; K3 casts to the leaf dtype between
-        streams)."""
+        """K3 per leaf (K9 per partial rows plan), in place: the B streams
+        folded in one read and one write of θ — bitwise the base class's
+        sequential ``apply_rank1`` fold (the same f32 scalars; the kernels
+        cast to the leaf dtype between streams).  The streams share the
+        first ref's selection and phase (one step, one phase)."""
         self.check_dist(dist)
         _check_many(refs, coeffs, decay_terms)
-        for r in refs:
-            _full_tree(r)
+        mask = refs[0].selection_mask(params)
+        blocks = refs[0].selection_blocks(params)
         seeds0 = [r.counter_seed() for r in refs]
         a_list, b_list = [], []
         for ref, coeff, decay in zip(refs, coeffs, decay_terms):
             b = -f32(coeff)
             if dist == "sphere":
-                # ‖z_j‖ depends on (seed_j, leaf sizes) only, never on θ
+                # ‖z_j‖ depends on (seed_j, leaf sizes, selection) only,
+                # never on θ
                 b = f32(b * self._sphere_scale(params, ref))
             a_list.append(float(f32(1.0) - f32(decay)))
             b_list.append(float(b))
         kdist = "gaussian" if dist == "sphere" else dist
-        return tree_map_with_index(
-            lambda i, p: zo_affine_chain(
-                p, [leaf_seed(s, i) for s in seeds0], a_list, b_list, kdist,
-                out=p) if is_floating(p) else p, params)
+
+        def one(i, p):
+            if not _active(p, mask, i):
+                return p
+            seeds = [leaf_seed(s, i) for s in seeds0]
+            rb = _leaf_blocks(blocks, i)
+            if rb is None:
+                return zo_affine_chain(p, seeds, a_list, b_list, kdist, out=p)
+            return zo_affine_chain_rows(p, seeds, a_list, b_list,
+                                        rb.block_elems, rb.k, rb.phase,
+                                        kdist, out=p)
+
+        return tree_map_with_index(one, params)

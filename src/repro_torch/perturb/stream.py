@@ -13,11 +13,15 @@ integer code, so the seeds equal JAX's bit for bit:
     leaf_seed(i)   = int32(counter_seed + 0x1000003 · i)  (wraparound)
 
 Keys are plain ``(k0, k1)`` tuples of Python ints; nothing here touches a
-tensor or a device.
+tensor or a device.  A ref may carry a parameter selection
+(``with_selection``), which scopes which leaves and row-blocks consume the
+stream without changing its bits.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
+
+from repro_torch.tree_utils import tree_leaves
 
 _MASK = 0xFFFFFFFF
 # Multiplier decorrelating per-leaf counter streams (the zo_fused schedule).
@@ -72,21 +76,57 @@ def _as_int32(x: int) -> int:
 
 class StreamRef(NamedTuple):
     """Identity of one per-seed perturbation stream (``key`` is the fully
-    derived threefry key).  ``selection`` / ``phase`` exist for signature
-    parity with ``repro.perturb.StreamRef``; this slice replays full-tree
-    ledgers only, so a ref carrying a selection is refused by the backend."""
+    derived threefry key).  ``selection`` / ``phase`` optionally scope it to
+    a parameter subset (a ``repro_torch.select.Selection`` and its schedule
+    phase, a Python int): the backend reads ``selection_mask`` and
+    ``selection_blocks`` and leaves unselected leaves and row-blocks alone.
+    The default ``(None, 0)`` is the full tree."""
     key: Key
     selection: object = None
     phase: int = 0
 
     @classmethod
     def derive(cls, base_key: Key, step: int,
-               seed_index: Optional[int] = None) -> "StreamRef":
-        """run key → step t → (optional) seed j."""
+               seed_index: Optional[int] = None, selection=None,
+               phase: int = 0) -> "StreamRef":
+        """run key → step t → (optional) seed j, optionally scoped to a
+        selection at a schedule phase."""
         key = step_key(base_key, step)
         if seed_index is not None:
             key = fold_in(key, seed_index)
-        return cls(key)
+        return cls(key, selection, phase)
+
+    def with_selection(self, selection, phase: int = 0) -> "StreamRef":
+        """The same stream (key bits untouched) scoped to ``selection`` at
+        ``phase``: the selection decides which leaves consume the stream,
+        not the stream itself."""
+        return self._replace(selection=selection, phase=phase)
+
+    def selection_mask(self, params) -> Optional[tuple]:
+        """Per-leaf active mask of ``params`` (flatten order), or ``None``
+        when the ref carries no selection (every leaf active)."""
+        if self.selection is None:
+            return None
+        return self.selection.leaf_mask(params, self.phase)
+
+    def selection_blocks(self, params) -> Optional[tuple]:
+        """Per-leaf sub-leaf plans (flatten order): a ``RowBlocks`` per leaf
+        under a ``rows`` selection, else ``None``.
+
+        The counter stream indexes a leaf by flat element position (z of
+        element e hashes ``leaf_seed(i)`` with e), so row-block b's bits are
+        a function of ``(leaf_seed, b)`` alone: the same whether the leaf is
+        perturbed whole or block by block, and stable under restructuring
+        of the surrounding tree (the plan depends on the leaf's own shape)."""
+        if self.selection is None:
+            return None
+        bm = getattr(self.selection, "block_mask", None)
+        if bm is None:
+            return None
+        blocks = tuple(bm(leaf, self.phase) for leaf in tree_leaves(params))
+        if all(b is None for b in blocks):
+            return None
+        return blocks
 
     def counter_seed(self) -> int:
         """The key folded into one int32 seed (``key[0] ^ key[1]``)."""

@@ -20,8 +20,10 @@ What differs from JAX, and why:
 * the scalars (losses, g, η, coefficients) are host numpy f32 values, each
   formed as one separately rounded f32 operation in JAX's order, so a
   ledger's recorded (g, η) replays to the coefficients the live step used;
-* JAX's ``jit`` / ``lax.switch`` over selection phases has no counterpart:
-  selections come with a later slice.
+* a block-scheduled selection's phase is ``sel.phase_at(state.step)``,
+  a Python int formed on the host each step, in place of JAX's
+  ``lax.switch`` over one traced body per phase; the estimator and the
+  update read it from there.
 """
 from __future__ import annotations
 
@@ -165,6 +167,13 @@ class ZOOptimizer:
         self.estimator = estimator
         self.transform = transform if transform is not None else identity()
         self.name = name or estimator.name
+        if estimator.selection is not None and \
+                self.transform.info.get("applier"):
+            raise ValueError(
+                "applier transforms (scale_by_zo_adam / trace) materialize "
+                "their update over the FULL tree from the g-history, which "
+                "would write unselected leaves; parameter selections "
+                "(repro_torch.select) compose with rank-1 scalar chains only")
 
     # -- introspection ------------------------------------------------------ #
     @property
@@ -187,15 +196,27 @@ class ZOOptimizer:
 
     @property
     def selection(self):
+        """The resolved ``Selection`` scoping this composition (``None`` =
+        the full tree)."""
         return self.estimator.selection
 
     @property
     def selection_spec(self) -> str:
-        return "full"
+        """Canonical selection spec recorded in checkpoint/ledger metadata
+        (``"full"`` when no selection is set)."""
+        sel = self.selection
+        return "full" if sel is None else sel.spec
 
     @property
     def selection_phase(self) -> int:
-        return 0
+        """The selection's schedule phase offset (0 when unscheduled)."""
+        sel = self.selection
+        return 0 if sel is None else int(sel.phase_offset)
+
+    def phase_at(self, step: int) -> int:
+        """The schedule phase of step ``step`` (0 without a selection)."""
+        sel = self.selection
+        return 0 if sel is None else sel.phase_at(step)
 
     @property
     def weight_decay(self) -> float:
@@ -222,7 +243,9 @@ class ZOOptimizer:
                       phase: int = 0) -> PyTree:
         """Apply one scalar-ledger entry in place: θ ← (1−η·λ)·θ − η·g·z(skey)
         with η·g and η·λ each one f32 product (a (B,) g replays the B folded
-        rank-1 updates of a batched-seed step)."""
+        rank-1 updates of a batched-seed step).  ``phase`` is the replayed
+        step's schedule phase, derived from its step index as the live step
+        derived it."""
         if not self.estimator.replayable:
             raise ValueError(
                 f"{self.name}: the {self.estimator.name!r} estimator updates "
@@ -230,13 +253,16 @@ class ZOOptimizer:
                 "cannot reproduce; resume from a full state checkpoint")
         lr = f32(lr)
         decay = lr * f32(self.weight_decay)
+        sel = self.selection
         if self.batch_seeds > 1:
             from repro_torch.zo.updates import apply_rank1_batch
             return apply_rank1_batch(params, skey, lr * np.asarray(g, f32),
                                      decay, dist=self.estimator.dist,
-                                     backend=self.backend)
-        return self.backend.apply_rank1(params, StreamRef(skey), lr * f32(g),
-                                        decay, self.estimator.dist)
+                                     backend=self.backend, selection=sel,
+                                     phase=phase)
+        return self.backend.apply_rank1(params, StreamRef(skey, sel, phase),
+                                        lr * f32(g), decay,
+                                        self.estimator.dist)
 
     def step_fn(self, loss_fn: ZOLossFn) -> Callable:
         """``step(params, state, batch) -> (params, state, metrics)``; the
@@ -248,6 +274,7 @@ class ZOOptimizer:
         @torch.no_grad()
         def step(params: PyTree, state: ZOState, batch):
             skey0 = step_key(state.base_key, state.step)
+            phase = self.phase_at(state.step)
             p = params
             est_state, tf_state = state.est_state, state.tf_state
             gs, losses = [], []
@@ -255,7 +282,8 @@ class ZOOptimizer:
             lr_metric = None
             for j in range(n):
                 skey = fold_in(skey0, j) if n > 1 else skey0
-                e = est.estimate(loss_fn, p, batch, skey, est_state)
+                e = est.estimate(loss_fn, p, batch, skey, est_state,
+                                 phase=phase)
                 est_state = e.est_state
                 ctx = TransformCtx(step=state.step, base_key=state.base_key,
                                    key=skey, seed_index=j, n_seeds=n,

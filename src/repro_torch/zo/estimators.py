@@ -9,7 +9,9 @@ followed by an in-place "restore" is not bitwise θ in bf16.  ``fzoo``'s
 batched forward over the stacked ``(B, …)`` view is a loop over the B views
 (``vmap`` cannot trace the kernels' launches); its losses are JAX's ``(B,)``
 vector.  Losses come back to the host as f32, and g is formed there in
-JAX's order, e.g. (ℓ₊ − ℓ₋) / f32(2ε).
+JAX's order, e.g. (ℓ₊ − ℓ₋) / f32(2ε).  Every factory takes ``selection=``
+(a ``repro_torch.select.Selection`` or spec string): the estimator scopes
+its streams to it at the phase the facade passes.
 """
 from __future__ import annotations
 
@@ -42,15 +44,14 @@ def spsa(eps: float = 1e-3, dist: str = "gaussian", sequential: bool = True,
     fan-out (K4), leaving θ untouched."""
     be = get_backend(backend)
     be.check_dist(dist)
-    resolve_selection(selection)
+    sel = resolve_selection(selection)
 
     def init(params, key):
         del params, key
         return ()
 
     def estimate(loss_fn, params, batch, key, est_state, phase: int = 0):
-        del phase
-        ref = StreamRef(key)
+        ref = StreamRef(key, sel, phase)
         if sequential:
             p_plus = be.perturb(params, ref, eps, dist)
             l_plus = host_f32(loss_fn(p_plus, batch))
@@ -83,7 +84,7 @@ def spsa(eps: float = 1e-3, dist: str = "gaussian", sequential: bool = True,
                           est_state=est_state, aux={})
 
     return ZOEstimator(init=init, estimate=estimate, n_seeds=1, eps=eps,
-                       dist=dist, name="spsa", backend=be)
+                       dist=dist, name="spsa", backend=be, selection=sel)
 
 
 def n_spsa(n: int, eps: float = 1e-3, dist: str = "gaussian",
@@ -109,7 +110,7 @@ def fzoo(batch_seeds: int = 8, eps: float = 1e-3, dist: str = "gaussian",
     (K3) — the call ledger replay makes."""
     be = get_backend(backend)
     be.check_dist(dist)
-    resolve_selection(selection)
+    sel = resolve_selection(selection)
     n_batch = int(batch_seeds)
     if n_batch < 1:
         raise ValueError(f"batch_seeds must be >= 1, got {batch_seeds}")
@@ -119,10 +120,10 @@ def fzoo(batch_seeds: int = 8, eps: float = 1e-3, dist: str = "gaussian",
         return ()
 
     def estimate(loss_fn, params, batch, key, est_state, phase: int = 0):
-        del phase
         # B == 1 is one-sided SPSA on the unfolded step key
-        refs = ([StreamRef(key)] if n_batch == 1 else
-                [StreamRef(fold_in(key, j)) for j in range(n_batch)])
+        refs = ([StreamRef(key, sel, phase)] if n_batch == 1 else
+                [StreamRef(fold_in(key, j), sel, phase)
+                 for j in range(n_batch)])
         stacked = be.perturb_many(params, refs, eps, dist)
         losses = torch.stack([loss_fn(_view(stacked, j), batch).float()
                               for j in range(n_batch)]).cpu().numpy()
@@ -136,7 +137,7 @@ def fzoo(batch_seeds: int = 8, eps: float = 1e-3, dist: str = "gaussian",
                 return be.apply_rank1(params, refs[0], coeff, decay_term,
                                       dist)
             return apply_rank1_batch(params, key, coeff, decay_term, dist,
-                                     backend=be)
+                                     backend=be, selection=sel, phase=phase)
 
         def restore():
             return params
@@ -148,7 +149,7 @@ def fzoo(batch_seeds: int = 8, eps: float = 1e-3, dist: str = "gaussian",
 
     return ZOEstimator(init=init, estimate=estimate, n_seeds=1, eps=eps,
                        dist=dist, name="fzoo", replayable=True, backend=be,
-                       batch_seeds=n_batch)
+                       batch_seeds=n_batch, selection=sel)
 
 
 # --------------------------------------------------------------------------- #
@@ -161,7 +162,7 @@ def one_point(eps: float = 1e-3, dist: str = "gaussian", backend=None,
     the update applies to the unperturbed θ."""
     be = get_backend(backend)
     be.check_dist(dist)
-    resolve_selection(selection)
+    sel = resolve_selection(selection)
 
     def init(params, key):
         del params, key
@@ -169,8 +170,7 @@ def one_point(eps: float = 1e-3, dist: str = "gaussian", backend=None,
 
     def estimate(loss_fn, params, batch, key, est_state: OnePointState,
                  phase: int = 0):
-        del phase
-        ref = StreamRef(key)
+        ref = StreamRef(key, sel, phase)
         p_pert = be.perturb(tree_clone(params), ref, eps, dist)
         l_pert = host_f32(loss_fn(p_pert, batch))
         del p_pert
@@ -187,4 +187,4 @@ def one_point(eps: float = 1e-3, dist: str = "gaussian", backend=None,
                           est_state=OnePointState(l_pert), aux={})
 
     return ZOEstimator(init=init, estimate=estimate, n_seeds=1, eps=eps,
-                       dist=dist, name="one_point", backend=be)
+                       dist=dist, name="one_point", backend=be, selection=sel)

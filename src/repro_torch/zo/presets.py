@@ -37,7 +37,9 @@ def mezo(lr: float = 1e-6, eps: float = 1e-3, n: int = 1,
 
     ``backend=None`` resolves as in JAX (``$REPRO_BACKEND``, else
     ``"xla"``, which the port refuses until that stream is ported): pass
-    ``backend="pallas"``."""
+    ``backend="pallas"``.  ``selection`` scopes the perturbation to a
+    parameter subset (``repro_torch.select``: a ``Selection`` or a spec
+    string such as ``"rows(block=1,k=4)"`` or ``"peft(lora)"``)."""
     if estimator == "one_point":
         est = estimators.one_point(eps=eps, dist=dist, backend=backend,
                                    selection=selection)

@@ -27,11 +27,11 @@ def apply_rank1(params: PyTree, key: Key, coeff, decay_term=0.0,
                 dist: str = "gaussian", d_tree=None, backend=None,
                 selection=None, phase: int = 0) -> PyTree:
     """θ ← (1 − decay_term)·θ − coeff·z(key), in place.  ``coeff`` is the
-    full η-scaled scalar, ``decay_term`` the decoupled η·λ."""
-    del phase
-    resolve_selection(selection)
-    return get_backend(backend).apply_rank1(params, StreamRef(key), coeff,
-                                            decay_term, dist, d_tree=d_tree)
+    full η-scaled scalar, ``decay_term`` the decoupled η·λ;
+    ``selection``/``phase`` scope the update to a parameter subset."""
+    ref = StreamRef(key, resolve_selection(selection), phase)
+    return get_backend(backend).apply_rank1(params, ref, coeff, decay_term,
+                                            dist, d_tree=d_tree)
 
 
 def apply_rank1_batch(params: PyTree, skey: Key, coeff_vec, decay_term=0.0,
@@ -44,16 +44,16 @@ def apply_rank1_batch(params: PyTree, skey: Key, coeff_vec, decay_term=0.0,
     handed to the backend as ONE ``affine_many`` call (K3 on the card).
     ``coeff_j / B`` is one f32 division, as in JAX.  Shared by the live fzoo
     update and ``ZOOptimizer.replay_update``, so a ledger entry replays the
-    recorded step's arithmetic exactly."""
-    del phase
-    resolve_selection(selection)
+    recorded step's arithmetic exactly.  ``selection``/``phase`` scope every
+    stream to the same parameter subset (a step has one phase)."""
+    sel = resolve_selection(selection)
     be = get_backend(backend)
     coeff_vec = np.asarray(coeff_vec, f32)
     if coeff_vec.ndim != 1:
         raise ValueError(f"apply_rank1_batch needs a (B,) coefficient "
                          f"vector; got shape {coeff_vec.shape}")
     n = coeff_vec.shape[0]
-    refs = [StreamRef(fold_in(skey, j)) for j in range(n)]
+    refs = [StreamRef(fold_in(skey, j), sel, phase) for j in range(n)]
     coeffs = [f32(coeff_vec[j] / f32(n)) for j in range(n)]
     decays = [decay_term if j == 0 else 0.0 for j in range(n)]
     return be.affine_many(params, refs, coeffs, decays, dist)

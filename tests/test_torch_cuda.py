@@ -6,6 +6,9 @@ the card and no JAX:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import pathlib
+
+import numpy as np
 import pytest
 import torch
 
@@ -21,10 +24,21 @@ from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
                                                 zo_affine_multi,
                                                 zo_affine_multi_plain,
                                                 zo_sqnorm, zo_sqnorm_plain)
+from repro_torch.kernels.zo_fused.rows import (SQNORM_RTOL,
+                                               zo_affine_chain_rows,
+                                               zo_affine_chain_rows_plain,
+                                               zo_affine_multi_rows,
+                                               zo_affine_multi_rows_plain,
+                                               zo_affine_rows,
+                                               zo_affine_rows_plain,
+                                               zo_sqnorm_rows,
+                                               zo_sqnorm_rows_plain)
 
 SEEDS = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
 B = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
+ROWS_GOLDEN = (pathlib.Path(__file__).resolve().parent / "data"
+               / "zo_rows_golden.npz")
 
 
 @pytest.fixture
@@ -93,3 +107,72 @@ def test_cuda_sqnorm_bitwise(cuda, n, dist):
     k = zo_sqnorm(n, 1234, dist, cuda)
     assert k.device.type == "cuda"
     assert torch.equal(k, zo_sqnorm_plain(n, 1234, dist, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+@pytest.mark.parametrize("shape,R,k", [((41, 67), 3, 2), ((3, 17, 29), 1, 3),
+                                       ((100_003,), 96, 2), ((130, 21), 96, 1)],
+                         ids=["2d", "3d", "1d", "k1"])
+def test_cuda_rows_kernels_bitwise(cuda, dtype, dist, shape, R, k):
+    """K7 (in place too), K8 and K9 against their plain versions at every
+    phase; K10 bitwise against its plain version."""
+    x = torch.randn(shape, device=cuda).to(dtype)
+    width = 1 if len(shape) == 1 else int(np.prod(shape[1:]))
+    be = R * width
+    for phase in range(k):
+        s, a, b = SEEDS, A, B
+        assert torch.equal(zo_affine_rows(x, 7, 0.999, -0.0123, be, k, phase,
+                                          dist),
+                           zo_affine_rows_plain(x, 7, 0.999, -0.0123, be, k,
+                                                phase, dist))
+        y = x.clone()
+        zo_affine_rows(y, 7, 0.999, -0.0123, be, k, phase, dist, out=y)
+        assert torch.equal(y, zo_affine_rows_plain(x, 7, 0.999, -0.0123, be,
+                                                   k, phase, dist))
+        assert torch.equal(zo_affine_multi_rows(x, s, a, b, be, k, phase,
+                                                dist),
+                           zo_affine_multi_rows_plain(x, s, a, b, be, k,
+                                                      phase, dist))
+        assert torch.equal(zo_affine_chain_rows(x, s, a, b, be, k, phase,
+                                                dist),
+                           zo_affine_chain_rows_plain(x, s, a, b, be, k,
+                                                      phase, dist))
+        n = x.numel()
+        assert torch.equal(zo_sqnorm_rows(n, 99, be, k, phase, dist, cuda),
+                           zo_sqnorm_rows_plain(n, 99, be, k, phase, dist,
+                                                cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_rows_kernels_match_the_jax_fixture(cuda):
+    """K7–K9 bitwise, K10 within SQNORM_RTOL, against the values JAX
+    computed (``tests/data/zo_rows_golden.npz``)."""
+    g = np.load(ROWS_GOLDEN)
+    seeds = [int(v) for v in g["seeds"]]
+    i = 0
+    while f"plan_{i}" in g.files:
+        _, k, phase, be = (int(v) for v in g[f"plan_{i}"])
+        for name, dt, iv in (("f32", torch.float32, np.int32),
+                             ("bf16", torch.bfloat16, np.int16)):
+            x = torch.from_numpy(g[f"{name}_x_{i}"].view(iv).copy()).view(dt)
+            x = x.to(cuda)
+            bits = lambda t: t.cpu().view(torch.int32 if t.element_size() == 4  # noqa: E731
+                                          else torch.int16).numpy()
+            assert np.array_equal(bits(zo_affine_rows(
+                x, seeds[0], float(g["a"][0]), float(g["b"][0]), be, k,
+                phase)), g[f"{name}_affine_{i}"].view(iv))
+            assert np.array_equal(bits(zo_affine_multi_rows(
+                x, seeds, g["a"], g["b"], be, k, phase)),
+                g[f"{name}_multi_{i}"].view(iv))
+            assert np.array_equal(bits(zo_affine_chain_rows(
+                x, seeds, g["a"], g["b"], be, k, phase)),
+                g[f"{name}_chain_{i}"].view(iv))
+        n = g[f"{name}_x_{i}"].size
+        got = float(zo_sqnorm_rows(n, seeds[1], be, k, phase, "gaussian",
+                                   cuda))
+        assert abs(got - float(g[f"sq_{i}"])) <= SQNORM_RTOL * g[f"sq_{i}"]
+        i += 1
+    assert i == 4

@@ -49,6 +49,15 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(monkeypatch):
         serve_cli.main(["--smoke"])
 
 
+def test_no_refusal_names_the_selection_slice():
+    """Selections are ported: no refusal in the port points at the
+    selection slice any more."""
+    hits = [str(p.relative_to(ROOT)) for p in PORT_FILES
+            if "selection slice" in p.read_text()
+            or "Slice C" in p.read_text()]
+    assert not hits, hits
+
+
 def test_serve_cli_replays_a_jax_ledger_on_cpu(tmp_path, capsys):
     led = JaxLedger(base_seed=1, grad_dtype="float32", backend="pallas+z2")
     led.append(0, 0.5, 1e-3)
@@ -100,7 +109,8 @@ def test_train_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
     ([], "backend pallas"),
     (["--backend", "pallas", "--optimizer", "mezo-adam"], "mezo_adam"),
     (["--backend", "pallas", "--optimizer", "adam"], "backprop"),
-    (["--backend", "pallas", "--select", "block_cyclic(2)"], "Slice C"),
+    (["--backend", "pallas", "--optimizer", "mezo-adam", "--select",
+      "rows(block=1,k=4)"], "requires --optimizer mezo"),
     (["--backend", "pallas", "--objective", "accuracy"], "objectives"),
     (["--backend", "pallas", "--model-family", "moe"], "Slice D"),
 ], ids=["xla", "mezo-adam", "adam", "select", "objective", "family"])
@@ -164,7 +174,16 @@ def test_composition_for_ledger_rebuilds_like_jax():
         t, j = composition_for_ledger(led), jax_comp(jled)
         assert (t.name, t.estimator.name, t.batch_seeds, t.backend_name) == \
             (j.name, j.estimator.name, j.batch_seeds, j.backend_name)
-    led = TrajectoryLedger(base_seed=0, backend="pallas+z2",
-                           selection="block_cyclic(2)")
-    with pytest.raises(NotImplementedError, match="selection slice"):
-        composition_for_ledger(led)
+    for spec, phase in (("block_cyclic(2)", 0), ("rows(block=1,k=4)", 3),
+                        ("peft(lora)", 0), (r"leaves(\['attn'\])", 0)):
+        for bs in (1, 4):
+            led = TrajectoryLedger(base_seed=0, backend="pallas+z2",
+                                   batch_seeds=bs, selection=spec,
+                                   sel_phase=phase)
+            led.append(0, [0.5] * bs if bs > 1 else 0.5, 1e-3)
+            jled = JaxLedger.from_bytes(led.to_bytes())
+            t, j = composition_for_ledger(led), jax_comp(jled)
+            assert (t.selection_spec, t.selection_phase, t.batch_seeds,
+                    t.estimator.name) == (j.selection_spec, j.selection_phase,
+                                          j.batch_seeds, j.estimator.name)
+            assert tuple(t.selection) == tuple(j.selection)
