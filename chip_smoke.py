@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
 
-In order: prints the card's name and power limit; builds the six CUDA
+In order: prints the card's name and power limit; builds the seven CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
 parallel); holds every kernel against its plain torch version on the card —
 K1 ``zo_affine``, K3 ``zo_affine_chain``, K4 ``zo_affine_multi``, K5
@@ -12,7 +12,9 @@ K1 ``zo_affine``, K3 ``zo_affine_chain``, K4 ``zo_affine_multi``, K5
 ``zo_affine_rows``, K8 ``zo_affine_multi_rows``, K9 ``zo_affine_chain_rows``,
 K10 ``zo_sqnorm_rows`` and K12 ``paged_gather`` bitwise, K1 and K3–K10 also
 against fixtures that JAX computed (``tests/data``, K6 and K10 within
-``SQNORM_RTOL``), K2 ``flash_attention`` within a stated tolerance.  Then it
+``SQNORM_RTOL``), K2 ``flash_attention`` and K11 ``wkv6_chunked`` (at
+rwkv6-3b's head shapes, C ∈ {16, 9, 1}, also against the JAX fixture)
+within stated tolerances.  Then it
 drives the port's paths at the full width of qwen2-0.5b (random bf16
 weights from a seeded ``torch.Generator``, all 24 layers, ``pallas_flash``
 attention), each with the launch counts set to 0 just before it and read
@@ -34,13 +36,27 @@ just after:
 * serve the rows fine-tune: phase (f)'s MZOL5 ledger through
   ``composition_for_ledger`` (K9) → the paged engine (K2, K12).
 
+It then frees the qwen2 trees and drives the ssm family at the full width
+and depth of rwkv6-3b (32 layers, random bf16 weights from a seeded
+``torch.Generator``, the chunk scan mode):
+
+* train: (i) ``mezo`` spsa on 16 × 256-token batches (K1, K11), with its
+  peak memory and device-busy share;
+* serve the fine-tune: its MZOL2 ledger through ``composition_for_ledger``
+  → replay (K1) → the engine's per-slot recurrent path (K11 in the
+  exact-length prefills; the decode steps run the recurrence);
+* check, outside the counts: prefill + decode against one prefill (the
+  carried state, f32), and the chunk forward against ``fused_recurrent``
+  (f32, and bf16 against the bf16 noise measured on the same batch).
+
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
 within a stated bound in bf16 ulps of the trained θ; the spsa steps' peak
 memory (full and rows) within 10 % of one forward's; after one rows step
 every unselected element is θ₀'s; after the LoRA phase every base leaf is
-θ₀'s; the served fine-tunes equal the trained θ bitwise; every kernel
-launched on its path.
+θ₀'s; the served fine-tunes equal the trained θ bitwise (the rwkv6 one, an
+spsa chain, equals its replay bitwise and the trained θ within the ulp
+bound); every kernel launched on its path.
 
 Prints the step times, the ``kernels`` JSON line (launches, error, kernel /
 plain / library times in ms — kernel times are medians of CUDA-event pairs
@@ -51,6 +67,7 @@ is no fallback to the CPU or to a plain version on any path.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import shutil
 import subprocess
@@ -63,6 +80,7 @@ SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "data" / "zo_golden.npz"
 MULTI_GOLDEN = ROOT / "tests" / "data" / "zo_multi_golden.npz"
 ROWS_GOLDEN = ROOT / "tests" / "data" / "zo_rows_golden.npz"
+WKV6_GOLDEN = ROOT / "tests" / "data" / "wkv6_golden.npz"
 RUN_DIR = ROOT / "build" / "chip_smoke_runs"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the roofline bound's rates
@@ -105,9 +123,32 @@ MLP_LEAF = (24, 896, 4864)           # the stacked MLP weight (w1 / w3)
 # 5·2 per step.
 # (e) and (h) are the (a) chain on the selected elements / the LoRA leaves.
 ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0, "e_rows_spsa": 4.0,
-                 "h_lora": 4.0}
+                 "h_lora": 4.0, "i_ssm_spsa": 4.0}
 Z_MAX = 6.0
 MEM_SLACK = 1.10
+# the ssm phases: rwkv6-3b at full width and depth (32 layers, d 2560,
+# 40 heads × 64, d_ff 8960, vocab 65 536, bf16)
+SSM_ARCH = "rwkv6-3b"
+SSM_SLOTS, SSM_MAX_LEN, SSM_REQUESTS, SSM_NEW = 4, 256, 6, 8
+# K11 against its plain version on the card: one f32 factorization summed
+# in two orders (the kernel's scalar FMAs, the plain version's cuBLAS f32
+# products, TF32 off) — max |Δ| relative to the call's largest |output|
+K11_REL = 1e-5
+# K11 against the JAX fixture: JAX's own kernel-vs-oracle tolerance
+# (tests/test_kernels.py)
+K11_FIX_ATOL, K11_FIX_RTOL = 5e-4, 1e-3
+# prefill + decode chain vs one chunk-mode prefill, in f32: the chunked
+# factorization against the per-token recurrence, 32 layers deep — max |Δ|
+# relative to the largest |state|
+SSM_STATE_REL = 1e-3
+# chunk (K11) vs fused_recurrent forward, ‖Δ‖ / ‖logits‖: in f32 the two
+# factorizations agree to f32 rounding through 32 layers; in bf16 each
+# layer rounds its output to bf16 and a flipped rounding propagates through
+# the 32 random-weight residual layers (5.1e-2 on an H100 at 4 × 256), so the
+# bf16 gap is held to a multiple of the bf16 noise measured on the same
+# batch: each mode's bf16 logits against its f32 logits
+SSM_MODES_F32_REL = 1e-4
+SSM_MODES_NOISE = 2.0
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
 B8 = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
@@ -150,6 +191,14 @@ def host_ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def bound(nbytes, ops, rate) -> tuple:
+    """(the least ms the card could take, what bounds it): the bytes moved
+    at HBM_BYTES_PER_S against the operations at ``rate``."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def bits_of(t):
@@ -652,7 +701,11 @@ def make_opts():
     }
 
 
-REQUIRED = {"a_spsa": ("zo_affine", "flash_attention"),
+SSM_STEPS = {"i_ssm_spsa": 10}
+ALL_STEPS = {**STEPS, **SSM_STEPS}
+
+REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
+            "a_spsa": ("zo_affine", "flash_attention"),
             "b_fzoo": ("zo_affine_batched", "zo_affine_chain",
                        "flash_attention"),
             "c_sphere": ("zo_sqnorm", "zo_affine_multi", "zo_affine_chain",
@@ -686,6 +739,7 @@ def train_phase(torch, cfg, params0, name, make_opt, make_plan, _build,
     from repro_torch.models import bundle
     from repro_torch.models.peft import peft_loss_fn
     from repro_torch.train.loop import train
+    steps = ALL_STEPS[name]
     params = _clone_tree(params0)
     loss_fn = (peft_loss_fn(cfg, "lora") if name == "h_lora"
                else bundle(cfg).loss_fn())
@@ -702,23 +756,23 @@ def train_phase(torch, cfg, params0, name, make_opt, make_plan, _build,
     clock = StepClock()
     _build.reset_launch_counts()
     res = train(loss_fn, params, prog, pipe,
-                total_steps=STEPS[name], ckpt=ckpt, ledger=ledger,
+                total_steps=steps, ckpt=ckpt, ledger=ledger,
                 monitor=clock.mon, log_every=1, seed=SEED)
     torch.cuda.synchronize()
     add_counts(counts, _build, REQUIRED[name], f"train {name}")
     saved = ckpt.load_ledger()
     if saved is None or saved.to_bytes() != ledger.to_bytes():
         fail(f"{name}: the ledger on disk != the run's ledger")
-    if not ckpt.steps() == [STEPS[name]]:
-        fail(f"{name}: no final checkpoint at step {STEPS[name]}")
+    if not ckpt.steps() == [steps]:
+        fail(f"{name}: no final checkpoint at step {steps}")
     shutil.rmtree(run)
     losses = [loss for _, loss in res.losses]
-    if len(losses) != STEPS[name] or not all(
+    if len(losses) != steps or not all(
             map(lambda v: v == v and abs(v) < 1e30, losses)):
         fail(f"{name}: losses not finite: {losses}")
     step_ms = 1e3 * sum(clock.dts[1:]) / max(1, len(clock.dts) - 1)
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
-    log(f"train {name}: {STEPS[name]} steps, loss {losses[0]:.4f} -> "
+    log(f"train {name}: {steps} steps, loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}, {step_ms:.1f} ms per step (steps 2..), "
         f"{tok_s:.0f} batch tokens/s, ledger {ledger.to_bytes()[:5].decode()} "
         f"{ledger.nbytes()} bytes")
@@ -750,7 +804,7 @@ def check_replays(torch, name, params0, trained, ledger, opt_factory):
             fail(f"{name}: two replays of the ledger differ")
     pairs = list(zip(tree_leaves(r1), tree_leaves(trained)))
     if name in ULPS_PER_STEP:
-        bound = ULPS_PER_STEP[name] * STEPS[name]
+        bound = ULPS_PER_STEP[name] * ALL_STEPS[name]
         worst_ulps, worst_abs, n_diff, n_all = 0.0, 0.0, 0.0, 0
         for a, b in pairs:
             u, share, mx = ulp_diff(torch, a, b)
@@ -771,7 +825,8 @@ def check_replays(torch, name, params0, trained, ledger, opt_factory):
                 fail(f"{name}: replay != the trained θ (fzoo's update and "
                      "its replay make the same affine_many call)")
         log(f"{name}: replay ≡ replay ≡ trained θ, bitwise")
-    del r1, r2
+    del r2
+    return r1
 
 
 def memory_and_busy(torch, cfg, params0, selection=None):
@@ -810,7 +865,8 @@ def memory_and_busy(torch, cfg, params0, selection=None):
     if stp > MEM_SLACK * fwd:
         fail(f"{what} step peak {stp / 2**30:.3f} GiB > {MEM_SLACK} × one "
              f"forward's {fwd / 2**30:.3f} GiB")
-    log(f"memory: one {what} step peaks at {stp / 2**30:.3f} GiB, one "
+    log(f"memory ({cfg.name}): one {what} step peaks at {stp / 2**30:.3f} "
+        f"GiB, one "
         f"forward (no_grad) at {fwd / 2**30:.3f} GiB — ratio {stp / fwd:.4f} "
         "(the parameters under training and the activations, over what was "
         "allocated before)")
@@ -819,7 +875,8 @@ def memory_and_busy(torch, cfg, params0, selection=None):
     def one():
         holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
 
-    line = busy_line(f"one {what} step (16 × 256 tokens, 24 layers)",
+    line = busy_line(f"one {what} step ({TRAIN_BATCH} × {TRAIN_SEQ} tokens, "
+                     f"{cfg.name}, {cfg.n_layers} layers)",
                      *device_busy(torch, one, 2))
     log(line)
     del holder, params
@@ -879,125 +936,277 @@ def serve_finetune(torch, np, cfg, params0, trained_b, ledger_b, prompts,
 
 
 # --------------------------------------------------------------------------- #
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="build and check the kernels against their plain "
-                         "versions and the JAX fixtures, then stop")
-    args = ap.parse_args()
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke runs on the card")
-    if not (SRC / "repro_torch").is_dir() or not all(
-            f.exists() for f in (GOLDEN, MULTI_GOLDEN, ROWS_GOLDEN)):
-        fail(f"run from the root of a checkout ({SRC / 'repro_torch'} or a "
-             f"fixture under {GOLDEN.parent} missing)")
-    sys.path.insert(0, str(SRC))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+# --------------------------------------------------------------------------- #
+# K11 and the ssm family (rwkv6-3b)
+# --------------------------------------------------------------------------- #
+def k11_inputs(torch, g, B, S, H, hd, lw=None):
+    """Random r/k/v/u/s0 and log decays −exp(clip(N(0,1), −8, 1)) over the
+    model's clamp (or a constant ``lw``): at init u = 0 and the decay is
+    constant, which would let a wrong kernel pass."""
+    sh = (B, S, H, hd)
+    r, k, v = (torch.randn(sh, generator=g, device="cuda") for _ in range(3))
+    if lw is None:
+        logw = -torch.exp(torch.randn(sh, generator=g, device="cuda")
+                          .clamp(-8.0, 1.0))
+    else:
+        logw = torch.full(sh, lw, device="cuda")
+    u = torch.randn(H, hd, generator=g, device="cuda")
+    s0 = torch.randn(B, H, hd, hd, generator=g, device="cuda")
+    return r, k, v, logw, u, s0
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
-    print(card, flush=True)
-    t_start = time.perf_counter()
 
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import kernel as kf
-    from repro_torch.kernels.paged import gather as kp
-    from repro_torch.kernels.zo_fused import kernel as kz
-    from repro_torch.kernels.zo_fused import multi as km
-    from repro_torch.kernels.zo_fused import rows as kr
-    from repro_torch.select import parse_selection
-    build_s = _build.build_all()
-    log(f"built {len(_build.SOURCES)} CUDA sources "
-        f"({len(_build.launch_counts)} kernels) in {build_s:.1f} s")
+def check_k11(torch, np, kw, ko) -> float:
+    """K11 vs its plain version on the card at rwkv6-3b's head shapes (H 40,
+    hd 64): the training call (16, 256) at C 16, a single-request prefill
+    (1, 252) at C 9, C 1, and the clamp's extremes; repeatable bit for bit;
+    and vs the JAX fixture within JAX's tolerance.  Returns the max abs
+    error against the plain version at the training shape."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    worst = 0.0
+    for B, S, C, lw in ((16, 256, 16, None), (1, 252, 9, None),
+                        (2, 5, 1, None), (2, 64, 16, -2.718281828459045),
+                        (2, 64, 16, -0.00033546262790251185)):
+        args = k11_inputs(torch, g, B, S, 40, 64, lw)
+        y, s = ko.wkv6(*args, chunk=C)
+        yp, sp = ko.wkv6_plain(*args, chunk=C)
+        for got, want, what in ((y, yp, "y"), (s, sp, "s_final")):
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not bool(torch.isfinite(got).all()) or err > K11_REL * scale:
+                fail(f"K11 ({B}, {S}, 40, 64) C={C} lw={lw}: {what} max err "
+                     f"{err} > {K11_REL} × {scale}")
+            if (B, S) == (16, 256):
+                worst = max(worst, err)
+        again = ko.wkv6(*args, chunk=C)
+        if not (same_bits(again[0], y) and same_bits(again[1], s)):
+            fail(f"K11 ({B}, {S}) C={C}: two launches differ")
+    gold = np.load(WKV6_GOLDEN)
+    for i in range(2):
+        ins = [torch.from_numpy(gold[f"{n}_{i}"]).cuda()
+               for n in ("r", "k", "v", "lw", "u", "s0")]
+        y, s = kw.wkv6_chunked(*ins, chunk=int(gold[f"chunk_{i}"]))
+        for got, key in ((y, "y"), (s, "s")):
+            for ref in (key, f"{key}_ref"):
+                want = torch.from_numpy(gold[f"{ref}_{i}"]).cuda()
+                if bool(((got - want).abs() > K11_FIX_ATOL
+                         + K11_FIX_RTOL * want.abs()).any()):
+                    fail(f"K11 fixture case {i}: {ref} beyond JAX's "
+                         "tolerance")
+    log(f"K11 wkv6_chunked: within {K11_REL} × max|out| of plain at H=40 "
+        f"hd=64 (16×256 C=16, max abs err {worst:.3e}; 1×252 C=9; C=1; log "
+        "decay −e and −e^-8), repeatable bitwise, and within JAX's "
+        f"tolerance ({K11_FIX_ATOL} / {K11_FIX_RTOL}) of the JAX fixture "
+        "(interpret kernel and wkv6_ref, C=16 and C=9)")
+    return worst
 
-    k1_err = check_k1(torch, np, kz)
-    k2_err = check_k2(torch, kf)
-    check_k3_k4_k5(torch, np, kz, km)
-    check_k6(torch, np, km)
-    check_k7_k10(torch, np, kr)
-    if args.kernels_only:
-        log(f"kernels only: all checks passed in "
-            f"{time.perf_counter() - t_start:.1f} s on {card}")
-        return
 
-    # ---- full width ---------------------------------------------------- #
+def ssm_prompts(np, vocab: int):
+    rng = np.random.default_rng(13)
+    return [[int(t) for t in rng.integers(1, vocab - 1,
+                                          int(rng.integers(8, 41)))]
+            for _ in range(SSM_REQUESTS)]
+
+
+def serve_ssm(torch, np, cfg, params0, replayed, ledger, _build, counts,
+              card) -> None:
+    """Serve the rwkv6-3b fine-tune: ``composition_for_ledger`` → replay (K1)
+    onto θ₀ → the non-paged engine (exact-length prefill through K11, the
+    lockstep decode carrying the per-slot state)."""
+    from repro_torch.core import replay
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.tenants import composition_for_ledger
+    from repro_torch.tree_utils import tree_leaves
+    prompts = ssm_prompts(np, cfg.vocab_size)
+    params = _clone_tree(params0)
+    warm = ServeEngine(cfg, params, slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                       device="cuda")                   # cuBLAS warm-up
+    warm.submit(Request(0, prompts[0][:8], max_new_tokens=2))
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    replay(params, ledger, composition_for_ledger(ledger))
+    eng = ServeEngine(cfg, params, slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                      device="cuda")
+    reqs = [Request(i, p, max_new_tokens=SSM_NEW)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    add_counts(counts, _build, ("zo_affine", "wkv6_chunked"),
+               "serve the ssm fine-tune")
+    if eng.paged or eng.state is None:
+        fail("the ssm engine did not take the per-slot recurrent path")
+    for a, b in zip(tree_leaves(params), tree_leaves(replayed)):
+        if not same_bits(a, b):
+            fail("the served ssm fine-tune != the replayed trained θ")
+    if any(len(r.out_ids) != SSM_NEW or not all(
+            0 <= t < cfg.vocab_size for t in r.out_ids) for r in reqs):
+        fail("an ssm request did not produce its tokens")
+    tokens = tokens_of([r.out_ids for r in reqs])
+    ttft = sorted(r.times["prefill"] - r.times["queued"] for r in reqs)
+    log(f"served the ssm fine-tune ({len(ledger)} records replayed through "
+        f"composition_for_ledger, θ bitwise the replayed trained θ): "
+        f"{len(reqs)} requests of {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} prompt tokens, {tokens} tokens in "
+        f"{wall:.3f} s: {tokens / wall:.1f} tok/s, TTFT p50 "
+        f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, {SSM_SLOTS} slots, peak "
+        f"memory over the resident trees {peak / 2**30:.3f} GiB — on {card}")
+    eng = ServeEngine(cfg, params, slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                      device="cuda")
+    for i, p in enumerate(prompts[:SSM_SLOTS]):
+        eng.submit(Request(i, p, max_new_tokens=SSM_NEW))
+    eng.step()                        # admission (exact-length prefills)
+    eng.step()
+    log(busy_line(f"ssm decode step ({SSM_SLOTS} slots, {cfg.n_layers} "
+                  "layers)", *device_busy(torch, eng.step, 3)))
+
+
+def ssm_checks(torch, cfg, params0) -> None:
+    """Two checks of the rwkv6-3b forward at full width and depth.
+
+    The card's analogue of test_wkv_decode_chain_matches_full, in f32:
+    prefill 40 tokens (K11), decode 7 more carrying the state (the per-token
+    recurrence), against one chunk-mode prefill of all 47 (K11).
+
+    One forward in chunk mode (K11) against fused_recurrent (``wkv6_ref``)
+    on the same batch: in f32 within SSM_MODES_F32_REL, and in bf16 within
+    SSM_MODES_NOISE times the bf16 rounding noise of the two modes, measured
+    on the same batch as each bf16 forward's distance from the f32 one."""
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import bundle, rwkv6
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = _cast_tree(params0, torch.float32)
+    b = bundle(cfg32)
+    g = torch.Generator().manual_seed(14)
+    toks = torch.randint(1, cfg.vocab_size - 1, (2, 47), generator=g).cuda()
+    with torch.no_grad():
+        _, st = b.prefill_fn()(p32, {"tokens": toks[:, :40]})
+        for t in range(40, 47):
+            _, st = b.decode_fn()(p32, {"token": toks[:, t:t + 1],
+                                        "state": st,
+                                        "cache_pos": torch.tensor(
+                                            [t, t], device="cuda")})
+        _, full = b.prefill_fn()(p32, {"tokens": toks})
+    torch.cuda.synchronize()
+    worst = {}
+    for name, a, want in zip(full._fields, st, full):
+        rel = ((a - want).abs().max() / want.abs().max()).item()
+        worst[name] = rel
+        if not bool(torch.isfinite(a).all()) or rel > SSM_STATE_REL:
+            fail(f"ssm state after prefill + decode: {name} max |Δ| is "
+                 f"{rel:.3e} of max |state| > {SSM_STATE_REL}")
+    log("ssm state, prefill(40) + 7 decode steps vs one prefill(47), f32, "
+        f"{cfg.n_layers} layers: max |Δ| / max |state| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (tolerance {SSM_STATE_REL})")
+    del st, full
+
+    toks = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             vocab=cfg.vocab_size, seed=SEED),
+                    device="cuda").batch(0)["tokens"][:4]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    logits = {}
+    with torch.no_grad():
+        for dt, c, p in (("f32", cfg32, p32), ("bf16", cfg, params0)):
+            for mode in ("chunk", "fused_recurrent"):
+                t0 = time.perf_counter()
+                lg, _ = rwkv6.forward(c, p, tokens=toks, mode=mode)
+                torch.cuda.synchronize()
+                logits[dt, mode] = (lg, time.perf_counter() - t0)
+                if not bool(torch.isfinite(lg).all()):
+                    fail(f"ssm {dt} {mode} logits not finite")
+    del p32
+    f32_gap = rel(logits["f32", "chunk"][0], logits["f32", "fused_recurrent"][0])
+    gap = rel(logits["bf16", "chunk"][0], logits["bf16", "fused_recurrent"][0])
+    noise = max(rel(logits["bf16", m][0], logits["f32", m][0])
+                for m in ("chunk", "fused_recurrent"))
+    if f32_gap > SSM_MODES_F32_REL:
+        fail(f"ssm chunk vs fused_recurrent logits, f32: ‖Δ‖/‖logits‖ "
+             f"{f32_gap:.3e} > {SSM_MODES_F32_REL}")
+    if gap > SSM_MODES_NOISE * noise:
+        fail(f"ssm chunk vs fused_recurrent logits, bf16: ‖Δ‖/‖logits‖ "
+             f"{gap:.3e} > {SSM_MODES_NOISE} × the bf16 noise {noise:.3e}")
+    log(f"ssm forward, chunk (K11) vs fused_recurrent on 4 × {TRAIN_SEQ} "
+        f"tokens, {cfg.n_layers} layers: ‖Δ‖/‖logits‖ {f32_gap:.3e} in f32 "
+        f"(tolerance {SSM_MODES_F32_REL}); {gap:.3e} in bf16, where each "
+        f"bf16 forward is {noise:.3e} from its f32 forward (tolerance "
+        f"{SSM_MODES_NOISE} × that); the bf16 forwards took "
+        f"{logits['bf16', 'chunk'][1]:.2f} s (chunk) and "
+        f"{logits['bf16', 'fused_recurrent'][1]:.2f} s (fused_recurrent)")
+
+
+def ssm_paths(torch, np, kw, ko, _build, counts, step_ms, card,
+              k11_err) -> dict:
+    """rwkv6-3b at full width and depth: (i) mezo spsa training (K1, K11)
+    with its memory and busy share, replays, the served fine-tune, the
+    state and scan-mode checks; returns the K11 row."""
+    from repro_torch import zo
     from repro_torch.models import all_archs, bundle
-    from repro_torch.tree_utils import is_floating, tree_leaves
-    cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
+    from repro_torch.tree_utils import tree_leaves
+    cfg = all_archs()[SSM_ARCH].cfg
     t0 = time.perf_counter()
     params0 = bundle(cfg).init(0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(params0))
-    log(f"qwen2-0.5b: {n_params} params bf16, {cfg.n_layers} layers, "
-        f"init {time.perf_counter() - t0:.1f} s")
-    check_k12(torch, kp, cfg.n_layers, 1 + 2 * SLOTS * (MAX_LEN // BLOCK),
-              cfg.kv_heads * cfg.hd)
-    counts: dict = {}
-
-    # ---- path 1: serve (PR 11) ----------------------------------------- #
-    params = _clone_tree(params0)
-    twin = _clone_tree(params0)
-    eng, prompts = serving_path(torch, np, cfg, params, twin, card, _build,
-                                counts)
-    with torch.no_grad():
-        probe = bundle(cfg).prefill_fn()(
-            params, {"tokens": torch.tensor([prompts[0][:64]], device="cuda")})
-    if probe[0].shape != (1, 1, cfg.padded_vocab) or not bool(
-            torch.isfinite(probe[0]).all()):
-        fail("prefill logits not finite or of the wrong shape")
-    pool_k = eng.pool.k
-    nblk_slot = eng._nblk_slot
-    del params, twin, eng
-
-    # ---- memory and device-busy share of the spsa step ----------------- #
+    log(f"{SSM_ARCH}: {n_params} params bf16 in "
+        f"{len(tree_leaves(params0))} leaves, {cfg.n_layers} layers, scan "
+        f"chunk {cfg.scan_chunk}, init {time.perf_counter() - t0:.1f} s")
     memory_and_busy(torch, cfg, params0)
 
-    # ---- paths 2-5 and 7-10: train (a)-(d), then (e)-(h) under a ------- #
-    # ---- selection; path 6: serve the fzoo fine-tune ------------------- #
-    from repro_torch.models.peft import init_lora, peft_params
-    opts = make_opts()
-    trained, ledgers, step_ms = {}, {}, {}
-    for name in STEPS:
-        make_opt, make_plan = opts[name]
-        p0 = params0
-        if name == "e_rows_spsa":
-            memory_and_busy(torch, cfg, params0, selection=ROWS)
-        if name == "h_lora":
-            lora = init_lora(cfg, torch.Generator(device="cuda").manual_seed(
-                1), rank=LORA_RANK, alpha=LORA_ALPHA)
-            p0 = peft_params(params0, lora, "lora")
-        p, led, _, ms = train_phase(torch, cfg, p0, name, make_opt,
-                                    make_plan, _build, counts)
-        check_replays(torch, name, p0, p, led, make_opt)
-        step_ms[name] = ms
-        if name == "h_lora":
-            for a, b in zip(tree_leaves(p["base"]), tree_leaves(params0)):
-                if not same_bits(a, b):
-                    fail("h_lora: a base leaf moved under peft(lora)")
-            log(f"h_lora: every base leaf is θ₀'s bitwise after "
-                f"{STEPS[name]} steps ({len(tree_leaves(lora))} LoRA leaves "
-                "trained, _scale included)")
-            del lora
-        if name in ("b_fzoo", "f_rows_fzoo"):
-            trained[name], ledgers[name] = p, led
-        del p, p0
-        if name == "d_sp2":
-            serve_finetune(torch, np, cfg, params0, trained["b_fzoo"],
-                           ledgers["b_fzoo"], prompts, _build, counts)
-            del trained["b_fzoo"]
+    name = "i_ssm_spsa"
 
-    # ---- path 11: serve the rows fine-tune ----------------------------- #
-    serve_finetune(torch, np, cfg, params0, trained["f_rows_fzoo"],
-                   ledgers["f_rows_fzoo"], prompts, _build, counts,
-                   kernels=("zo_affine_chain_rows",), what="rows fzoo")
-    del trained
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="pallas")
 
-    # ---- kernel times at the main paths' shapes ------------------------ #
+    p, led, _, ms = train_phase(torch, cfg, params0, name, make_opt, None,
+                                _build, counts)
+    step_ms[name] = ms
+    replayed = check_replays(torch, name, params0, p, led, make_opt)
+    del p
+    serve_ssm(torch, np, cfg, params0, replayed, led, _build, counts, card)
+    del replayed
+    ssm_checks(torch, cfg, params0)
+    del params0
+
+    B, S, H, hd, C = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd, \
+        cfg.scan_chunk
+    g = torch.Generator(device="cuda").manual_seed(15)
+    args = k11_inputs(torch, g, B, S, H, hd)
+    ms = cuda_ms(lambda: ko.wkv6(*args, chunk=C), 20)
+    plain_ms = cuda_ms(lambda: ko.wkv6_plain(*args, chunk=C), 5)
+    n = B * S * H * hd
+    nbytes = 4 * (5 * n + 2 * B * H * hd * hd + H * hd)
+    ops = kw.wkv6_flops(B, S, H, hd, C)
+    log(f"K11 wkv6_chunked at the training shape ({B}, {S}, {H}, {hd}) C={C}"
+        f" f32: {ms:.3f} ms (median of 20 CUDA-event pairs), plain "
+        f"{plain_ms:.3f} ms (median of 5); {nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP — on {card}")
+    bms, by = bound(nbytes, ops, F32_FLOPS)
+    # no single PyTorch call computes WKV6: library_ms is null
+    return {"name": "wkv6_chunked", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:77",
+            "launches": 0, "max_abs_err": k11_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
+                      k2_err, card, kz, km, kr, kf, kp) -> list:
+    """Time K1, K3-K10, K2 and K12 at the qwen2-0.5b paths' shapes; the
+    rows of the ``kernels`` line, launches filled in by the caller."""
+    from repro_torch.select import parse_selection
+    from repro_torch.tree_utils import is_floating, tree_leaves
     leaves = [p for p in tree_leaves(params0) if is_floating(p)]
     n_all = sum(p.numel() for p in leaves)
     leaf_bytes = sum(p.numel() * p.element_size() for p in leaves)
@@ -1109,11 +1318,6 @@ def main() -> None:
                          .index_select(1, tab_dev.long()), 20)
     k12_bytes = 2 * L * tab.size * BLOCK * D * 2
 
-    def bound(nbytes, ops, rate):
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-        return (max(by_bytes, by_ops) * 1e3,
-                "bytes" if by_bytes >= by_ops else "operations")
-
     zf = "src/repro_torch/kernels/zo_fused/csrc/"
     zr = "src/repro/kernels/zo_fused/"
     rows = []
@@ -1148,7 +1352,7 @@ def main() -> None:
         ms, pms = times[name]
         bms, by = bound(nb, ops, rate)
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": counts.get(name, 0),
+                     "replaces": rep, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
     for name, src, rep, err, ms, pms, lms, nb, ops, rate in (
@@ -1161,7 +1365,7 @@ def main() -> None:
              k12_plain_ms, k12_lib_ms, k12_bytes, 0, BF16_TENSOR_FLOPS)):
         bms, by = bound(nb, ops, rate)
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": counts.get(name, 0),
+                     "replaces": rep, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by, "library_ms": lms})
     log(f"shapes: zo_affine = one record over all {len(leaves)} leaves; "
@@ -1174,7 +1378,145 @@ def main() -> None:
         f"paged_gather = one decode-step gather of {tab.size} blocks × {L} "
         f"layers; kernel ms = median of 10 (K1, K6, K7, K10), 5 (K3-K5, K8, "
         f"K9) or 20 (K2, K12) CUDA-event pairs; plain ms = one host-clock "
-        f"run; launches summed over the eleven counted paths")
+        f"run (K2, K12: the median of CUDA-event pairs)")
+    return rows
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and check the kernels against their plain "
+                         "versions and the JAX fixtures, then stop")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke runs on the card")
+    if not (SRC / "repro_torch").is_dir() or not all(
+            f.exists() for f in (GOLDEN, MULTI_GOLDEN, ROWS_GOLDEN,
+                                 WKV6_GOLDEN)):
+        fail(f"run from the root of a checkout ({SRC / 'repro_torch'} or a "
+             f"fixture under {GOLDEN.parent} missing)")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
+    print(card, flush=True)
+    t_start = time.perf_counter()
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as kf
+    from repro_torch.kernels.paged import gather as kp
+    from repro_torch.kernels.rwkv6 import kernel as kw
+    from repro_torch.kernels.rwkv6 import ops as ko
+    from repro_torch.kernels.zo_fused import kernel as kz
+    from repro_torch.kernels.zo_fused import multi as km
+    from repro_torch.kernels.zo_fused import rows as kr
+    build_s = _build.build_all()
+    log(f"built {len(_build.SOURCES)} CUDA sources "
+        f"({len(_build.launch_counts)} kernels) in {build_s:.1f} s")
+
+    k1_err = check_k1(torch, np, kz)
+    k2_err = check_k2(torch, kf)
+    check_k3_k4_k5(torch, np, kz, km)
+    check_k6(torch, np, km)
+    check_k7_k10(torch, np, kr)
+    k11_err = check_k11(torch, np, kw, ko)
+    if args.kernels_only:
+        log(f"kernels only: all checks passed in "
+            f"{time.perf_counter() - t_start:.1f} s on {card}")
+        return
+
+    # ---- full width ---------------------------------------------------- #
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.tree_utils import tree_leaves
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
+    t0 = time.perf_counter()
+    params0 = bundle(cfg).init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    log(f"qwen2-0.5b: {n_params} params bf16, {cfg.n_layers} layers, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    check_k12(torch, kp, cfg.n_layers, 1 + 2 * SLOTS * (MAX_LEN // BLOCK),
+              cfg.kv_heads * cfg.hd)
+    counts: dict = {}
+
+    # ---- path 1: serve ------------------------------------------------ #
+    params = _clone_tree(params0)
+    twin = _clone_tree(params0)
+    eng, prompts = serving_path(torch, np, cfg, params, twin, card, _build,
+                                counts)
+    with torch.no_grad():
+        probe = bundle(cfg).prefill_fn()(
+            params, {"tokens": torch.tensor([prompts[0][:64]], device="cuda")})
+    if probe[0].shape != (1, 1, cfg.padded_vocab) or not bool(
+            torch.isfinite(probe[0]).all()):
+        fail("prefill logits not finite or of the wrong shape")
+    pool_k = eng.pool.k
+    nblk_slot = eng._nblk_slot
+    del params, twin, eng, probe
+
+    # ---- memory and device-busy share of the spsa step ----------------- #
+    memory_and_busy(torch, cfg, params0)
+
+    # ---- paths 2-5 and 7-10: train (a)-(d), then (e)-(h) under a ------- #
+    # ---- selection; path 6: serve the fzoo fine-tune ------------------- #
+    from repro_torch.models.peft import init_lora, peft_params
+    opts = make_opts()
+    trained, ledgers, step_ms = {}, {}, {}
+    for name in STEPS:
+        make_opt, make_plan = opts[name]
+        p0 = params0
+        if name == "e_rows_spsa":
+            memory_and_busy(torch, cfg, params0, selection=ROWS)
+        if name == "h_lora":
+            lora = init_lora(cfg, torch.Generator(device="cuda").manual_seed(
+                1), rank=LORA_RANK, alpha=LORA_ALPHA)
+            p0 = peft_params(params0, lora, "lora")
+        p, led, _, ms = train_phase(torch, cfg, p0, name, make_opt,
+                                    make_plan, _build, counts)
+        check_replays(torch, name, p0, p, led, make_opt)
+        step_ms[name] = ms
+        if name == "h_lora":
+            for a, b in zip(tree_leaves(p["base"]), tree_leaves(params0)):
+                if not same_bits(a, b):
+                    fail("h_lora: a base leaf moved under peft(lora)")
+            log(f"h_lora: every base leaf is θ₀'s bitwise after "
+                f"{STEPS[name]} steps ({len(tree_leaves(lora))} LoRA leaves "
+                "trained, _scale included)")
+            del lora
+        if name in ("b_fzoo", "f_rows_fzoo"):
+            trained[name], ledgers[name] = p, led
+        del p, p0
+        if name == "d_sp2":
+            serve_finetune(torch, np, cfg, params0, trained["b_fzoo"],
+                           ledgers["b_fzoo"], prompts, _build, counts)
+            del trained["b_fzoo"]
+
+    # ---- path 11: serve the rows fine-tune ----------------------------- #
+    serve_finetune(torch, np, cfg, params0, trained["f_rows_fzoo"],
+                   ledgers["f_rows_fzoo"], prompts, _build, counts,
+                   kernels=("zo_affine_chain_rows",), what="rows fzoo")
+    del trained
+
+    # ---- kernel times at the qwen2-0.5b paths' shapes ----------------- #
+    rows = qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot,
+                             k1_err, k2_err, card, kz, km, kr, kf, kp)
+    del params0, pool_k
+
+    # ---- the ssm family: rwkv6-3b at full width and depth -------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"qwen2-0.5b trees freed: {torch.cuda.memory_allocated() / 2**30:.3f}"
+        " GiB still allocated")
+    rows.append(ssm_paths(torch, np, kw, ko, _build, counts, step_ms, card,
+                          k11_err))
+    for row in rows:
+        row["launches"] = counts.get(row["name"], 0)
     log("training step ms: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in step_ms.items())
         + f" — on {card}; smoke took {time.perf_counter() - t_start:.1f} s")

@@ -1,3 +1,4 @@
 """Architecture configs.  Importing this package registers every ported arch
-(the dense dev architecture qwen2-0.5b, so far)."""
+(so far the dense qwen2-0.5b and the ssm rwkv6-3b)."""
 from repro_torch.configs import qwen2_0_5b  # noqa: F401
+from repro_torch.configs import rwkv6_3b  # noqa: F401

@@ -46,6 +46,8 @@ SOURCES: Dict[str, tuple] = {
     "flash_attention": ("flash_attention/csrc/flash_attention.cu", (),
                         ("flash_attention",)),
     "paged_gather": ("paged/csrc/paged_gather.cu", (), ("paged_gather",)),
+    # K11 is held to a tolerance, not to its bits: contraction allowed
+    "wkv6": ("rwkv6/csrc/wkv6.cu", (), ("wkv6_chunked",)),
 }
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")

@@ -4,7 +4,8 @@ The port of ``repro.launch.serve``, with its flags plus ``--device``:
 builds the model from a seeded ``torch.Generator``, optionally replays a
 MeZO scalar ledger onto the init params (a JAX- or port-written MZOL file of
 the ``pallas+z2`` stream), then serves a synthetic request workload through
-the paged engine.  Multi-tenant mode (``--tenants``) arrives with the
+the engine: paged for dense archs, the per-slot recurrent path for ssm ones
+(``--arch rwkv6-3b``).  Multi-tenant mode (``--tenants``) arrives with the
 tenants slice.
 """
 from __future__ import annotations
@@ -71,9 +72,13 @@ def main(argv=None):
                          seed=args.seed, block=args.block,
                          pool_blocks=args.pool_blocks,
                          prefix_cache=not args.no_prefix_cache, device=device)
-    print(f"[serve] paged KV: block={args.block} tokens, "
-          f"pool={engine.pool.n_blocks} blocks, prefix cache "
-          f"{'off' if args.no_prefix_cache else 'on'}, device={device}")
+    if engine.paged:
+        print(f"[serve] paged KV: block={args.block} tokens, "
+              f"pool={engine.pool.n_blocks} blocks, prefix cache "
+              f"{'off' if args.no_prefix_cache else 'on'}, device={device}")
+    else:
+        print(f"[serve] recurrent state: {args.slots} slots, exact-length "
+              f"prefill, scan mode {cfg.scan_mode}, device={device}")
 
     rng = np.random.default_rng(args.seed)
     reqs = []
@@ -93,10 +98,11 @@ def main(argv=None):
     tokens = sum(len(r.out_ids) for r in reqs)
     print(f"[serve] {len(reqs)} requests / {tokens} tokens in {steps} decode "
           f"steps, {dt:.2f}s ({tokens / dt:.1f} tok/s on {device})")
-    ps = engine.prefix_stats()
-    print(f"[serve] prefill: {ps['prefill_tokens_computed']}/"
-          f"{ps['prefill_tokens_submitted']} tokens computed, prefix "
-          f"hit rate {ps['prefix_hit_rate']:.2f}")
+    if engine.paged:
+        ps = engine.prefix_stats()
+        print(f"[serve] prefill: {ps['prefill_tokens_computed']}/"
+              f"{ps['prefill_tokens_submitted']} tokens computed, prefix "
+              f"hit rate {ps['prefix_hit_rate']:.2f}")
     for r in reqs[:4]:
         print(f"  req {r.rid}: {r.prompt_ids} -> {r.out_ids}")
 

@@ -9,10 +9,12 @@ data, checkpoint manager + scalar ledger, heartbeat.
 ``--backend`` defaults to ``xla`` as in JAX, and that stream is not ported
 yet: pass ``--backend pallas``.  ``--select`` takes every selection spec of
 ``repro_torch.select`` (``auto`` → the registry's per-family default) and is
-recorded in the checkpoint meta and the MZOL5 ledger header.  Options of
-later slices (``--optimizer mezo-adam|adam|sgd``, ``--objective`` other
-than ``ce``, ``--model-family`` other than ``dense``) exit with a message
-naming the slice.
+recorded in the checkpoint meta and the MZOL5 ledger header.  The ported
+families are dense and ssm: ``--model-family ssm`` (or ``--arch rwkv6-3b``)
+trains rwkv6, ``--scan-mode`` picks its forward (``chunk``, K11 on the
+card, or ``fused_recurrent``).  Options of later slices (``--optimizer
+mezo-adam|adam|sgd``, ``--objective`` other than ``ce``, ``--model-family
+moe|hybrid|encdec``) exit with a message naming the slice.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import TrajectoryLedger
 from repro_torch.data.pipeline import DataSpec, Pipeline
 from repro_torch.device import resolve_device
-from repro_torch.models import all_archs, bundle
+from repro_torch.models import FAMILY_ARCHS, all_archs, bundle
 from repro_torch.train.loop import HeartbeatMonitor, train
 from repro_torch.tree_utils import tree_leaves
 
@@ -34,7 +36,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--model-family", default=None,
                     choices=["dense", "moe", "ssm", "hybrid", "encdec"],
-                    help="architecture family (the port has dense)")
+                    help="architecture family: its representative arch "
+                         "(the port has dense and ssm)")
     ap.add_argument("--optimizer", default="mezo",
                     choices=["mezo", "mezo-adam", "adam", "sgd"])
     ap.add_argument("--estimator", default="spsa",
@@ -65,6 +68,11 @@ def main(argv=None):
                          "MZOL5 ledger header")
     ap.add_argument("--objective", default="ce",
                     choices=["ce", "accuracy", "f1"])
+    ap.add_argument("--scan-mode", default=None,
+                    choices=["chunk", "fused_recurrent"],
+                    help="ssm forward mode: 'chunk' (chunked WKV, K11 on the "
+                         "card; the default) or 'fused_recurrent' (the exact "
+                         "per-token recurrence)")
     ap.add_argument("--exec-plan", default="local",
                     choices=["local", "seed_parallel"])
     ap.add_argument("--n-groups", type=int, default=1,
@@ -91,9 +99,10 @@ def main(argv=None):
     if args.objective != "ce":
         sys.exit(f"--objective {args.objective!r}: the non-differentiable "
                  "objectives come with the objectives slice (core/nondiff)")
-    if args.model_family not in (None, "dense"):
+    if args.model_family is not None and args.model_family not in FAMILY_ARCHS:
         sys.exit(f"--model-family {args.model_family}: the other families "
-                 "come with the families slice (ROADMAP Queue 1, Slice D)")
+                 "come with the families slice (ROADMAP Queue 1, Slice D); "
+                 f"the port has {', '.join(sorted(FAMILY_ARCHS))}")
     if args.backend == "xla":
         sys.exit("--backend xla (the default, as in JAX): the threefry "
                  "'xla' stream comes with a later slice of the port; pass "
@@ -102,11 +111,15 @@ def main(argv=None):
         sys.exit("--backend pallas-interpret is JAX's CPU interpreter; the "
                  "port runs --backend pallas, on the CPU with --device cpu")
     device = resolve_device(args.device)
+    if args.model_family is not None:
+        args.arch = FAMILY_ARCHS[args.model_family]
     arch = all_archs()[args.arch]
     cfg = arch.smoke_cfg if args.smoke else arch.cfg
+    if args.scan_mode is not None:
+        cfg = cfg.replace(scan_mode=args.scan_mode)
     b = bundle(cfg)
     if args.select == "auto":
-        # the registry's per-family default (full for the dense family)
+        # the registry's per-family default (full for dense and ssm)
         args.select = b.default_selection()
         print(f"[train] --select auto -> {args.select!r}")
     params = b.init(args.seed, device=device)

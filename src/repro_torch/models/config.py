@@ -49,7 +49,9 @@ class ModelConfig:
     # SSM / hybrid
     ssm_state: int = 0
     ssm_heads: int = 0
-    scan_chunk: int = 32
+    scan_chunk: int = 32             # chunk length of the SSD / WKV forms
+    # "chunk" = chunked-matmul form (K11 for rwkv6); "fused_recurrent" =
+    # the exact per-token recurrence (the oracle)
     scan_mode: str = "chunk"
 
     # encoder-decoder

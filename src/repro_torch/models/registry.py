@@ -1,7 +1,14 @@
-"""Architecture registry — the port of ``repro.models.registry``, dense
-family: ``Bundle`` gives ``init`` / ``loss_fn`` / ``prefill_fn`` /
-``chunk_prefill_fn`` / ``decode_fn`` with the JAX signatures (``vmap``
-becomes a batch dimension written out)."""
+"""Architecture registry — the port of ``repro.models.registry`` for the
+ported families, dense and ssm: ``Bundle`` gives ``init`` / ``loss_fn`` /
+``train_logits_fn`` / ``prefill_fn`` / ``chunk_prefill_fn`` / ``decode_fn``
+with the JAX signatures (``vmap`` becomes a batch dimension written out).
+
+  ``dense``  decoder-only transformer — models/transformer.py
+  ``ssm``    RWKV6 "Finch" recurrence — models/rwkv6.py; scan modes
+             ``cfg.scan_mode`` ∈ {"chunk" (K11), "fused_recurrent"}
+
+moe, hybrid and encdec come with the other-families slice.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -11,8 +18,15 @@ import torch
 
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.config import ModelConfig
+
+#: Representative registry arch per ported family — the ``--model-family``
+#: alias of ``launch/train`` (JAX's table also names moe, hybrid and encdec).
+FAMILY_ARCHS = {
+    "dense": "qwen2-0.5b",
+    "ssm": "rwkv6-3b",
+}
 
 _REGISTRY: dict = {}
 
@@ -45,13 +59,14 @@ def all_archs() -> dict:
 
 
 class Bundle:
-    """Callable surface for one ``ModelConfig`` (dense family)."""
+    """Callable surface for one ``ModelConfig`` of a ported family."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILY_ARCHS:
             raise NotImplementedError(
                 f"family {cfg.family!r} is ported with the other-families "
-                "slice; this slice carries the dense family only")
+                f"slice (moe, hybrid, encdec); the port carries "
+                f"{' and '.join(FAMILY_ARCHS)}")
         self.cfg = cfg
 
     # ---- init ---------------------------------------------------------- #
@@ -65,31 +80,58 @@ class Bundle:
         else:
             gen = torch.Generator(device=resolve_device(device))
             gen.manual_seed(int(seed))
+        if self.cfg.family == "ssm":
+            return rwkv6.init_params(self.cfg, gen)
         return transformer.init_params(self.cfg, gen)
 
     def default_selection(self) -> str:
         """Per-family default ``repro_torch.select`` spec, the value behind
-        ``--select auto``: ``full`` for the dense family, the one this
-        bundle carries (JAX's rule gives MoE ``moe_experts(G)``; that family
-        is a later slice)."""
+        ``--select auto``: ``full`` for dense and ssm (JAX's rule gives MoE
+        ``moe_experts(G)``; that family is a later slice)."""
         return "full"
 
-    # ---- training loss ---------------------------------------------------- #
+    # ---- training objectives ---------------------------------------------- #
+    def train_logits_fn(self) -> Callable:
+        """(params, batch) -> teacher-forcing logits (B, S, padded_vocab)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            def logits_fn(params, batch):
+                return rwkv6.forward(cfg, params, tokens=batch["tokens"])[0]
+        else:
+            def logits_fn(params, batch):
+                return transformer.forward(cfg, params,
+                                           tokens=batch.get("tokens"),
+                                           embeds=batch.get("embeds")).logits
+        return logits_fn
+
     def loss_fn(self, objective: str = "ce") -> Callable:
         if objective != "ce":
             raise NotImplementedError(
-                f"objective {objective!r} is ported with the training slice; "
-                "this slice has token cross-entropy ('ce')")
-        return transformer.train_loss_fn(self.cfg)
+                f"objective {objective!r} is ported with the objectives "
+                "slice; the port has token cross-entropy ('ce')")
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            def loss(params, batch):
+                logits, _ = rwkv6.forward(cfg, params, tokens=batch["tokens"])
+                return transformer.lm_loss(cfg, logits, batch["labels"],
+                                           batch.get("loss_mask"))
+            return loss
+        return transformer.train_loss_fn(cfg)
 
     # ---- serving ---------------------------------------------------------- #
     def prefill_fn(self) -> Callable:
-        """(params, {"tokens": (B,S)}) -> (last logits (B,1,V), cache)."""
+        """(params, {"tokens": (B,S)}) -> (last logits (B,1,V), cache) —
+        for ssm the recurrent state after the prompt in place of a cache."""
         cfg = self.cfg
 
         def prefill(params, batch):
             tokens = batch["tokens"]
             B, S = tokens.shape
+            if cfg.family == "ssm":
+                logits, state = rwkv6.forward(
+                    cfg, params, tokens=tokens,
+                    state=rwkv6.init_rwkv_state(cfg, B, tokens.device))
+                return logits[:, -1:], state
             cache = attn_lib.init_cache(cfg, B, max(S, cfg.max_seq),
                                         cfg.param_dtype, tokens.device)
             r = transformer.forward(cfg, params, tokens=tokens, cache=cache,
@@ -110,10 +152,12 @@ class Bundle:
         single-request forward over b; here b is the batch axis.  Returns
         (logits (B,S,V), cache), the cache updated in place."""
         cfg = self.cfg
-        if cfg.sliding_window != 0:
+        if cfg.family != "dense" or cfg.sliding_window != 0:
             raise NotImplementedError(
-                f"chunk_prefill_fn: sliding_window={cfg.sliding_window} has "
-                "no absolute-position KV rows to resume from")
+                f"chunk_prefill_fn: family={cfg.family!r} with "
+                f"sliding_window={cfg.sliding_window} has no "
+                "absolute-position KV rows to resume from; the serving "
+                "engine's legacy whole-prompt prefill handles it")
 
         def chunk_prefill(params, batch):
             tokens, plens = batch["tokens"], batch["cache_pos"]
@@ -131,10 +175,15 @@ class Bundle:
     def decode_fn(self) -> Callable:
         """(params, {"token" (B,1), "cache", "cache_pos"}) -> (logits,
         cache): ``cache_pos`` (B,) decodes every row at its own position
-        (continuous batching); a scalar decodes the batch in lockstep."""
+        (continuous batching); a scalar decodes the batch in lockstep.  For
+        ssm the batch carries ``"state"`` in place of a cache, and the new
+        state comes back."""
         cfg = self.cfg
 
         def decode(params, batch):
+            if cfg.family == "ssm":
+                return rwkv6.forward(cfg, params, tokens=batch["token"],
+                                     state=batch["state"])
             pos = batch["cache_pos"]
             if isinstance(pos, torch.Tensor) and pos.dim() == 1:
                 positions = pos[:, None].to(torch.int32)

@@ -27,8 +27,9 @@ from repro_torch.models.ffn import ffn, ffn_params
 def _check_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.n_experts:
         raise NotImplementedError(
-            f"family {cfg.family!r} is ported with the other-families slice; "
-            "this slice carries the dense family only")
+            f"family {cfg.family!r} has no transformer forward in the port: "
+            "dense runs here, ssm in models/rwkv6.py, and moe, hybrid and "
+            "encdec come with the other-families slice")
 
 
 # --------------------------------------------------------------------------- #

@@ -1,5 +1,6 @@
-"""Paged continuous-batching serving engine — the port of
-``repro.serve.engine``, single-model path.
+"""Continuous-batching serving engine — the port of ``repro.serve.engine``,
+single-model paths: the paged path for dense models, the per-slot
+recurrent path for the ssm family.
 
 * ``submit`` queues a request (refusing over-long prompts and unknown
   adapters); ``step`` admits queued requests into free slots and runs one
@@ -18,9 +19,17 @@
   engine's ``torch.Generator``).
 
 The contract is token identity: output ids with the prefix cache on equal
-the ids with it off.  Adapters and mixed-adapter decode come with the
-tenants slice; the legacy dense-slab path for SWA and recurrent families
-with the other-families slice.
+the ids with it off.
+
+The ssm family (rwkv6) keeps JAX's legacy per-slot path (``paged=False``):
+the engine holds one stacked recurrent state with a slot axis; admission
+prefills each request at its EXACT prompt length (padding after the prompt
+would run through the recurrence and corrupt the state), through the chunk
+scan (K11 on the card), and writes the request's state into its slot; the
+lockstep decode carries the state for every slot.  Adapters and
+mixed-adapter decode come with the tenants slice; the hybrid family and the
+dense-slab caches (sliding window, ``paged=False`` on a dense model) with
+the other-families slice.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.kernels.paged.gather import paged_gather
 from repro_torch.models import bundle as make_bundle
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rwkv6 import init_rwkv_state
 from repro_torch.serve.paged import (KVBlockPool, RadixCache, bucket_for,
                                      pow2ceil, prefill_buckets)
 
@@ -57,13 +67,21 @@ class ServeEngine:
                  max_len: int = 256, eos_id: Optional[int] = None,
                  seed: int = 0, block: int = 16,
                  pool_blocks: Optional[int] = None, prefix_cache: bool = True,
-                 device: DeviceSpec = None):
-        if cfg.family != "dense" or cfg.sliding_window != 0:
+                 paged: Optional[bool] = None, device: DeviceSpec = None):
+        paged_ok = cfg.family == "dense" and cfg.sliding_window == 0
+        if cfg.family != "ssm" and (not paged_ok or paged is False):
             raise NotImplementedError(
-                f"the paged engine serves dense models without a sliding "
-                f"window; family={cfg.family!r} sliding_window="
-                f"{cfg.sliding_window} keeps the legacy dense-slab path, "
-                "ported with the other-families slice")
+                f"family={cfg.family!r} sliding_window={cfg.sliding_window} "
+                f"paged={paged}: the port serves dense models without a "
+                "sliding window through the paged engine and the ssm family "
+                "through the per-slot recurrent path; the hybrid family and "
+                "the dense-slab caches come with the other-families slice")
+        self.paged = paged_ok if paged is None else bool(paged)
+        if self.paged and not paged_ok:
+            raise ValueError(
+                f"paged KV requires absolute-position cache rows; family="
+                f"{cfg.family!r} sliding_window={cfg.sliding_window} keeps "
+                "the legacy dense-slab path (pass paged=None/False)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -75,14 +93,21 @@ class ServeEngine:
         self.gen.manual_seed(int(seed))
 
         self.cache = None                      # assembled per decode step
-        self.block = block
-        self._nblk_slot = -(-max_len // block)
-        if pool_blocks is None:
-            pool_blocks = 1 + 2 * slots * self._nblk_slot
-        self.pool = KVBlockPool(cfg, pool_blocks, block, cfg.param_dtype,
-                                self.device)
-        self.radix = RadixCache(self.pool) if prefix_cache else None
-        self.tables: list = [[] for _ in range(slots)]
+        self.pool = self.radix = self.state = None
+        if self.paged:
+            self.block = block
+            self._nblk_slot = -(-max_len // block)
+            if pool_blocks is None:
+                pool_blocks = 1 + 2 * slots * self._nblk_slot
+            self.pool = KVBlockPool(cfg, pool_blocks, block, cfg.param_dtype,
+                                    self.device)
+            self.radix = RadixCache(self.pool) if prefix_cache else None
+            self.tables: list = [[] for _ in range(slots)]
+            self._chunk_prefill = self.bundle.chunk_prefill_fn()
+            self._buckets = prefill_buckets(self._prompt_limit())
+        else:
+            self.state = init_rwkv_state(cfg, slots, self.device)
+            self._prefill = self.bundle.prefill_fn()
 
         self.queue: deque = deque()
         self.active: list = [None] * slots
@@ -90,8 +115,6 @@ class ServeEngine:
         self.adapters: dict = {}
 
         self._decode = self.bundle.decode_fn()
-        self._chunk_prefill = self.bundle.chunk_prefill_fn()
-        self._buckets = prefill_buckets(self._prompt_limit())
         self.stats = {"requests": 0, "prefill_tokens_submitted": 0,
                       "prefill_tokens_computed": 0, "prefix_hits": 0,
                       "prefix_tokens_reused": 0, "prefill_batches": 0,
@@ -131,9 +154,33 @@ class ServeEngine:
 
     def _release_slot(self, slot: int) -> None:
         self.active[slot] = None
-        for b in self.tables[slot]:
-            self.pool.unref(b)
-        self.tables[slot] = []
+        if self.paged:
+            for b in self.tables[slot]:
+                self.pool.unref(b)
+            self.tables[slot] = []
+
+    # ------------------------------------------------------------------ #
+    # Recurrent admission: exact-length prefill, state into the slot
+    # ------------------------------------------------------------------ #
+    def _admit_recurrent(self) -> None:
+        for slot in range(self.slots):
+            if self.active[slot] is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            npr = len(req.prompt_ids)
+            toks = torch.as_tensor([req.prompt_ids],
+                                   dtype=torch.int64).to(self.device)
+            logits, state = self._prefill(self.params, {"tokens": toks})
+            for full, one in zip(self.state, state):
+                full[:, slot] = one[:, 0]
+            req.out_ids.append(self._sample(logits[0, -1, :self.cfg.vocab_size],
+                                            req.temperature))
+            st = self.stats
+            st["requests"] += 1
+            st["prefill_tokens_submitted"] += npr
+            st["prefill_tokens_computed"] += npr
+            st["prefill_batches"] += 1
+            self._activate(slot, req)
 
     # ------------------------------------------------------------------ #
     # Admission: radix match -> bucketed batched suffix prefill
@@ -158,6 +205,9 @@ class ServeEngine:
         return gk.view(shape), gv.view(shape)
 
     def _admit(self) -> None:
+        if not self.paged:
+            self._admit_recurrent()
+            return
         free = [s for s in range(self.slots) if self.active[s] is None]
         pending = []
         while free and self.queue:
@@ -308,17 +358,22 @@ class ServeEngine:
         live = [s for s, r in enumerate(self.active) if r is not None]
         if not live:
             return 0
-        self._ensure_decode_blocks(live)
-        self.cache = self._assemble_decode_cache()
         toks = np.zeros((self.slots, 1), np.int64)
         for s in live:
             toks[s, 0] = self.active[s].out_ids[-1]
         batch = {"token": torch.as_tensor(toks).to(self.device),
                  "cache_pos": torch.as_tensor(self.pos.astype(np.int64)).to(
-                     self.device),
-                 "cache": self.cache}
-        logits, self.cache = self._decode(self.params, batch)
-        self._writeback_decode(live)
+                     self.device)}
+        if self.paged:
+            self._ensure_decode_blocks(live)
+            self.cache = batch["cache"] = self._assemble_decode_cache()
+            logits, self.cache = self._decode(self.params, batch)
+            self._writeback_decode(live)
+        else:
+            # every slot steps in lockstep; an inactive slot's state is junk
+            # that its next admission overwrites
+            batch["state"] = self.state
+            logits, self.state = self._decode(self.params, batch)
         now = time.perf_counter()
         for s in live:
             req = self.active[s]
@@ -345,9 +400,10 @@ class ServeEngine:
         st["token_reuse_rate"] = (
             st["prefix_tokens_reused"] / st["prefill_tokens_submitted"]
             if st["prefill_tokens_submitted"] else 0.0)
-        st["pool_blocks"] = self.pool.n_blocks
-        st["pool_free_blocks"] = self.pool.n_free
-        st["radix_nodes"] = self.radix.n_nodes if self.radix else 0
+        if self.pool is not None:
+            st["pool_blocks"] = self.pool.n_blocks
+            st["pool_free_blocks"] = self.pool.n_free
+            st["radix_nodes"] = self.radix.n_nodes if self.radix else 0
         return st
 
     def run(self, max_steps: int = 10_000) -> None:

@@ -15,6 +15,8 @@ import torch
 from repro_torch.kernels.flash_attention.kernel import (flash_attention,
                                                         flash_attention_plain)
 from repro_torch.kernels.paged.gather import paged_gather, paged_gather_plain
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6.kernel import wkv6_chunked
 from repro_torch.kernels.zo_fused.kernel import (zo_affine,
                                                  zo_affine_batched,
                                                  zo_affine_batched_plain,
@@ -39,6 +41,11 @@ A = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
 B = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
 ROWS_GOLDEN = (pathlib.Path(__file__).resolve().parent / "data"
                / "zo_rows_golden.npz")
+WKV6_GOLDEN = (pathlib.Path(__file__).resolve().parent / "data"
+               / "wkv6_golden.npz")
+# K11 against its plain version: the same f32 factorization summed in
+# another order — relative to the output's largest magnitude
+K11_REL = 1e-5
 
 
 @pytest.fixture
@@ -176,3 +183,64 @@ def test_cuda_rows_kernels_match_the_jax_fixture(cuda):
         assert abs(got - float(g[f"sq_{i}"])) <= SQNORM_RTOL * g[f"sq_{i}"]
         i += 1
     assert i == 4
+
+
+def _wkv_inputs(cuda, B, S, H, hd, lw=None, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    sh = (B, S, H, hd)
+    r, k, v = (torch.randn(sh, generator=g, device=cuda) for _ in range(3))
+    if lw is None:
+        logw = -torch.exp(torch.randn(sh, generator=g, device=cuda)
+                          .clamp(-8, 1))
+    else:
+        logw = torch.full(sh, lw, device=cuda)
+    u = torch.randn(H, hd, generator=g, device=cuda)
+    s0 = torch.randn(B, H, hd, hd, generator=g, device=cuda)
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,chunk,lw", [
+    (2, 64, 3, 64, 16, None), (1, 36, 40, 64, 9, None), (3, 7, 2, 32, 1, None),
+    (2, 48, 2, 16, 16, None), (2, 64, 2, 64, 16, -2.718281828459045),
+    (2, 64, 2, 64, 16, -0.00033546262790251185)],
+    ids=["C16", "C9", "C1", "hd16", "rate-e", "rate-e^-8"])
+def test_cuda_wkv6_within_tolerance_of_plain(cuda, B, S, H, hd, chunk, lw):
+    """K11 on the model's layout (through strides, and on a padded,
+    non-contiguous view) and on JAX's (BH, S, hd) layout."""
+    args = _wkv_inputs(cuda, B, S, H, hd, lw)
+    y, s = wkv_ops.wkv6(*args, chunk=chunk)
+    yp, sp = wkv_ops.wkv6_plain(*args, chunk=chunk)
+    for got, want in ((y, yp), (s, sp)):
+        assert float((got - want).abs().max()) <= K11_REL * float(
+            want.abs().max())
+    again = wkv_ops.wkv6(*args, chunk=chunk)
+    assert torch.equal(again[0], y) and torch.equal(again[1], s)  # no atomics
+    r, k, v, lw_, u, s0 = args
+    wide = torch.zeros(B, S, H, 2 * hd, device=cuda)
+    wide[..., :hd] = r
+    y2, _ = wkv_ops.wkv6(wide[..., :hd], k, v, lw_, u, s0, chunk=chunk)
+    assert torch.equal(y2, y)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_matches_the_jax_fixture(cuda):
+    g = np.load(WKV6_GOLDEN)
+    for i in range(2):
+        ins = [torch.from_numpy(g[f"{n}_{i}"]).to(cuda) for n in
+               ("r", "k", "v", "lw", "u", "s0")]
+        y, s = wkv6_chunked(*ins, chunk=int(g[f"chunk_{i}"]))
+        for got, key in ((y, "y"), (s, "s")):
+            for ref in (key, f"{key}_ref"):
+                np.testing.assert_allclose(got.cpu().numpy(),
+                                           g[f"{ref}_{i}"], atol=5e-4,
+                                           rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_refuses_outside_its_envelope(cuda):
+    args = _wkv_inputs(cuda, 1, 32, 1, 64)
+    with pytest.raises(ValueError, match="envelope"):
+        wkv_ops.wkv6(*args, chunk=32)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        wkv_ops.wkv6(*_wkv_inputs(cuda, 1, 16, 1, 48), chunk=16)

@@ -58,6 +58,18 @@ def test_no_refusal_names_the_selection_slice():
     assert not hits, hits
 
 
+def test_no_text_says_the_port_is_dense_only():
+    """The ssm family is ported: no docstring or refusal in the port says
+    it carries the dense family only, and the registry's refusal of an
+    unported family names both ported ones."""
+    hits = [str(p.relative_to(ROOT)) for p in PORT_FILES
+            if "dense family only" in p.read_text()]
+    assert not hits, hits
+    cfg = all_archs()["qwen2-0.5b"].smoke_cfg.replace(family="moe")
+    with pytest.raises(NotImplementedError, match="dense and ssm"):
+        bundle(cfg)
+
+
 def test_serve_cli_replays_a_jax_ledger_on_cpu(tmp_path, capsys):
     led = JaxLedger(base_seed=1, grad_dtype="float32", backend="pallas+z2")
     led.append(0, 0.5, 1e-3)
