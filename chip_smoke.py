@@ -58,9 +58,12 @@ every unselected element is θ₀'s; after the LoRA phase every base leaf is
 spsa chain, equals its replay bitwise and the trained θ within the ulp
 bound); every kernel launched on its path.
 
-Prints the step times, the ``kernels`` JSON line (launches, error, kernel /
-plain / library times in ms — kernel times are medians of CUDA-event pairs
-over ``reps`` launches — and the roofline bound), and as its last line
+Prints the registers, shared memory and spills of K2's and K12's device
+functions and the HMMA count of K2's SASS; the step times; the ``kernels``
+JSON line (launches, error, kernel / plain / library times in ms — medians
+of CUDA-event pairs over ``reps`` launches, for K2 and K12 and their
+library calls of rounds of ``RUN_N`` back-to-back launches per pair, in
+turns — and the roofline bound), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; there
 is no fallback to the CPU or to a plain version on any path.
 """
@@ -69,6 +72,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -100,6 +105,9 @@ NEW_TOKENS = 16
 # whose two orders of summation differ by ~1e-6: at most one bf16 ulp apart
 K2_BF16_REL, K2_BF16_ABS = 2.0 ** -7, 1e-5
 K2_F32_ABS = 1e-5
+# K2 and K12 are timed as runs of this many back-to-back launches per pair
+# of CUDA events (the plain K2, 0.6 ms a call, as runs of RUN_N_PLAIN)
+RUN_N, RUN_N_PLAIN = 100, 20
 
 # the training paths' shapes (the paper's batch of 16)
 TRAIN_BATCH, TRAIN_SEQ = 16, 256
@@ -183,6 +191,56 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def run_ms(fns: dict, n: int, rounds: int = 4, graph: bool = True) -> dict:
+    """ms per launch of each ``fns[name]()``: ``rounds`` rounds in which
+    every function in turn (the order reversed every other round: A B, B A,
+    …) runs ``n`` times back to back between one pair of CUDA events; the
+    median over the rounds of the elapsed time over ``n``.  With ``graph``
+    the ``n`` launches are captured once in a CUDA graph and replayed, so
+    the run measures the card and not the host's work to enqueue them
+    (a Python wrapper's checks and ctypes call take longer than a kernel of
+    a few tens of µs); without it they are issued from Python as a caller
+    issues them.  Every function is called once (and the graphs replayed
+    once) before the timed rounds."""
+    import statistics
+
+    import torch
+    runs = {}
+    for name, fn in fns.items():
+        fn()
+        if graph:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(n):
+                    fn()
+            runs[name] = g.replay
+        else:
+            def eager(fn=fn):
+                for _ in range(n):
+                    fn()
+            runs[name] = eager
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    names = list(runs)
+    per = {k: [] for k in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            runs[name]()
+            e1.record()
+            torch.cuda.synchronize()
+            per[name].append(e0.elapsed_time(e1) / n)
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
 def host_ms(fn) -> float:
     """ms of one ``fn()`` on the host clock, synchronized on both ends."""
     import torch
@@ -255,22 +313,34 @@ def check_k1(torch, np, kz) -> float:
 
 
 def check_k2(torch, kf) -> float:
-    """K2 vs plain on the card at qwen2-0.5b head shapes."""
+    """K2 vs plain on the card at qwen2-0.5b head shapes: the bf16 route
+    (mma.sync) at S ∈ {1, 100, 256, 512, 2048} × window ∈ {0, 64} and at
+    the training shape, repeatable bit for bit there; the scalar f32 route
+    at the same S."""
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
-    for S in (1, 100, 256, 512, 2048):
+    cases = [(2, S) for S in (1, 100, 256, 512, 2048)]
+    cases.append((TRAIN_BATCH, TRAIN_SEQ))
+    for B, S in cases:
         for window in (0, 64):
-            mk = lambda kv: torch.randn(2, S, kv, 64, generator=g,  # noqa
+            mk = lambda kv: torch.randn(B, S, kv, 64, generator=g,  # noqa
                                         device="cuda").to(torch.bfloat16)
             q, k, v = mk(14), mk(2), mk(2)
-            ok = kf.flash_attention(q, k, v, window=window).float()
+            out = kf.flash_attention(q, k, v, window=window)
+            ok = out.float()
             op = kf.flash_attention_plain(q, k, v, window=window).float()
             err = (ok - op).abs()
             if not torch.isfinite(ok).all() or bool(
                     (err > K2_BF16_REL * op.abs() + K2_BF16_ABS).any()):
-                fail(f"K2 bf16 S={S} window={window}: max err "
+                fail(f"K2 bf16 B={B} S={S} window={window}: max err "
                      f"{err.max().item()} beyond one bf16 ulp")
             worst = max(worst, err.max().item())
+            if B == TRAIN_BATCH:
+                if not same_bits(out, kf.flash_attention(q, k, v,
+                                                         window=window)):
+                    fail(f"K2 bf16 at the training shape, window={window}: "
+                         "two launches differ")
+                continue
             of = kf.flash_attention(q.float(), k.float(), v.float(),
                                     window=window)
             opf = kf.flash_attention_plain(q.float(), k.float(), v.float(),
@@ -278,8 +348,10 @@ def check_k2(torch, kf) -> float:
             e32 = (of - opf).abs().max().item()
             if e32 > K2_F32_ABS:
                 fail(f"K2 f32 S={S} window={window}: max err {e32}")
-    log(f"K2 flash_attention: bf16 within one ulp of plain (max abs err "
-        f"{worst}), f32 within {K2_F32_ABS}, S up to 2048, H=14 KV=2 hd=64")
+    log(f"K2 flash_attention: bf16 (mma.sync) within one ulp of plain (max "
+        f"abs err {worst}) at S up to 2048 and the training shape "
+        f"({TRAIN_BATCH}, {TRAIN_SEQ}, 14, 64), repeatable bit for bit; f32 "
+        f"(scalar) within {K2_F32_ABS}; H=14 KV=2 hd=64, window 0 and 64")
     return worst
 
 
@@ -485,16 +557,69 @@ def _hold_rows(torch, kr, x, be, k, ph, dist, what) -> None:
 
 
 def check_k12(torch, kp, L: int, n_blocks: int, D: int) -> None:
+    """K12 vs plain, bitwise, with the table on the host and on the card:
+    a decode step's random table, repeated ids, one id, the pool's ends."""
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(L, n_blocks * BLOCK, D, generator=g,
                     device="cuda").to(torch.bfloat16)
     tab = torch.randint(0, n_blocks, (SLOTS * (MAX_LEN // BLOCK),),
                         generator=torch.Generator().manual_seed(4))
-    a = kp.paged_gather(x, tab.numpy(), BLOCK)
-    b = kp.paged_gather_plain(x, tab.cuda(), BLOCK)
-    if not same_bits(a, b):
-        fail("K12 paged_gather != plain")
-    log("K12 paged_gather: bitwise vs plain")
+    tables = [tab, torch.tensor([5, 5, 5, 0, 5]), torch.tensor([7]),
+              torch.tensor([n_blocks - 1, 0, n_blocks - 1])]
+    for t in tables:
+        want = kp.paged_gather_plain(x, t.cuda(), BLOCK)
+        for where, table in (("host", t.numpy()),
+                             ("device", t.to(torch.int32).cuda())):
+            if not same_bits(kp.paged_gather(x, table, BLOCK), want):
+                fail(f"K12 paged_gather != plain ({where} table of "
+                     f"{t.numel()} ids)")
+    log(f"K12 paged_gather: bitwise vs plain with host and device tables "
+        f"({len(tables)} tables, up to {tab.numel()} ids, {L} layers)")
+
+
+def build_facts(_build) -> None:
+    """What the compiler made of K2 and K12: ``-Xptxas -v``'s registers,
+    shared memory and spills per device function, and the HMMA
+    (tensor-core) instructions in K2's SASS, read with ``cuobjdump`` — the
+    bf16 route must have some."""
+    def short(mangled):
+        m = re.search(r"(flash_fwd_mma|flash_fwd|gather_kernel)(?:ILi(\d+)E)?",
+                      mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else (
+            m.group(1) if m else mangled)
+    for lib in ("flash_attention", "paged_gather"):
+        fn, facts = None, {}
+        for line in _build.build_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = short(m.group(1))
+            elif fn and ("registers" in line or "spill" in line):
+                facts.setdefault(fn, []).append(
+                    line.split(":", 1)[-1].strip())
+        for fn, lines in facts.items():
+            log(f"ptxas {lib} {fn}: " + "; ".join(lines))
+    cuobj = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobj):
+        log("cuobjdump missing: K2's HMMA count not read")
+        return
+    sass = subprocess.run([cuobj, "-sass",
+                           str(_build.lib_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr[-500:]}")
+    hmma, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = short(m.group(1))
+            hmma[fn] = 0
+        elif fn and "HMMA" in line:
+            hmma[fn] += 1
+    mma = {k: v for k, v in hmma.items() if k.startswith("flash_fwd_mma")}
+    if len(mma) != 3 or min(mma.values()) == 0:
+        fail(f"K2's bf16 kernels lack tensor-core instructions: {hmma}")
+    log("HMMA instructions in K2's SASS (cuobjdump): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
 
 
 # --------------------------------------------------------------------------- #
@@ -672,8 +797,12 @@ def add_counts(counts: dict, _build, required, path: str) -> None:
             fail(f"the {path} path never launched {name}")
     for name, n in got.items():
         counts[name] = counts.get(name, 0) + n
+    routes = dict(_build.route_counts)
+    for key, n in routes.items():
+        counts[key] = counts.get(key, 0) + n
     log(f"{path} path launches: "
-        + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+        + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+        + "".join(f"; {k} {v}" for k, v in sorted(routes.items())))
 
 
 def make_opts():
@@ -1294,29 +1423,69 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
     k = torch.randn(TRAIN_BATCH, S, cfg.kv_heads, cfg.hd, generator=g,
                     device="cuda").to(torch.bfloat16)
     v = torch.randn_like(k)
-    k2_ms = cuda_ms(lambda: kf.flash_attention(q, k, v), 20)
-    k2_plain_ms = cuda_ms(lambda: kf.flash_attention_plain(q, k, v), 5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    k2_lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                     enable_gqa=True), 20)
+
+    def k2():
+        kf.flash_attention(q, k, v)
+
+    def k2_lib():
+        sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    k2_run = run_ms({"kernel": k2, "library": k2_lib}, RUN_N)
+    k2_ms, k2_lib_ms = k2_run["kernel"], k2_run["library"]
+    k2_eager = run_ms({"kernel": k2, "library": k2_lib}, RUN_N, graph=False)
+    k2_plain_ms = run_ms({"plain": lambda: kf.flash_attention_plain(q, k, v)},
+                         RUN_N_PLAIN, graph=False)["plain"]
     k2_bytes = 2 * (q.numel() * 2 + k.numel() * 2)
     k2_ops = 4 * cfg.hd * kf.attended_pairs(S) * TRAIN_BATCH * cfg.n_heads
     log(f"K2 flash_attention at the training shape ({TRAIN_BATCH}, {S}, "
-        f"{cfg.n_heads}, {cfg.hd}) bf16: {k2_ms:.3f} ms, one SDPA call "
-        f"{k2_lib_ms:.3f} ms, plain {k2_plain_ms:.3f} ms — on {card}")
+        f"{cfg.n_heads}, {cfg.hd}) bf16: {k2_ms:.4f} ms, one SDPA call "
+        f"{k2_lib_ms:.4f} ms ({RUN_N} launches per CUDA graph and event "
+        f"pair, kernel and SDPA in turns), plain {k2_plain_ms:.4f} ms — on "
+        f"{card}")
+    log(f"K2 and SDPA issued from Python ({RUN_N} calls per event pair, in "
+        f"turns): K2 {k2_eager['kernel']:.4f} ms, SDPA "
+        f"{k2_eager['library']:.4f} ms per call — on {card}")
 
     L, NT = cfg.n_layers, pool_k.shape[1]
     D = cfg.kv_heads * cfg.hd
     pool = pool_k.view(L, NT, D)
     tab = np.arange(SLOTS * nblk_slot, dtype=np.int32) % (NT // BLOCK)
     tab_dev = torch.as_tensor(tab).cuda()
-    k12_ms = cuda_ms(lambda: kp.paged_gather(pool, tab, BLOCK), 20)
-    k12_plain_ms = cuda_ms(lambda: kp.paged_gather_plain(pool, tab_dev,
-                                                         BLOCK), 20)
-    k12_lib_ms = cuda_ms(lambda: pool.view(L, NT // BLOCK, BLOCK * D)
-                         .index_select(1, tab_dev.long()), 20)
+    pool_blocks = pool.view(L, NT // BLOCK, BLOCK * D)
+
+    def k12():
+        kp.paged_gather(pool, tab_dev, BLOCK)
+
+    def k12_lib():
+        pool_blocks.index_select(1, tab_dev)
+
+    def k12_host():
+        kp.paged_gather(pool, tab, BLOCK)
+
+    k12_run = run_ms({"kernel": k12, "library": k12_lib}, RUN_N)
+    k12_ms, k12_lib_ms = k12_run["kernel"], k12_run["library"]
+    k12_eager = run_ms({"kernel": k12, "library": k12_lib, "host": k12_host},
+                       RUN_N, graph=False)
+    k12_plain_ms = run_ms({"plain": lambda: kp.paged_gather_plain(
+        pool, tab_dev, BLOCK)}, RUN_N, graph=False)["plain"]
     k12_bytes = 2 * L * tab.size * BLOCK * D * 2
+    log(f"K12 paged_gather, one decode step ({tab.size} blocks × {L} layers)"
+        f": {k12_ms:.4f} ms with the device table, index_select "
+        f"{k12_lib_ms:.4f} ms on the same table ({RUN_N} launches per CUDA "
+        f"graph and event pair, in turns), plain {k12_plain_ms:.4f} ms — on "
+        f"{card}")
+    log(f"K12 and index_select issued from Python ({RUN_N} calls per event "
+        f"pair, in turns): K12 {k12_eager['kernel']:.4f} ms, index_select "
+        f"{k12_eager['library']:.4f} ms per call")
+    log(f"K12 wrapper with a host table (check, pinned upload, launch): "
+        f"{k12_eager['host']:.4f} ms per call ({RUN_N} calls per event "
+        f"pair) — on {card}")
+    log("the earlier yardstick, one event pair per launch, median of 20: K2 "
+        f"{cuda_ms(k2, 20):.4f} ms, SDPA {cuda_ms(k2_lib, 20):.4f} ms, K12 "
+        f"with the host table {cuda_ms(k12_host, 20):.4f} ms, index_select "
+        f"{cuda_ms(k12_lib, 20):.4f} ms — on {card}")
 
     zf = "src/repro_torch/kernels/zo_fused/csrc/"
     zr = "src/repro/kernels/zo_fused/"
@@ -1376,9 +1545,12 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         f"at phase 0 ({n_sel} selected elements); flash_attention = the "
         f"training shape ({TRAIN_BATCH}, {S}, {cfg.n_heads}, {cfg.hd}) bf16; "
         f"paged_gather = one decode-step gather of {tab.size} blocks × {L} "
-        f"layers; kernel ms = median of 10 (K1, K6, K7, K10), 5 (K3-K5, K8, "
-        f"K9) or 20 (K2, K12) CUDA-event pairs; plain ms = one host-clock "
-        f"run (K2, K12: the median of CUDA-event pairs)")
+        f"layers; kernel ms = median of 10 (K1, K6, K7, K10) or 5 (K3-K5, "
+        f"K8, K9) CUDA-event pairs, K2 / K12 and their library calls the "
+        f"median of 4 rounds of {RUN_N} back-to-back launches in one CUDA "
+        f"graph per event pair (K12 with the device table); plain ms = one "
+        f"host-clock run (K2, K12: rounds of {RUN_N_PLAIN} / {RUN_N} calls "
+        f"issued from Python)")
     return rows
 
 
@@ -1419,6 +1591,7 @@ def main() -> None:
     build_s = _build.build_all()
     log(f"built {len(_build.SOURCES)} CUDA sources "
         f"({len(_build.launch_counts)} kernels) in {build_s:.1f} s")
+    build_facts(_build)
 
     k1_err = check_k1(torch, np, kz)
     k2_err = check_k2(torch, kf)
@@ -1517,6 +1690,12 @@ def main() -> None:
                           k11_err))
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
+    k2_mma = counts.get("flash_attention/bf16_mma", 0)
+    if k2_mma == 0 or k2_mma != counts.get("flash_attention", 0):
+        fail(f"K2 on the counted paths: {k2_mma} bf16 mma.sync launches of "
+             f"{counts.get('flash_attention', 0)}")
+    log(f"K2 over the counted paths: all {k2_mma} launches on the bf16 "
+        "mma.sync route")
     log("training step ms: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in step_ms.items())
         + f" — on {card}; smoke took {time.perf_counter() - t_start:.1f} s")

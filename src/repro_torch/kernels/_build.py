@@ -5,8 +5,10 @@ shared library with a plain C interface and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds, not minutes.  Libraries are
 built at first use into ``build/torch_kernels/`` at the root of the checkout
 (listed in ``.gitignore``), named by a hash of the source, the headers
-beside it and the flags, so an edited source is rebuilt.  ``build_all``
-starts one ``nvcc`` per source, all at once.
+beside it and the flags, so an edited source is rebuilt; beside each
+library lies its compiler log (``build_log``: ``-Xptxas -v``'s registers,
+shared memory and spills).  ``build_all`` starts one ``nvcc`` per source,
+all at once.
 
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; ``check``
@@ -49,21 +51,30 @@ SOURCES: Dict[str, tuple] = {
     # K11 is held to a tolerance, not to its bits: contraction allowed
     "wkv6": ("rwkv6/csrc/wkv6.cu", (), ("wkv6_chunked",)),
 }
+# -Xptxas -v: each kernel's registers, shared memory and spills, kept in
+# the library's build log (``build_log``)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts: Dict[str, int] = {k: 0 for _, _, ks in SOURCES.values()
                                  for k in ks}
+#: launches by route, for a kernel whose wrapper picks one of several device
+#: functions: "kernel/route" -> count (K2: its bf16 and f32 routes)
+route_counts: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def count(name: str) -> None:
+def count(name: str, route: Optional[str] = None) -> None:
     launch_counts[name] += 1
+    if route is not None:
+        key = f"{name}/{route}"
+        route_counts[key] = route_counts.get(key, 0) + 1
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    route_counts.clear()
 
 
 def build_dir() -> pathlib.Path:
@@ -111,20 +122,31 @@ def build_all(names: Optional[Iterable[str]] = None) -> float:
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
+def lib_path(name: str) -> pathlib.Path:
+    """The library's path, built first if needed."""
+    path = _lib_path(name)
+    if not path.exists():
+        build_all([name])
+    return path
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``) from the build of ``name``."""
+    return lib_path(name).with_suffix(".log").read_text()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, built first if needed (cached per process)."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(lib_path(name)))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -137,8 +159,10 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t) -> int:
+    """The handle of PyTorch's current stream on ``t``'s card, read without
+    building a ``torch.cuda.Stream`` (which costs a few µs a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -9,6 +9,11 @@ tensor takes the plain version (dense masked softmax in f32, the
 (``csrc/flash_attention.cu``) or raises.  The two agree within rounding: the
 kernel sums in another order (online softmax), so the tests state a
 tolerance, not bitwise equality.
+
+bf16 runs on the tensor cores (``mma.sync`` tiles fed by 16-byte
+``cp.async`` copies), so its q, k and v must lie on 16-byte-aligned bases
+with (b, s, h) strides that are multiples of 8 elements; the wrapper raises
+otherwise.  f32 runs the scalar kernel and takes any strides.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the device function each dtype launches (``_build.route_counts``)
+_ROUTES = {torch.float32: "f32_scalar", torch.bfloat16: "bf16_mma"}
 _HEAD_DIMS = (16, 32, 64)
 
 
@@ -44,6 +51,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t``'s rows can be copied as 16-byte chunks: a 16-byte-
+    aligned base and the stride of every longer-than-one axis but the last
+    a multiple of 16 bytes."""
+    if t.data_ptr() % 16:
+        return False
+    es = t.element_size()
+    for st, n in zip(t.stride()[:-1], t.shape[:-1]):
+        if n > 1 and (st * es) % 16:
+            return False
+    return True
+
+
 def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
@@ -58,37 +78,44 @@ def _lib():
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd)."""
-    if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
-            or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} with k "
-                         f"{tuple(k.shape)} / v {tuple(v.shape)} is not "
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or ks != v.shape or ks[:2] != qs[:2] or ks[3] != qs[3] \
+            or qs[2] % ks[2]:
+        raise ValueError(f"flash_attention: q {tuple(qs)} with k "
+                         f"{tuple(ks)} / v {tuple(v.shape)} is not "
                          "(B,S,H,hd) against (B,S,KV,hd) with KV | H")
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
-    B, S, H, hd = q.shape
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if dev.type != "cuda":
+        raise RuntimeError(f"flash_attention: no kernel for device {dev}")
+    B, S, H, hd = qs
+    dt = q.dtype
+    if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"flash_attention: the kernel takes float32 or "
-                        f"bfloat16 q/k/v of one dtype, got {q.dtype}/"
+                        f"bfloat16 q/k/v of one dtype, got {dt}/"
                         f"{k.dtype}/{v.dtype}")
     if hd not in _HEAD_DIMS:
         raise NotImplementedError(f"flash_attention: head_dim {hd} (the "
                                   f"kernel is built for {_HEAD_DIMS})")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
+    qst, kst, vst = q.stride(), k.stride(), v.stride()
+    if qst[3] != 1 or kst[3] != 1 or vst[3] != 1:
         raise ValueError("flash_attention: head_dim must be the unit-stride "
                          "axis")
-    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if dt == torch.bfloat16 and not (aligned16(q) and aligned16(k)
+                                     and aligned16(v)):
+        raise ValueError("flash_attention: the bf16 kernel needs 16-byte-"
+                         "aligned q/k/v with (b, s, h) strides that are "
+                         "multiples of 8 elements")
+    o = torch.empty(qs, dtype=dt, device=dev)
     lib = _lib()
     err = lib.flash_attention(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
-        _DTYPES[q.dtype], B, S, H, k.shape[2], hd,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        hd ** -0.5, int(bool(causal)), int(window), _build.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[dt],
+        B, S, H, ks[2], hd, qst[0], qst[1], qst[2], kst[0], kst[1], kst[2],
+        vst[0], vst[1], vst[2], hd ** -0.5, int(bool(causal)), int(window),
+        _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
-    _build.count("flash_attention")
+    _build.count("flash_attention", _ROUTES[dt])
     return o
 
 

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceSpec, resolve_device
-from repro_torch.kernels.paged.gather import paged_gather
+from repro_torch.kernels.paged.gather import paged_gather, upload_table
 from repro_torch.models import bundle as make_bundle
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rwkv6 import init_rwkv_state
@@ -198,7 +198,9 @@ class ServeEngine:
         ``tabs (B, nblk)`` (trash-padded) — K12."""
         L, NT, KV, hd = self.pool.k.shape
         B, nblk = tabs.shape
-        flat = tabs.reshape(-1)
+        # one checked upload of the table serves both gathers
+        flat = upload_table(tabs.reshape(-1), NT // self.block,
+                            self.pool.k.device)
         gk = paged_gather(self.pool.k.view(L, NT, KV * hd), flat, self.block)
         gv = paged_gather(self.pool.v.view(L, NT, KV * hd), flat, self.block)
         shape = (L, B, nblk * self.block, KV, hd)

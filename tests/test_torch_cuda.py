@@ -14,7 +14,9 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import (flash_attention,
                                                         flash_attention_plain)
-from repro_torch.kernels.paged.gather import paged_gather, paged_gather_plain
+from repro_torch.kernels.paged.gather import (paged_gather,
+                                              paged_gather_plain,
+                                              upload_table)
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.kernel import wkv6_chunked
 from repro_torch.kernels.zo_fused.kernel import (zo_affine,
@@ -46,6 +48,10 @@ WKV6_GOLDEN = (pathlib.Path(__file__).resolve().parent / "data"
 # K11 against its plain version: the same f32 factorization summed in
 # another order — relative to the output's largest magnitude
 K11_REL = 1e-5
+# K2's bf16 route against its plain version, chip_smoke.py's tolerance: one
+# bf16 rounding of each output on both sides of an f32 computation whose
+# two orders of summation differ by ~1e-6 — at most one bf16 ulp apart
+K2_BF16_REL, K2_BF16_ABS = 2.0 ** -7, 1e-5
 
 
 @pytest.fixture
@@ -84,6 +90,140 @@ def test_cuda_paged_gather_bitwise(cuda):
     assert torch.equal(paged_gather(x, table, 16),
                        paged_gather_plain(x, torch.tensor(table, device=cuda),
                                           16))
+
+
+def _qkv_bf16(cuda, B, S, H, KV, hd, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(B, S, n, hd, generator=g, device=cuda)
+                 .to(torch.bfloat16) for n in (H, KV, KV))
+
+
+def _assert_bf16_close(got, want):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = err > K2_BF16_REL * want.abs() + K2_BF16_ABS
+    assert bool(torch.isfinite(got).all())
+    assert not bool(bad.any()), (f"{int(bad.sum())} of {bad.numel()} beyond "
+                                 f"one bf16 ulp, max err {err.max().item()}")
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 300, 1000])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("G", [1, 7])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("B", [1, 3])
+def test_cuda_flash_attention_bf16_within_tolerance(cuda, S, hd, G, window,
+                                                    B):
+    """The mma.sync route: ragged S (one row, one tile ± 1, several tiles),
+    every head dim, GQA groups of 1 and 7, causal with and without a
+    window."""
+    q, k, v = _qkv_bf16(cuda, B, S, 2 * G, 2, hd, seed=S * 7 + hd + G + B)
+    _assert_bf16_close(flash_attention(q, k, v, window=window),
+                       flash_attention_plain(q, k, v, window=window))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_reads_aligned_strides(cuda):
+    """q/k/v as views of one fused projection (B, S, H + 2·KV, hd) and of a
+    (B, H, S, hd) layout: the same bits as from contiguous copies."""
+    B, S, H, KV, hd = 2, 200, 14, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(B, S, H + 2 * KV, hd, generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    out = flash_attention(q, k, v, window=64)
+    _assert_bf16_close(out, flash_attention_plain(q, k, v, window=64))
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           window=64)
+    assert torch.equal(_bytes(out), _bytes(want))
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)    # (B, H, S, hd)
+    assert qt.stride(1) == hd
+    assert torch.equal(_bytes(flash_attention(qt, k, v, window=64)),
+                       _bytes(want))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_refuses_misaligned(cuda):
+    k = torch.randn(1, 32, 2, 64, device=cuda).to(torch.bfloat16)
+    wide = torch.randn(1, 32, 14, 65, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(wide.to(torch.bfloat16)[..., :64], k, k)  # stride 65
+    flat = torch.randn(32 * 14 * 64 + 1, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(flat[1:].view(1, 32, 14, 64), k, k)       # base + 2 B
+    # the scalar f32 route takes any stride
+    q32, k32 = wide[..., :64], k.float()
+    torch.testing.assert_close(flash_attention(q32, k32, k32),
+                               flash_attention_plain(q32, k32, k32),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 64])
+def test_cuda_flash_attention_bf16_repeatable_bitwise(cuda, window):
+    """No atomics: two launches at the training shape agree bit for bit."""
+    q, k, v = _qkv_bf16(cuda, 16, 256, 14, 2, 64, seed=5)
+    a = flash_attention(q, k, v, window=window)
+    b = flash_attention(q, k, v, window=window)
+    assert torch.equal(_bytes(a), _bytes(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,block", [
+    (torch.bfloat16, 128, 16),     # the serving pool: 256-byte rows
+    (torch.bfloat16, 1024, 16),    # 32 KB chunks: several rounds per lane
+    (torch.bfloat16, 5, 16),       # 10-byte rows, 160-byte chunks
+    (torch.bfloat16, 5, 3),        # 30-byte chunks: the byte loop
+    (torch.float32, 3, 1)])        # 12-byte chunks: the byte loop
+def test_cuda_paged_gather_host_and_device_tables(cuda, dtype, D, block):
+    """Bitwise against the plain gather with the table on the host and on
+    the card: one id, repeated ids, ragged random tables, the pool's ends."""
+    n_blocks = 50
+    x = torch.randn(3, n_blocks * block, D, device=cuda).to(dtype)
+    rng = np.random.default_rng(D * block)
+    for table in ([7], [3, 3, 3], rng.integers(0, n_blocks, 37).tolist(),
+                  rng.integers(0, n_blocks, 1000).tolist(),
+                  [n_blocks - 1, 0, 5, 5, 0]):
+        want = paged_gather_plain(x, torch.tensor(table, device=cuda), block)
+        host = paged_gather(x, np.asarray(table), block)
+        dev = paged_gather(x, torch.tensor(table, dtype=torch.int32,
+                                           device=cuda), block)
+        assert torch.equal(_bytes(host), _bytes(want))
+        assert torch.equal(_bytes(dev), _bytes(want))
+
+
+@pytest.mark.cuda
+def test_cuda_paged_gather_staged_tables_stay_correct(cuda):
+    """Host tables in quick succession go through the pinned staging buffer:
+    no upload overwrites a table still in flight."""
+    x = torch.randn(2, 64 * 16, 128, device=cuda).to(torch.bfloat16)
+    rng = np.random.default_rng(3)
+    tabs = [rng.integers(0, 64, 100 + 7 * i) for i in range(12)]
+    outs = [paged_gather(x, t, 16) for t in tabs]
+    shared = upload_table(tabs[0], 64, cuda)
+    assert shared.dtype == torch.int32 and shared.device.type == "cuda"
+    outs.append(paged_gather(x, shared, 16))
+    for t, o in zip(tabs + [tabs[0]], outs):
+        want = paged_gather_plain(x, torch.as_tensor(t, device=cuda), 16)
+        assert torch.equal(_bytes(o), _bytes(want))
+
+
+@pytest.mark.cuda
+def test_cuda_paged_gather_refuses_bad_tables(cuda):
+    x = torch.randn(2, 64 * 16, 128, device=cuda).to(torch.bfloat16)
+    for bad in ([0, 64], [-1]):
+        with pytest.raises(IndexError):
+            paged_gather(x, bad, 16)
+        with pytest.raises(IndexError):
+            upload_table(bad, 64, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        paged_gather(x, torch.tensor([0], device=cuda), 16)      # int64
 
 
 @pytest.mark.cuda

@@ -18,8 +18,9 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.paged import paged_gather as jax_paged_gather
-from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.paged.gather import paged_gather
+from repro_torch.kernels.flash_attention.kernel import (aligned16,
+                                                        flash_attention)
+from repro_torch.kernels.paged.gather import paged_gather, upload_table
 
 torch.set_num_threads(1)   # tiny tensors: no oversubscription under xdist
 
@@ -60,3 +61,37 @@ def test_paged_gather_plain_bitwise_equals_jax(dtype):
     assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
     with pytest.raises(IndexError):
         paged_gather(torch.from_numpy(x), [12], 8)
+
+
+def test_paged_gather_takes_host_tensors_and_uploaded_tables():
+    """A host table may be a list, an array or a CPU tensor; ``upload_table``
+    checks it once and, for a CPU pool, hands back an int32 CPU tensor that
+    both gathers of an engine step can share."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 6 * 4, 3)).astype(np.float32))
+    table = [5, 0, 0, 3]
+    want = paged_gather(x, table, 4)
+    tab = upload_table(np.asarray(table), 6, "cpu")
+    assert tab.dtype == torch.int32 and tab.device.type == "cpu"
+    for t in (np.asarray(table, np.int64), torch.tensor(table), tab):
+        assert torch.equal(paged_gather(x, t, 4), want)
+    with pytest.raises(IndexError):
+        upload_table([6], 6, "cpu")
+    with pytest.raises(ValueError, match="host table"):
+        paged_gather(x, torch.zeros(1, dtype=torch.int32, device="meta"), 4)
+
+
+def test_flash_bf16_alignment_rule():
+    """The bf16 kernel copies rows as 16-byte chunks: a 16-byte-aligned base
+    and (b, s, h) strides in multiples of 8 bf16 elements; the stride of a
+    length-1 axis is never used."""
+    x = torch.zeros(2, 8, 14, 64, dtype=torch.bfloat16)
+    assert aligned16(x)
+    assert aligned16(torch.zeros(2, 8, 18, 64, dtype=torch.bfloat16)[:, :, 14:])
+    assert aligned16(x.transpose(1, 2).contiguous().transpose(1, 2))
+    assert not aligned16(torch.zeros(2, 8, 14, 65, dtype=torch.bfloat16)[..., :64])
+    assert not aligned16(torch.zeros(2 * 8 * 14 * 64 + 1, dtype=torch.bfloat16)
+                         [1:].view(2, 8, 14, 64))
+    assert aligned16(torch.zeros(1, 8, 14, 64, dtype=torch.bfloat16)
+                     .as_strided((1, 8, 14, 64), (3, 14 * 64, 64, 1)))
+
