@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
+    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3, K2
 
 In order: prints the card's name and power limit; builds the seven CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -14,7 +15,16 @@ K10 ``zo_sqnorm_rows`` and K12 ``paged_gather`` bitwise, K1 and K3–K10 also
 against fixtures that JAX computed (``tests/data``, K6 and K10 within
 ``SQNORM_RTOL``), K2 ``flash_attention`` and K11 ``wkv6_chunked`` (at
 rwkv6-3b's head shapes, C ∈ {16, 9, 1}, also against the JAX fixture)
-within stated tolerances.  Then it
+within stated tolerances.  K2 is also held to its plain version at every
+head dim of ``K2_SWEEP_HD`` (each mma instance, between two, past 256) in
+f32, bf16 and f16, and on inputs it copies first (``+copy`` routes); K11 at
+every head dim of ``K11_SWEEP_HD``.  ``zo_selftest`` runs every rewrite of
+the z generator (``zo_stream.cuh``) against its specification over the
+whole domain (any mismatch fails).  It then counts K1's and K3's SASS
+instructions per z by unit and times them — with ``--parent`` (a ``git
+archive`` of the parent commit) the parent's K1, K3 and K2 too, built with
+the same flags, in turns — and times K2 at OPT-13b's head dim 128 beside
+one SDPA call.  Then it
 drives the port's paths at the full width of qwen2-0.5b (random bf16
 weights from a seeded ``torch.Generator``, all 24 layers, ``pallas_flash``
 attention), each with the launch counts set to 0 just before it and read
@@ -58,8 +68,10 @@ every unselected element is θ₀'s; after the LoRA phase every base leaf is
 spsa chain, equals its replay bitwise and the trained θ within the ulp
 bound); every kernel launched on its path.
 
-Prints the registers, shared memory and spills of K2's and K12's device
-functions and the HMMA count of K2's SASS; the step times; the ``kernels``
+Prints the registers, shared memory and spills of every K2 and K11
+instance, of K1, K3 and K12, and the HMMA count of K2's SASS; the step
+times and the profiler's kernel time of an spsa and an fzoo(8) step; the
+``kernels``
 JSON line (launches, error, kernel / plain / library times in ms — medians
 of CUDA-event pairs over ``reps`` launches, for K2 and K12 and their
 library calls of rounds of ``RUN_N`` back-to-back launches per pair, in
@@ -577,49 +589,217 @@ def check_k12(torch, kp, L: int, n_blocks: int, D: int) -> None:
         f"({len(tables)} tables, up to {tab.numel()} ids, {L} layers)")
 
 
-def build_facts(_build) -> None:
-    """What the compiler made of K2 and K12: ``-Xptxas -v``'s registers,
-    shared memory and spills per device function, and the HMMA
-    (tensor-core) instructions in K2's SASS, read with ``cuobjdump`` — the
-    bf16 route must have some."""
-    def short(mangled):
-        m = re.search(r"(flash_fwd_mma|flash_fwd|gather_kernel)(?:ILi(\d+)E)?",
-                      mangled)
-        return f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else (
-            m.group(1) if m else mangled)
-    for lib in ("flash_attention", "paged_gather"):
-        fn, facts = None, {}
-        for line in _build.build_log(lib).splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                fn = short(m.group(1))
-            elif fn and ("registers" in line or "spill" in line):
-                facts.setdefault(fn, []).append(
-                    line.split(":", 1)[-1].strip())
-        for fn, lines in facts.items():
-            log(f"ptxas {lib} {fn}: " + "; ".join(lines))
-    cuobj = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(cuobj):
-        log("cuobjdump missing: K2's HMMA count not read")
-        return
-    sass = subprocess.run([cuobj, "-sass",
-                           str(_build.lib_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300)
-    if sass.returncode != 0:
-        fail(f"cuobjdump -sass failed: {sass.stderr[-500:]}")
-    hmma, fn = {}, None
-    for line in sass.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
+_KERNELS = ("flash_fwd_mma", "flash_fwd_sliced", "gather_kernel", "wkv6_fwd",
+            "zo_affine_kernel", "chain_kernel", "fanout_kernel",
+            "selftest_kernel")
+_TARG = re.compile(r"13__nv_bfloat16|6__half|f|Li(-?\d+)E|Lb([01])E")
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as ``name<template args>``."""
+    m = re.search("|".join(_KERNELS), mangled)
+    if not m:
+        return mangled
+    rest, args, i = mangled[m.end():], [], 1
+    if not rest.startswith("I"):
+        return m.group(0)
+    while i < len(rest) and rest[i] != "E":
+        t = _TARG.match(rest, i)
+        if not t:
+            break
+        args.append({"13__nv_bfloat16": "bf16", "6__half": "f16",
+                     "f": "f32"}.get(t.group(0)) or t.group(1)
+                    or ("true" if t.group(2) == "1" else "false"))
+        i = t.end()
+    return f"{m.group(0)}<{', '.join(args)}>"
+
+
+def ptxas_facts(_build, lib: str, log_text=None) -> dict:
+    """{kernel: "N registers, …; spills"} from ``-Xptxas -v``'s output."""
+    fn, facts = None, {}
+    for line in (log_text or _build.build_log(lib)).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fn = short(m.group(1))
-            hmma[fn] = 0
-        elif fn and "HMMA" in line:
-            hmma[fn] += 1
+            fn = kernel_name(m.group(1))
+        elif fn and ("registers" in line or "spill" in line):
+            facts.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in facts.items()}
+
+
+def build_facts(_build) -> None:
+    """What the compiler made of K1, K2, K3, K11 and K12: ``-Xptxas -v``'s
+    registers, shared memory and spills per device function (every K2 and
+    K11 instance), and the HMMA (tensor-core) instructions in K2's SASS,
+    read with ``cuobjdump`` — every mma instance must have some."""
+    for lib in ("flash_attention", "wkv6", "paged_gather", "zo_affine",
+                "zo_multi"):
+        for fn, facts in sorted(ptxas_facts(_build, lib).items()):
+            if lib.startswith("zo") and "bf16, 0" not in fn:
+                continue
+            log(f"ptxas {lib} {fn}: {facts}")
+    hmma = {}
+    for name, instrs in sass_of(_build.lib_path("flash_attention")).items():
+        hmma[kernel_name(name)] = sum(1 for _, op, _ in instrs if op == "HMMA")
     mma = {k: v for k, v in hmma.items() if k.startswith("flash_fwd_mma")}
-    if len(mma) != 3 or min(mma.values()) == 0:
-        fail(f"K2's bf16 kernels lack tensor-core instructions: {hmma}")
+    if len(mma) != 28 or min(mma.values()) == 0:
+        fail(f"K2's mma kernels lack tensor-core instructions: {hmma}")
     log("HMMA instructions in K2's SASS (cuobjdump): "
         + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
+
+
+# SASS opcodes by the unit that issues them; every other opcode (LOP3,
+# IADD3, SHF, ISETP, FSETP, FSEL, SEL, FMNMX, PRMT, LEA, MOV, …) is "alu"
+SASS_GROUPS = (
+    ("mufu", ("MUFU",)),
+    ("conversion", ("I2F", "F2I", "FRND", "F2F", "I2FP", "F2IP", "F2FP",
+                    "I2I")),
+    ("imad", ("IMAD",)),
+    ("fp32", ("FFMA", "FMUL", "FADD", "FSWZADD")),
+    ("memory", ("LDG", "STG", "LDS", "STS", "LDC", "LDL", "STL", "LD", "ST",
+                "ULDC", "LDGSTS", "LDSM")),
+    ("control", ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "NOP",
+                 "WARPSYNC", "BAR", "JMP", "BPT")),
+)
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)([^;]*);")
+
+
+def sass_of(lib_path) -> dict:
+    """{mangled kernel name: [(address, opcode, operands)]} from
+    ``cuobjdump -sass`` of a built library."""
+    cuobj = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([cuobj, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib_path} failed: {out.stderr[-500:]}")
+    funcs, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = _SASS_LINE.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    return funcs
+
+
+def sass_loop(instrs) -> dict:
+    """Instructions of a z kernel's hot loop, counted per z by unit.
+
+    The hot loop is the backward branch's span that holds the most
+    ``MUFU.RSQ`` (one per gaussian z: the sqrt of Box–Muller), the shortest
+    such span on a tie; per-z counts are the span's counts over that number
+    of RSQs (per element for K1, per stream and element for K3)."""
+    best = None
+    for addr, op, rest in instrs:
+        if op != "BRA":
+            continue
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if not m or int(m.group(1), 16) > addr:
+            continue
+        lo = int(m.group(1), 16)
+        body = [(o, r) for a, o, r in instrs if lo <= a <= addr]
+        rsq = sum(1 for o, r in body if o == "MUFU" and r.startswith(".RSQ"))
+        key = (rsq, -len(body))
+        if rsq and (best is None or key > best[0]):
+            best = (key, body)
+    if best is None:
+        return {}
+    (rsq, _), body = best
+    counts = {g: 0 for g, _ in SASS_GROUPS}
+    counts["alu"] = 0
+    for op, _ in body:
+        group = next((g for g, ops in SASS_GROUPS if op in ops), "alu")
+        counts[group] += 1
+    per_z = {g: n / rsq for g, n in counts.items()}
+    per_z["total"] = len(body) / rsq
+    per_z["rsq_in_loop"] = rsq
+    return per_z
+
+
+def sass_report(lib_path, kernels: dict) -> dict:
+    """{label: per-z counts} for each ``kernels[label]`` = a regex matched
+    against the mangled names in the library's SASS."""
+    funcs = sass_of(lib_path)
+    rep = {}
+    for label, pat in kernels.items():
+        names = [n for n in funcs if re.search(pat, n)]
+        if len(names) != 1:
+            fail(f"SASS: {pat!r} matches {names} in {lib_path}")
+        rep[label] = sass_loop(funcs[names[0]])
+        if not rep[label]:
+            fail(f"SASS: no loop with MUFU.RSQ in {names[0]}")
+    return rep
+
+
+def sass_line(label: str, c: dict) -> str:
+    return (f"{label}: {c['total']:.2f} SASS instructions per z in the hot "
+            "loop — " + ", ".join(f"{g} {c[g]:.2f}" for g in
+                                  ("fp32", "alu", "imad", "conversion",
+                                   "mufu", "memory", "control"))
+            + f" ({c['rsq_in_loop']} z per loop iteration)")
+
+
+#: every z kernel's gaussian (bf16 where it has a dtype) device function:
+#: launch-count name -> (library, regex of its mangled name)
+Z_KERNEL_SASS = {
+    "zo_affine": ("zo_affine", r"zo_affine_kernel.*13__nv_bfloat16Li0E"),
+    "zo_affine_chain": ("zo_multi", r"chain_kernel.*13__nv_bfloat16Li0E"),
+    "zo_affine_multi": ("zo_multi", r"fanout_kernel.*13__nv_bfloat16Li0E"),
+    "zo_affine_batched": ("zo_multi", r"fanout_kernel.*13__nv_bfloat16Li0E"),
+    "zo_sqnorm": ("zo_sqnorm", r"tile_sumsILi0E"),
+    "zo_affine_rows": ("zo_rows", r"affine_rows_kernel.*13__nv_bfloat16Li0E"),
+    "zo_affine_multi_rows": ("zo_rows",
+                             r"multi_rows_kernel.*13__nv_bfloat16Li0E"),
+    "zo_affine_chain_rows": ("zo_rows",
+                             r"chain_rows_kernel.*13__nv_bfloat16Li0E"),
+    "zo_sqnorm_rows": ("zo_rows", r"sqnorm_rows_tilesILi0E"),
+}
+
+
+def issue_floor_ms(n_z: float, per_z: float, mhz: float) -> float:
+    """The least ms the card takes to issue ``per_z`` SASS instructions for
+    each of ``n_z`` z: 4 warp-instructions of 32 threads per SM per clock
+    on 132 SMs."""
+    return n_z * per_z / (4 * 32 * 132 * mhz * 1e6) * 1e3
+
+
+def sm_clocks() -> tuple:
+    """(current, max) SM clock in MHz as nvidia-smi reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    cur, mx = (float(v) for v in out.stdout.strip().splitlines()[0].split(","))
+    return cur, mx
+
+
+def build_parent_libs(_build, parent: Path) -> dict:
+    """K1's, K3's and K2's libraries built from another checkout's sources
+    (the parent commit, unpacked with ``git archive``) with this tree's
+    flags, into ``build/parent_kernels``; {library name: path}."""
+    out_dir = ROOT / "build" / "parent_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = parent / "src" / "repro_torch" / "kernels" / "zo_fused" / "csrc"
+    procs, paths = [], {}
+    srcs = {"zo_affine": src / "zo_affine.cu", "zo_multi": src / "zo_multi.cu",
+            "flash_attention": src.parents[1] / "flash_attention" / "csrc"
+            / "flash_attention.cu"}
+    for name, path in srcs.items():
+        lib = out_dir / f"{name}.so"
+        flags = _build.SOURCES[name][1]
+        cmd = [_build._nvcc(), *_build._FLAGS, *flags, "-o", str(lib),
+               str(path)]
+        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True)))
+        paths[name] = lib
+    for name, p in procs:
+        log_text, _ = p.communicate()
+        if p.returncode != 0:
+            fail(f"building the parent's {name}: {log_text[-2000:]}")
+        (out_dir / f"{name}.log").write_text(log_text)
+    return paths
 
 
 # --------------------------------------------------------------------------- #
@@ -1012,6 +1192,30 @@ def memory_and_busy(torch, cfg, params0, selection=None):
     return stp, fwd
 
 
+def fzoo_busy(torch, cfg, params0) -> None:
+    """Kernel time and device-busy share of one fzoo(8) step under
+    torch.profiler, on a scratch copy of θ₀ (K5's fan-out and K3's update
+    each step)."""
+    from repro_torch import zo
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import bundle
+    holder = {"p": _clone_tree(params0)}
+    batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                              vocab=cfg.vocab_size, seed=SEED),
+                     device="cuda").batch(0)
+    opt = zo.fzoo(lr=LR, eps=EPS, batch_seeds=B_SEEDS, backend="pallas")
+    holder["s"] = opt.init(holder["p"], seed=SEED)
+    step = opt.step_fn(bundle(cfg).loss_fn())
+
+    def one():
+        holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
+
+    one()
+    log(busy_line(f"one fzoo({B_SEEDS}) step ({TRAIN_BATCH} × {TRAIN_SEQ} "
+                  f"tokens, {cfg.name})", *device_busy(torch, one, 2)))
+    del holder
+
+
 def _check_unselected(torch, sel, params, params0) -> None:
     """After step 0 (phase ``sel.phase_at(0)``) every element the selection
     did not pick holds θ₀'s bits, and the picked ones moved."""
@@ -1127,6 +1331,301 @@ def check_k11(torch, np, kw, ko) -> float:
         f"tolerance ({K11_FIX_ATOL} / {K11_FIX_RTOL}) of the JAX fixture "
         "(interpret kernel and wkv6_ref, C=16 and C=9)")
     return worst
+
+
+# the head-dim sweeps: K2 at every mma instance, between two, and past 256
+# (the sliced scalar kernel); K11 below, at and between its instances, past
+# 256 (channel slices) and past what shared memory holds (the state in
+# global memory)
+K2_SWEEP_HD = (8, 40, 80, 96, 128, 192, 256, 320)
+K11_SWEEP_HD = (8, 32, 96, 128, 320, 2048)
+SWEEP_S = (1, 100, 256)
+# K2 f16: one f16 rounding on each side, as K2_BF16_REL is one bf16 ulp
+K2_F16_REL = 2.0 ** -10
+
+
+def _k2_tolerance(torch, dt) -> tuple:
+    """(relative, absolute) tolerance of K2 against its plain version."""
+    if dt == torch.float32:
+        return 0.0, K2_F32_ABS
+    return (K2_BF16_REL if dt == torch.bfloat16 else K2_F16_REL), K2_BF16_ABS
+
+
+def _hold_k2(torch, kf, q, k, v, window, what) -> float:
+    out = kf.flash_attention(q, k, v, window=window)
+    want = kf.flash_attention_plain(q, k, v, window=window).float()
+    got = out.float()
+    err = (got - want).abs()
+    rel, ab = _k2_tolerance(torch, q.dtype)
+    if out.shape != q.shape or not bool(torch.isfinite(got).all()) or bool(
+            (err > rel * want.abs() + ab).any()):
+        fail(f"K2 {what}: max err {err.max().item()} beyond "
+             f"{rel} relative + {ab}")
+    return err.max().item()
+
+
+def check_k2_sweep(torch, kf, _build) -> None:
+    """K2 against its plain version at every head dim of K2_SWEEP_HD × f32 /
+    bf16 / f16 × S ∈ SWEEP_S × window ∈ {0, 64} (B 2, H 4, KV 2), each on
+    the route ``plan`` names and never a copy; then inputs the mma kernel
+    cannot read as they are — a head dim that is not a multiple of 8, a
+    non-unit head-dim stride, a misaligned base — on the ``+copy`` route."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    worst = {}
+    for hd in K2_SWEEP_HD:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            for S in SWEEP_S:
+                for window in (0, 64):
+                    q, k, v = (torch.randn(2, S, n, hd, generator=g,
+                                           device="cuda").to(dt)
+                               for n in (4, 2, 2))
+                    route = kf.plan(q, k, v).route
+                    _build.reset_launch_counts()
+                    err = _hold_k2(torch, kf, q, k, v, window,
+                                   f"hd={hd} {dt} S={S} window={window}")
+                    if "+copy" in route or _build.route_counts != {
+                            f"flash_attention/{route}": 1}:
+                        fail(f"K2 hd={hd} {dt}: launched "
+                             f"{_build.route_counts}, planned {route}")
+                    key = f"{route} hd {hd}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+    log("K2 sweep: within tolerance of plain (f32 "
+        f"{K2_F32_ABS}, bf16 {K2_BF16_REL} rel, f16 {K2_F16_REL} rel) at "
+        f"S ∈ {SWEEP_S} × window ∈ {{0, 64}}, H=4 KV=2; max abs err "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    copies = []
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        wide = torch.randn(2, 100, 4, 40, generator=g,
+                           device="cuda").to(dt)
+        flat = torch.randn(2 * 100 * 4 * 64 + 1, generator=g,
+                           device="cuda").to(dt)
+        kv = torch.randn(2, 100, 2, 64, generator=g, device="cuda").to(dt)
+        kv20 = torch.randn(2, 100, 2, 20, generator=g, device="cuda").to(dt)
+        for q, k, what in ((wide[..., :20], kv20, "hd 20"),
+                           (wide[..., ::2], kv20, "hd stride 2"),
+                           (flat[1:].view(2, 100, 4, 64), kv, "base + 1")):
+            route = kf.plan(q, k, k).route
+            _build.reset_launch_counts()
+            _hold_k2(torch, kf, q, k, k, 64, f"{what} {dt}")
+            if _build.route_counts != {f"flash_attention/{route}": 1}:
+                fail(f"K2 {what} {dt}: launched {_build.route_counts}")
+            copies.append(f"{what} {dt} -> {route}")
+    log("K2 inputs the kernels cannot read as they are, within tolerance: "
+        + "; ".join(copies))
+
+
+def check_k11_sweep(torch, ko) -> None:
+    """K11 against its plain version at every head dim of K11_SWEEP_HD and
+    S ∈ SWEEP_S (C 1, 10, 16), B 2, H 3, within K11_REL × max |out|."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    worst = {}
+    for hd in K11_SWEEP_HD:
+        for S, C in zip(SWEEP_S, (1, 10, 16)):
+            args = k11_inputs(torch, g, 2, S, 3, hd)
+            y, s = ko.wkv6(*args, chunk=C)
+            yp, sp = ko.wkv6_plain(*args, chunk=C)
+            for got, want, what in ((y, yp, "y"), (s, sp, "s_final")):
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                if got.shape != want.shape or not bool(
+                        torch.isfinite(got).all()) or err > K11_REL * scale:
+                    fail(f"K11 hd={hd} S={S} C={C}: {what} max err {err} > "
+                         f"{K11_REL} × {scale}")
+                worst[hd] = max(worst.get(hd, 0.0), err / scale)
+    log(f"K11 sweep: within {K11_REL} × max|out| of plain at S ∈ {SWEEP_S} "
+        "(C 1, 10, 16), H=3; max |Δ| / max|out| "
+        + ", ".join(f"hd {k} {v:.2e}" for k, v in worst.items()))
+
+
+def check_z_selftest(kz) -> None:
+    """zo_selftest: every rewrite of zo_stream.cuh against zo::ref over its
+    whole domain on the card; any mismatch fails."""
+    bad = kz.z_selftest("cuda")
+    if any(bad.values()):
+        fail(f"zo_selftest: the z generator's rewrites differ from zo::ref: "
+             f"{bad}")
+    log("zo_selftest: 0 mismatches in " + ", ".join(bad)
+        + " over all 2^24 uniforms (the division over all 2^23 mantissas; "
+        "z_of vs ref::z_at on 2^24 (index, seed) pairs)")
+
+
+class ClockSampler:
+    """nvidia-smi's SM clock sampled every 100 ms while the block runs."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-lms", "100"], stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        vals = sorted(float(v) for v in out.split() if v.strip())
+        self.mhz = vals[len(vals) // 2] if vals else float("nan")
+        return False
+
+
+def _typed_z_libs(paths: dict) -> dict:
+    """ctypes handles of K1's and K3's C entry points in the libraries at
+    ``paths`` (one signature for the parent's and this tree's)."""
+    import ctypes
+    vp, i64, i, f = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                     ctypes.c_float)
+    k1 = ctypes.CDLL(str(paths["zo_affine"])).zo_affine
+    k1.argtypes = [vp, vp, i64, i, ctypes.c_uint32, f, f, i, vp]
+    k1.restype = i
+    k3 = ctypes.CDLL(str(paths["zo_multi"])).zo_affine_chain
+    k3.argtypes = [vp, vp, i64, i, vp, vp, vp, i, i, vp]
+    k3.restype = i
+    return {"k1": k1, "k3": k3}
+
+
+def z_turns(torch, _build, leaves, parent, card) -> dict:
+    """K1 (one record over ``leaves``) and K3 (one 8-stream update over
+    them) through their C entry points, this tree's kernels and — with
+    ``parent``, a checkout of the parent commit — the parent's, built with
+    the same flags, in turns: parent, change, change, parent.  Prints the
+    times, each kernel's SASS instructions per z in its hot loop by unit,
+    registers and spills, and the issue floor at the SM clock nvidia-smi
+    reports during the runs.  Returns this tree's counts."""
+    import ctypes
+    from repro_torch.kernels.zo_fused.kernel import _f32
+    libs = {"change": {"zo_affine": _build.lib_path("zo_affine"),
+                       "zo_multi": _build.lib_path("zo_multi")}}
+    if parent is not None:
+        libs["parent"] = build_parent_libs(_build, parent)
+    n_all = sum(p.numel() for p in leaves)
+    seeds = [(ctypes.c_uint32 * B_SEEDS)(*[(1000003 * i + 17 + j) & 0xFFFFFFFF
+                                           for j in range(B_SEEDS)])
+             for i in range(len(leaves))]
+    ones = (ctypes.c_float * B_SEEDS)(*[1.0] * B_SEEDS)
+    tiny = (ctypes.c_float * B_SEEDS)(*[_f32(1e-12)] * B_SEEDS)
+    stream = _build.stream_of(leaves[0])
+
+    def runs(fns):
+        def k1():
+            for i, p in enumerate(leaves):
+                err = fns["k1"](p.data_ptr(), p.data_ptr(), p.numel(), 1,
+                                seeds[i][0], 1.0, _f32(1e-12), 0, stream)
+                if err:
+                    fail(f"K1 timing launch: CUDA error {err}")
+
+        def k3():
+            for i, p in enumerate(leaves):
+                err = fns["k3"](p.data_ptr(), p.data_ptr(), p.numel(), 1,
+                                seeds[i], ones, tiny, B_SEEDS, 0, stream)
+                if err:
+                    fail(f"K3 timing launch: CUDA error {err}")
+        return k1, k3
+
+    if parent is not None:
+        from repro_torch.kernels.flash_attention import kernel as kf
+        k2_turns(torch, kf, libs["parent"]["flash_attention"], card)
+    fns = {name: runs(_typed_z_libs(paths)) for name, paths in libs.items()}
+    order = (["parent", "change", "change", "parent"] if parent is not None
+             else ["change", "change"])
+    times = {"k1": {}, "k3": {}}
+    with ClockSampler() as clock:
+        for name in order:
+            k1, k3 = fns[name]
+            times["k1"].setdefault(name, []).append(cuda_ms(k1, 10))
+            times["k3"].setdefault(name, []).append(cuda_ms(k3, 5))
+    counts = {}
+    for name, paths in libs.items():
+        rep = sass_report(paths["zo_affine"],
+                          {"K1": Z_KERNEL_SASS["zo_affine"][1]})
+        rep.update(sass_report(paths["zo_multi"],
+                               {"K3": Z_KERNEL_SASS["zo_affine_chain"][1]}))
+        counts[name] = rep
+        for lib, label in (("zo_affine", "K1"), ("zo_multi", "K3")):
+            log_text = Path(paths[lib]).with_suffix(".log").read_text()
+            regs = ptxas_facts(_build, lib, log_text)
+            kname = next(k for k in regs if k.startswith(
+                "zo_affine_kernel<bf16, 0>" if label == "K1"
+                else "chain_kernel<bf16, 0>"))
+            log(f"{name} {label} {kname}: {regs[kname]}")
+            log(f"{name} " + sass_line(label + " " + kname, rep[label]))
+    cur, mx = sm_clocks()
+    mhz = clock.mhz
+    for label, key, nz in (("K1", "k1", n_all), ("K3", "k3", B_SEEDS * n_all)):
+        for name in libs:
+            per_z = counts[name][label]["total"]
+            floor = issue_floor_ms(nz, per_z, mhz)
+            log(f"{label} {name}: " + ", ".join(
+                f"{t:.3f}" for t in times[key][name])
+                + f" ms ({order.count(name)} runs in turns "
+                f"{'/'.join(order)}); issue floor {floor:.3f} ms = {nz} z × "
+                f"{per_z:.2f} instructions / (4 warp-instructions × 32 × 132 "
+                f"SMs × {mhz:.0f} MHz) — on {card}")
+    log(f"SM clock during the runs {mhz:.0f} MHz (median of nvidia-smi "
+        f"samples every 100 ms), {cur:.0f} MHz after, {mx:.0f} MHz max")
+    return counts["change"]
+
+
+def k2_turns(torch, kf, path, card) -> None:
+    """K2 at the training shape (16, 256, 14, 64) bf16 from the parent's
+    library (its C entry point, which took no route) and from this tree's
+    wrapper, in CUDA-graph runs of RUN_N launches, in turns."""
+    import ctypes
+    fn = ctypes.CDLL(str(path)).flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_int64] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(TRAIN_BATCH, TRAIN_SEQ, 14, 64, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    k = torch.randn(TRAIN_BATCH, TRAIN_SEQ, 2, 64, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    v = torch.randn_like(k)
+    o = torch.empty_like(q)
+
+    def parent_k2():
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1,
+                 TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64, *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], 64 ** -0.5, 1, 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the parent's K2: CUDA error {err}")
+
+    parent_k2()
+    if not same_bits(o, kf.flash_attention(q, k, v)):
+        log("K2 parent vs change at the training shape: outputs differ in "
+            "bits (both are held to the plain version within one ulp)")
+    run = run_ms({"parent": parent_k2,
+                  "change": lambda: kf.flash_attention(q, k, v)}, RUN_N)
+    log(f"K2 at the training shape ({TRAIN_BATCH}, {TRAIN_SEQ}, 14, 64) bf16,"
+        f" {RUN_N} launches per CUDA graph, in turns: parent "
+        f"{run['parent']:.4f} ms, change {run['change']:.4f} ms — on {card}")
+
+
+def time_k2_hd128(torch, kf, card) -> dict:
+    """K2 at OPT-13b's attention shape (16, 256, 40, 128) bf16, MHA, beside
+    one SDPA call, in runs of RUN_N launches per CUDA graph, in turns."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    B, S, H, hd = TRAIN_BATCH, TRAIN_SEQ, 40, 128
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    err = _hold_k2(torch, kf, q, k, v, 0, f"at ({B}, {S}, {H}, {hd})")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    run = run_ms({"kernel": lambda: kf.flash_attention(q, k, v),
+                  "library": lambda: sdpa(qt, kt, vt, is_causal=True)}, RUN_N)
+    plain_ms = run_ms({"plain": lambda: kf.flash_attention_plain(q, k, v)},
+                      RUN_N_PLAIN, graph=False)["plain"]
+    nbytes = 2 * 4 * q.numel()
+    ops = 4 * hd * kf.attended_pairs(S) * B * H
+    bms, by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
+    log(f"K2 hd 128 at OPT-13b's shape ({B}, {S}, {H}, {hd}) bf16 MHA: "
+        f"{run['kernel']:.4f} ms, one SDPA call {run['library']:.4f} ms "
+        f"({RUN_N} launches per CUDA graph and event pair, in turns), plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+        f"{err:.2e} — on {card}")
+    return {"ms": run["kernel"], "library_ms": run["library"],
+            "bound_ms": bms}
 
 
 def ssm_prompts(np, vocab: int):
@@ -1368,6 +1867,7 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         for i, p in enumerate(leaves):
             kz.zo_affine_plain(p, seeds[i][0], 1.0, 1e-12, out=p)
 
+    clock = ClockSampler().__enter__()
     times = {
         "zo_affine": (cuda_ms(k1_record, 10), host_ms(k1_plain_record)),
         "zo_affine_chain": (cuda_ms(k3_update, 5), host_ms(
@@ -1415,6 +1915,22 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         "zo_sqnorm_rows": (cuda_ms(k10_pass, 10), host_ms(
             lambda: k10_pass(kr.zo_sqnorm_rows_plain))),
     })
+    clock.__exit__(None, None, None)
+    from repro_torch.kernels import _build
+    for name, nz in (("zo_affine", n_all),
+                     ("zo_affine_chain", B_SEEDS * n_all),
+                     ("zo_affine_multi", B_SEEDS * n_all),
+                     ("zo_affine_batched", B_SEEDS * n_all),
+                     ("zo_sqnorm", n_all), ("zo_affine_rows", n_sel),
+                     ("zo_affine_multi_rows", B_SEEDS * n_sel),
+                     ("zo_affine_chain_rows", B_SEEDS * n_sel),
+                     ("zo_sqnorm_rows", n_sel)):
+        lib, pat = Z_KERNEL_SASS[name]
+        c = sass_report(_build.lib_path(lib), {name: pat})[name]
+        floor = issue_floor_ms(nz, c["total"], clock.mhz)
+        log(sass_line(name, c) + f"; issue floor {floor:.3f} ms for {nz} z "
+            f"at {clock.mhz:.0f} MHz (measured {times[name][0]:.3f} ms, "
+            f"{100 * floor / times[name][0]:.0f}% of it)")
 
     g = torch.Generator(device="cuda").manual_seed(6)
     S = TRAIN_SEQ
@@ -1558,7 +2074,12 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels against their plain "
-                         "versions and the JAX fixtures, then stop")
+                         "versions and the JAX fixtures, time K1 and K3 in "
+                         "turns and K2 at hd 128, then stop")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit (git archive): "
+                         "its K1 and K3 are built and timed in turns with "
+                         "this tree's")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -1593,20 +2114,19 @@ def main() -> None:
         f"({len(_build.launch_counts)} kernels) in {build_s:.1f} s")
     build_facts(_build)
 
+    check_z_selftest(kz)
     k1_err = check_k1(torch, np, kz)
     k2_err = check_k2(torch, kf)
+    check_k2_sweep(torch, kf, _build)
     check_k3_k4_k5(torch, np, kz, km)
     check_k6(torch, np, km)
     check_k7_k10(torch, np, kr)
     k11_err = check_k11(torch, np, kw, ko)
-    if args.kernels_only:
-        log(f"kernels only: all checks passed in "
-            f"{time.perf_counter() - t_start:.1f} s on {card}")
-        return
+    check_k11_sweep(torch, ko)
 
     # ---- full width ---------------------------------------------------- #
     from repro_torch.models import all_archs, bundle
-    from repro_torch.tree_utils import tree_leaves
+    from repro_torch.tree_utils import is_floating, tree_leaves
     cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
     t0 = time.perf_counter()
     params0 = bundle(cfg).init(0, device="cuda")
@@ -1614,6 +2134,15 @@ def main() -> None:
     n_params = sum(p.numel() for p in tree_leaves(params0))
     log(f"qwen2-0.5b: {n_params} params bf16, {cfg.n_layers} layers, "
         f"init {time.perf_counter() - t0:.1f} s")
+    scratch = _clone_tree(params0)
+    z_turns(torch, _build, [p for p in tree_leaves(scratch)
+                            if is_floating(p)], args.parent, card)
+    del scratch
+    k2_hd128 = time_k2_hd128(torch, kf, card)
+    if args.kernels_only:
+        log(f"kernels only: all checks passed in "
+            f"{time.perf_counter() - t_start:.1f} s on {card}")
+        return
     check_k12(torch, kp, cfg.n_layers, 1 + 2 * SLOTS * (MAX_LEN // BLOCK),
               cfg.kv_heads * cfg.hd)
     counts: dict = {}
@@ -1633,8 +2162,9 @@ def main() -> None:
     nblk_slot = eng._nblk_slot
     del params, twin, eng, probe
 
-    # ---- memory and device-busy share of the spsa step ----------------- #
+    # ---- memory and device-busy share of the spsa and fzoo steps ------- #
     memory_and_busy(torch, cfg, params0)
+    fzoo_busy(torch, cfg, params0)
 
     # ---- paths 2-5 and 7-10: train (a)-(d), then (e)-(h) under a ------- #
     # ---- selection; path 6: serve the fzoo fine-tune ------------------- #
@@ -1691,11 +2221,14 @@ def main() -> None:
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
     k2_mma = counts.get("flash_attention/bf16_mma", 0)
-    if k2_mma == 0 or k2_mma != counts.get("flash_attention", 0):
+    copied = {k: v for k, v in counts.items() if k.endswith("+copy")}
+    if k2_mma == 0 or k2_mma != counts.get("flash_attention", 0) or copied:
         fail(f"K2 on the counted paths: {k2_mma} bf16 mma.sync launches of "
-             f"{counts.get('flash_attention', 0)}")
+             f"{counts.get('flash_attention', 0)}; copies {copied}")
     log(f"K2 over the counted paths: all {k2_mma} launches on the bf16 "
-        "mma.sync route")
+        "mma.sync route, none on a +copy route; K2 hd 128 (OPT-13b's "
+        f"shape): {k2_hd128['ms']:.4f} ms, SDPA "
+        f"{k2_hd128['library_ms']:.4f} ms, bound {k2_hd128['bound_ms']:.4f}")
     log("training step ms: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in step_ms.items())
         + f" — on {card}; smoke took {time.perf_counter() - t_start:.1f} s")

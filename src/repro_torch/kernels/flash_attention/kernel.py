@@ -10,24 +10,36 @@ tensor takes the plain version (dense masked softmax in f32, the
 kernel sums in another order (online softmax), so the tests state a
 tolerance, not bitwise equality.
 
-bf16 runs on the tensor cores (``mma.sync`` tiles fed by 16-byte
-``cp.async`` copies), so its q, k and v must lie on 16-byte-aligned bases
-with (b, s, h) strides that are multiples of 8 elements; the wrapper raises
-otherwise.  f32 runs the scalar kernel and takes any strides.
+Like JAX's kernel, the wrapper takes f32, bf16 and f16 at any head dim and
+any strides.  ``plan`` decides, from shapes, strides and addresses alone,
+which device function runs and whether the inputs are copied first:
+
+* bf16 / f16 with hd <= 256 run on the tensor cores (``mma.sync`` tiles fed
+  by 16-byte ``cp.async`` copies), at the next instance of 16, 32, 64, 96,
+  128, 192, 256 at or above hd.  That needs 16-byte-aligned q, k and v
+  with (b, s, h) strides that are multiples of 8 elements, unit stride on
+  hd and hd a multiple of 8; inputs that are not so are copied into fresh
+  contiguous tensors (zero-padded to a multiple of 8 columns) and run the
+  same kernel, counted under the route's ``+copy`` name;
+* f32 at any hd, and bf16 / f16 past 256, run the scalar kernel, which walks
+  hd in slices; only a non-unit hd stride is copied first.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the device function each dtype launches (``_build.route_counts``)
-_ROUTES = {torch.float32: "f32_scalar", torch.bfloat16: "bf16_mma"}
-_HEAD_DIMS = (16, 32, 64)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+#: the largest head dim of the mma.sync kernel's instances (16, 32, 64, 96,
+#: 128, 192, 256: ``dispatch_mma`` in the .cu)
+MMA_MAX_HEAD_DIM = 256
+_MMA, _SCALAR = 0, 1
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,11 +76,48 @@ def aligned16(t: torch.Tensor) -> bool:
     return True
 
 
+class Plan(NamedTuple):
+    """How one call runs on the card: the device function (``kernel``:
+    "mma" or "scalar"; the .cu picks its instance from the head dim),
+    whether q, k and v are copied first and to how many columns
+    (``pad_to``, the head dim the kernel reads), and the route name its
+    launch is counted under."""
+    kernel: str
+    copy: bool
+    pad_to: int
+    route: str
+
+
+def _unit_hd(t: torch.Tensor) -> bool:
+    return t.shape[3] == 1 or t.stride(3) == 1
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
+    """The route of a call with these q, k, v (one dtype of ``_DTYPES``)."""
+    hd, dt = q.shape[3], q.dtype
+    unit = all(_unit_hd(t) for t in (q, k, v))
+    if dt == torch.float32 or hd > MMA_MAX_HEAD_DIM:
+        route = f"{_NAMES[dt]}_scalar" + ("" if unit else "+copy")
+        return Plan("scalar", not unit, hd, route)
+    fits = unit and hd % 8 == 0 and all(aligned16(t) for t in (q, k, v))
+    route = f"{_NAMES[dt]}_mma" + ("" if fits else "+copy")
+    return Plan("mma", not fits, -(-hd // 8) * 8, route)
+
+
+def _copied(t: torch.Tensor, pad_to: int) -> torch.Tensor:
+    """A fresh contiguous copy of ``t`` (so 16-byte aligned), its last axis
+    zero-padded to ``pad_to`` columns."""
+    hd = t.shape[3]
+    if pad_to > hd:
+        return torch.nn.functional.pad(t, (0, pad_to - hd))
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         lib.flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 9
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_int64] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
         lib._typed = True
@@ -92,30 +141,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = qs
     dt = q.dtype
     if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
-        raise TypeError(f"flash_attention: the kernel takes float32 or "
-                        f"bfloat16 q/k/v of one dtype, got {dt}/"
+        raise TypeError(f"flash_attention: the kernel takes float32, "
+                        f"bfloat16 or float16 q/k/v of one dtype, got {dt}/"
                         f"{k.dtype}/{v.dtype}")
-    if hd not in _HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention: head_dim {hd} (the "
-                                  f"kernel is built for {_HEAD_DIMS})")
-    qst, kst, vst = q.stride(), k.stride(), v.stride()
-    if qst[3] != 1 or kst[3] != 1 or vst[3] != 1:
-        raise ValueError("flash_attention: head_dim must be the unit-stride "
-                         "axis")
-    if dt == torch.bfloat16 and not (aligned16(q) and aligned16(k)
-                                     and aligned16(v)):
-        raise ValueError("flash_attention: the bf16 kernel needs 16-byte-"
-                         "aligned q/k/v with (b, s, h) strides that are "
-                         "multiples of 8 elements")
     o = torch.empty(qs, dtype=dt, device=dev)
+    if q.numel() == 0:
+        return o
+    p = plan(q, k, v)
+    if p.copy:
+        q, k, v = (_copied(t, p.pad_to) for t in (q, k, v))
+    qst, kst, vst = q.stride(), k.stride(), v.stride()
     lib = _lib()
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[dt],
-        B, S, H, ks[2], hd, qst[0], qst[1], qst[2], kst[0], kst[1], kst[2],
-        vst[0], vst[1], vst[2], hd ** -0.5, int(bool(causal)), int(window),
+        _MMA if p.kernel == "mma" else _SCALAR, B, S, H, ks[2], p.pad_to, hd,
+        qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1],
+        vst[2], hd ** -0.5, int(bool(causal)), int(window),
         _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
-    _build.count("flash_attention", _ROUTES[dt])
+    _build.count("flash_attention", p.route)
     return o
 
 

@@ -15,7 +15,10 @@ of ``_wkv_kernel``'s per-chunk arithmetic with a sequential loop over
 chunks; a CUDA tensor launches ``csrc/wkv6.cu`` or raises.  The two agree
 within rounding (the kernel sums in its own order), not bit for bit.
 ``launch`` is the kernel's entry for the model's (B, S, H, hd) layout,
-read through strides (``ops.wkv6``).
+read through strides (``ops.wkv6``).  Like JAX's kernel it takes any head
+dim (instances of 16 … 256 channels, the next one up zero-padded, and
+slices of 256 past that; past about hd 1 800 the state slice no longer
+fits a block's shared memory on an H100 and stays in global memory).
 """
 from __future__ import annotations
 
@@ -27,7 +30,6 @@ from repro_torch.kernels import _build
 
 CLIP = 50.0
 MAX_CHUNK = 16
-_HEAD_DIMS = (16, 32, 64)
 
 
 def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,9 +89,6 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError("wkv6_chunked: the kernel takes float32 inputs, got "
                         + "/".join(str(t.dtype) for t in ts))
-    if hd not in _HEAD_DIMS:
-        raise NotImplementedError(f"wkv6_chunked: head_dim {hd} (the kernel "
-                                  f"is built for {_HEAD_DIMS})")
     if not 1 <= chunk <= MAX_CHUNK or S % chunk:
         raise ValueError(f"wkv6_chunked: chunk {chunk} must be in [1, "
                          f"{MAX_CHUNK}] (the f32 envelope) and divide S={S}")

@@ -10,15 +10,20 @@
 //      y = fold_j round_T(a_j*y + b_j*z(seed_j)), one read and one write of x
 //
 // On the TPU the grid kept a VMEM tile of x resident while an inner batch
-// axis walked the B streams.  Here each thread owns one element per
-// grid-stride step: it loads x once into a register and generates the B
-// streams' z against it (fan-out: B coalesced stores, one per output slice;
-// chain: the fold stays in the register and is stored once, so it may run
-// in place).  The z generator and the affine combine are zo_stream.cuh's,
-// the same code K1 runs, so each fan-out slice is bitwise K1(x, seed_j,
-// a_j, b_j) and the chain is bitwise B sequential K1 launches: the cast
-// through T between streams (round_to) is the write/read boundary of one
-// launch (multi.py:101-117).
+// axis walked the B streams.  Here the fan-out gives each thread one element
+// per grid-stride step: it loads x once into a register and generates the B
+// streams' z against it (B coalesced stores, one per output slice).  The
+// chain, which every fzoo step and seed-group update runs, is K1's design:
+// each thread takes one 16-byte vector (8 bf16/f16 or 4 f32 elements) per
+// grid-stride step with a 32-bit index, carries the vector's running values
+// in registers through the B streams — the per-stream key, a and b loaded
+// once per vector, the vector's z independent of each other (interleaving
+// two streams' z as well measured no faster) — and stores once, so it may
+// run in place; a scalar head and tail as in K1.  The z generator and the
+// affine combine are zo_stream.cuh's, the same code K1 runs, so each
+// fan-out slice is bitwise K1(x, seed_j, a_j, b_j) and the chain is bitwise
+// B sequential K1 launches: the cast through T between streams (round_to)
+// is the write/read boundary of one launch (multi.py:101-117).
 //
 // Seeds and coefficients travel by value in the kernel's parameters, at
 // most ZO_MAX_STREAMS per launch; the wrapper splits a longer list into
@@ -27,7 +32,8 @@
 //
 // Bound on the H100: fan-out reads x once and writes B outputs, chain reads
 // and writes x once; each stream costs ~64 f32 flops per element, so for
-// B >= 2 in bf16 the CUDA-core rate (67 TFLOP/s) bounds both, not memory.
+// B >= 2 in bf16 the CUDA-core rate (67 TFLOP/s) bounds both, not memory —
+// and, below it, the issue of ~100 SASS instructions per z (zo_stream.cuh).
 #include "zo_stream.cuh"
 
 #define ZO_MAX_STREAMS 64
@@ -54,15 +60,38 @@ __global__ void fanout_kernel(const T* x, T* y, int64_t n, int nb,
   }
 }
 
+constexpr int THREADS = 256;
+
 template <typename T, int DIST>
-__global__ void chain_kernel(const T* x, T* y, int64_t n, int nb,
-                             const Streams s) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
+__global__ void __launch_bounds__(THREADS)
+chain_kernel(const T* x, T* y, uint32_t n, uint32_t base, zo::Split sp,
+             int nb, const Streams s) {
+  constexpr int N = zo::Vec<T>::N;
+  const uint32_t tid = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t nthreads = gridDim.x * THREADS;
+  for (uint32_t v = tid; v < sp.nvec; v += nthreads) {
+    const uint32_t i0 = sp.head + v * N;
+    float xs[N];
+    zo::load_vec<T, N>(x + i0, xs);
+    const uint32_t im = (base + i0) * zo::IDX_MUL;
+    for (int j = 0; j < nb; ++j) {
+      const uint32_t key = zo::seed_key(s.seed[j]);
+      const float a = s.a[j], b = s.b[j];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        xs[k] = zo::affine(a, xs[k], b,
+                           zo::z_of<DIST>(im + (uint32_t)k * zo::IDX_MUL, key));
+      if (j + 1 < nb) zo::round_vec(x, xs);   // the cast between launches
+    }
+    zo::store_vec<T, N>(y + i0, xs);
+  }
+  const uint32_t body_end = sp.head + sp.nvec * N;
+  for (uint32_t r = tid; r < n - sp.nvec * N; r += nthreads) {
+    const uint32_t i = r < sp.head ? r : body_end + (r - sp.head);
+    const uint32_t im = (base + i) * zo::IDX_MUL;
     float v = zo::load(x, i);
     for (int j = 0; j < nb; ++j) {
-      float z = zo::z_at<DIST>((uint32_t)i, s.seed[j]);
+      const float z = zo::z_of<DIST>(im, zo::seed_key(s.seed[j]));
       v = zo::round_to(x, zo::affine(s.a[j], v, s.b[j], z));
     }
     zo::store(y, i, v);
@@ -74,26 +103,33 @@ int grid_for(int64_t n, int threads) {
   return (int)(want < 132 * 32 ? want : 132 * 32);
 }
 
+template <typename T, int DIST>
+cudaError_t launch_chain(const void* x, void* y, int64_t n, int nb,
+                         const Streams& s, cudaStream_t stream) {
+  return zo::for_chunks<T>(x, y, n, [&](const T* xc, T* yc, uint32_t len,
+                                        uint32_t base, zo::Split sp,
+                                        uint32_t work) {
+    const int grid =
+        zo::resident_grid<chain_kernel<T, DIST>>(THREADS, work);
+    chain_kernel<T, DIST><<<grid, THREADS, 0, stream>>>(xc, yc, len, base, sp,
+                                                         nb, s);
+  });
+}
+
 template <typename T>
 cudaError_t launch(bool chain, const void* x, void* y, int64_t n, int nb,
                    const Streams& s, int dist, cudaStream_t stream) {
+  if (chain)
+    return dist == 0 ? launch_chain<T, 0>(x, y, n, nb, s, stream)
+                     : launch_chain<T, 1>(x, y, n, nb, s, stream);
   const int threads = 256;
   const int blocks = grid_for(n, threads);
-  if (chain) {
-    if (dist == 0)
-      chain_kernel<T, 0><<<blocks, threads, 0, stream>>>((const T*)x, (T*)y,
-                                                         n, nb, s);
-    else
-      chain_kernel<T, 1><<<blocks, threads, 0, stream>>>((const T*)x, (T*)y,
-                                                         n, nb, s);
-  } else {
-    if (dist == 0)
-      fanout_kernel<T, 0><<<blocks, threads, 0, stream>>>((const T*)x, (T*)y,
-                                                          n, nb, s);
-    else
-      fanout_kernel<T, 1><<<blocks, threads, 0, stream>>>((const T*)x, (T*)y,
-                                                          n, nb, s);
-  }
+  if (dist == 0)
+    fanout_kernel<T, 0><<<blocks, threads, 0, stream>>>((const T*)x, (T*)y,
+                                                        n, nb, s);
+  else
+    fanout_kernel<T, 1><<<blocks, threads, 0, stream>>>((const T*)x, (T*)y,
+                                                        n, nb, s);
   return cudaGetLastError();
 }
 

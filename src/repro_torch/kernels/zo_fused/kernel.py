@@ -258,6 +258,31 @@ def zo_affine(x: torch.Tensor, seed: int, a: float, b: float,
     return y
 
 
+#: the checks of ``zo_selftest`` (``enum Check`` in ``csrc/zo_affine.cu``),
+#: each a rewrite of ``zo_stream.cuh`` held to ``zo::ref`` over its domain
+SELFTEST_CHECKS = ("uniform", "uniform_x4", "exponent", "mantissa",
+                   "division", "neg2log", "sqrt", "quadrant", "cos",
+                   "rademacher", "z_sample")
+
+
+def z_selftest(device="cuda") -> dict:
+    """Runs ``zo_selftest`` on the card: every 24-bit uniform (and every
+    23-bit mantissa for the division) through the z generator's rewrites
+    and through ``zo::ref``; {check: inputs on which they differ}."""
+    lib = _lib()
+    if not getattr(lib, "_selftest_typed", False):
+        lib.zo_selftest.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.zo_selftest.restype = ctypes.c_int
+        lib.zo_selftest_checks.restype = ctypes.c_int
+        lib._selftest_typed = True
+    if lib.zo_selftest_checks() != len(SELFTEST_CHECKS):
+        raise RuntimeError("zo_selftest's checks do not match SELFTEST_CHECKS")
+    bad = torch.zeros(len(SELFTEST_CHECKS), dtype=torch.int64, device=device)
+    _build.check(lib, lib.zo_selftest(_build.ptr(bad), _build.stream_of(bad)),
+                 "zo_selftest")
+    return dict(zip(SELFTEST_CHECKS, bad.tolist()))
+
+
 def _u32_array(vals):
     return (ctypes.c_uint32 * len(vals))(*[int(v) & _MASK for v in vals])
 

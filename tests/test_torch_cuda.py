@@ -150,18 +150,86 @@ def test_cuda_flash_attention_bf16_reads_aligned_strides(cuda):
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_bf16_refuses_misaligned(cuda):
+    """Inputs the mma kernel cannot read with 16-byte copies — a row stride
+    of 65 elements, a base 2 bytes off 16 — are no longer refused: they are
+    copied first and run the same kernel, counted under ``bf16_mma+copy``,
+    with the bits of the aligned call on the same values."""
+    from repro_torch.kernels import _build
     k = torch.randn(1, 32, 2, 64, device=cuda).to(torch.bfloat16)
     wide = torch.randn(1, 32, 14, 65, device=cuda)
-    with pytest.raises(ValueError, match="aligned"):
-        flash_attention(wide.to(torch.bfloat16)[..., :64], k, k)  # stride 65
     flat = torch.randn(32 * 14 * 64 + 1, device=cuda).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="aligned"):
-        flash_attention(flat[1:].view(1, 32, 14, 64), k, k)       # base + 2 B
-    # the scalar f32 route takes any stride
+    for q in (wide.to(torch.bfloat16)[..., :64],              # stride 65
+              flat[1:].view(1, 32, 14, 64)):                   # base + 2 B
+        _build.reset_launch_counts()
+        out = flash_attention(q, k, k)
+        assert _build.route_counts == {"flash_attention/bf16_mma+copy": 1}
+        _assert_bf16_close(out, flash_attention_plain(q, k, k))
+        assert torch.equal(_bytes(out),
+                           _bytes(flash_attention(q.contiguous(), k, k)))
+    # the scalar f32 route takes any stride as it is
     q32, k32 = wide[..., :64], k.float()
     torch.testing.assert_close(flash_attention(q32, k32, k32),
                                flash_attention_plain(q32, k32, k32),
                                atol=1e-5, rtol=0)
+
+
+# K2 against its plain version by dtype: f32 absolute, bf16 / f16 one ulp
+_K2_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5),
+           torch.float16: (2.0 ** -10, 1e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("hd", [8, 20, 40, 80, 96, 128, 192, 256, 320])
+@pytest.mark.parametrize("S", [1, 100, 256])
+def test_cuda_flash_attention_head_dims_and_dtypes(cuda, dtype, hd, S):
+    """Every head dim JAX takes, in f32, bf16 and f16, causal with and
+    without a window: the mma instances (rounded up, zero-padded), hd 20
+    (copied to 24 columns), and the sliced scalar kernel past 256."""
+    g = torch.Generator(device=cuda).manual_seed(hd * 7 + S)
+    q, k, v = (torch.randn(2, S, n, hd, generator=g, device=cuda).to(dtype)
+               for n in (4, 2, 2))
+    rel, ab = _K2_TOL[dtype]
+    for window in (0, 64):
+        got = flash_attention(q, k, v, window=window).float()
+        want = flash_attention_plain(q, k, v, window=window).float()
+        err = (got - want).abs()
+        assert bool(torch.isfinite(got).all())
+        assert not bool((err > rel * want.abs() + ab).any()), \
+            float(err.max())
+
+
+@pytest.mark.cuda
+def test_cuda_z_selftest_finds_no_mismatch(cuda):
+    """Every rewrite of the z generator against zo::ref over its whole
+    domain (every 24-bit uniform, every 23-bit mantissa)."""
+    from repro_torch.kernels.zo_fused.kernel import z_selftest
+    assert z_selftest(cuda) == dict.fromkeys(z_selftest(cuda), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("offset,n", [(0, 1), (0, 7), (1, 8), (3, 100),
+                                      (0, 4099), (5, 262_147)])
+def test_cuda_z_kernels_vectors_heads_and_tails(cuda, dtype, offset, n):
+    """K1 and K3 on leaves that start off a 16-byte boundary and end inside
+    a vector, in place and out of place, and with y aligned differently
+    from x (every element then runs scalar): bitwise their plain
+    versions."""
+    base = torch.randn(n + 16, device=cuda).to(dtype)
+    x = base[offset:offset + n]
+    want1 = zo_affine_plain(x, 77, 0.999, -0.0123)
+    want3 = zo_affine_chain_plain(x, SEEDS, A, B)
+    assert torch.equal(zo_affine(x, 77, 0.999, -0.0123), want1)
+    assert torch.equal(zo_affine_chain(x, SEEDS, A, B), want3)
+    other = torch.empty(n + 16, device=cuda, dtype=dtype)[1:n + 1]
+    assert torch.equal(zo_affine(x, 77, 0.999, -0.0123, out=other), want1)
+    assert torch.equal(zo_affine_chain(x, SEEDS, A, B, out=other), want3)
+    y = x.clone()
+    zo_affine_chain(y, SEEDS, A, B, out=y)
+    assert torch.equal(y, want3)
 
 
 @pytest.mark.cuda
@@ -379,8 +447,30 @@ def test_cuda_wkv6_matches_the_jax_fixture(cuda):
 
 @pytest.mark.cuda
 def test_cuda_wkv6_refuses_outside_its_envelope(cuda):
+    """C past 16 leaves the f32 envelope and is refused; a head dim is not
+    (48 runs at the 64 instance, zero-padded)."""
     args = _wkv_inputs(cuda, 1, 32, 1, 64)
     with pytest.raises(ValueError, match="envelope"):
         wkv_ops.wkv6(*args, chunk=32)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        wkv_ops.wkv6(*_wkv_inputs(cuda, 1, 16, 1, 48), chunk=16)
+    args = _wkv_inputs(cuda, 1, 16, 1, 48)
+    y, s = wkv_ops.wkv6(*args, chunk=16)
+    yp, sp = wkv_ops.wkv6_plain(*args, chunk=16)
+    for got, want in ((y, yp), (s, sp)):
+        assert float((got - want).abs().max()) <= K11_REL * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [8, 32, 96, 128, 320, 2048])
+@pytest.mark.parametrize("S,chunk", [(1, 1), (100, 10), (256, 16)])
+def test_cuda_wkv6_head_dims(cuda, hd, S, chunk):
+    """K11 at head dims below, at and between its instances, past 256
+    (channel slices) and past what shared memory holds (the state in global
+    memory), within K11_REL of its plain version."""
+    args = _wkv_inputs(cuda, 2, S, 3, hd, seed=hd + S)
+    y, s = wkv_ops.wkv6(*args, chunk=chunk)
+    yp, sp = wkv_ops.wkv6_plain(*args, chunk=chunk)
+    for got, want in ((y, yp), (s, sp)):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= K11_REL * float(
+            want.abs().max())

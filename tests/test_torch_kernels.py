@@ -3,7 +3,12 @@ tensors take).
 
 * K2 ``flash_attention`` plain vs ``flash_attention_bhsd`` (Pallas,
   interpret mode) and ``attention_ref``: f32, causal and sliding window,
-  GQA, ragged S, atol 1e-5 (two summation orders of an f32 softmax).
+  GQA, ragged S, atol 1e-5 (two summation orders of an f32 softmax); and
+  at head dims 8 … 192 in f32, bf16 and f16 (one bf16 / f16 rounding of
+  each output on both sides: one ulp apart).
+* K2's wrapper decisions, taken from shapes, strides and addresses alone
+  (``plan``): which device function and instance runs, and when q, k, v
+  are copied (and zero-padded) first.
 * K12 ``paged_gather`` plain vs the JAX ``paged_gather`` (interpret):
   bitwise, it is a copy.
 
@@ -18,11 +23,17 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.paged import paged_gather as jax_paged_gather
-from repro_torch.kernels.flash_attention.kernel import (aligned16,
-                                                        flash_attention)
+from repro_torch.kernels.flash_attention.kernel import (Plan, _copied,
+                                                        aligned16,
+                                                        flash_attention, plan)
 from repro_torch.kernels.paged.gather import paged_gather, upload_table
 
 torch.set_num_threads(1)   # tiny tensors: no oversubscription under xdist
+
+# K2 in bf16 / f16 against an f32 reference rounded once: one ulp (as
+# chip_smoke.py and test_torch_cuda.py hold the card's kernel)
+K2_REL = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+K2_ABS = {"float32": 1e-5, "bfloat16": 1e-5, "float16": 1e-5}
 
 
 @pytest.mark.parametrize("S,window", [(40, 0), (37, 8), (128, 0), (100, 16)])
@@ -41,6 +52,91 @@ def test_flash_plain_matches_pallas_and_ref(S, window):
     got = flash_attention(*bshd, window=window).numpy().transpose(0, 2, 1, 3)
     np.testing.assert_allclose(got, want_kernel, atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, want_ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("hd", [8, 40, 96, 128, 192])
+def test_flash_plain_matches_pallas_at_head_dims(hd, dtype):
+    """Every head dim JAX's kernel takes (its BlockSpec spans the whole hd):
+    the plain version against the interpret-mode kernel, GQA, ragged S."""
+    rng = np.random.default_rng(hd)
+    S = 37
+    q = rng.standard_normal((1, 2, S, hd)).astype(np.float32)      # BHSD
+    k = rng.standard_normal((1, 1, S, hd)).astype(np.float32)
+    v = rng.standard_normal((1, 1, S, hd)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want = np.asarray(flash_attention_bhsd(
+        *(jnp.asarray(a, dtype=jdt) for a in (q, k, v)), causal=True,
+        window=0, block_q=32, block_k=32, interpret=True).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    bshd = [torch.from_numpy(a.transpose(0, 2, 1, 3).copy()).to(tdt)
+            for a in (q, k, v)]
+    out = flash_attention(*bshd)
+    assert out.dtype == tdt and out.shape == (1, S, 2, hd)
+    got = out.float().numpy().transpose(0, 2, 1, 3)
+    bad = np.abs(got - want) > K2_REL[dtype] * np.abs(want) + K2_ABS[dtype]
+    assert not bad.any(), np.abs(got - want).max()
+
+
+def _qkv(dtype, hd, H=4, KV=2, S=5):
+    return (torch.zeros(2, S, H, hd, dtype=dtype),
+            torch.zeros(2, S, KV, hd, dtype=dtype),
+            torch.zeros(2, S, KV, hd, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "bf16"),
+                                        (torch.float16, "f16")])
+def test_flash_plan_half_dtypes(dtype, name):
+    """bf16 / f16: the mma kernel up to hd 256, on the inputs as they are
+    when it can read them with 16-byte copies; otherwise a copy first."""
+    for hd in (8, 40, 64, 96, 128, 192, 256):
+        assert plan(*_qkv(dtype, hd)) == Plan("mma", False, hd, f"{name}_mma")
+    # hd not a multiple of 8: copied, zero-padded to the next multiple
+    assert plan(*_qkv(dtype, 20)) == Plan("mma", True, 24, f"{name}_mma+copy")
+    # a non-unit head-dim stride: copied
+    q, k, v = _qkv(dtype, 128)
+    assert plan(q[..., ::2], k[..., ::2], v[..., ::2]) == Plan(
+        "mma", True, 64, f"{name}_mma+copy")
+    # a base 2 bytes off 16: copied
+    flat = torch.zeros(2 * 5 * 4 * 64 + 1, dtype=dtype)
+    k, v = _qkv(dtype, 64)[1:]
+    assert plan(flat[1:].view(2, 5, 4, 64), k, v).route == f"{name}_mma+copy"
+    # q / k / v as views of one fused projection: read in place
+    qkv = torch.zeros(2, 5, 8, 64, dtype=dtype)
+    assert not plan(qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]).copy
+    # past 256: the scalar kernel, copied only for a non-unit head-dim
+    # stride
+    assert plan(*_qkv(dtype, 320)) == Plan("scalar", False, 320,
+                                           f"{name}_scalar")
+    q, k, v = _qkv(dtype, 640)
+    assert plan(q[..., ::2], k[..., ::2], v[..., ::2]).route == \
+        f"{name}_scalar+copy"
+
+
+def test_flash_plan_f32_is_scalar_at_every_head_dim():
+    for hd in (8, 16, 20, 64, 128, 320):
+        assert plan(*_qkv(torch.float32, hd)) == Plan("scalar", False, hd,
+                                                      "f32_scalar")
+    flat = torch.zeros(2 * 5 * 4 * 64 + 1)
+    k, v = _qkv(torch.float32, 64)[1:]
+    assert not plan(flat[1:].view(2, 5, 4, 64), k, v).copy   # any base
+    q, k, v = _qkv(torch.float32, 64)
+    assert plan(q[..., ::2], k[..., ::2], v[..., ::2]) == Plan(
+        "scalar", True, 32, "f32_scalar+copy")
+
+
+@pytest.mark.parametrize("pad_to", [20, 24])
+def test_flash_copied_inputs_are_fresh_aligned_and_zero_padded(pad_to):
+    base = torch.randn(2 * 5 * 4 * 40 + 1).to(torch.bfloat16)
+    t = base[1:].view(2, 5, 4, 40)[..., ::2]            # hd 20, stride 2
+    assert not aligned16(t) and t.stride(3) == 2
+    c = _copied(t, pad_to)
+    assert c.shape == (2, 5, 4, pad_to) and c.is_contiguous()
+    assert c.data_ptr() % 16 == 0 and c.data_ptr() != t.data_ptr()
+    assert torch.equal(c[..., :20], t)
+    assert not c[..., 20:].any()
+    if pad_to % 8 == 0:
+        assert aligned16(c)
 
 
 def test_flash_rejects_malformed_shapes():

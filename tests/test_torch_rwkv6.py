@@ -101,6 +101,13 @@ def test_plain_k11_matches_jax_sweep(S, H, hd, chunk):
     _check_k11(_inputs(2, S, H, hd), chunk)
 
 
+@pytest.mark.parametrize("hd", [32, 96, 128])
+def test_plain_k11_matches_jax_at_head_dims(hd):
+    """Head dims beside rwkv6's 64: 96, which the CUDA kernel runs at its
+    128 instance with zero channels, and the instances 32 and 128."""
+    _check_k11(_inputs(1, 32, 2, hd, seed=4), 16)
+
+
 @pytest.mark.parametrize("S,hd,chunk", [(18, 16, 1), (36, 64, 9)],
                          ids=["C1", "C9"])
 def test_plain_k11_matches_jax_at_runtime_chunks(S, hd, chunk):
