@@ -3,28 +3,32 @@
 
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
-    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3, K2
+    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3, K6, K11
 
 In order: prints the card's name and power limit; builds the seven CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
 parallel); holds every kernel against its plain torch version on the card —
 K1 ``zo_affine``, K3 ``zo_affine_chain``, K4 ``zo_affine_multi``, K5
-``zo_affine_batched``, K6 ``zo_sqnorm``, the sub-leaf K7
+``zo_affine_batched``, K6 ``zo_sqnorm`` (one leaf, and many leaves in one
+``zo_sqnorm_many`` call), the sub-leaf K7
 ``zo_affine_rows``, K8 ``zo_affine_multi_rows``, K9 ``zo_affine_chain_rows``,
 K10 ``zo_sqnorm_rows`` and K12 ``paged_gather`` bitwise, K1 and K3–K10 also
 against fixtures that JAX computed (``tests/data``, K6 and K10 within
 ``SQNORM_RTOL``), K2 ``flash_attention`` and K11 ``wkv6_chunked`` (at
-rwkv6-3b's head shapes, C ∈ {16, 9, 1}, also against the JAX fixture)
+rwkv6-3b's head shapes on its tiled route, training and single-request
+prefills, C ∈ {16, 9, 8, 1}, also against the JAX fixture)
 within stated tolerances.  K2 is also held to its plain version at every
 head dim of ``K2_SWEEP_HD`` (each mma instance, between two, past 256) in
 f32, bf16 and f16, and on inputs it copies first (``+copy`` routes); K11 at
 every head dim of ``K11_SWEEP_HD``.  ``zo_selftest`` runs every rewrite of
 the z generator (``zo_stream.cuh``) against its specification over the
-whole domain (any mismatch fails).  It then counts K1's and K3's SASS
-instructions per z by unit and times them — with ``--parent`` (a ``git
-archive`` of the parent commit) the parent's K1, K3 and K2 too, built with
-the same flags, in turns — and times K2 at OPT-13b's head dim 128 beside
-one SDPA call.  Then it
+whole domain (any mismatch fails).  It then counts K1's, K3's and K6's
+SASS instructions per z by unit and times them, and times K11 at the
+rwkv6-3b training shape and a single-request prefill (CUDA-graph runs) —
+with ``--parent`` (a ``git archive`` of the parent commit) the parent's K1,
+K3, K6 (one call per leaf) and K11 too, built with the same flags, in
+turns — and times K2 at OPT-13b's head dim 128 beside one SDPA call.  Every
+K11 launch of the counted paths must take the tiled route.  Then it
 drives the port's paths at the full width of qwen2-0.5b (random bf16
 weights from a seeded ``torch.Generator``, all 24 layers, ``pallas_flash``
 attention), each with the launch counts set to 0 just before it and read
@@ -69,8 +73,9 @@ spsa chain, equals its replay bitwise and the trained θ within the ulp
 bound); every kernel launched on its path.
 
 Prints the registers, shared memory and spills of every K2 and K11
-instance, of K1, K3 and K12, and the HMMA count of K2's SASS; the step
-times and the profiler's kernel time of an spsa and an fzoo(8) step; the
+instance, of K1, K3, K6 and K12, and the HMMA count of K2's SASS; the step
+times and the profiler's kernel time of an spsa, an fzoo(8) and an fzoo(8,
+sphere) step (the port's own kernels by name); the
 ``kernels``
 JSON line (launches, error, kernel / plain / library times in ms — medians
 of CUDA-event pairs over ``reps`` launches, for K2 and K12 and their
@@ -434,7 +439,7 @@ def check_k6(torch, np, km) -> None:
     gold = np.load(MULTI_GOLDEN)
     cases = [(int(n), int(s)) for n, s in zip(gold["sq_n"], gold["sq_seed"])]
     cases += [(151_936 * 896, 5), (24 * 896 * 4864, -77)]
-    worst = 0.0
+    worst, plain = 0.0, {}
     for n, s in cases:
         for dist in ("gaussian", "rademacher"):
             k = km.zo_sqnorm(n, s, dist, "cuda")
@@ -442,16 +447,29 @@ def check_k6(torch, np, km) -> None:
             if not same_bits(k, p):
                 fail(f"K6 n={n} seed={s} {dist}: kernel {k.item()} != plain "
                      f"{p.item()}")
-    for n, s, want in zip(gold["sq_n"], gold["sq_seed"], gold["sq_jax"]):
-        got = km.zo_sqnorm(int(n), int(s), "gaussian", "cuda").item()
-        rel = abs(got - float(want)) / float(want)
-        worst = max(worst, rel)
-        if rel > km.SQNORM_RTOL:
-            fail(f"K6 n={n}: {got} vs JAX {want}: rel err {rel} > "
-                 f"{km.SQNORM_RTOL}")
+            plain[n, s, dist] = p
+    # every case in one zo_sqnorm_many call: each leaf's bits as alone
+    for dist in ("gaussian", "rademacher"):
+        many = km.zo_sqnorm_many([n for n, _ in cases], [s for _, s in cases],
+                                 dist, "cuda")
+        for (n, s), k in zip(cases, many):
+            if not same_bits(k, plain[n, s, dist]):
+                fail(f"K6 zo_sqnorm_many n={n} seed={s} {dist}: != plain")
+    many = km.zo_sqnorm_many(gold["sq_n"].tolist(), gold["sq_seed"].tolist(),
+                             "gaussian", "cuda")
+    for n, s, want, k in zip(gold["sq_n"], gold["sq_seed"], gold["sq_jax"],
+                             many):
+        for got in (km.zo_sqnorm(int(n), int(s), "gaussian", "cuda").item(),
+                    k.item()):
+            rel = abs(got - float(want)) / float(want)
+            worst = max(worst, rel)
+            if rel > km.SQNORM_RTOL:
+                fail(f"K6 n={n}: {got} vs JAX {want}: rel err {rel} > "
+                     f"{km.SQNORM_RTOL}")
     log(f"K6 zo_sqnorm: bitwise vs plain (n up to {cases[-2][0]}, gaussian/"
-        f"rademacher), within {worst:.2e} relative of JAX's zo_sqnorm_ref "
-        f"(tolerance {km.SQNORM_RTOL})")
+        f"rademacher; one leaf per call and all {len(cases)} in one "
+        f"zo_sqnorm_many call), within {worst:.2e} relative of JAX's "
+        f"zo_sqnorm_ref (tolerance {km.SQNORM_RTOL})")
 
 
 def _rows_be(shape, R: int) -> int:
@@ -590,8 +608,8 @@ def check_k12(torch, kp, L: int, n_blocks: int, D: int) -> None:
 
 
 _KERNELS = ("flash_fwd_mma", "flash_fwd_sliced", "gather_kernel", "wkv6_fwd",
-            "zo_affine_kernel", "chain_kernel", "fanout_kernel",
-            "selftest_kernel")
+            "wkv6_tile", "zo_affine_kernel", "chain_kernel", "fanout_kernel",
+            "selftest_kernel", "tile_sums", "fold_leaves")
 _TARG = re.compile(r"13__nv_bfloat16|6__half|f|Li(-?\d+)E|Lb([01])E")
 
 
@@ -627,14 +645,14 @@ def ptxas_facts(_build, lib: str, log_text=None) -> dict:
 
 
 def build_facts(_build) -> None:
-    """What the compiler made of K1, K2, K3, K11 and K12: ``-Xptxas -v``'s
+    """What the compiler made of K1, K2, K3, K6, K11 and K12: ``-Xptxas -v``'s
     registers, shared memory and spills per device function (every K2 and
     K11 instance), and the HMMA (tensor-core) instructions in K2's SASS,
     read with ``cuobjdump`` — every mma instance must have some."""
     for lib in ("flash_attention", "wkv6", "paged_gather", "zo_affine",
-                "zo_multi"):
+                "zo_multi", "zo_sqnorm"):
         for fn, facts in sorted(ptxas_facts(_build, lib).items()):
-            if lib.startswith("zo") and "bf16, 0" not in fn:
+            if lib in ("zo_affine", "zo_multi") and "bf16, 0" not in fn:
                 continue
             log(f"ptxas {lib} {fn}: {facts}")
     hmma = {}
@@ -684,21 +702,28 @@ def sass_of(lib_path) -> dict:
     return funcs
 
 
-def sass_loop(instrs) -> dict:
+def sass_loop(instrs, innermost: bool = False) -> dict:
     """Instructions of a z kernel's hot loop, counted per z by unit.
 
     The hot loop is the backward branch's span that holds the most
     ``MUFU.RSQ`` (one per gaussian z: the sqrt of Box–Muller), the shortest
     such span on a tie; per-z counts are the span's counts over that number
-    of RSQs (per element for K1, per stream and element for K3)."""
-    best = None
+    of RSQs (per element for K1, per stream and element for K3).  With
+    ``innermost`` only spans that hold no other backward branch's span
+    count (K6, whose z loops sit inside a loop over tiles)."""
+    spans = []
     for addr, op, rest in instrs:
         if op != "BRA":
             continue
         m = re.search(r"0x([0-9a-f]+)", rest)
-        if not m or int(m.group(1), 16) > addr:
-            continue
-        lo = int(m.group(1), 16)
+        if m and int(m.group(1), 16) <= addr:
+            spans.append((int(m.group(1), 16), addr))
+    if innermost:
+        spans = [(lo, hi) for lo, hi in spans
+                 if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                            for a, b in spans)]
+    best = None
+    for lo, addr in spans:
         body = [(o, r) for a, o, r in instrs if lo <= a <= addr]
         rsq = sum(1 for o, r in body if o == "MUFU" and r.startswith(".RSQ"))
         key = (rsq, -len(body))
@@ -720,14 +745,16 @@ def sass_loop(instrs) -> dict:
 
 def sass_report(lib_path, kernels: dict) -> dict:
     """{label: per-z counts} for each ``kernels[label]`` = a regex matched
-    against the mangled names in the library's SASS."""
+    against the mangled names in the library's SASS (K6's innermost z
+    loop, ``SASS_INNERMOST``)."""
     funcs = sass_of(lib_path)
     rep = {}
     for label, pat in kernels.items():
         names = [n for n in funcs if re.search(pat, n)]
         if len(names) != 1:
             fail(f"SASS: {pat!r} matches {names} in {lib_path}")
-        rep[label] = sass_loop(funcs[names[0]])
+        rep[label] = sass_loop(funcs[names[0]],
+                               innermost=pat in SASS_INNERMOST)
         if not rep[label]:
             fail(f"SASS: no loop with MUFU.RSQ in {names[0]}")
     return rep
@@ -748,7 +775,7 @@ Z_KERNEL_SASS = {
     "zo_affine_chain": ("zo_multi", r"chain_kernel.*13__nv_bfloat16Li0E"),
     "zo_affine_multi": ("zo_multi", r"fanout_kernel.*13__nv_bfloat16Li0E"),
     "zo_affine_batched": ("zo_multi", r"fanout_kernel.*13__nv_bfloat16Li0E"),
-    "zo_sqnorm": ("zo_sqnorm", r"tile_sumsILi0E"),
+    "zo_sqnorm": ("zo_sqnorm", r"tile_sumsILi0E"),   # this tree's and the parent's
     "zo_affine_rows": ("zo_rows", r"affine_rows_kernel.*13__nv_bfloat16Li0E"),
     "zo_affine_multi_rows": ("zo_rows",
                              r"multi_rows_kernel.*13__nv_bfloat16Li0E"),
@@ -756,6 +783,10 @@ Z_KERNEL_SASS = {
                              r"chain_rows_kernel.*13__nv_bfloat16Li0E"),
     "zo_sqnorm_rows": ("zo_rows", r"sqnorm_rows_tilesILi0E"),
 }
+
+
+#: kernels whose z loops sit inside a loop over tiles: counted innermost
+SASS_INNERMOST = (Z_KERNEL_SASS["zo_sqnorm"][1],)
 
 
 def issue_floor_ms(n_z: float, per_z: float, mhz: float) -> float:
@@ -775,16 +806,16 @@ def sm_clocks() -> tuple:
 
 
 def build_parent_libs(_build, parent: Path) -> dict:
-    """K1's, K3's and K2's libraries built from another checkout's sources
-    (the parent commit, unpacked with ``git archive``) with this tree's
-    flags, into ``build/parent_kernels``; {library name: path}."""
+    """K1's, K3's, K6's and K11's libraries built from another checkout's
+    sources (the parent commit, unpacked with ``git archive``)
+    with this tree's flags, into ``build/parent_kernels``; {library name:
+    path}."""
     out_dir = ROOT / "build" / "parent_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = parent / "src" / "repro_torch" / "kernels" / "zo_fused" / "csrc"
+    kern = parent / "src" / "repro_torch" / "kernels"
     procs, paths = [], {}
-    srcs = {"zo_affine": src / "zo_affine.cu", "zo_multi": src / "zo_multi.cu",
-            "flash_attention": src.parents[1] / "flash_attention" / "csrc"
-            / "flash_attention.cu"}
+    srcs = {name: kern / _build.SOURCES[name][0]
+            for name in ("zo_affine", "zo_multi", "zo_sqnorm", "wkv6")}
     for name, path in srcs.items():
         lib = out_dir / f"{name}.so"
         flags = _build.SOURCES[name][1]
@@ -864,7 +895,23 @@ def device_busy(torch, fn, n: int = 1) -> tuple:
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
     tops = ", ".join(f"{e.key[:40]} {e.self_device_time_total / n / 1e3:.3f}"
                      " ms" for e in top)
+    # the port's own kernels: csrc/*.cu define them in anonymous namespaces
+    # (a template's name starts with its return type; PyTorch's name at::)
+    ours = sorted((e for e in kern
+                   if e.key.removeprefix("void ").startswith(
+                       "(anonymous namespace)::") and "at::" not in e.key),
+                  key=lambda e: -e.self_device_time_total)
+    if ours:
+        tops += "; the port's kernels: " + ", ".join(
+            f"{_short_kernel(e.key)} {e.self_device_time_total / n / 1e3:.3f}"
+            f" ms ({e.count / n:.0f} launches)" for e in ours)
     return wall_ms, dev_ms, launches, tops
+
+
+def _short_kernel(key: str) -> str:
+    """A profiler kernel name without its namespaces and arguments."""
+    head = key.replace("(anonymous namespace)::", "").split("(")[0]
+    return head.split("::")[-1].removeprefix("void ").strip()
 
 
 def busy_line(what: str, wall_ms, dev_ms, launches, tops) -> str:
@@ -1192,10 +1239,10 @@ def memory_and_busy(torch, cfg, params0, selection=None):
     return stp, fwd
 
 
-def fzoo_busy(torch, cfg, params0) -> None:
+def fzoo_busy(torch, cfg, params0, dist: str = "gaussian") -> None:
     """Kernel time and device-busy share of one fzoo(8) step under
     torch.profiler, on a scratch copy of θ₀ (K5's fan-out and K3's update
-    each step)."""
+    each step; with ``dist="sphere"`` K6's 16 passes, K4 and K3)."""
     from repro_torch import zo
     from repro_torch.data.pipeline import DataSpec, Pipeline
     from repro_torch.models import bundle
@@ -1203,7 +1250,8 @@ def fzoo_busy(torch, cfg, params0) -> None:
     batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                               vocab=cfg.vocab_size, seed=SEED),
                      device="cuda").batch(0)
-    opt = zo.fzoo(lr=LR, eps=EPS, batch_seeds=B_SEEDS, backend="pallas")
+    opt = zo.fzoo(lr=LR, eps=EPS, batch_seeds=B_SEEDS, dist=dist,
+                  backend="pallas")
     holder["s"] = opt.init(holder["p"], seed=SEED)
     step = opt.step_fn(bundle(cfg).loss_fn())
 
@@ -1211,7 +1259,9 @@ def fzoo_busy(torch, cfg, params0) -> None:
         holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
 
     one()
-    log(busy_line(f"one fzoo({B_SEEDS}) step ({TRAIN_BATCH} × {TRAIN_SEQ} "
+    what = f"fzoo({B_SEEDS})" if dist == "gaussian" else \
+        f"fzoo({B_SEEDS}, {dist})"
+    log(busy_line(f"one {what} step ({TRAIN_BATCH} × {TRAIN_SEQ} "
                   f"tokens, {cfg.name})", *device_busy(torch, one, 2)))
     del holder
 
@@ -1297,9 +1347,13 @@ def check_k11(torch, np, kw, ko) -> float:
     g = torch.Generator(device="cuda").manual_seed(12)
     worst = 0.0
     for B, S, C, lw in ((16, 256, 16, None), (1, 252, 9, None),
+                        (1, 32, 16, None), (1, 8, 8, None), (1, 40, 8, None),
                         (2, 5, 1, None), (2, 64, 16, -2.718281828459045),
                         (2, 64, 16, -0.00033546262790251185)):
         args = k11_inputs(torch, g, B, S, 40, 64, lw)
+        if kw.plan(*args[:4]) != "tile":
+            fail(f"K11 ({B}, {S}, 40, 64): planned {kw.plan(*args[:4])}, "
+                 "not the tiled route")
         y, s = ko.wkv6(*args, chunk=C)
         yp, sp = ko.wkv6_plain(*args, chunk=C)
         for got, want, what in ((y, yp, "y"), (s, sp, "s_final")):
@@ -1326,8 +1380,9 @@ def check_k11(torch, np, kw, ko) -> float:
                     fail(f"K11 fixture case {i}: {ref} beyond JAX's "
                          "tolerance")
     log(f"K11 wkv6_chunked: within {K11_REL} × max|out| of plain at H=40 "
-        f"hd=64 (16×256 C=16, max abs err {worst:.3e}; 1×252 C=9; C=1; log "
-        "decay −e and −e^-8), repeatable bitwise, and within JAX's "
+        f"hd=64 on the tiled route (16×256 C=16, max abs err {worst:.3e}; "
+        "1×252 C=9; 1×32 C=16; 1×8 and 1×40 C=8; C=1; log decay −e and "
+        "−e^-8), repeatable bitwise, and within JAX's "
         f"tolerance ({K11_FIX_ATOL} / {K11_FIX_RTOL}) of the JAX fixture "
         "(interpret kernel and wkv6_ref, C=16 and C=9)")
     return worst
@@ -1492,8 +1547,8 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
     reports during the runs.  Returns this tree's counts."""
     import ctypes
     from repro_torch.kernels.zo_fused.kernel import _f32
-    libs = {"change": {"zo_affine": _build.lib_path("zo_affine"),
-                       "zo_multi": _build.lib_path("zo_multi")}}
+    libs = {"change": {name: _build.lib_path(name) for name in
+                       ("zo_affine", "zo_multi", "zo_sqnorm", "wkv6")}}
     if parent is not None:
         libs["parent"] = build_parent_libs(_build, parent)
     n_all = sum(p.numel() for p in leaves)
@@ -1520,9 +1575,6 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
                     fail(f"K3 timing launch: CUDA error {err}")
         return k1, k3
 
-    if parent is not None:
-        from repro_torch.kernels.flash_attention import kernel as kf
-        k2_turns(torch, kf, libs["parent"]["flash_attention"], card)
     fns = {name: runs(_typed_z_libs(paths)) for name, paths in libs.items()}
     order = (["parent", "change", "change", "parent"] if parent is not None
              else ["change", "change"])
@@ -1561,45 +1613,144 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
                 f"SMs × {mhz:.0f} MHz) — on {card}")
     log(f"SM clock during the runs {mhz:.0f} MHz (median of nvidia-smi "
         f"samples every 100 ms), {cur:.0f} MHz after, {mx:.0f} MHz max")
+    k6_turns(torch, _build, leaves, libs, order, card, mhz)
+    k11_turns(torch, _build, libs, card)
     return counts["change"]
 
 
-def k2_turns(torch, kf, path, card) -> None:
-    """K2 at the training shape (16, 256, 14, 64) bf16 from the parent's
-    library (its C entry point, which took no route) and from this tree's
-    wrapper, in CUDA-graph runs of RUN_N launches, in turns."""
+def k6_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
+    """K6: one stream's ‖z‖² of every leaf in ``leaves`` (one sphere pass)
+    through the C entry points, in turns ``order`` — the parent's
+    ``zo_sqnorm`` once per leaf (two launches each), this tree's
+    ``zo_sqnorm_many`` once for all leaves (two launches).  The two must
+    give the same bits.  Prints the times, the SASS instructions per z of
+    ``tile_sums<gaussian>``'s z loop with the issue floor they set at
+    ``mhz`` (the SM clock of the K1 / K3 runs), and its registers and
+    spills."""
     import ctypes
-    fn = ctypes.CDLL(str(path)).flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_int64] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    g = torch.Generator(device="cuda").manual_seed(6)
-    q = torch.randn(TRAIN_BATCH, TRAIN_SEQ, 14, 64, generator=g,
-                    device="cuda").to(torch.bfloat16)
-    k = torch.randn(TRAIN_BATCH, TRAIN_SEQ, 2, 64, generator=g,
-                    device="cuda").to(torch.bfloat16)
-    v = torch.randn_like(k)
-    o = torch.empty_like(q)
+    from repro_torch.kernels.zo_fused.multi import TILE_ELEMS
+    ns = [p.numel() for p in leaves]
+    seeds = [(1000003 * i + 17) & 0xFFFFFFFF for i in range(len(ns))]
+    partials = torch.empty(sum(-(-n // TILE_ELEMS) for n in ns),
+                           dtype=torch.float32, device="cuda")
+    outs = {name: torch.empty(len(ns), dtype=torch.float32, device="cuda")
+            for name in libs}
+    stream = _build.stream_of(partials)
+    vp = ctypes.c_void_p
+    fns = {}
+    for name, paths in libs.items():
+        lib, out = ctypes.CDLL(str(paths["zo_sqnorm"])), outs[name]
+        if hasattr(lib, "zo_sqnorm_many"):
+            fn = lib.zo_sqnorm_many
+            fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp]
+            args = ((ctypes.c_int64 * len(ns))(*ns),
+                    (ctypes.c_uint32 * len(ns))(*seeds), len(ns))
+            calls = [(out.data_ptr(), args)]
+        else:                        # one leaf per call
+            fn = lib.zo_sqnorm
+            fn.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_uint32,
+                           ctypes.c_int, vp]
+            calls = [(out.data_ptr() + 4 * i, (n, sd))
+                     for i, (n, sd) in enumerate(zip(ns, seeds))]
+        fn.restype = ctypes.c_int
 
-    def parent_k2():
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1,
-                 TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64, *q.stride()[:3],
-                 *k.stride()[:3], *v.stride()[:3], 64 ** -0.5, 1, 0,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            fail(f"the parent's K2: CUDA error {err}")
+        def run(fn=fn, calls=calls):
+            for dst, args in calls:
+                err = fn(partials.data_ptr(), dst, *args, 0, stream)
+                if err:
+                    fail(f"K6 timing launch: CUDA error {err}")
+        fns[name] = run
+    times = {}
+    for name in order:
+        times.setdefault(name, []).append(cuda_ms(fns[name], 10))
+    if "parent" in outs and not same_bits(outs["parent"], outs["change"]):
+        fail("K6: the parent's and this tree's norms differ in bits")
+    n_all = sum(ns)
+    for name, paths in libs.items():
+        c = sass_report(paths["zo_sqnorm"],
+                        {"K6": Z_KERNEL_SASS["zo_sqnorm"][1]})["K6"]
+        regs = ptxas_facts(_build, "zo_sqnorm", Path(
+            paths["zo_sqnorm"]).with_suffix(".log").read_text())
+        log(f"{name} K6 tile_sums<0>: {regs.get('tile_sums<0>')}")
+        log(f"{name} " + sass_line("K6 tile_sums<0>", c))
+        floor = issue_floor_ms(n_all, c["total"], mhz)
+        log(f"K6 {name}: " + ", ".join(f"{t:.3f}" for t in times[name])
+            + f" ms per pass over {len(ns)} leaves ({order.count(name)} "
+            f"runs in turns {'/'.join(order)}; "
+            f"{'one call' if name == 'change' else 'one call per leaf'}); "
+            f"issue floor {floor:.3f} ms = {n_all} z × {c['total']:.2f} "
+            f"instructions at {mhz:.0f} MHz — on {card}")
 
-    parent_k2()
-    if not same_bits(o, kf.flash_attention(q, k, v)):
-        log("K2 parent vs change at the training shape: outputs differ in "
-            "bits (both are held to the plain version within one ulp)")
-    run = run_ms({"parent": parent_k2,
-                  "change": lambda: kf.flash_attention(q, k, v)}, RUN_N)
-    log(f"K2 at the training shape ({TRAIN_BATCH}, {TRAIN_SEQ}, 14, 64) bf16,"
-        f" {RUN_N} launches per CUDA graph, in turns: parent "
-        f"{run['parent']:.4f} ms, change {run['change']:.4f} ms — on {card}")
+
+#: K11's shapes timed in turns: the rwkv6-3b training call and a
+#: single-request prefill of 32 tokens (B, S, H, hd, C)
+K11_TURN_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ, 40, 64, 16), (1, 32, 40, 64, 16))
+
+
+def k11_turns(torch, _build, libs, card) -> None:
+    """K11 at ``K11_TURN_SHAPES`` (f32, the model's (B, S, H, hd) layout):
+    the parent's C entry point (its scalar kernel) and this tree's wrapper
+    (the tiled route), both held to the plain version, then timed in
+    CUDA-graph runs of launches, in turns (parent, change, change,
+    parent, …).  Prints the times and the registers, shared memory and
+    spills of the parent's ``wkv6_fwd<64, false>`` and this tree's
+    ``wkv6_tile``."""
+    import ctypes
+    from repro_torch.kernels.rwkv6 import kernel as kw
+    from repro_torch.kernels.rwkv6 import ops as ko
+    g = torch.Generator(device="cuda").manual_seed(19)
+    parent = None
+    if "parent" in libs:
+        parent = ctypes.CDLL(str(libs["parent"]["wkv6"])).wkv6_chunked
+        parent.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                           + [ctypes.c_int64] * 21 + [ctypes.c_void_p])
+        parent.restype = ctypes.c_int
+    for B, S, H, hd, C in K11_TURN_SHAPES:
+        r, k, v, lw, u, s0 = k11_inputs(torch, g, B, S, H, hd)
+        yp, sp = ko.wkv6_plain(r, k, v, lw, u, s0, chunk=C)
+        if kw.plan(r, k, v, lw) != "tile":
+            fail(f"K11 ({B}, {S}, {H}, {hd}): planned {kw.plan(r, k, v, lw)}"
+                 ", not the tiled route")
+        fns = {"change": lambda: ko.wkv6(r, k, v, lw, u, s0, chunk=C)}
+        outs = {"change": fns["change"]()}
+        if parent is not None:
+            y = torch.empty_like(r)
+            s_out = torch.empty_like(s0)
+
+            def run_parent():
+                err = parent(*(t.data_ptr() for t in
+                               (r, k, v, lw, u, s0, y, s_out)),
+                             B, H, S, hd, C,
+                             *(st for t in (r, k, v, lw, y)
+                               for st in t.stride()[:3]),
+                             0, u.stride(0), *s0.stride()[:2],
+                             *s_out.stride()[:2], _build.stream_of(r))
+                if err:
+                    fail(f"the parent's K11: CUDA error {err}")
+            run_parent()
+            fns = {"parent": run_parent, **fns}
+            outs["parent"] = (y, s_out)
+        for name, (y, s) in outs.items():
+            for got, want in ((y, yp), (s, sp)):
+                if (got - want).abs().max().item() > \
+                        K11_REL * want.abs().max().item():
+                    fail(f"K11 {name} ({B}, {S}, {H}, {hd}): beyond "
+                         f"{K11_REL} × max|out| of plain")
+        n = 20 if B > 1 else RUN_N
+        run = run_ms(fns, n)
+        log(f"K11 at ({B}, {S}, {H}, {hd}) C {C} f32, {n} launches per CUDA "
+            "graph and event pair, in turns: " + ", ".join(
+                f"{name} {ms:.4f} ms" for name, ms in run.items())
+            + f" — on {card}")
+    for name, paths in libs.items():
+        regs = ptxas_facts(_build, "wkv6", Path(
+            paths["wkv6"]).with_suffix(".log").read_text())
+        for fn in ("wkv6_fwd<64, false>", "wkv6_tile"):
+            if fn in regs:
+                log(f"{name} K11 {fn}: {regs[fn]}")
+    smem = ctypes.CDLL(str(libs["change"]["wkv6"])).wkv6_tile_smem_bytes()
+    log(f"change K11 wkv6_tile: {smem} bytes of dynamic shared memory per "
+        "CTA")
 
 
 def time_k2_hd128(torch, kf, card) -> dict:
@@ -1859,9 +2010,9 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         for i, p in enumerate(leaves):
             batched(p, seeds[i], 1.0, 1e-12)
 
-    def k6_pass(sq=km.zo_sqnorm):
-        for i, p in enumerate(leaves):
-            sq(p.numel(), seeds[i][0], "gaussian", "cuda")
+    def k6_pass(sq=km.zo_sqnorm_many):
+        sq([p.numel() for p in leaves], [sd[0] for sd in seeds], "gaussian",
+           "cuda")
 
     def k1_plain_record():
         for i, p in enumerate(leaves):
@@ -1877,7 +2028,7 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         "zo_affine_batched": (cuda_ms(k5_fanout, 5), host_ms(
             lambda: k5_fanout(kz.zo_affine_batched_plain))),
         "zo_sqnorm": (cuda_ms(k6_pass, 10), host_ms(
-            lambda: k6_pass(km.zo_sqnorm_plain))),
+            lambda: k6_pass(km.zo_sqnorm_many_plain))),
     }
 
     # the rows kernels over all leaves under rows(block=1, k=4), phase 0
@@ -2057,7 +2208,7 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         f"zo_affine_chain = one {B_SEEDS}-stream update over all leaves; "
         f"zo_affine_multi / zo_affine_batched = one {B_SEEDS}-stream fan-out "
         f"over all leaves; zo_sqnorm = one stream's ||z||^2 over all leaves "
-        f"({n_all} elements); the *_rows kernels the same work under {ROWS} "
+        f"({n_all} elements) in one zo_sqnorm_many call; the *_rows kernels the same work under {ROWS} "
         f"at phase 0 ({n_sel} selected elements); flash_attention = the "
         f"training shape ({TRAIN_BATCH}, {S}, {cfg.n_heads}, {cfg.hd}) bf16; "
         f"paged_gather = one decode-step gather of {tab.size} blocks × {L} "
@@ -2074,12 +2225,13 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels against their plain "
-                         "versions and the JAX fixtures, time K1 and K3 in "
-                         "turns and K2 at hd 128, then stop")
+                         "versions and the JAX fixtures, time K1, K3, K6 "
+                         "and K11 (in turns with --parent) and K2 at hd "
+                         "128, then stop")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit (git archive): "
-                         "its K1 and K3 are built and timed in turns with "
-                         "this tree's")
+                         "its K1, K3, K6 and K11 are built and timed in "
+                         "turns with this tree's")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -2165,6 +2317,7 @@ def main() -> None:
     # ---- memory and device-busy share of the spsa and fzoo steps ------- #
     memory_and_busy(torch, cfg, params0)
     fzoo_busy(torch, cfg, params0)
+    fzoo_busy(torch, cfg, params0, "sphere")
 
     # ---- paths 2-5 and 7-10: train (a)-(d), then (e)-(h) under a ------- #
     # ---- selection; path 6: serve the fzoo fine-tune ------------------- #
@@ -2220,6 +2373,12 @@ def main() -> None:
                           k11_err))
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
+    k11_tile = counts.get("wkv6_chunked/tile", 0)
+    if k11_tile == 0 or k11_tile != counts.get("wkv6_chunked", 0):
+        fail(f"K11 on the counted paths: {k11_tile} tiled launches of "
+             f"{counts.get('wkv6_chunked', 0)}")
+    log(f"K11 over the counted paths: all {k11_tile} launches on the tiled "
+        "route (training and the served prefills)")
     k2_mma = counts.get("flash_attention/bf16_mma", 0)
     copied = {k: v for k, v in counts.items() if k.endswith("+copy")}
     if k2_mma == 0 or k2_mma != counts.get("flash_attention", 0) or copied:

@@ -18,7 +18,10 @@ within rounding (the kernel sums in its own order), not bit for bit.
 read through strides (``ops.wkv6``).  Like JAX's kernel it takes any head
 dim (instances of 16 … 256 channels, the next one up zero-padded, and
 slices of 256 past that; past about hd 1 800 the state slice no longer
-fits a block's shared memory on an H100 and stays in global memory).
+fits a block's shared memory on an H100 and stays in global memory).  At hd
+64 — rwkv6-3b's heads — a tiled kernel takes the launch instead,
+one CTA per (b, h); ``plan`` names the route and the launch is counted
+under it.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from repro_torch.kernels import _build
 
 CLIP = 50.0
 MAX_CHUNK = 16
+#: the head dim of the tiled route (``tile::HD`` in csrc/wkv6.cu)
+TILE_HD = 64
 
 
 def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,10 +73,22 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.wkv6_chunked.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 21
-            + [ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.c_void_p])
         lib.wkv6_chunked.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def plan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         lw: torch.Tensor) -> str:
+    """K11's route for (B, S, H, hd) inputs: ``tile`` (one CTA per (b, h))
+    at hd 64 with every row of r, k, v, lw on 16 bytes, else ``scalar``
+    (16 value columns per CTA, any head dim and layout)."""
+    hd = r.shape[3]
+    aligned = all(t.data_ptr() % 16 == 0
+                  and all(st % 4 == 0 for st in t.stride()[:3])
+                  for t in (r, k, v, lw))
+    return "tile" if hd == TILE_HD and aligned else "scalar"
 
 
 def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,7 +97,8 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K11 on the card for r/k/v/lw (B, S, H, hd) at any (b, s, h) strides
     with unit stride on hd; ``u`` read at element strides ``u_strides =
     (per b, per h)``; s0 (B, H, hd, hd) with row-major hd × hd matrices.
-    Returns y (B, S, H, hd) and s_final (B, H, hd, hd), f32 contiguous."""
+    Returns y (B, S, H, hd) and s_final (B, H, hd, hd), f32 contiguous.
+    The launch is counted under its route (``plan``)."""
     B, S, H, hd = r.shape
     ts = (r, k, v, lw, u, s0)
     if any(t.device.type != "cuda" or t.device != r.device for t in ts):
@@ -100,6 +118,7 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or s0.stride(3) != 1 or s0.stride(2) != hd:
         raise ValueError("wkv6_chunked: hd must be the unit-stride axis and "
                          "s0's hd x hd matrices row-major")
+    route = plan(r, k, v, lw)
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
     s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     lib = _lib()
@@ -110,9 +129,9 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.ptr(u), _build.ptr(s0), _build.ptr(y), _build.ptr(s_out),
         B, H, S, hd, chunk, *strides, int(u_strides[0]), int(u_strides[1]),
         s0.stride(0), s0.stride(1), s_out.stride(0), s_out.stride(1),
-        _build.stream_of(r))
+        int(route == "tile"), _build.stream_of(r))
     _build.check(lib, err, "wkv6_chunked")
-    _build.count("wkv6_chunked")
+    _build.count("wkv6_chunked", route)
     return y, s_out
 
 

@@ -6,8 +6,9 @@
 * K3 ``zo_affine_chain`` (chained): y = fold_j cast(a_j·y + b_j·z(seed_j)),
   one read and one write of x, in place allowed — the B-stream update chain
   of fzoo, the seed-group updates and batched replay;
-* K6 ``zo_sqnorm``: ‖z(seed)[0:n]‖² as one f32 — pass 1 of the sphere
-  rescale, z never materialized.
+* K6 ``zo_sqnorm_many``: ‖z(seed_l)[0:n_l]‖² as one f32 per leaf, every
+  leaf of a sphere pass in one call — pass 1 of the sphere rescale, z never
+  materialized (``zo_sqnorm``: one leaf).
 
 (K5, the fan-out with one shared (a, b), lives beside K1 in ``kernel.py``,
 as ``zo_affine_2d_batched`` does in JAX.)
@@ -198,40 +199,69 @@ def zo_sqnorm_plain(n: int, seed: int, dist: str = "gaussian",
     return torch.tensor(total, dtype=torch.float32, device=device)
 
 
+def zo_sqnorm_many_plain(ns, seeds, dist: str = "gaussian",
+                         device="cpu") -> torch.Tensor:
+    """Plain K6 over several leaves: ``zo_sqnorm_plain`` per leaf in a loop,
+    an (L,) f32 tensor on ``device``."""
+    ns, seeds = _leaf_list(ns, seeds)
+    return torch.stack([zo_sqnorm_plain(n, s, dist, device)
+                        for n, s in zip(ns, seeds)])
+
+
+def _leaf_list(ns, seeds) -> tuple:
+    ns, seeds = [int(n) for n in ns], [int(s) for s in seeds]
+    if not ns or len(ns) != len(seeds):
+        raise ValueError(f"zo_sqnorm_many needs one seed per leaf and at "
+                         f"least one leaf, got {len(ns)} sizes and "
+                         f"{len(seeds)} seeds")
+    if min(ns) <= 0:
+        raise ValueError(f"zo_sqnorm needs n >= 1, got {min(ns)}")
+    return ns, seeds
+
+
 def _sqnorm_lib():
     lib = _build.load("zo_sqnorm")
     if not getattr(lib, "_typed", False):
         vp = ctypes.c_void_p
-        lib.zo_sqnorm.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_uint32,
-                                  ctypes.c_int, vp]
-        lib.zo_sqnorm.restype = ctypes.c_int
+        lib.zo_sqnorm_many.argtypes = [vp, vp, vp, vp, ctypes.c_int,
+                                       ctypes.c_int, vp]
+        lib.zo_sqnorm_many.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def zo_sqnorm_many(ns, seeds, dist: str = "gaussian",
+                   device="cpu") -> torch.Tensor:
+    """K6 over leaves of ``ns[l]`` elements with streams ``seeds[l]``: the
+    (L,) f32 tensor of ‖z(seeds[l])[0:ns[l]]‖² on ``device`` — the plain
+    version on the CPU, one launch of the CUDA kernel (the tiles of every
+    leaf in one grid, then one fold per leaf) on the card.  Each norm is
+    bitwise what ``zo_sqnorm`` gives for its leaf alone."""
+    _check_dist(dist)
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return zo_sqnorm_many_plain(ns, seeds, dist, dev)
+    if dev.type != "cuda":
+        raise RuntimeError(f"zo_sqnorm: no kernel for device {dev}")
+    ns, seeds = _leaf_list(ns, seeds)
+    tiles = sum(-(-n // TILE_ELEMS) for n in ns)
+    partials = torch.empty(tiles, dtype=torch.float32, device=dev)
+    out = torch.empty(len(ns), dtype=torch.float32, device=dev)
+    lib = _sqnorm_lib()
+    err = lib.zo_sqnorm_many(
+        _build.ptr(partials), _build.ptr(out),
+        (ctypes.c_int64 * len(ns))(*ns), _u32_array(seeds), len(ns),
+        DIST_CODES[dist], _build.stream_of(out))
+    _build.check(lib, err, "zo_sqnorm")
+    _build.count("zo_sqnorm")
+    return out
 
 
 def zo_sqnorm(n: int, seed: int, dist: str = "gaussian",
               device="cpu") -> torch.Tensor:
     """K6 (port of ``zo_sqnorm_2d``): ‖z(seed)[0:n]‖², a 0-d f32 tensor on
-    ``device`` (the device of the leaf it measures) — the plain version on
-    the CPU, the CUDA kernel on the card."""
-    _check_dist(dist)
-    dev = torch.device(device)
-    if dev.type == "cpu":
-        return zo_sqnorm_plain(n, seed, dist, dev)
-    if dev.type != "cuda":
-        raise RuntimeError(f"zo_sqnorm: no kernel for device {dev}")
-    n = int(n)
-    if n <= 0:
-        raise ValueError(f"zo_sqnorm needs n >= 1, got {n}")
-    partials = torch.empty(-(-n // TILE_ELEMS), dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((), dtype=torch.float32, device=dev)
-    lib = _sqnorm_lib()
-    err = lib.zo_sqnorm(_build.ptr(partials), _build.ptr(out), n,
-                        int(seed) & _MASK, DIST_CODES[dist],
-                        _build.stream_of(out))
-    _build.check(lib, err, "zo_sqnorm")
-    _build.count("zo_sqnorm")
-    return out
+    ``device`` (the device of the leaf it measures) — ``zo_sqnorm_many`` on
+    one leaf."""
+    return zo_sqnorm_many([n], [seed], dist, device)[0]
 
 

@@ -22,8 +22,9 @@ Which kernel serves which method (whole leaf | partial rows plan):
   per-stream scales (spsa's ±ε pair) or ``sphere`` → K4 ``zo_affine_multi``
   | K8 ``zo_affine_multi_rows`` either way;
 * ``affine_many`` → K3 ``zo_affine_chain`` | K9 ``zo_affine_chain_rows``;
-* ``sphere``: pass 1, ‖z‖² of each selected leaf → K6 ``zo_sqnorm`` | K10
-  ``zo_sqnorm_rows`` with d counting the selected elements; pass 2 folds
+* ``sphere``: pass 1, ‖z‖² of each selected leaf → K6 ``zo_sqnorm_many``
+  (one call for all whole leaves) | K10 ``zo_sqnorm_rows`` with d counting
+  the selected elements; pass 2 folds
   sqrt(d)/‖z‖ into the affine b of the gaussian stream.
 
 One deliberate difference from JAX: under a partial rows plan JAX's
@@ -53,7 +54,8 @@ import torch
 
 from repro_torch.kernels.zo_fused.kernel import zo_affine, zo_affine_batched
 from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
-                                                zo_affine_multi, zo_sqnorm)
+                                                zo_affine_multi,
+                                                zo_sqnorm_many)
 from repro_torch.kernels.zo_fused.rows import (zo_affine_chain_rows,
                                                zo_affine_multi_rows,
                                                zo_affine_rows, zo_sqnorm_rows)
@@ -107,26 +109,32 @@ class CounterBackend(PerturbBackend):
 
     def _sphere_scale(self, params: PyTree, ref: StreamRef) -> np.float32:
         """sqrt(d)/‖z(ref)‖ over the selected floating leaves — pass 1 of
-        the sphere rescale: one K6 per whole leaf (K10 per partial rows
-        plan, d counting its selected elements) on the gaussian counter
-        stream the affine kernels read, the norms folded in leaf order in
-        f32."""
+        the sphere rescale: one K6 call for every whole leaf (K10 per
+        partial rows plan, d counting its selected elements) on the
+        gaussian counter stream the affine kernels read, the norms folded
+        in leaf order in f32."""
         seed = ref.counter_seed()
         mask, blocks = ref.selection_mask(params), ref.selection_blocks(params)
-        d, parts = 0, []
+        d, parts, whole = 0, [], []     # whole: (slot in parts, i, leaf)
         for i, p in enumerate(tree_leaves(params)):
             if not _active(p, mask, i):
                 continue
             rb = _leaf_blocks(blocks, i)
             if rb is None:
                 d += p.numel()
-                parts.append(zo_sqnorm(p.numel(), leaf_seed(seed, i),
-                                       "gaussian", p.device))
+                whole.append((len(parts), i, p))
+                parts.append(None)
             else:
                 d += rb.selected_elems()
                 parts.append(zo_sqnorm_rows(
                     p.numel(), leaf_seed(seed, i), rb.block_elems, rb.k,
                     rb.phase, "gaussian", p.device))
+        if whole:
+            norms = zo_sqnorm_many([p.numel() for _, _, p in whole],
+                                   [leaf_seed(seed, i) for _, i, _ in whole],
+                                   "gaussian", whole[0][2].device)
+            for (slot, _, _), norm in zip(whole, norms):
+                parts[slot] = norm
         if not parts:
             raise ValueError(
                 "sphere perturbation needs at least one selected floating "

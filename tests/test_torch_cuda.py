@@ -18,6 +18,8 @@ from repro_torch.kernels.paged.gather import (paged_gather,
                                               paged_gather_plain,
                                               upload_table)
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels import _build
+from repro_torch.kernels.rwkv6.kernel import plan as wkv6_plan
 from repro_torch.kernels.rwkv6.kernel import wkv6_chunked
 from repro_torch.kernels.zo_fused.kernel import (zo_affine,
                                                  zo_affine_batched,
@@ -27,7 +29,8 @@ from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
                                                 zo_affine_chain_plain,
                                                 zo_affine_multi,
                                                 zo_affine_multi_plain,
-                                                zo_sqnorm, zo_sqnorm_plain)
+                                                zo_sqnorm, zo_sqnorm_many,
+                                                zo_sqnorm_plain)
 from repro_torch.kernels.zo_fused.rows import (SQNORM_RTOL,
                                                zo_affine_chain_rows,
                                                zo_affine_chain_rows_plain,
@@ -325,6 +328,24 @@ def test_cuda_sqnorm_bitwise(cuda, n, dist):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ns", [[1], [131_071, 131_072, 131_073],
+                                [300_001, 7, 1, 262_149, 131_072] * 3])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+def test_cuda_sqnorm_many_bitwise(cuda, ns, dist):
+    """K6 over many leaves in one call: each leaf's norm has the bits its
+    plain version (and a one-leaf call) gives it alone."""
+    seeds = [977 + 31 * i for i in range(len(ns))]
+    _build.reset_launch_counts()
+    got = zo_sqnorm_many(ns, seeds, dist, cuda)
+    assert _build.launch_counts["zo_sqnorm"] == 1
+    assert got.shape == (len(ns),) and got.device.type == "cuda"
+    for n, s, norm in zip(ns, seeds, got):
+        want = zo_sqnorm_plain(n, s, dist, cuda)
+        assert torch.equal(norm, want)
+        assert torch.equal(zo_sqnorm(n, s, dist, cuda), want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
@@ -474,3 +495,54 @@ def test_cuda_wkv6_head_dims(cuda, hd, S, chunk):
         assert got.shape == want.shape
         assert float((got - want).abs().max()) <= K11_REL * float(
             want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,chunk", [(16, 256, 16), (1, 8, 8), (1, 40, 8),
+                                       (1, 48, 16), (1, 32, 16)])
+def test_cuda_wkv6_tiled_route_within_tolerance(cuda, B, S, chunk):
+    """rwkv6-3b's heads (H 40, hd 64) at the training shape and at
+    single-request prefills (S 8 and 40 at C 8; 40 tokens padded to 48 at
+    C 16, as the model pads them) take the tiled route, within K11_REL of
+    the plain version, and two launches agree bit for bit."""
+    args = _wkv_inputs(cuda, B, S, 40, 64, seed=B + S)
+    assert wkv6_plan(*args[:4]) == "tile"
+    _build.reset_launch_counts()
+    y, s = wkv_ops.wkv6(*args, chunk=chunk)
+    assert _build.route_counts == {"wkv6_chunked/tile": 1}
+    yp, sp = wkv_ops.wkv6_plain(*args, chunk=chunk)
+    for got, want in ((y, yp), (s, sp)):
+        assert float((got - want).abs().max()) <= K11_REL * float(
+            want.abs().max())
+    again = wkv_ops.wkv6(*args, chunk=chunk)
+    assert torch.equal(again[0], y) and torch.equal(again[1], s)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_unaligned_rows_take_the_scalar_route(cuda):
+    """Rows of r that do not start on 16 bytes cannot be copied by the
+    tiled kernel's cp.async: the launch takes the scalar route, and both
+    routes agree within K11_REL."""
+    args = _wkv_inputs(cuda, 2, 32, 3, 64, seed=5)
+    r = args[0]
+    wide = torch.zeros(2, 32, 3, 65, device=cuda)
+    wide[..., 1:] = r
+    shifted = wide[..., 1:]
+    assert wkv6_plan(shifted, *args[1:4]) == "scalar"
+    _build.reset_launch_counts()
+    y, s = wkv_ops.wkv6(shifted, *args[1:], chunk=16)
+    assert _build.route_counts == {"wkv6_chunked/scalar": 1}
+    yt, st = wkv_ops.wkv6(*args, chunk=16)
+    for got, want in ((y, yt), (s, st)):
+        assert float((got - want).abs().max()) <= K11_REL * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_tiled_route_empty_sequence(cuda):
+    """S = 0 on the tiled route: no chunk is read, y is empty and the
+    final state is s0, bit for bit."""
+    r, k, v, lw, u, s0 = _wkv_inputs(cuda, 2, 0, 40, 64, seed=3)
+    assert wkv6_plan(r, k, v, lw) == "tile"
+    y, s = wkv_ops.wkv6(r, k, v, lw, u, s0, chunk=16)
+    assert y.shape == (2, 0, 40, 64) and torch.equal(s, s0)
