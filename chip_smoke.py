@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
-    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3, K6, K11
+    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K6, K10, K11
 
 In order: prints the card's name and power limit; builds the seven CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
 parallel); holds every kernel against its plain torch version on the card —
 K1 ``zo_affine``, K3 ``zo_affine_chain``, K4 ``zo_affine_multi``, K5
-``zo_affine_batched``, K6 ``zo_sqnorm`` (one leaf, and many leaves in one
-``zo_sqnorm_many`` call), the sub-leaf K7
+``zo_affine_batched`` (on both routes of the fan-out), K6 ``zo_sqnorm``
+(one leaf, and many leaves in one ``zo_sqnorm_many`` call), the sub-leaf K7
 ``zo_affine_rows``, K8 ``zo_affine_multi_rows``, K9 ``zo_affine_chain_rows``,
-K10 ``zo_sqnorm_rows`` and K12 ``paged_gather`` bitwise, K1 and K3–K10 also
+K10 ``zo_sqnorm_rows`` (one leaf, and many in one ``zo_sqnorm_rows_many``
+call) and K12 ``paged_gather`` bitwise, K1 and K3–K10 also
 against fixtures that JAX computed (``tests/data``, K6 and K10 within
 ``SQNORM_RTOL``), K2 ``flash_attention`` and K11 ``wkv6_chunked`` (at
 rwkv6-3b's head shapes on its tiled route, training and single-request
@@ -22,13 +23,16 @@ head dim of ``K2_SWEEP_HD`` (each mma instance, between two, past 256) in
 f32, bf16 and f16, and on inputs it copies first (``+copy`` routes); K11 at
 every head dim of ``K11_SWEEP_HD``.  ``zo_selftest`` runs every rewrite of
 the z generator (``zo_stream.cuh``) against its specification over the
-whole domain (any mismatch fails).  It then counts K1's, K3's and K6's
-SASS instructions per z by unit and times them, and times K11 at the
-rwkv6-3b training shape and a single-request prefill (CUDA-graph runs) —
-with ``--parent`` (a ``git archive`` of the parent commit) the parent's K1,
-K3, K6 (one call per leaf) and K11 too, built with the same flags, in
-turns — and times K2 at OPT-13b's head dim 128 beside one SDPA call.  Every
-K11 launch of the counted paths must take the tiled route.  Then it
+whole domain (any mismatch fails).  It then counts the SASS instructions
+per z by unit of K1, K3, the K4 / K5 fan-out, K6 and K10 and times them
+through their C entry points, and times K11 at the rwkv6-3b training shape
+and a single-request prefill (CUDA-graph runs) — with ``--parent`` (a ``git
+archive`` of the parent commit) the parent's K1, K3, K4, K5, K6, K10 (K6
+and K10 one call per leaf) and K11 too, built with the same flags, in turns,
+the parent's outputs and norms held bitwise to this tree's — and times K2
+at OPT-13b's head dim 128 beside one SDPA call.  Every K11 launch of the
+counted paths must take the tiled route, every K4 / K5 launch the vector
+route.  Then it
 drives the port's paths at the full width of qwen2-0.5b (random bf16
 weights from a seeded ``torch.Generator``, all 24 layers, ``pallas_flash``
 attention), each with the launch counts set to 0 just before it and read
@@ -73,7 +77,7 @@ spsa chain, equals its replay bitwise and the trained θ within the ulp
 bound); every kernel launched on its path.
 
 Prints the registers, shared memory and spills of every K2 and K11
-instance, of K1, K3, K6 and K12, and the HMMA count of K2's SASS; the step
+instance, of K1, K3–K6, K10 and K12, and the HMMA count of K2's SASS; the step
 times and the profiler's kernel time of an spsa, an fzoo(8) and an fzoo(8,
 sphere) step (the port's own kernels by name); the
 ``kernels``
@@ -390,6 +394,18 @@ def check_k3_k4_k5(torch, np, kz, km) -> None:
     _hold_k345(kz, km, x, SEEDS8, A8, B8, "gaussian",
                f"the {MLP_LEAF} bf16 leaf at B=8")
     del x
+    # the fan-out's scalar route: slices off x's 16-byte grid (33×65), x off
+    # y's offset; and 65 streams, two launches
+    n_fan = kz.MAX_STREAMS + 1
+    seeds = [977 + 31 * j for j in range(n_fan)]
+    a, b = (A8 * 9)[:n_fan], (B8 * 9)[:n_fan]
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        base = torch.randn(33 * 65 + 8, generator=g, device="cuda").to(dt)
+        for what, x in (("33×65", base[:33 * 65].view(33, 65)),
+                        ("offset 3", base[3:3 + 33 * 64])):
+            for nb in (1, 8, n_fan):
+                _hold_k345(kz, km, x, seeds[:nb], a[:nb], b[:nb], "gaussian",
+                           f"{dt} {what} B={nb}")
     n_long = kz.MAX_STREAMS + 6
     x = torch.randn(70_001, generator=g, device="cuda").to(torch.bfloat16)
     seeds = list(range(n_long))
@@ -415,8 +431,9 @@ def check_k3_k4_k5(torch, np, kz, km) -> None:
                 fail(f"K3-K5 {what} {name} != the JAX golden fixture")
     log("K3 zo_affine_chain, K4 zo_affine_multi, K5 zo_affine_batched: "
         "bitwise vs plain (f32/bf16/f16 × gaussian/rademacher, odd sizes, "
-        f"B ∈ {{1, 2, 8}}, the {MLP_LEAF} leaf at B=8, {n_long} streams) "
-        "and vs the JAX golden fixture")
+        f"B ∈ {{1, 2, 8}}, the {MLP_LEAF} leaf at B=8, the fan-out's scalar "
+        f"route on a 33×65 leaf and an offset one at B ∈ {{1, 8, {n_fan}}}, "
+        f"{n_long} streams) and vs the JAX golden fixture")
 
 
 def _hold_k345(kz, km, x, seeds, a, b, dist, what) -> None:
@@ -501,6 +518,8 @@ def check_k7_k10(torch, np, kr) -> None:
                                            f"{dt} {dist} {shape} R={R} k={k} "
                                            f"phase={ph}")
                                 n_cases += 1
+    # K10 many-calls: (n, seed, (be, k, phase)) of every leaf below
+    many = []
     for shape in ((151_936, 896), MLP_LEAF):
         x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
         be = _rows_be(shape, 1)
@@ -514,10 +533,27 @@ def check_k7_k10(torch, np, kr) -> None:
             if not same_bits(k10, kr.zo_sqnorm_rows_plain(
                     x.numel(), 5, be, 4, ph, "gaussian", "cuda")):
                 fail(f"K10 {shape} rows(1,4) phase {ph}: kernel != plain")
+            many.append((x.numel(), 5 + ph, (be, 4, ph)))
         if shape == MLP_LEAF:
             _hold_rows(torch, kr, x, be, 4, 1, "gaussian",
                        f"the {MLP_LEAF} bf16 leaf at B=8")
         del x
+    # be < 1024, = 1024, > 1024 and 1; ragged blocks; more leaves than one
+    # launch takes (two launches)
+    many += [(2747, 11, (201, 2, 1)), (100_003, 12, (1, 2, 0)),
+             (163_840, 13, (1024, 4, 3)), (300_001, 14, (280, 3, 2)),
+             (15_077, 15, (5000, 2, 1))]
+    many += [(500 + 13 * i, 977 + i, (1 + i % 37, 2 + i % 3, i % (2 + i % 3)))
+             for i in range(kr.ROWS_MAX_LEAVES)]
+    for dist in ("gaussian", "rademacher"):
+        got = kr.zo_sqnorm_rows_many([n for n, _, _ in many],
+                                     [s for _, s, _ in many],
+                                     [p for _, _, p in many], dist, "cuda")
+        for (n, sd, p), norm in zip(many, got):
+            if not same_bits(norm, kr.zo_sqnorm_rows_plain(n, sd, *p, dist,
+                                                           "cuda")):
+                fail(f"K10 zo_sqnorm_rows_many n={n} plan={p} {dist}: != "
+                     "plain")
     n_long = 70
     x = torch.randn(70_001, generator=g, device="cuda").to(torch.bfloat16)
     seeds = list(range(n_long))
@@ -529,7 +565,7 @@ def check_k7_k10(torch, np, kr) -> None:
         fail(f"K9 with {n_long} streams (two launches) != plain")
     gold = np.load(ROWS_GOLDEN)
     seeds = [int(v) for v in gold["seeds"]]
-    worst, i = 0.0, 0
+    worst, i, fixture = 0.0, 0, []
     while f"plan_{i}" in gold.files:
         _, k, ph, be = (int(v) for v in gold[f"plan_{i}"])
         for name, dt, iv in (("f32", torch.float32, np.int32),
@@ -549,21 +585,29 @@ def check_k7_k10(torch, np, kr) -> None:
                                       gold[f"{name}_{what}_{i}"].view(iv)):
                     fail(f"K7-K9 {what} {name} plan {i} != the JAX golden "
                          "fixture")
-        n = gold[f"f32_x_{i}"].size
-        got = kr.zo_sqnorm_rows(n, seeds[1], be, k, ph, "gaussian",
-                                "cuda").item()
-        want = float(gold[f"sq_{i}"])
-        rel = abs(got - want) / want
-        worst = max(worst, rel)
-        if rel > kr.SQNORM_RTOL:
-            fail(f"K10 plan {i}: {got} vs JAX {want}: rel err {rel}")
+        fixture.append((gold[f"f32_x_{i}"].size, (be, k, ph),
+                        float(gold[f"sq_{i}"])))
         i += 1
+    # every fixture plan alone and all in one many-call
+    together = kr.zo_sqnorm_rows_many([n for n, _, _ in fixture],
+                                      [seeds[1]] * len(fixture),
+                                      [p for _, p, _ in fixture], "gaussian",
+                                      "cuda")
+    for (n, p, want), norm in zip(fixture, together):
+        for got in (kr.zo_sqnorm_rows(n, seeds[1], *p, "gaussian",
+                                      "cuda").item(), norm.item()):
+            rel = abs(got - want) / want
+            worst = max(worst, rel)
+            if rel > kr.SQNORM_RTOL:
+                fail(f"K10 plan {p}: {got} vs JAX {want}: rel err {rel}")
     log(f"K7 zo_affine_rows, K8 zo_affine_multi_rows, K9 zo_affine_chain_rows,"
         f" K10 zo_sqnorm_rows: bitwise vs plain ({n_cases} plans: f32/bf16/"
         "f16 × gaussian/rademacher, 2-D/3-D/1-D odd leaves, R ∈ {1, 3, 96}, "
         "k ∈ {1, 2, 3}, every phase; the embedding and MLP leaves under "
-        f"rows(1,4); {n_long} streams), vs the JAX golden fixture (K10 "
-        f"within {worst:.2e} relative, tolerance {kr.SQNORM_RTOL})")
+        f"rows(1,4); {n_long} streams; K10 also {len(many)} leaves in one "
+        "zo_sqnorm_rows_many call, two launches), vs the JAX golden fixture "
+        f"(K10 alone and in one many-call within {worst:.2e} relative, "
+        f"tolerance {kr.SQNORM_RTOL})")
 
 
 def _hold_rows(torch, kr, x, be, k, ph, dist, what) -> None:
@@ -609,7 +653,8 @@ def check_k12(torch, kp, L: int, n_blocks: int, D: int) -> None:
 
 _KERNELS = ("flash_fwd_mma", "flash_fwd_sliced", "gather_kernel", "wkv6_fwd",
             "wkv6_tile", "zo_affine_kernel", "chain_kernel", "fanout_kernel",
-            "selftest_kernel", "tile_sums", "fold_leaves")
+            "selftest_kernel", "rows_tile_sums", "rows_fold_leaves",
+            "sqnorm_rows_tiles", "tile_sums", "fold_leaves")
 _TARG = re.compile(r"13__nv_bfloat16|6__half|f|Li(-?\d+)E|Lb([01])E")
 
 
@@ -645,14 +690,16 @@ def ptxas_facts(_build, lib: str, log_text=None) -> dict:
 
 
 def build_facts(_build) -> None:
-    """What the compiler made of K1, K2, K3, K6, K11 and K12: ``-Xptxas -v``'s
+    """What the compiler made of K1–K6, K10, K11 and K12: ``-Xptxas -v``'s
     registers, shared memory and spills per device function (every K2 and
     K11 instance), and the HMMA (tensor-core) instructions in K2's SASS,
     read with ``cuobjdump`` — every mma instance must have some."""
     for lib in ("flash_attention", "wkv6", "paged_gather", "zo_affine",
-                "zo_multi", "zo_sqnorm"):
+                "zo_multi", "zo_sqnorm", "zo_rows"):
         for fn, facts in sorted(ptxas_facts(_build, lib).items()):
             if lib in ("zo_affine", "zo_multi") and "bf16, 0" not in fn:
+                continue
+            if lib == "zo_rows" and not fn.startswith("rows_"):
                 continue
             log(f"ptxas {lib} {fn}: {facts}")
     hmma = {}
@@ -781,12 +828,15 @@ Z_KERNEL_SASS = {
                              r"multi_rows_kernel.*13__nv_bfloat16Li0E"),
     "zo_affine_chain_rows": ("zo_rows",
                              r"chain_rows_kernel.*13__nv_bfloat16Li0E"),
-    "zo_sqnorm_rows": ("zo_rows", r"sqnorm_rows_tilesILi0E"),
+    "zo_sqnorm_rows": ("zo_rows", r"rows_tile_sumsILi0E"),
 }
+#: K10 of a parent tree that measures one leaf per call
+PARENT_K10_SASS = r"sqnorm_rows_tilesILi0E"
 
 
 #: kernels whose z loops sit inside a loop over tiles: counted innermost
-SASS_INNERMOST = (Z_KERNEL_SASS["zo_sqnorm"][1],)
+SASS_INNERMOST = (Z_KERNEL_SASS["zo_sqnorm"][1],
+                  Z_KERNEL_SASS["zo_sqnorm_rows"][1])
 
 
 def issue_floor_ms(n_z: float, per_z: float, mhz: float) -> float:
@@ -806,7 +856,8 @@ def sm_clocks() -> tuple:
 
 
 def build_parent_libs(_build, parent: Path) -> dict:
-    """K1's, K3's, K6's and K11's libraries built from another checkout's
+    """K1's, K3–K5's, K6's, K7–K10's and K11's libraries built from another
+    checkout's
     sources (the parent commit, unpacked with ``git archive``)
     with this tree's flags, into ``build/parent_kernels``; {library name:
     path}."""
@@ -815,7 +866,8 @@ def build_parent_libs(_build, parent: Path) -> dict:
     kern = parent / "src" / "repro_torch" / "kernels"
     procs, paths = [], {}
     srcs = {name: kern / _build.SOURCES[name][0]
-            for name in ("zo_affine", "zo_multi", "zo_sqnorm", "wkv6")}
+            for name in ("zo_affine", "zo_multi", "zo_sqnorm", "zo_rows",
+                         "wkv6")}
     for name, path in srcs.items():
         lib = out_dir / f"{name}.so"
         flags = _build.SOURCES[name][1]
@@ -1548,7 +1600,8 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
     import ctypes
     from repro_torch.kernels.zo_fused.kernel import _f32
     libs = {"change": {name: _build.lib_path(name) for name in
-                       ("zo_affine", "zo_multi", "zo_sqnorm", "wkv6")}}
+                       ("zo_affine", "zo_multi", "zo_sqnorm", "zo_rows",
+                        "wkv6")}}
     if parent is not None:
         libs["parent"] = build_parent_libs(_build, parent)
     n_all = sum(p.numel() for p in leaves)
@@ -1614,6 +1667,8 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
     log(f"SM clock during the runs {mhz:.0f} MHz (median of nvidia-smi "
         f"samples every 100 ms), {cur:.0f} MHz after, {mx:.0f} MHz max")
     k6_turns(torch, _build, leaves, libs, order, card, mhz)
+    fanout_turns(torch, _build, leaves, libs, order, card, mhz)
+    k10_turns(torch, _build, leaves, libs, order, card, mhz)
     k11_turns(torch, _build, libs, card)
     return counts["change"]
 
@@ -1637,10 +1692,12 @@ def k6_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
             for name in libs}
     stream = _build.stream_of(partials)
     vp = ctypes.c_void_p
-    fns = {}
+    fns, how = {}, {}
     for name, paths in libs.items():
         lib, out = ctypes.CDLL(str(paths["zo_sqnorm"])), outs[name]
-        if hasattr(lib, "zo_sqnorm_many"):
+        many = hasattr(lib, "zo_sqnorm_many")
+        how[name] = "one call" if many else "one call per leaf"
+        if many:
             fn = lib.zo_sqnorm_many
             fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp]
             args = ((ctypes.c_int64 * len(ns))(*ns),
@@ -1676,10 +1733,173 @@ def k6_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
         floor = issue_floor_ms(n_all, c["total"], mhz)
         log(f"K6 {name}: " + ", ".join(f"{t:.3f}" for t in times[name])
             + f" ms per pass over {len(ns)} leaves ({order.count(name)} "
-            f"runs in turns {'/'.join(order)}; "
-            f"{'one call' if name == 'change' else 'one call per leaf'}); "
+            f"runs in turns {'/'.join(order)}; {how[name]}); "
             f"issue floor {floor:.3f} ms = {n_all} z × {c['total']:.2f} "
             f"instructions at {mhz:.0f} MHz — on {card}")
+
+
+def _regs(_build, paths, lib: str, prefix: str) -> str:
+    """``-Xptxas -v``'s registers and spills of the device function whose
+    name starts with ``prefix`` in the library built at ``paths[lib]``."""
+    facts = ptxas_facts(_build, lib, Path(paths[lib]).with_suffix(
+        ".log").read_text())
+    return next((v for k, v in facts.items() if k.startswith(prefix)), "?")
+
+
+def fanout_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
+    """K4 and K5: one 8-stream fan-out of every leaf in ``leaves`` (one
+    pass) through their C entry points (whose signatures this tree keeps),
+    the parent's and this tree's, in turns ``order``.  Every leaf's output
+    must have the parent's bits.  Prints the times, the SASS instructions
+    per z of ``fanout_kernel<bf16, gaussian>``'s hot loop with the issue
+    floor they set at ``mhz``, its registers and spills, and the route each
+    leaf's launch takes."""
+    import ctypes
+    from repro_torch.kernels.zo_fused.kernel import (DTYPE_CODES, _f32,
+                                                     fanout_route)
+    vp, i64, i, f = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                     ctypes.c_float)
+    seeds = [(ctypes.c_uint32 * B_SEEDS)(*[(1000003 * li + 17 + j)
+                                           & 0xFFFFFFFF
+                                           for j in range(B_SEEDS)])
+             for li in range(len(leaves))]
+    a = (ctypes.c_float * B_SEEDS)(*[_f32(v) for v in A8])
+    b = (ctypes.c_float * B_SEEDS)(*[_f32(v) for v in B8])
+    big = max(p.numel() for p in leaves)
+    outs = {name: torch.empty(B_SEEDS * big, dtype=leaves[0].dtype,
+                              device="cuda") for name in libs}
+    stream = _build.stream_of(leaves[0])
+    launch = {}
+    for name, paths in libs.items():
+        lib = ctypes.CDLL(str(paths["zo_multi"]))
+        k4, k5 = lib.zo_affine_multi, lib.zo_affine_batched
+        k4.argtypes = [vp, vp, i64, i, vp, vp, vp, i, i, vp]
+        k5.argtypes = [vp, vp, i64, i, vp, i, f, f, i, vp]
+        k4.restype = k5.restype = i
+        y = outs[name].data_ptr()
+
+        def one(which, li, k4=k4, k5=k5, y=y):
+            p = leaves[li]
+            args = (p.data_ptr(), y, p.numel(), DTYPE_CODES[p.dtype])
+            err = (k4(*args, seeds[li], a, b, B_SEEDS, 0, stream)
+                   if which == "K4" else
+                   k5(*args, seeds[li], B_SEEDS, a[0], b[0], 0, stream))
+            if err:
+                fail(f"{which} timing launch: CUDA error {err}")
+        launch[name] = one
+    if "parent" in libs:
+        for li, p in enumerate(leaves):
+            m = B_SEEDS * p.numel()
+            for which in ("K4", "K5"):
+                for name in libs:
+                    launch[name](which, li)
+                if not same_bits(outs["parent"][:m], outs["change"][:m]):
+                    fail(f"{which}: the parent's and this tree's fan-out of "
+                         f"leaf {li} {tuple(p.shape)} differ in bits")
+    times = {}
+    for name in order:
+        for which in ("K4", "K5"):
+            times.setdefault((which, name), []).append(cuda_ms(
+                lambda: [launch[name](which, li)
+                         for li in range(len(leaves))], 5))
+    routes = {}
+    for p in leaves:
+        r = fanout_route(p, outs["change"])
+        routes[r] = routes.get(r, 0) + 1
+    n_z = B_SEEDS * sum(p.numel() for p in leaves)
+    for name, paths in libs.items():
+        c = sass_report(paths["zo_multi"], {
+            "fan-out": Z_KERNEL_SASS["zo_affine_multi"][1]})["fan-out"]
+        log(f"{name} K4/K5 fanout_kernel<bf16, 0>: "
+            + _regs(_build, paths, "zo_multi", "fanout_kernel<bf16, 0>"))
+        log(f"{name} " + sass_line("K4/K5 fanout_kernel<bf16, 0>", c))
+        floor = issue_floor_ms(n_z, c["total"], mhz)
+        for which in ("K4", "K5"):
+            log(f"{which} {name}: " + ", ".join(
+                f"{t:.3f}" for t in times[which, name])
+                + f" ms per {B_SEEDS}-stream fan-out of {len(leaves)} leaves "
+                f"({order.count(name)} runs in turns {'/'.join(order)}); "
+                f"issue floor {floor:.3f} ms = {n_z} z × {c['total']:.2f} "
+                f"instructions at {mhz:.0f} MHz — on {card}")
+    log("fan-out routes of the timed pass (this tree): " + ", ".join(
+        f"{r} {n} leaves" for r, n in sorted(routes.items()))
+        + ("; the parent's outputs bitwise equal, every leaf, K4 and K5"
+           if "parent" in libs else ""))
+
+
+def k10_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
+    """K10: one stream's ‖z‖² of every leaf in ``leaves`` under
+    rows(block=1, k=4) at phase 0 (one sphere pass of path (g)) through
+    the C entry points, in turns ``order`` — the parent's
+    ``zo_sqnorm_rows`` once per leaf (two launches each), this tree's
+    ``zo_sqnorm_rows_many`` once for all leaves (two launches).  The norms
+    must have the same bits.  Prints the times, the SASS instructions per
+    z of the tile kernel's z loop with the issue floor at ``mhz``, and its
+    registers and spills."""
+    import ctypes
+    from repro_torch.kernels.zo_fused import rows as kr
+    from repro_torch.select import parse_selection
+    rsel = parse_selection(ROWS)
+    plans = [rsel.block_mask(p, 0) for p in leaves]
+    ns = [p.numel() for p in leaves]
+    seeds = [(1000003 * i + 17) & 0xFFFFFFFF for i in range(len(ns))]
+    table = [kr._rows_leaf(n, sd, rb.block_elems, rb.k, rb.phase)
+             for n, sd, rb in zip(ns, seeds, plans)]
+    partials = torch.empty(sum(-(-row[0] // kr.TILE_ELEMS) for row in table),
+                           dtype=torch.float32, device="cuda")
+    outs = {name: torch.empty(len(ns), dtype=torch.float32, device="cuda")
+            for name in libs}
+    stream = _build.stream_of(partials)
+    vp, u32, i = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
+    fns, sass, how = {}, {}, {}
+    for name, paths in libs.items():
+        lib, out = ctypes.CDLL(str(paths["zo_rows"])), outs[name]
+        many = hasattr(lib, "zo_sqnorm_rows_many")
+        how[name] = "one call" if many else "one call per leaf"
+        if many:
+            fn = lib.zo_sqnorm_rows_many
+            fn.argtypes = [vp, vp, vp, i, i, vp]
+            flat = [v for row in table for v in row]
+            calls = [(out.data_ptr(), ((u32 * len(flat))(*flat), len(ns)))]
+            sass[name] = (Z_KERNEL_SASS["zo_sqnorm_rows"][1], "rows_tile_sums")
+        else:                        # one leaf per call
+            fn = lib.zo_sqnorm_rows
+            fn.argtypes = [vp, vp, ctypes.c_int64, u32, u32, u32, u32, i, vp]
+            calls = [(out.data_ptr() + 4 * li, (row[0], row[2], rb.k,
+                                                rb.phase, sd))
+                     for li, (row, rb, sd) in enumerate(zip(table, plans,
+                                                            seeds))]
+            sass[name] = (PARENT_K10_SASS, "sqnorm_rows_tiles")
+        fn.restype = i
+
+        def run(fn=fn, calls=calls):
+            for dst, args in calls:
+                err = fn(partials.data_ptr(), dst, *args, 0, stream)
+                if err:
+                    fail(f"K10 timing launch: CUDA error {err}")
+        fns[name] = run
+    times = {}
+    for name in order:
+        times.setdefault(name, []).append(cuda_ms(fns[name], 10))
+    if "parent" in outs and not same_bits(outs["parent"], outs["change"]):
+        fail("K10: the parent's and this tree's norms differ in bits")
+    n_sel = sum(row[0] for row in table)
+    for name, paths in libs.items():
+        pat, kname = sass[name]
+        c = sass_report(paths["zo_rows"], {"K10": pat})["K10"]
+        log(f"{name} K10 {kname}<0>: "
+            + _regs(_build, paths, "zo_rows", f"{kname}<0>"))
+        log(f"{name} " + sass_line(f"K10 {kname}<0>", c))
+        floor = issue_floor_ms(n_sel, c["total"], mhz)
+        log(f"K10 {name}: " + ", ".join(f"{t:.3f}" for t in times[name])
+            + f" ms per pass over {len(ns)} leaves under {ROWS} "
+            f"({order.count(name)} runs in turns {'/'.join(order)}; "
+            f"{how[name]}); "
+            f"issue floor {floor:.3f} ms = {n_sel} z × {c['total']:.2f} "
+            f"instructions at {mhz:.0f} MHz — on {card}")
+    if "parent" in outs:
+        log(f"K10: the parent's norms ({how['parent']}) and this tree's "
+            f"({how['change']}) are bitwise equal")
 
 
 #: K11's shapes timed in turns: the rwkv6-3b training call and a
@@ -1689,21 +1909,25 @@ K11_TURN_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ, 40, 64, 16), (1, 32, 40, 64, 16))
 
 def k11_turns(torch, _build, libs, card) -> None:
     """K11 at ``K11_TURN_SHAPES`` (f32, the model's (B, S, H, hd) layout):
-    the parent's C entry point (its scalar kernel) and this tree's wrapper
-    (the tiled route), both held to the plain version, then timed in
-    CUDA-graph runs of launches, in turns (parent, change, change,
-    parent, …).  Prints the times and the registers, shared memory and
-    spills of the parent's ``wkv6_fwd<64, false>`` and this tree's
-    ``wkv6_tile``."""
+    the parent's C entry point (its tiled route where it has one — its
+    entry point then takes a ``tiled`` flag — else its scalar kernel) and
+    this tree's wrapper (the tiled route), both held to the plain version,
+    then timed in CUDA-graph runs of launches, in turns (parent, change,
+    change, parent, …).  Prints the times and the registers, shared memory
+    and spills of ``wkv6_fwd<64, false>`` and ``wkv6_tile`` in each
+    library."""
     import ctypes
     from repro_torch.kernels.rwkv6 import kernel as kw
     from repro_torch.kernels.rwkv6 import ops as ko
     g = torch.Generator(device="cuda").manual_seed(19)
-    parent = None
+    parent, tiled = None, ()
     if "parent" in libs:
-        parent = ctypes.CDLL(str(libs["parent"]["wkv6"])).wkv6_chunked
+        lib = ctypes.CDLL(str(libs["parent"]["wkv6"]))
+        tiled = (1,) if hasattr(lib, "wkv6_tile_smem_bytes") else ()
+        parent = lib.wkv6_chunked
         parent.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                           + [ctypes.c_int64] * 21 + [ctypes.c_void_p])
+                           + [ctypes.c_int64] * 21
+                           + [ctypes.c_int] * len(tiled) + [ctypes.c_void_p])
         parent.restype = ctypes.c_int
     for B, S, H, hd, C in K11_TURN_SHAPES:
         r, k, v, lw, u, s0 = k11_inputs(torch, g, B, S, H, hd)
@@ -1724,7 +1948,8 @@ def k11_turns(torch, _build, libs, card) -> None:
                              *(st for t in (r, k, v, lw, y)
                                for st in t.stride()[:3]),
                              0, u.stride(0), *s0.stride()[:2],
-                             *s_out.stride()[:2], _build.stream_of(r))
+                             *s_out.stride()[:2], *tiled,
+                             _build.stream_of(r))
                 if err:
                     fail(f"the parent's K11: CUDA error {err}")
             run_parent()
@@ -2051,10 +2276,10 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         for i, (p, rb) in enumerate(zip(leaves, plans)):
             fn(p, seeds[i], ones, tiny, rb.block_elems, rb.k, rb.phase)
 
-    def k10_pass(fn=kr.zo_sqnorm_rows):
-        for i, (p, rb) in enumerate(zip(leaves, plans)):
-            fn(p.numel(), seeds[i][0], rb.block_elems, rb.k, rb.phase,
-               "gaussian", "cuda")
+    def k10_pass(fn=kr.zo_sqnorm_rows_many):
+        fn([p.numel() for p in leaves], [sd[0] for sd in seeds],
+           [(rb.block_elems, rb.k, rb.phase) for rb in plans], "gaussian",
+           "cuda")
 
     times.update({
         "zo_affine_rows": (cuda_ms(k7_record, 10), host_ms(
@@ -2064,7 +2289,7 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         "zo_affine_multi_rows": (cuda_ms(k8_fanout, 5), host_ms(
             lambda: k8_fanout(kr.zo_affine_multi_rows_plain))),
         "zo_sqnorm_rows": (cuda_ms(k10_pass, 10), host_ms(
-            lambda: k10_pass(kr.zo_sqnorm_rows_plain))),
+            lambda: k10_pass(kr.zo_sqnorm_rows_many_plain))),
     })
     clock.__exit__(None, None, None)
     from repro_torch.kernels import _build
@@ -2208,8 +2433,10 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         f"zo_affine_chain = one {B_SEEDS}-stream update over all leaves; "
         f"zo_affine_multi / zo_affine_batched = one {B_SEEDS}-stream fan-out "
         f"over all leaves; zo_sqnorm = one stream's ||z||^2 over all leaves "
-        f"({n_all} elements) in one zo_sqnorm_many call; the *_rows kernels the same work under {ROWS} "
-        f"at phase 0 ({n_sel} selected elements); flash_attention = the "
+        f"({n_all} elements) in one zo_sqnorm_many call; the *_rows kernels "
+        f"the same work under {ROWS} at phase 0 ({n_sel} selected elements; "
+        "zo_sqnorm_rows in one zo_sqnorm_rows_many call); flash_attention = "
+        f"the "
         f"training shape ({TRAIN_BATCH}, {S}, {cfg.n_heads}, {cfg.hd}) bf16; "
         f"paged_gather = one decode-step gather of {tab.size} blocks × {L} "
         f"layers; kernel ms = median of 10 (K1, K6, K7, K10) or 5 (K3-K5, "
@@ -2225,12 +2452,12 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels against their plain "
-                         "versions and the JAX fixtures, time K1, K3, K6 "
-                         "and K11 (in turns with --parent) and K2 at hd "
+                         "versions and the JAX fixtures, time K1, K3-K6, "
+                         "K10 and K11 (in turns with --parent) and K2 at hd "
                          "128, then stop")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit (git archive): "
-                         "its K1, K3, K6 and K11 are built and timed in "
+                         "its K1, K3-K6, K10 and K11 are built and timed in "
                          "turns with this tree's")
     args = ap.parse_args()
     import numpy as np
@@ -2379,6 +2606,14 @@ def main() -> None:
              f"{counts.get('wkv6_chunked', 0)}")
     log(f"K11 over the counted paths: all {k11_tile} launches on the tiled "
         "route (training and the served prefills)")
+    fan = {k: counts.get(f"{k}/vector", 0)
+           for k in ("zo_affine_multi", "zo_affine_batched")}
+    fan_all = {k: counts.get(k, 0) for k in fan}
+    if min(fan.values()) == 0 or fan != fan_all:
+        fail(f"K4/K5 on the counted paths: vector-route launches {fan} of "
+             f"{fan_all}")
+    log("K4/K5 over the counted paths: all " + " and ".join(
+        f"{v} {k}" for k, v in fan.items()) + " launches on the vector route")
     k2_mma = counts.get("flash_attention/bf16_mma", 0)
     copied = {k: v for k, v in counts.items() if k.endswith("+copy")}
     if k2_mma == 0 or k2_mma != counts.get("flash_attention", 0) or copied:

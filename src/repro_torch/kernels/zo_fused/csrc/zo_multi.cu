@@ -10,20 +10,31 @@
 //      y = fold_j round_T(a_j*y + b_j*z(seed_j)), one read and one write of x
 //
 // On the TPU the grid kept a VMEM tile of x resident while an inner batch
-// axis walked the B streams.  Here the fan-out gives each thread one element
-// per grid-stride step: it loads x once into a register and generates the B
-// streams' z against it (B coalesced stores, one per output slice).  The
-// chain, which every fzoo step and seed-group update runs, is K1's design:
-// each thread takes one 16-byte vector (8 bf16/f16 or 4 f32 elements) per
-// grid-stride step with a 32-bit index, carries the vector's running values
-// in registers through the B streams — the per-stream key, a and b loaded
-// once per vector, the vector's z independent of each other (interleaving
-// two streams' z as well measured no faster) — and stores once, so it may
-// run in place; a scalar head and tail as in K1.  The z generator and the
-// affine combine are zo_stream.cuh's, the same code K1 runs, so each
-// fan-out slice is bitwise K1(x, seed_j, a_j, b_j) and the chain is bitwise
-// B sequential K1 launches: the cast through T between streams (round_to)
-// is the write/read boundary of one launch (multi.py:101-117).
+// axis walked the B streams.  Here both kernels take K1's design: each
+// thread takes one 16-byte vector (8 bf16/f16 or 4 f32 elements) per
+// grid-stride step with a 32-bit index inside the chunk, computes the
+// vector's counter (idx * IDX_MUL) once, and walks the B streams with the
+// per-stream key, a and b loaded once per vector; the vector's z are
+// independent of each other, which gives the scheduler 4-8 chains.  The
+// grid is the kernel's occupancy times the SM count, and a scalar head and
+// tail take the elements off the 16-byte grid, as in K1.
+//   * The fan-out loads the x vector once into registers and stores one
+//     vector per stream, into its slice y + j*n.  When n * sizeof(T) is not
+//     a multiple of 16 bytes, slices j >= 1 lie differently against 16
+//     bytes than x does; such a launch (and one whose x and y differ in
+//     alignment) takes the scalar route, every element in the scalar loop,
+//     and the wrapper counts which route each launch took (fanout_route in
+//     kernel.py repeats this rule).  Every leaf of qwen2-0.5b is a multiple
+//     of 8 elements, so its fan-outs take the vector route.
+//   * The chain, which every fzoo step and seed-group update runs, carries
+//     the vector's running values in registers through the B streams
+//     (interleaving two streams' z as well measured no faster) and stores
+//     once, so it may run in place.
+// The z generator and the affine combine are zo_stream.cuh's, the same code
+// K1 runs, so each fan-out slice is bitwise K1(x, seed_j, a_j, b_j) and the
+// chain is bitwise B sequential K1 launches: the cast through T between
+// streams (round_to) is the write/read boundary of one launch
+// (multi.py:101-117).
 //
 // Seeds and coefficients travel by value in the kernel's parameters, at
 // most ZO_MAX_STREAMS per launch; the wrapper splits a longer list into
@@ -33,7 +44,7 @@
 // Bound on the H100: fan-out reads x once and writes B outputs, chain reads
 // and writes x once; each stream costs ~64 f32 flops per element, so for
 // B >= 2 in bf16 the CUDA-core rate (67 TFLOP/s) bounds both, not memory —
-// and, below it, the issue of ~100 SASS instructions per z (zo_stream.cuh).
+// and, below it, the issue of ~82 SASS instructions per z (zo_stream.cuh).
 #include "zo_stream.cuh"
 
 #define ZO_MAX_STREAMS 64
@@ -46,21 +57,47 @@ struct Streams {
   float b[ZO_MAX_STREAMS];
 };
 
+constexpr int THREADS = 256;
+
+// y holds nb slices of the leaf, `stride` elements apart; sp splits x and
+// slice 0 (every slice alike on the vector route, all scalar otherwise)
 template <typename T, int DIST>
-__global__ void fanout_kernel(const T* x, T* y, int64_t n, int nb,
-                              const Streams s) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
+__global__ void __launch_bounds__(THREADS)
+fanout_kernel(const T* x, T* y, uint32_t n, uint32_t base, zo::Split sp,
+              int64_t stride, int nb, const Streams s) {
+  constexpr int N = zo::Vec<T>::N;
+  const uint32_t tid = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t nthreads = gridDim.x * THREADS;
+  for (uint32_t v = tid; v < sp.nvec; v += nthreads) {
+    const uint32_t i0 = sp.head + v * N;
+    float xs[N];
+    zo::load_vec<T, N>(x + i0, xs);
+    const uint32_t im = (base + i0) * zo::IDX_MUL;
+    T* yj = y + i0;
+    for (int j = 0; j < nb; ++j, yj += stride) {
+      const uint32_t key = zo::seed_key(s.seed[j]);
+      const float a = s.a[j], b = s.b[j];
+      float out[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        out[k] = zo::affine(a, xs[k], b,
+                            zo::z_of<DIST>(im + (uint32_t)k * zo::IDX_MUL,
+                                           key));
+      zo::store_vec<T, N>(yj, out);
+    }
+  }
+  const uint32_t body_end = sp.head + sp.nvec * N;
+  for (uint32_t r = tid; r < n - sp.nvec * N; r += nthreads) {
+    const uint32_t i = r < sp.head ? r : body_end + (r - sp.head);
+    const uint32_t im = (base + i) * zo::IDX_MUL;
     const float xv = zo::load(x, i);
-    for (int j = 0; j < nb; ++j) {
-      float z = zo::z_at<DIST>((uint32_t)i, s.seed[j]);
-      zo::store(y, (int64_t)j * n + i, zo::affine(s.a[j], xv, s.b[j], z));
+    T* yj = y + i;
+    for (int j = 0; j < nb; ++j, yj += stride) {
+      const float z = zo::z_of<DIST>(im, zo::seed_key(s.seed[j]));
+      zo::store(yj, 0, zo::affine(s.a[j], xv, s.b[j], z));
     }
   }
 }
-
-constexpr int THREADS = 256;
 
 template <typename T, int DIST>
 __global__ void __launch_bounds__(THREADS)
@@ -98,11 +135,6 @@ chain_kernel(const T* x, T* y, uint32_t n, uint32_t base, zo::Split sp,
   }
 }
 
-int grid_for(int64_t n, int threads) {
-  int64_t want = (n + threads - 1) / threads;
-  return (int)(want < 132 * 32 ? want : 132 * 32);
-}
-
 template <typename T, int DIST>
 cudaError_t launch_chain(const void* x, void* y, int64_t n, int nb,
                          const Streams& s, cudaStream_t stream) {
@@ -116,21 +148,35 @@ cudaError_t launch_chain(const void* x, void* y, int64_t n, int nb,
   });
 }
 
+// The fan-out's route: vector when every slice lies against 16 bytes as x
+// does (n * sizeof(T) a multiple of 16; split_of checks x against y),
+// scalar otherwise.
+template <typename T, int DIST>
+cudaError_t launch_fanout(const void* x, void* y, int64_t n, int nb,
+                          const Streams& s, cudaStream_t stream) {
+  const bool vec = (n * (int64_t)sizeof(T)) % 16 == 0;
+  return zo::for_chunks<T>(x, y, n, [&](const T* xc, T* yc, uint32_t len,
+                                        uint32_t base, zo::Split sp,
+                                        uint32_t work) {
+    if (!vec) {
+      sp = zo::Split{len, 0};
+      work = len;
+    }
+    const int grid =
+        zo::resident_grid<fanout_kernel<T, DIST>>(THREADS, work);
+    fanout_kernel<T, DIST><<<grid, THREADS, 0, stream>>>(xc, yc, len, base,
+                                                         sp, n, nb, s);
+  });
+}
+
 template <typename T>
 cudaError_t launch(bool chain, const void* x, void* y, int64_t n, int nb,
                    const Streams& s, int dist, cudaStream_t stream) {
   if (chain)
     return dist == 0 ? launch_chain<T, 0>(x, y, n, nb, s, stream)
                      : launch_chain<T, 1>(x, y, n, nb, s, stream);
-  const int threads = 256;
-  const int blocks = grid_for(n, threads);
-  if (dist == 0)
-    fanout_kernel<T, 0><<<blocks, threads, 0, stream>>>((const T*)x, (T*)y,
-                                                        n, nb, s);
-  else
-    fanout_kernel<T, 1><<<blocks, threads, 0, stream>>>((const T*)x, (T*)y,
-                                                        n, nb, s);
-  return cudaGetLastError();
+  return dist == 0 ? launch_fanout<T, 0>(x, y, n, nb, s, stream)
+                   : launch_fanout<T, 1>(x, y, n, nb, s, stream);
 }
 
 int dispatch(bool chain, const void* x, void* y, int64_t n, int dtype,

@@ -41,6 +41,9 @@ DIST_CODES = {"gaussian": 0, "rademacher": 1}
 #: streams per launch of the multi-seed kernels (ZO_MAX_STREAMS in
 #: ``csrc/zo_multi.cu``); a longer list is split into consecutive launches
 MAX_STREAMS = 64
+#: the counter hash's multipliers of the flat index and of the seed
+#: (IDX_MUL, SEED_MUL in ``csrc/zo_stream.cuh``)
+IDX_MUL, SEED_MUL = 0x9E3779B1, 0x7FEB352D
 
 
 def _f32(v) -> float:
@@ -79,8 +82,8 @@ def _murmur_mix(h: torch.Tensor) -> torch.Tensor:
 
 def counter_uniform(idx: torch.Tensor, seed: int, salt: int) -> torch.Tensor:
     """uint32 counter (int64 tensor) + seed + salt -> f32 uniform in (0, 1)."""
-    h = _mul_u32(idx, 0x9E3779B1)
-    h = h ^ ((seed * 0x7FEB352D) & _MASK)
+    h = _mul_u32(idx, IDX_MUL)
+    h = h ^ ((seed * SEED_MUL) & _MASK)
     h = (h + ((salt * 0x846CA68B) & _MASK)) & _MASK
     h = _murmur_mix(h)
     u = (h >> 8).to(torch.float32)                 # exact: < 2**24
@@ -306,6 +309,20 @@ def _multi_lib():
     return lib
 
 
+def fanout_route(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The route a fan-out launch (K4, K5) from leaf ``x`` into the stacked
+    ``y`` takes, by ``launch_fanout``'s rule in ``csrc/zo_multi.cu``:
+    ``"vector"`` when every slice of y lies against 16 bytes as x does (a
+    slice of ``x.numel()`` elements is a whole number of 16-byte vectors,
+    and x and y start at the same offset from 16 bytes, on an element
+    boundary), ``"scalar"`` otherwise — every element then takes the scalar
+    loop."""
+    size = x.element_size()
+    ax, ay = x.data_ptr() % 16, y.data_ptr() % 16
+    whole = (x.numel() * size) % 16 == 0
+    return "vector" if whole and ax == ay and ax % size == 0 else "scalar"
+
+
 def zo_affine_batched_plain(x: torch.Tensor, seeds, a: float, b: float,
                             dist: str = "gaussian") -> torch.Tensor:
     """Plain K5: the stacked K1 singles y[j] = zo_affine(x, seeds[j], a, b)."""
@@ -329,6 +346,7 @@ def zo_affine_batched(x: torch.Tensor, seeds, a: float, b: float,
     if x.numel() == 0:
         return y
     lib = _multi_lib()
+    route = fanout_route(x, y)
     for j0 in range(0, len(seeds), MAX_STREAMS):
         part = seeds[j0:j0 + MAX_STREAMS]
         err = lib.zo_affine_batched(
@@ -336,7 +354,7 @@ def zo_affine_batched(x: torch.Tensor, seeds, a: float, b: float,
             _u32_array(part), len(part), _f32(a), _f32(b), DIST_CODES[dist],
             _build.stream_of(x))
         _build.check(lib, err, "zo_affine_batched")
-        _build.count("zo_affine_batched")
+        _build.count("zo_affine_batched", route)
     return y
 
 

@@ -42,6 +42,7 @@ from repro_torch.kernels.zo_fused.kernel import (_CHUNK, _MASK, DIST_CODES,
                                                  _check_dist, _check_leaf,
                                                  _f32, _f32_array,
                                                  _multi_lib, _u32_array,
+                                                 fanout_route,
                                                  z_from_counter,
                                                  zo_affine_plain)
 
@@ -79,7 +80,8 @@ def zo_affine_multi_plain(x: torch.Tensor, seeds, a, b,
 def zo_affine_multi(x: torch.Tensor, seeds, a, b,
                     dist: str = "gaussian") -> torch.Tensor:
     """K4 (port of ``zo_affine_multi_2d``): y[j] = a_j·x + b_j·z(seeds[j]),
-    shape ``(len(seeds), *x.shape)``, x read once."""
+    shape ``(len(seeds), *x.shape)``, x read once; each launch is counted
+    under its route (``fanout_route``)."""
     _check_dist(dist)
     _check_leaf(x, "zo_affine_multi")
     seeds, a, b = _streams(seeds, a, b)
@@ -90,6 +92,7 @@ def zo_affine_multi(x: torch.Tensor, seeds, a, b,
     if x.numel() == 0:
         return y
     lib = _multi_lib()
+    route = fanout_route(x, y)
     for j0 in range(0, len(seeds), MAX_STREAMS):
         j1 = min(j0 + MAX_STREAMS, len(seeds))
         err = lib.zo_affine_multi(
@@ -98,7 +101,7 @@ def zo_affine_multi(x: torch.Tensor, seeds, a, b,
             _f32_array(b[j0:j1]), j1 - j0, DIST_CODES[dist],
             _build.stream_of(x))
         _build.check(lib, err, "zo_affine_multi")
-        _build.count("zo_affine_multi")
+        _build.count("zo_affine_multi", route)
     return y
 
 

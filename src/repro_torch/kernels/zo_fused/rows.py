@@ -25,13 +25,17 @@ carried over.
 * K9 ``zo_affine_chain_rows``: the K3 fold on selected elements, in place,
   cast through x's dtype between streams, at most ``MAX_STREAMS`` per
   launch; the plain version is the sequential K7 fold;
-* K10 ``zo_sqnorm_rows``: Σ z² over the selected elements in f32, in the
-  fixed two-pass order of K6 over the COMPACT index (tiles of
-  ``TILE_ELEMS`` compact indices; column t of the (128, 1024) view of a
-  tile summed top to bottom, the 1024 sums halved, the tile sums folded in
-  order), which the plain version repeats op for op.  JAX sums over
-  flat-index tiles, so K10 meets ``zo_sqnorm_rows_ref`` within
-  ``SQNORM_RTOL``.
+* K10 ``zo_sqnorm_rows_many``: Σ z² over the selected elements in f32, one
+  norm per leaf, every partial rows leaf of a sphere pass in one call
+  (``zo_sqnorm_rows``: one leaf), in the fixed two-pass order of K6 over
+  the COMPACT index (tiles of ``TILE_ELEMS`` compact indices; column t of
+  the (128, 1024) view of a tile summed top to bottom, the 1024 sums
+  halved, the tile sums folded in order), which the plain version repeats
+  op for op, so no bit of a norm depends on how leaves are grouped into
+  calls.  JAX sums over flat-index tiles, so K10 meets
+  ``zo_sqnorm_rows_ref`` within ``SQNORM_RTOL``.  The kernel maps compact
+  to flat indices without a hardware division; ``_rows_leaf`` computes its
+  constants here, where the CPU tests prove them.
 
 Each wrapper takes the plain version for a CPU tensor and launches its CUDA
 kernel (``csrc/zo_rows.cu``) for a CUDA one, or raises.  The kernels share
@@ -46,13 +50,19 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.zo_fused.kernel import (_CHUNK, _MASK, DIST_CODES,
-                                                 DTYPE_CODES, MAX_STREAMS,
+                                                 DTYPE_CODES, IDX_MUL,
+                                                 MAX_STREAMS, SEED_MUL,
                                                  _check_dist, _check_leaf,
                                                  _f32, _f32_array, _fma,
                                                  _u32_array, z_from_counter)
 from repro_torch.kernels.zo_fused.multi import (_PER_THREAD, _TILE_THREADS,
                                                 SQNORM_RTOL, TILE_ELEMS,
                                                 _fold_f32, _streams)
+
+#: K10's leaves per launch and uint32 fields per leaf (``ROWS_MAX_LEAVES``
+#: and ``LEAF_FIELDS`` in csrc/zo_rows.cu)
+ROWS_MAX_LEAVES = 64
+_LEAF_FIELDS = 11
 
 
 # --------------------------------------------------------------------------- #
@@ -192,6 +202,62 @@ def zo_sqnorm_rows_plain(n: int, seed: int, block_elems: int, k: int,
     return torch.tensor(total, dtype=torch.float32, device=device)
 
 
+def zo_sqnorm_rows_many_plain(ns, seeds, plans, dist: str = "gaussian",
+                              device="cpu") -> torch.Tensor:
+    """Plain K10 over several leaves: ``zo_sqnorm_rows_plain`` per leaf in a
+    loop, an (L,) f32 tensor on ``device``."""
+    ns, seeds, plans = _rows_leaf_list(ns, seeds, plans)
+    return torch.stack([zo_sqnorm_rows_plain(n, s, be, k, ph, dist, device)
+                        for n, s, (be, k, ph) in zip(ns, seeds, plans)])
+
+
+def _rows_leaf_list(ns, seeds, plans) -> tuple:
+    ns, seeds = [int(n) for n in ns], [int(s) for s in seeds]
+    plans = [tuple(int(v) for v in p) for p in plans]
+    if not ns or not len(ns) == len(seeds) == len(plans):
+        raise ValueError(f"zo_sqnorm_rows_many needs one seed and one "
+                         f"(block_elems, k, phase) plan per leaf and at least "
+                         f"one leaf; got {len(ns)} sizes, {len(seeds)} seeds "
+                         f"and {len(plans)} plans")
+    return ns, seeds, plans
+
+
+# --------------------------------------------------------------------------- #
+# K10's compact -> flat index map without a hardware division
+# --------------------------------------------------------------------------- #
+def divisor_magic(d: int) -> tuple:
+    """``(mul, sh1, sh2)`` with ``q = (hi + ((j − hi) >> sh1)) >> sh2``,
+    ``hi = (j · mul) >> 32``, equal to ``j // d`` for every 32-bit j
+    (Granlund and Montgomery's round-up method for unsigned division by an
+    invariant 1 ≤ d < 2^32: l = ⌈log2 d⌉, mul = ⌊2^32 (2^l − d) / d⌋ + 1 <
+    2^32)."""
+    d = int(d)
+    if not 1 <= d < 1 << 32:
+        raise ValueError(f"divisor {d} outside [1, 2^32)")
+    lg = (d - 1).bit_length()
+    mul = ((1 << 32) * ((1 << lg) - d)) // d + 1
+    return mul, min(lg, 1), max(lg - 1, 0)
+
+
+def _rows_leaf(n: int, seed: int, block_elems: int, k: int,
+               phase: int) -> tuple:
+    """The kernel's 11 uint32 fields for one leaf (``RowsLeaves`` in
+    ``csrc/zo_rows.cu``): sel, key, be, mul, sh1 | sh2 << 8, phase·be, k·be,
+    the carry threshold be − B, the carry step B, and the steps of
+    e·IDX_MUL per 1 024 compact indices without and with a carry, where
+    1024 = blocks·be + B, B < be; all mod 2^32."""
+    n, be, k, phase = _plan(n, block_elems, k, phase)
+    sel = _selected_or_raise(n, be, k, phase, "zo_sqnorm_rows")
+    mul, sh1, sh2 = divisor_magic(be)
+    blocks, rest = divmod(_TILE_THREADS, be)
+    step0 = blocks * k * be + rest
+    step1 = step0 + (k - 1) * be
+    return tuple(v & _MASK for v in (
+        sel, (int(seed) & _MASK) * SEED_MUL, be, mul, sh1 | sh2 << 8,
+        phase * be, k * be, be - rest, rest, step0 * IDX_MUL,
+        step1 * IDX_MUL))
+
+
 # --------------------------------------------------------------------------- #
 # The CUDA kernels' wrappers
 # --------------------------------------------------------------------------- #
@@ -206,10 +272,15 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, i64, i, u32, u32, u32, vp, vp, vp, i, i,
                            vp]
-        lib.zo_sqnorm_rows.argtypes = [vp, vp, i64, u32, u32, u32, u32, i, vp]
+        lib.zo_sqnorm_rows_many.argtypes = [vp, vp, vp, i, i, vp]
         for name in ("zo_affine_rows", "zo_affine_chain_rows",
-                     "zo_affine_multi_rows", "zo_sqnorm_rows"):
+                     "zo_affine_multi_rows", "zo_sqnorm_rows_many",
+                     "zo_rows_leaf_fields", "zo_rows_max_leaves"):
             getattr(lib, name).restype = i
+        if (lib.zo_rows_leaf_fields(), lib.zo_rows_max_leaves()) != (
+                _LEAF_FIELDS, ROWS_MAX_LEAVES):
+            raise RuntimeError("zo_rows: the kernel's leaf table does not "
+                               "match _rows_leaf")
         lib._typed = True
     return lib
 
@@ -314,27 +385,42 @@ def zo_affine_chain_rows(x: torch.Tensor, seeds, a, b, block_elems: int,
     return y
 
 
-def zo_sqnorm_rows(n: int, seed: int, block_elems: int, k: int, phase: int,
-                   dist: str = "gaussian", device="cpu") -> torch.Tensor:
-    """K10 (port of ``zo_sqnorm_2d_rows``): ‖z(seed) on the selected
-    elements of an n-element leaf‖², a 0-d f32 tensor on ``device`` — the
-    plain version on the CPU, the CUDA kernel on the card."""
+def zo_sqnorm_rows_many(ns, seeds, plans, dist: str = "gaussian",
+                        device="cpu") -> torch.Tensor:
+    """K10 (port of ``zo_sqnorm_2d_rows``) over leaves of ``ns[l]`` elements
+    with streams ``seeds[l]`` and rows plans ``plans[l] = (block_elems, k,
+    phase)``: the (L,) f32 tensor of ‖z(seeds[l]) on the selected
+    elements‖² on ``device`` — the plain version on the CPU; on the card
+    one launch of the CUDA kernel per ``ROWS_MAX_LEAVES`` leaves (the tiles
+    of every leaf in one grid, then one fold per leaf).  Each norm is
+    bitwise what ``zo_sqnorm_rows`` gives for its leaf alone."""
     _check_dist(dist)
     dev = torch.device(device)
     if dev.type == "cpu":
-        return zo_sqnorm_rows_plain(n, seed, block_elems, k, phase, dist,
-                                    dev)
+        return zo_sqnorm_rows_many_plain(ns, seeds, plans, dist, dev)
     if dev.type != "cuda":
         raise RuntimeError(f"zo_sqnorm_rows: no kernel for device {dev}")
-    n, be, k, phase = _plan(n, block_elems, k, phase)
-    sel = _selected_or_raise(n, be, k, phase, "zo_sqnorm_rows")
-    partials = torch.empty(-(-sel // TILE_ELEMS), dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((), dtype=torch.float32, device=dev)
+    ns, seeds, plans = _rows_leaf_list(ns, seeds, plans)
+    table = [_rows_leaf(n, s, *p) for n, s, p in zip(ns, seeds, plans)]
+    tiles = sum(-(-row[0] // TILE_ELEMS) for row in table)
+    partials = torch.empty(tiles, dtype=torch.float32, device=dev)
+    out = torch.empty(len(ns), dtype=torch.float32, device=dev)
     lib = _lib()
-    err = lib.zo_sqnorm_rows(_build.ptr(partials), _build.ptr(out), sel, be,
-                             k, phase, int(seed) & _MASK, DIST_CODES[dist],
-                             _build.stream_of(out))
+    flat = [v for row in table for v in row]
+    err = lib.zo_sqnorm_rows_many(
+        _build.ptr(partials), _build.ptr(out),
+        (ctypes.c_uint32 * len(flat))(*flat), len(ns), DIST_CODES[dist],
+        _build.stream_of(out))
     _build.check(lib, err, "zo_sqnorm_rows")
-    _build.count("zo_sqnorm_rows")
+    for _ in range(0, len(ns), ROWS_MAX_LEAVES):
+        _build.count("zo_sqnorm_rows")
     return out
+
+
+def zo_sqnorm_rows(n: int, seed: int, block_elems: int, k: int, phase: int,
+                   dist: str = "gaussian", device="cpu") -> torch.Tensor:
+    """K10 on one leaf: ‖z(seed) on the selected elements of an n-element
+    leaf‖², a 0-d f32 tensor on ``device`` — ``zo_sqnorm_rows_many`` on one
+    leaf."""
+    return zo_sqnorm_rows_many([n], [seed], [(block_elems, k, phase)], dist,
+                               device)[0]

@@ -23,9 +23,9 @@ Which kernel serves which method (whole leaf | partial rows plan):
   | K8 ``zo_affine_multi_rows`` either way;
 * ``affine_many`` → K3 ``zo_affine_chain`` | K9 ``zo_affine_chain_rows``;
 * ``sphere``: pass 1, ‖z‖² of each selected leaf → K6 ``zo_sqnorm_many``
-  (one call for all whole leaves) | K10 ``zo_sqnorm_rows`` with d counting
-  the selected elements; pass 2 folds
-  sqrt(d)/‖z‖ into the affine b of the gaussian stream.
+  (one call for all whole leaves) | K10 ``zo_sqnorm_rows_many`` (one call
+  for all partial rows plans) with d counting the selected elements; pass
+  2 folds sqrt(d)/‖z‖ into the affine b of the gaussian stream.
 
 One deliberate difference from JAX: under a partial rows plan JAX's
 ``perturb_many`` stacks K7 singles instead of using its multi-rows kernel
@@ -58,7 +58,8 @@ from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
                                                 zo_sqnorm_many)
 from repro_torch.kernels.zo_fused.rows import (zo_affine_chain_rows,
                                                zo_affine_multi_rows,
-                                               zo_affine_rows, zo_sqnorm_rows)
+                                               zo_affine_rows,
+                                               zo_sqnorm_rows_many)
 from repro_torch.perturb.base import (PerturbBackend, _check_many,
                                       per_stream_scales)
 from repro_torch.perturb.stream import StreamRef, leaf_seed
@@ -109,37 +110,42 @@ class CounterBackend(PerturbBackend):
 
     def _sphere_scale(self, params: PyTree, ref: StreamRef) -> np.float32:
         """sqrt(d)/‖z(ref)‖ over the selected floating leaves — pass 1 of
-        the sphere rescale: one K6 call for every whole leaf (K10 per
-        partial rows plan, d counting its selected elements) on the
-        gaussian counter stream the affine kernels read, the norms folded
-        in leaf order in f32."""
+        the sphere rescale: one K6 call for every whole leaf and one K10
+        call for every partial rows plan (d counting its selected
+        elements) on the gaussian counter stream the affine kernels read,
+        the norms folded in leaf order in f32."""
         seed = ref.counter_seed()
         mask, blocks = ref.selection_mask(params), ref.selection_blocks(params)
-        d, parts, whole = 0, [], []     # whole: (slot in parts, i, leaf)
+        d, device = 0, None
+        whole, rows = [], []      # (slot in leaf order, n, leaf seed[, plan])
         for i, p in enumerate(tree_leaves(params)):
             if not _active(p, mask, i):
                 continue
             rb = _leaf_blocks(blocks, i)
+            leaf = (len(whole) + len(rows), p.numel(), leaf_seed(seed, i))
+            device = p.device
             if rb is None:
                 d += p.numel()
-                whole.append((len(parts), i, p))
-                parts.append(None)
+                whole.append(leaf)
             else:
                 d += rb.selected_elems()
-                parts.append(zo_sqnorm_rows(
-                    p.numel(), leaf_seed(seed, i), rb.block_elems, rb.k,
-                    rb.phase, "gaussian", p.device))
-        if whole:
-            norms = zo_sqnorm_many([p.numel() for _, _, p in whole],
-                                   [leaf_seed(seed, i) for _, i, _ in whole],
-                                   "gaussian", whole[0][2].device)
-            for (slot, _, _), norm in zip(whole, norms):
-                parts[slot] = norm
-        if not parts:
+                rows.append(leaf + ((rb.block_elems, rb.k, rb.phase),))
+        if not whole and not rows:
             raise ValueError(
                 "sphere perturbation needs at least one selected floating "
                 "leaf (the sqrt(d)/‖z‖ rescale is undefined on an empty "
                 "subspace)")
+        parts = [None] * (len(whole) + len(rows))
+        if whole:
+            slots, ns, seeds = zip(*whole)
+            for slot, norm in zip(slots, zo_sqnorm_many(ns, seeds, "gaussian",
+                                                        device)):
+                parts[slot] = norm
+        if rows:
+            slots, ns, seeds, plans = zip(*rows)
+            for slot, norm in zip(slots, zo_sqnorm_rows_many(
+                    ns, seeds, plans, "gaussian", device)):
+                parts[slot] = norm
         sq = None
         for part in torch.stack(parts).cpu().numpy():
             sq = f32(part) if sq is None else f32(sq + f32(part))

@@ -31,7 +31,7 @@ from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
                                                 zo_affine_multi_plain,
                                                 zo_sqnorm, zo_sqnorm_many,
                                                 zo_sqnorm_plain)
-from repro_torch.kernels.zo_fused.rows import (SQNORM_RTOL,
+from repro_torch.kernels.zo_fused.rows import (ROWS_MAX_LEAVES, SQNORM_RTOL,
                                                zo_affine_chain_rows,
                                                zo_affine_chain_rows_plain,
                                                zo_affine_multi_rows,
@@ -39,6 +39,7 @@ from repro_torch.kernels.zo_fused.rows import (SQNORM_RTOL,
                                                zo_affine_rows,
                                                zo_affine_rows_plain,
                                                zo_sqnorm_rows,
+                                               zo_sqnorm_rows_many,
                                                zo_sqnorm_rows_plain)
 
 SEEDS = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
@@ -316,6 +317,70 @@ def test_cuda_multi_seed_kernels_bitwise(cuda, dtype, dist, nb):
                        zo_affine_multi_plain(x, s, a, b, dist))
     assert torch.equal(zo_affine_batched(x, s, a[0], b[0], dist),
                        zo_affine_batched_plain(x, s, a[0], b[0], dist))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+@pytest.mark.parametrize("nb", [1, 8, 65])
+@pytest.mark.parametrize("shape,offset", [
+    ((33, 65), 0), ((40_000,), 0), ((262_147,), 0), ((896, 8), 3),
+    ((7,), 1)], ids=["33x65", "vector", "odd", "offset", "tiny"])
+def test_cuda_fanout_is_stacked_k1_singles(cuda, dtype, dist, nb, shape,
+                                           offset):
+    """K4 and K5 against the stacked plain K1 singles: odd n whose slices
+    j >= 1 lie off x's 16-byte grid (33×65, 262 147: the scalar route),
+    x off y's offset from 16 bytes (the scalar route), whole vectors (the
+    vector route), and 65 streams (two launches); each launch counted
+    under the route fanout_route names."""
+    from repro_torch.kernels.zo_fused.kernel import fanout_route
+    n = int(np.prod(shape))
+    x = torch.randn(n + 16, device=cuda).to(dtype)[offset:offset + n]
+    x = x.view(shape)
+    seeds = [977 + 31 * j for j in range(nb)]
+    a = [A[j % len(A)] for j in range(nb)]
+    b = [B[j % len(B)] for j in range(nb)]
+    want = torch.stack([zo_affine_plain(x, s, aj, bj, dist)
+                        for s, aj, bj in zip(seeds, a, b)])
+    want5 = torch.stack([zo_affine_plain(x, s, a[0], b[0], dist)
+                         for s in seeds])
+    _build.reset_launch_counts()
+    got4 = zo_affine_multi(x, seeds, a, b, dist)
+    got5 = zo_affine_batched(x, seeds, a[0], b[0], dist)
+    assert torch.equal(_bytes(got4), _bytes(want))
+    assert torch.equal(_bytes(got5), _bytes(want5))
+    route = fanout_route(x, got4)
+    assert route == ("vector" if n % 8 == 0 and offset == 0 else "scalar")
+    launches = -(-nb // 64)
+    for name in ("zo_affine_multi", "zo_affine_batched"):
+        assert _build.launch_counts[name] == launches
+        assert _build.route_counts.get(f"{name}/{route}") == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+def test_cuda_sqnorm_rows_many_bitwise(cuda, dist):
+    """K10 over many partial rows leaves in one call: be below, at and above
+    1 024 and 1, ragged blocks, every phase, selections below, at and
+    across one tile, and more leaves than one launch takes — each norm the
+    bits of its plain version and of a one-leaf call."""
+    plans = [(2747, 201, 2, 1), (100_003, 1, 2, 0), (163_840, 1024, 4, 3),
+             (300_001, 280, 3, 2), (524_288, 896, 4, 0),
+             (524_288 - 896, 896, 4, 0), (524_288 + 4480, 896, 4, 1),
+             (15_077, 5000, 2, 1), (9000, 20_000, 3, 0)]
+    plans += [(500 + 13 * i, 1 + i % 37, 2 + i % 3, i % (2 + i % 3))
+              for i in range(ROWS_MAX_LEAVES)]
+    ns = [p[0] for p in plans]
+    seeds = [977 + 31 * i for i in range(len(plans))]
+    _build.reset_launch_counts()
+    got = zo_sqnorm_rows_many(ns, seeds, [p[1:] for p in plans], dist, cuda)
+    assert _build.launch_counts["zo_sqnorm_rows"] == 2   # 73 leaves
+    assert got.shape == (len(plans),) and got.device.type == "cuda"
+    for (n, be, k, ph), s, norm in zip(plans, seeds, got):
+        want = zo_sqnorm_rows_plain(n, s, be, k, ph, dist, cuda)
+        assert torch.equal(norm, want)
+        assert torch.equal(zo_sqnorm_rows(n, s, be, k, ph, dist, cuda), want)
 
 
 @pytest.mark.cuda

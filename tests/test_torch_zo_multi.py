@@ -175,6 +175,25 @@ def test_streams_beyond_one_launch_split_bitwise():
     assert torch.equal(y, want)
 
 
+@pytest.mark.parametrize("dtype,n,offset,route", [
+    (torch.bfloat16, 896, 0, "vector"),      # every qwen2 leaf: 8 | n
+    (torch.bfloat16, 33 * 65, 0, "scalar"),  # slices j >= 1 lie off x's grid
+    (torch.float16, 8, 3, "scalar"),         # x off y's offset from 16 bytes
+    (torch.float32, 4, 0, "vector"),
+    (torch.float32, 6, 4, "scalar")],
+    ids=["bf16-896", "bf16-33x65", "f16-offset", "f32-4", "f32-6"])
+def test_fanout_route_rule(dtype, n, offset, route):
+    """The fan-out (K4, K5) takes its vector route only when every output
+    slice lies against 16 bytes as x does; the wrapper counts that route by
+    ``launch_fanout``'s rule."""
+    from repro_torch.kernels.zo_fused.kernel import fanout_route
+    base = torch.zeros(n + 16, dtype=dtype)
+    y = torch.empty((8, n), dtype=dtype)
+    # torch's allocator aligns every new tensor to 64 bytes
+    assert base.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    assert fanout_route(base[offset:offset + n], y) == route
+
+
 # --------------------------------------------------------------------------- #
 # Backend level: CounterBackend.perturb_many / affine_many / sphere
 # --------------------------------------------------------------------------- #
