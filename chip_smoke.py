@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
-    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K6, K10, K11
+    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11
 
 In order: prints the card's name and power limit; builds the seven CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -23,16 +23,20 @@ head dim of ``K2_SWEEP_HD`` (each mma instance, between two, past 256) in
 f32, bf16 and f16, and on inputs it copies first (``+copy`` routes); K11 at
 every head dim of ``K11_SWEEP_HD``.  ``zo_selftest`` runs every rewrite of
 the z generator (``zo_stream.cuh``) against its specification over the
-whole domain (any mismatch fails).  It then counts the SASS instructions
-per z by unit of K1, K3, the K4 / K5 fan-out, K6 and K10 and times them
+whole domain (any mismatch fails).  K7 and K9 are also held on both their
+routes (a row-block of whole 16-byte vectors, or not), each launch counted
+under its route.  It then counts the SASS instructions
+per z by unit of K1, K3, the K4 / K5 fan-out, K6, K7, K9 and K10 and times them
 through their C entry points, and times K11 at the rwkv6-3b training shape
 and a single-request prefill (CUDA-graph runs) — with ``--parent`` (a ``git
-archive`` of the parent commit) the parent's K1, K3, K4, K5, K6, K10 (K6
-and K10 one call per leaf) and K11 too, built with the same flags, in turns,
+archive`` of the parent commit) the parent's K1, K3, K4, K5, K6, K7, K9,
+K10 (K6 and K10 one call per leaf) and K11 too, built with the same flags,
+in turns,
 the parent's outputs and norms held bitwise to this tree's — and times K2
 at OPT-13b's head dim 128 beside one SDPA call.  Every K11 launch of the
 counted paths must take the tiled route, every K4 / K5 launch the vector
-route.  Then it
+route, and every K7 / K9 launch on a qwen2 leaf whose row-block is a whole
+number of 16-byte vectors the vector route.  Then it
 drives the port's paths at the full width of qwen2-0.5b (random bf16
 weights from a seeded ``torch.Generator``, all 24 layers, ``pallas_flash``
 attention), each with the launch counts set to 0 just before it and read
@@ -563,6 +567,7 @@ def check_k7_k10(torch, np, kr) -> None:
             kr.zo_affine_chain_rows_plain(x, seeds, [1.0] * n_long,
                                           [1e-3] * n_long, 3, 2, 1)):
         fail(f"K9 with {n_long} streams (two launches) != plain")
+    n_routes = check_rows_routes(torch, kr)
     gold = np.load(ROWS_GOLDEN)
     seeds = [int(v) for v in gold["seeds"]]
     worst, i, fixture = 0.0, 0, []
@@ -605,9 +610,85 @@ def check_k7_k10(torch, np, kr) -> None:
         "f16 × gaussian/rademacher, 2-D/3-D/1-D odd leaves, R ∈ {1, 3, 96}, "
         "k ∈ {1, 2, 3}, every phase; the embedding and MLP leaves under "
         f"rows(1,4); {n_long} streams; K10 also {len(many)} leaves in one "
-        "zo_sqnorm_rows_many call, two launches), vs the JAX golden fixture "
+        "zo_sqnorm_rows_many call, two launches; K7 and K9 in place on both "
+        f"routes, {n_routes} cases, each launch counted under rows_route's "
+        "route, nothing outside the selection or the leaf changed), vs the "
+        "JAX golden fixture "
         f"(K10 alone and in one many-call within {worst:.2e} relative, "
         f"tolerance {kr.SQNORM_RTOL})")
+
+
+#: K7's and K9's routes held on the card: (shape, R, k, offset of the leaf
+#: in its buffer, route) — whole 16-byte vectors per row-block (with a
+#: ragged last block at R = 3), odd widths, the 1-D be = 1, a leaf off 16
+#: bytes
+ROWS_ROUTE_CASES = (((301, 64), 1, 4, 0, "vector"),
+                    ((301, 64), 3, 2, 0, "vector"),
+                    ((301, 67), 1, 4, 0, "scalar"),
+                    ((896,), 1, 4, 0, "scalar"),
+                    ((301, 64), 1, 4, 1, "scalar"))
+
+
+def check_rows_routes(torch, kr) -> int:
+    """K7 and K9 in place on both routes, f32/bf16/f16 ×
+    gaussian/rademacher, every phase: bitwise their plain versions, one
+    launch counted under the route ``rows_route`` names, and the buffer
+    around the leaf untouched; then 70 K9 streams on the vector route (two
+    launches).  Returns the number of cases."""
+    from repro_torch.kernels import _build
+    g = torch.Generator(device="cuda").manual_seed(19)
+    cases = 0
+    for shape, R, k, off, route in ROWS_ROUTE_CASES:
+        n = 1
+        for d in shape:
+            n *= d
+        be = R * (n // shape[0] if len(shape) > 1 else 1)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            base = torch.randn(n + 16, generator=g, device="cuda").to(dt)
+            x = base[off:off + n].view(shape)
+            for dist in ("gaussian", "rademacher"):
+                for ph in range(k):
+                    for name, run, plain in (
+                            ("zo_affine_rows",
+                             lambda y: kr.zo_affine_rows(
+                                 y, SEEDS8[0], A8[0], B8[0], be, k, ph, dist,
+                                 out=y),
+                             lambda: kr.zo_affine_rows_plain(
+                                 x, SEEDS8[0], A8[0], B8[0], be, k, ph,
+                                 dist)),
+                            ("zo_affine_chain_rows",
+                             lambda y: kr.zo_affine_chain_rows(
+                                 y, SEEDS8, A8, B8, be, k, ph, dist, out=y),
+                             lambda: kr.zo_affine_chain_rows_plain(
+                                 x, SEEDS8, A8, B8, be, k, ph, dist))):
+                        buf = base.clone()
+                        y = buf[off:off + n].view(shape)
+                        what = (f"{name} {shape} R={R} k={k} phase={ph} "
+                                f"offset={off} {dt} {dist}")
+                        if kr.rows_route(y, be) != route:
+                            fail(f"{what}: rows_route says "
+                                 f"{kr.rows_route(y, be)}, not {route}")
+                        _build.reset_launch_counts()
+                        run(y)
+                        if _build.route_counts != {f"{name}/{route}": 1}:
+                            fail(f"{what}: launched {_build.route_counts}")
+                        if not same_bits(y, plain()):
+                            fail(f"{what}: kernel != plain")
+                        if not (same_bits(buf[:off], base[:off]) and same_bits(
+                                buf[off + n:], base[off + n:])):
+                            fail(f"{what}: wrote outside the leaf")
+                        cases += 1
+    x = torch.randn(301, 64, generator=g, device="cuda").to(torch.bfloat16)
+    _build.reset_launch_counts()
+    got = kr.zo_affine_chain_rows(x, list(range(70)), [0.999] * 70,
+                                  [1e-3] * 70, 64, 4, 1)
+    if _build.route_counts != {"zo_affine_chain_rows/vector": 2}:
+        fail(f"K9 with 70 streams: launched {_build.route_counts}")
+    if not same_bits(got, kr.zo_affine_chain_rows_plain(
+            x, list(range(70)), [0.999] * 70, [1e-3] * 70, 64, 4, 1)):
+        fail("K9 with 70 streams on the vector route != plain")
+    _build.reset_launch_counts()
+    return cases + 1
 
 
 def _hold_rows(torch, kr, x, be, k, ph, dist, what) -> None:
@@ -654,7 +735,8 @@ def check_k12(torch, kp, L: int, n_blocks: int, D: int) -> None:
 _KERNELS = ("flash_fwd_mma", "flash_fwd_sliced", "gather_kernel", "wkv6_fwd",
             "wkv6_tile", "zo_affine_kernel", "chain_kernel", "fanout_kernel",
             "selftest_kernel", "rows_tile_sums", "rows_fold_leaves",
-            "sqnorm_rows_tiles", "tile_sums", "fold_leaves")
+            "sqnorm_rows_tiles", "tile_sums", "fold_leaves",
+            "affine_rows_kernel", "chain_rows_kernel", "multi_rows_kernel")
 _TARG = re.compile(r"13__nv_bfloat16|6__half|f|Li(-?\d+)E|Lb([01])E")
 
 
@@ -960,6 +1042,24 @@ def device_busy(torch, fn, n: int = 1) -> tuple:
     return wall_ms, dev_ms, launches, tops
 
 
+def kernel_sum_ms(torch, fn, n: int = 10) -> tuple:
+    """(ms of kernels, kernel launches the profiler saw) per call of
+    ``fn``: torch.profiler over ``n`` calls, each synchronized.  (No
+    profiler schedule: under one, each step's range is reported as a
+    device event of its own, as long as the step.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kern) / 1e3 / n,
+            sum(e.count for e in kern) / n)
+
+
 def _short_kernel(key: str) -> str:
     """A profiler kernel name without its namespaces and arguments."""
     head = key.replace("(anonymous namespace)::", "").split("(")[0]
@@ -1082,6 +1182,48 @@ def add_counts(counts: dict, _build, required, path: str) -> None:
     log(f"{path} path launches: "
         + ", ".join(f"{k} {v}" for k, v in got.items() if v)
         + "".join(f"; {k} {v}" for k, v in sorted(routes.items())))
+
+
+def rows_route_split(params) -> tuple:
+    """(partial leaves, those whose row-block is no whole number of 16-byte
+    vectors) of ``params`` under ROWS: the K7 / K9 launches of one pass, and
+    those that take the scalar route by their shape (qwen2-0.5b: 15 and the
+    1-D ln_f).  The same at every phase, or the run fails."""
+    from repro_torch.select import parse_selection
+    from repro_torch.tree_utils import is_floating, tree_leaves
+    rsel = parse_selection(ROWS)
+    leaves = [p for p in tree_leaves(params) if is_floating(p)]
+    splits = set()
+    for ph in range(rsel.block_mask(leaves[0], 0).k):
+        partial = [(p, rb) for p in leaves
+                   for rb in [rsel.block_mask(p, ph)]
+                   if rb is not None and not rb.all_selected]
+        odd = sum(1 for p, rb in partial
+                  if min(rb.block_elems, p.numel()) * p.element_size() % 16)
+        splits.add((len(partial), odd))
+    if len(splits) != 1:
+        fail(f"{ROWS}: the partial leaves differ between phases: {splits}")
+    return splits.pop()
+
+
+def check_rows_routes_on_paths(counts: dict, split: tuple) -> None:
+    """Every K7 / K9 launch of the qwen2 rows paths on a leaf whose
+    row-block is a whole number of 16-byte vectors took the vector route:
+    of each pass's ``split[0]`` launches exactly ``split[1]`` are scalar."""
+    partial, odd = split
+    for name in ("zo_affine_rows", "zo_affine_chain_rows"):
+        total = counts.get(name, 0)
+        vec = counts.get(f"{name}/vector", 0)
+        sca = counts.get(f"{name}/scalar", 0)
+        if (total == 0 or total % partial or vec + sca != total
+                or sca != total // partial * odd):
+            fail(f"{name} on the counted qwen2 paths: {vec} vector and {sca} "
+                 f"scalar launches of {total}; {odd} of every {partial} "
+                 "should be scalar")
+        log(f"{name} over the counted qwen2 paths: {vec} launches on the "
+            f"vector route, {sca} on the scalar route ({odd} of the "
+            f"{partial} partial leaves of each pass: be·itemsize not a "
+            "multiple of 16)")
 
 
 def make_opts():
@@ -1669,6 +1811,7 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
     k6_turns(torch, _build, leaves, libs, order, card, mhz)
     fanout_turns(torch, _build, leaves, libs, order, card, mhz)
     k10_turns(torch, _build, leaves, libs, order, card, mhz)
+    rows_turns(torch, _build, leaves, libs, order, card, mhz)
     k11_turns(torch, _build, libs, card)
     return counts["change"]
 
@@ -1900,6 +2043,106 @@ def k10_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
     if "parent" in outs:
         log(f"K10: the parent's norms ({how['parent']}) and this tree's "
             f"({how['change']}) are bitwise equal")
+
+
+def rows_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
+    """K7 (one record) and K9 (one 8-stream update) of every leaf in
+    ``leaves`` under rows(block=1, k=4) at phase 0 (a pass of paths (e) and
+    (f)), one C call per leaf, through the parent's entry points (its own
+    signatures: no divide constants) and this tree's, in turns ``order``.
+    Every leaf's K7 and K9 output must have the parent's bits.  Prints the
+    times, the SASS instructions per z of ``affine_rows_kernel`` and
+    ``chain_rows_kernel`` (bf16, gaussian) by unit with the issue floor
+    they set at ``mhz`` and the share of it reached, their registers and
+    spills, and the route each leaf takes in this tree."""
+    import ctypes
+    from repro_torch.kernels.zo_fused import rows as kr
+    from repro_torch.kernels.zo_fused.kernel import DTYPE_CODES, _f32
+    from repro_torch.select import parse_selection
+    rsel = parse_selection(ROWS)
+    plans = []
+    for p in leaves:
+        rb = rsel.block_mask(p, 0)
+        _, be, k, ph = kr._plan(p.numel(), rb.block_elems, rb.k, rb.phase)
+        plans.append((kr.selected_count(p.numel(), be, k, ph), be, k, ph))
+    vp, i64, i, u32, f = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_uint32, ctypes.c_float)
+    seeds = [(u32 * B_SEEDS)(*[(1000003 * li + 17 + j) & 0xFFFFFFFF
+                               for j in range(B_SEEDS)])
+             for li in range(len(leaves))]
+    coeffs = {"check": ((f * B_SEEDS)(*[_f32(v) for v in A8]),
+                        (f * B_SEEDS)(*[_f32(v) for v in B8])),
+              "time": ((f * B_SEEDS)(*[1.0] * B_SEEDS),
+                       (f * B_SEEDS)(*[_f32(1e-12)] * B_SEEDS))}
+    stream = _build.stream_of(leaves[0])
+    launch, sigs = {}, {}
+    for name, paths in libs.items():
+        lib = ctypes.CDLL(str(paths["zo_rows"]))
+        k7, k9 = lib.zo_affine_rows, lib.zo_affine_chain_rows
+        new = hasattr(lib, "zo_rows_route")      # the divide constants
+        div = [u32, u32] if new else []
+        k7.argtypes = [vp, vp, i64, i, u32, u32, u32, *div, u32, f, f, i, vp]
+        k9.argtypes = [vp, vp, i64, i, u32, u32, u32, *div, vp, vp, vp, i,
+                       i, vp]
+        k7.restype = k9.restype = i
+        sigs[name] = "this tree's" if new else "its own"
+
+        def one(which, li, y, how, k7=k7, k9=k9, new=new):
+            p, (sel, be, k, ph) = leaves[li], plans[li]
+            a, b = coeffs[how]
+            head = (y, y, sel, DTYPE_CODES[p.dtype], be, k, ph)
+            d = kr._vector_divide(be, p.element_size()) if new else ()
+            err = (k7(*head, *d, seeds[li][0], a[0], b[0], 0, stream)
+                   if which == "K7" else
+                   k9(*head, *d, seeds[li], a, b, B_SEEDS, 0, stream))
+            if err:
+                fail(f"{which} timing launch: CUDA error {err}")
+        launch[name] = one
+    if "parent" in libs:
+        for li, p in enumerate(leaves):
+            for which in ("K7", "K9"):
+                outs = {}
+                for name in libs:
+                    outs[name] = p.clone()
+                    launch[name](which, li, outs[name].data_ptr(), "check")
+                if not same_bits(outs["parent"], outs["change"]):
+                    fail(f"{which}: the parent's and this tree's output of "
+                         f"leaf {li} {tuple(p.shape)} differ in bits")
+                del outs
+    times = {}
+    for name in order:
+        for which, reps in (("K7", 10), ("K9", 5)):
+            times.setdefault((which, name), []).append(cuda_ms(
+                lambda: [launch[name](which, li, p.data_ptr(), "time")
+                         for li, p in enumerate(leaves)], reps))
+    routes = {}
+    for p, (_, be, _, _) in zip(leaves, plans):
+        r = kr.rows_route(p, be)
+        routes[r] = routes.get(r, 0) + 1
+    n_sel = sum(pl[0] for pl in plans)
+    for name, paths in libs.items():
+        for which, key, kname, nz in (
+                ("K7", "zo_affine_rows", "affine_rows_kernel", n_sel),
+                ("K9", "zo_affine_chain_rows", "chain_rows_kernel",
+                 B_SEEDS * n_sel)):
+            c = sass_report(paths["zo_rows"],
+                            {which: Z_KERNEL_SASS[key][1]})[which]
+            log(f"{name} {which} {kname}<bf16, 0>: "
+                + _regs(_build, paths, "zo_rows", f"{kname}<bf16, 0>"))
+            log(f"{name} " + sass_line(f"{which} {kname}<bf16, 0>", c))
+            floor = issue_floor_ms(nz, c["total"], mhz)
+            ts = times[which, name]
+            log(f"{which} {name}: " + ", ".join(f"{t:.3f}" for t in ts)
+                + f" ms per pass over {len(leaves)} leaves under {ROWS} "
+                f"({order.count(name)} runs in turns {'/'.join(order)}; one "
+                f"call per leaf, {sigs[name]} C signature); issue floor "
+                f"{floor:.3f} ms = {nz} z × {c['total']:.2f} instructions at "
+                f"{mhz:.0f} MHz, {100 * floor * len(ts) / sum(ts):.0f}% of it"
+                f" reached — on {card}")
+    log("K7/K9 routes of the timed pass (this tree): " + ", ".join(
+        f"{r} {n} leaves" for r, n in sorted(routes.items()))
+        + ("; every leaf's K7 and K9 output bitwise the parent's"
+           if "parent" in libs else ""))
 
 
 #: K11's shapes timed in turns: the rwkv6-3b training call and a
@@ -2292,6 +2535,19 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
             lambda: k10_pass(kr.zo_sqnorm_rows_many_plain))),
     })
     clock.__exit__(None, None, None)
+    # K7's pass is 15 launches issued from Python, some on leaves of a few
+    # hundred elements: how much of its event time is gaps between kernels
+    k7_ms = times["zo_affine_rows"][0]
+    k7_dev, k7_n = kernel_sum_ms(torch, k7_record)
+    k7_graph = run_ms({"graph": k7_record}, 10)["graph"]
+    log(f"K7 launch gaps: one pass of {len(leaves)} Python-issued launches "
+        f"{k7_ms:.3f} ms between CUDA events, {k7_graph:.3f} ms as a CUDA "
+        "graph (10 passes per graph and event pair), "
+        + (f"the profiler's sum of its kernels {k7_dev:.3f} ms ({k7_n:.1f} "
+           f"launches seen per pass): gaps {k7_ms - k7_dev:.3f} ms, "
+           f"{100 * (k7_ms - k7_dev) / k7_ms:.1f}% of the pass"
+           if k7_dev else "kernel time not measured (the profiler saw no "
+           "kernels)") + f" — on {card}")
     from repro_torch.kernels import _build
     for name, nz in (("zo_affine", n_all),
                      ("zo_affine_chain", B_SEEDS * n_all),
@@ -2452,12 +2708,12 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels against their plain "
-                         "versions and the JAX fixtures, time K1, K3-K6, "
-                         "K10 and K11 (in turns with --parent) and K2 at hd "
+                         "versions and the JAX fixtures, time K1, K3-K7, "
+                         "K9-K11 (in turns with --parent) and K2 at hd "
                          "128, then stop")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit (git archive): "
-                         "its K1, K3-K6, K10 and K11 are built and timed in "
+                         "its K1, K3-K7 and K9-K11 are built and timed in "
                          "turns with this tree's")
     args = ap.parse_args()
     import numpy as np
@@ -2513,6 +2769,7 @@ def main() -> None:
     n_params = sum(p.numel() for p in tree_leaves(params0))
     log(f"qwen2-0.5b: {n_params} params bf16, {cfg.n_layers} layers, "
         f"init {time.perf_counter() - t0:.1f} s")
+    rows_split = rows_route_split(params0)
     scratch = _clone_tree(params0)
     z_turns(torch, _build, [p for p in tree_leaves(scratch)
                             if is_floating(p)], args.parent, card)
@@ -2614,6 +2871,7 @@ def main() -> None:
              f"{fan_all}")
     log("K4/K5 over the counted paths: all " + " and ".join(
         f"{v} {k}" for k, v in fan.items()) + " launches on the vector route")
+    check_rows_routes_on_paths(counts, rows_split)
     k2_mma = counts.get("flash_attention/bf16_mma", 0)
     copied = {k: v for k, v in counts.items() if k.endswith("+copy")}
     if k2_mma == 0 or k2_mma != counts.get("flash_attention", 0) or copied:

@@ -42,6 +42,27 @@
 // bytes bound it; K10 moves nothing and is operations bound, and below that
 // bound by the issue of its SASS instructions per z.
 //
+// K7 and K9 take K1's vector design (zo_affine.cu), one device function
+// (rows_walk) for both, K7 at one stream.  A row-block run is be
+// contiguous flat elements, so when be * sizeof(T) is a multiple of 16 and
+// the leaf starts on 16 bytes (the vector route), N = 16 / sizeof(T)
+// consecutive compact indices from a multiple of N are N consecutive flat
+// elements on 16 bytes, inside one block: each thread takes one such
+// vector v per grid-stride step, with a 32-bit index, finds its block q =
+// v / (be / N) by a multiply-high divide whose constants the wrapper
+// computes (rows.py, divisor_magic) and whose e is
+//     e0 = phase * be + v * N + q * (k - 1) * be   (mod 2^32, exact: < n),
+// loads it once, walks the streams with each stream's key, a and b loaded
+// once per vector (the cast through T between streams, round_vec), and
+// stores it once.  The compact indices past the last whole vector (fewer
+// than N, from a ragged last block) and every index of a launch on the
+// scalar route (be * sizeof(T) not a multiple of 16, as the 1-D leaves'
+// be = 1, or a leaf off 16 bytes) take the scalar loop: the flat index by
+// a hardware division, one z at a time, the key hoisted per stream.  The
+// launcher decides the route (route_of; rows.py's rows_route repeats the
+// rule and the wrapper counts it), the grid is the kernel's occupancy
+// times the SM count.
+//
 // K10's design is K6's (zo_sqnorm.cu): one call measures every partial rows
 // leaf of a sphere pass, since a launch over one leaf of a few tiles would
 // leave most of the card idle:
@@ -88,6 +109,8 @@ struct Streams {
   float b[ZO_MAX_STREAMS];
 };
 
+constexpr int THREADS = 256;
+
 // flat element of compact index j (j < sel, hence the result < n < 2^32)
 __device__ __forceinline__ uint32_t flat_of(uint32_t j, const Rows r) {
   const uint32_t q = j / r.be;
@@ -98,35 +121,76 @@ __device__ __forceinline__ bool selected(uint32_t e, const Rows r) {
   return (e / r.be) % r.k == r.phase;
 }
 
-// K7: x and y may alias (in place); only selected elements are touched
-template <typename T, int DIST>
-__global__ void affine_rows_kernel(const T* x, T* y, int64_t sel,
-                                   const Rows r, uint32_t seed, float a,
-                                   float b) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < sel;
-       i += stride) {
-    const uint32_t e = flat_of((uint32_t)i, r);
-    const float z = zo::z_at<DIST>(e, seed);
-    zo::store(y, (int64_t)e, zo::affine(a, zo::load(x, (int64_t)e), b, z));
+// K7's and K9's walk of one launch: the vector loop takes vectors
+// [0, nvec), the scalar loop compact indices [j0, sel) (j0 = nvec * N on the
+// vector route; on the scalar route 0, or 2^31 in a leaf's second launch,
+// so that j0 + the grid's threads never wraps).
+struct Walk {
+  Rows r;
+  uint32_t nvec;     // whole vectors (0 on the scalar route)
+  uint32_t j0, sel;  // the scalar loop's compact indices
+  uint32_t mul, shifts;   // the divide by be / N: sh1 | sh2 << 8
+  uint32_t e_base;   // phase * be, e of compact index 0
+  uint32_t gap;      // (k - 1) * be mod 2^32, e's jump from block to block
+};
+
+// K7's one stream, by value
+struct One {
+  uint32_t seed[1];
+  float a[1], b[1];
+};
+
+// y = the fold over streams 0..nb-1 of round_T(a_j * y + b_j * z_j) at the
+// walk's elements, x read once and y written once (y may be x)
+template <typename T, int DIST, typename S>
+__device__ __forceinline__ void rows_walk(const T* x, T* y, const Walk& w,
+                                          int nb, const S& s) {
+  constexpr int N = zo::Vec<T>::N;
+  const uint32_t tid = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t nthreads = gridDim.x * THREADS;
+  const uint32_t sh1 = w.shifts & 0xFFu, sh2 = w.shifts >> 8;
+  for (uint32_t v = tid; v < w.nvec; v += nthreads) {
+    const uint32_t hi = __umulhi(v, w.mul);
+    const uint32_t q = (hi + ((v - hi) >> sh1)) >> sh2;   // v / (be / N)
+    const uint32_t e0 = w.e_base + v * N + q * w.gap;
+    float xs[N];
+    zo::load_vec<T, N>(x + e0, xs);
+    const uint32_t im = e0 * zo::IDX_MUL;
+    for (int j = 0; j < nb; ++j) {
+      const uint32_t key = zo::seed_key(s.seed[j]);
+      const float a = s.a[j], b = s.b[j];
+#pragma unroll
+      for (int l = 0; l < N; ++l)
+        xs[l] = zo::affine(a, xs[l], b,
+                           zo::z_of<DIST>(im + (uint32_t)l * zo::IDX_MUL, key));
+      if (j + 1 < nb) zo::round_vec(x, xs);   // the cast between launches
+    }
+    zo::store_vec<T, N>(y + e0, xs);
+  }
+  for (uint32_t i = tid; i < w.sel - w.j0; i += nthreads) {
+    const uint32_t e = flat_of(w.j0 + i, w.r);
+    const uint32_t im = e * zo::IDX_MUL;
+    float v = zo::load(x, e);
+    for (int j = 0; j < nb; ++j) {
+      const float z = zo::z_of<DIST>(im, zo::seed_key(s.seed[j]));
+      v = zo::round_to(x, zo::affine(s.a[j], v, s.b[j], z));
+    }
+    zo::store(y, e, v);
   }
 }
 
-// K9: the K3 fold at selected elements, cast through T between streams
+// K7: y = a*x + b*z at the selected elements, in place when y == x
 template <typename T, int DIST>
-__global__ void chain_rows_kernel(const T* x, T* y, int64_t sel,
-                                  const Rows r, int nb, const Streams s) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < sel;
-       i += stride) {
-    const uint32_t e = flat_of((uint32_t)i, r);
-    float v = zo::load(x, (int64_t)e);
-    for (int j = 0; j < nb; ++j) {
-      const float z = zo::z_at<DIST>(e, s.seed[j]);
-      v = zo::round_to(x, zo::affine(s.a[j], v, s.b[j], z));
-    }
-    zo::store(y, (int64_t)e, v);
-  }
+__global__ void __launch_bounds__(THREADS)
+affine_rows_kernel(const T* x, T* y, const Walk w, const One s) {
+  rows_walk<T, DIST>(x, y, w, 1, s);
+}
+
+// K9: the K3 fold at the selected elements, cast through T between streams
+template <typename T, int DIST>
+__global__ void __launch_bounds__(THREADS)
+chain_rows_kernel(const T* x, T* y, const Walk w, int nb, const Streams s) {
+  rows_walk<T, DIST>(x, y, w, nb, s);
 }
 
 // K8: every element once; z only where selected, x's bits elsewhere
@@ -291,31 +355,90 @@ Streams pack(const uint32_t* seeds, const float* a, const float* b, int nb) {
   return s;
 }
 
-template <typename T>
-cudaError_t launch_affine(const void* x, void* y, int64_t sel, const Rows& r,
-                          uint32_t seed, float a, float b, int dist,
-                          cudaStream_t st) {
-  const int threads = 256, blocks = grid_for(sel, threads);
-  if (dist == 0)
-    affine_rows_kernel<T, 0><<<blocks, threads, 0, st>>>(
-        (const T*)x, (T*)y, sel, r, seed, a, b);
-  else
-    affine_rows_kernel<T, 1><<<blocks, threads, 0, st>>>(
-        (const T*)x, (T*)y, sel, r, seed, a, b);
-  return cudaGetLastError();
+// K7's and K9's route: vector when x and y start on 16 bytes and a row-block
+// is a whole number of 16-byte vectors (rows.py's rows_route repeats it)
+bool vector_route(const void* x, const void* y, uint32_t be, size_t size) {
+  return (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0 &&
+         (uint64_t)be * size % 16 == 0;
 }
 
+// v / d by the divide's constants (mul, sh1 | sh2 << 8), as the kernel
+// computes it
+uint32_t divide(uint32_t v, uint32_t mul, uint32_t shifts) {
+  const uint32_t hi = (uint32_t)(((uint64_t)v * mul) >> 32);
+  return (hi + ((v - hi) >> (shifts & 0xFFu))) >> (shifts >> 8);
+}
+
+// Launches Kernel (K7's or K9's) over sel selected elements, its streams in
+// args: once on the vector route (mul and shifts divide by be / N, checked
+// at the first block boundary and the last vector), on the scalar route
+// once per 2^31 compact indices.
+template <auto Kernel, typename T, typename... A>
+cudaError_t launch_walk(const void* x, void* y, uint32_t sel, const Rows& r,
+                        uint32_t mul, uint32_t shifts, cudaStream_t st,
+                        const A&... args) {
+  constexpr uint32_t N = zo::Vec<T>::N;
+  Walk w{r, 0u, 0u, sel, mul, shifts, r.phase * r.be, (r.k - 1u) * r.be};
+  auto run = [&](uint32_t work) {
+    const int grid = zo::resident_grid<Kernel>(THREADS, work);
+    Kernel<<<grid, THREADS, 0, st>>>((const T*)x, (T*)y, w, args...);
+    return cudaGetLastError();
+  };
+  if (vector_route(x, y, r.be, sizeof(T))) {
+    const uint32_t bv = r.be / N, last = sel / N ? sel / N - 1u : 0u;
+    if (divide(bv, mul, shifts) != 1u || divide(bv - 1u, mul, shifts) != 0u ||
+        divide(last, mul, shifts) != last / bv)
+      return cudaErrorInvalidValue;
+    w.nvec = sel / N;
+    w.j0 = w.nvec * N;
+    return run(w.nvec > sel - w.j0 ? w.nvec : sel - w.j0);
+  }
+  constexpr uint32_t HALF = 1u << 31;
+  for (uint64_t j0 = 0; j0 < sel; j0 += HALF) {
+    w.j0 = (uint32_t)j0;
+    w.sel = sel - j0 > HALF ? (uint32_t)(j0 + HALF) : sel;
+    const cudaError_t err = run(w.sel - w.j0);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// K7 (nb == 0: the stream in s1) or K9 (the nb streams in s) by dtype and
+// dist
 template <typename T>
-cudaError_t launch_chain(const void* x, void* y, int64_t sel, const Rows& r,
-                         int nb, const Streams& s, int dist, cudaStream_t st) {
-  const int threads = 256, blocks = grid_for(sel, threads);
-  if (dist == 0)
-    chain_rows_kernel<T, 0><<<blocks, threads, 0, st>>>(
-        (const T*)x, (T*)y, sel, r, nb, s);
-  else
-    chain_rows_kernel<T, 1><<<blocks, threads, 0, st>>>(
-        (const T*)x, (T*)y, sel, r, nb, s);
-  return cudaGetLastError();
+cudaError_t launch_rows(const void* x, void* y, uint32_t sel, const Rows& r,
+                        uint32_t mul, uint32_t shifts, const One& s1, int nb,
+                        const Streams& s, int dist, cudaStream_t st) {
+  if (nb == 0)
+    return dist == 0 ? launch_walk<affine_rows_kernel<T, 0>, T>(
+                           x, y, sel, r, mul, shifts, st, s1)
+                     : launch_walk<affine_rows_kernel<T, 1>, T>(
+                           x, y, sel, r, mul, shifts, st, s1);
+  return dist == 0 ? launch_walk<chain_rows_kernel<T, 0>, T>(
+                         x, y, sel, r, mul, shifts, st, nb, s)
+                   : launch_walk<chain_rows_kernel<T, 1>, T>(
+                         x, y, sel, r, mul, shifts, st, nb, s);
+}
+
+int dispatch_rows(const void* x, void* y, int64_t sel, int dtype,
+                  const Rows& r, uint32_t mul, uint32_t shifts, const One& s1,
+                  int nb, const Streams& s, int dist, cudaStream_t st) {
+  if (sel <= 0) return 0;
+  if (!rows_ok(r) || sel > 0xFFFFFFFFll || (dist != 0 && dist != 1))
+    return (int)cudaErrorInvalidValue;
+  const uint32_t n = (uint32_t)sel;
+  switch (dtype) {
+    case 0:
+      return (int)launch_rows<float>(x, y, n, r, mul, shifts, s1, nb, s, dist,
+                                     st);
+    case 1:
+      return (int)launch_rows<__nv_bfloat16>(x, y, n, r, mul, shifts, s1, nb,
+                                             s, dist, st);
+    case 2:
+      return (int)launch_rows<__half>(x, y, n, r, mul, shifts, s1, nb, s,
+                                      dist, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -340,43 +463,36 @@ const char* kernel_error_string(int code) {
 }
 
 // dtype: 0 = f32, 1 = bf16, 2 = f16; dist: 0 = gaussian, 1 = rademacher.
-// sel is the selected element count; y may be x.
+// sel is the selected element count (< 2^32); y may be x.  mul and shifts
+// (sh1 | sh2 << 8) divide by be / N on the vector route (rows.py,
+// _vector_divide); the scalar route reads neither.
 int zo_affine_rows(const void* x, void* y, int64_t sel, int dtype,
-                   uint32_t be, uint32_t k, uint32_t phase, uint32_t seed,
-                   float a, float b, int dist, void* stream) {
-  const Rows r{be, k, phase};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (sel <= 0) return 0;
-  if (!rows_ok(r) || (dist != 0 && dist != 1))
-    return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return (int)launch_affine<float>(x, y, sel, r, seed, a, b, dist, st);
-    case 1:
-      return (int)launch_affine<__nv_bfloat16>(x, y, sel, r, seed, a, b, dist,
-                                               st);
-    case 2: return (int)launch_affine<__half>(x, y, sel, r, seed, a, b, dist, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                   uint32_t be, uint32_t k, uint32_t phase, uint32_t mul,
+                   uint32_t shifts, uint32_t seed, float a, float b, int dist,
+                   void* stream) {
+  const One s1{{seed}, {a}, {b}};
+  return dispatch_rows(x, y, sel, dtype, Rows{be, k, phase}, mul, shifts, s1,
+                       0, Streams{}, dist, (cudaStream_t)stream);
 }
 
 // seeds, a, b: host arrays of nb (<= ZO_MAX_STREAMS) entries; y may be x.
 int zo_affine_chain_rows(const void* x, void* y, int64_t sel, int dtype,
                          uint32_t be, uint32_t k, uint32_t phase,
-                         const uint32_t* seeds, const float* a,
-                         const float* b, int nb, int dist, void* stream) {
-  const Rows r{be, k, phase};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (sel <= 0) return 0;
-  if (!rows_ok(r) || nb < 1 || nb > ZO_MAX_STREAMS || (dist != 0 && dist != 1))
-    return (int)cudaErrorInvalidValue;
-  const Streams s = pack(seeds, a, b, nb);
-  switch (dtype) {
-    case 0: return (int)launch_chain<float>(x, y, sel, r, nb, s, dist, st);
-    case 1:
-      return (int)launch_chain<__nv_bfloat16>(x, y, sel, r, nb, s, dist, st);
-    case 2: return (int)launch_chain<__half>(x, y, sel, r, nb, s, dist, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                         uint32_t mul, uint32_t shifts, const uint32_t* seeds,
+                         const float* a, const float* b, int nb, int dist,
+                         void* stream) {
+  if (nb < 1 || nb > ZO_MAX_STREAMS) return (int)cudaErrorInvalidValue;
+  return dispatch_rows(x, y, sel, dtype, Rows{be, k, phase}, mul, shifts,
+                       One{}, nb, pack(seeds, a, b, nb), dist,
+                       (cudaStream_t)stream);
+}
+
+// The route K7 and K9 take for a leaf at x written at y: 1 = vector,
+// 0 = scalar; -1 for an unknown dtype.
+int zo_rows_route(const void* x, const void* y, uint32_t be, int dtype) {
+  static const size_t sizes[] = {4, 2, 2};
+  if (dtype < 0 || dtype > 2) return -1;
+  return vector_route(x, y, be, sizes[dtype]) ? 1 : 0;
 }
 
 // y holds nb slices of n elements.

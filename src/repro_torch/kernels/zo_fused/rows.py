@@ -37,6 +37,15 @@ carried over.
   to flat indices without a hardware division; ``_rows_leaf`` computes its
   constants here, where the CPU tests prove them.
 
+K7 and K9 run one device function in K1's vector design: where a row-block
+is a whole number of 16-byte vectors and the leaf starts on 16 bytes
+(``rows_route`` → ``"vector"``), each thread takes N = 16 / itemsize
+consecutive compact indices at a time — N consecutive flat elements inside
+one block — and finds their block by a multiply-high divide by
+``block_elems // N`` (``_vector_divide``); the indices past the last whole
+vector, and every index of a launch on the ``"scalar"`` route, take one z
+at a time.  Each launch is counted under its route.
+
 Each wrapper takes the plain version for a CPU tensor and launches its CUDA
 kernel (``csrc/zo_rows.cu``) for a CUDA one, or raises.  The kernels share
 ``csrc/zo_stream.cuh`` with K1 and K3–K6.
@@ -223,7 +232,7 @@ def _rows_leaf_list(ns, seeds, plans) -> tuple:
 
 
 # --------------------------------------------------------------------------- #
-# K10's compact -> flat index map without a hardware division
+# The compact -> flat index maps without a hardware division (K10, K7, K9)
 # --------------------------------------------------------------------------- #
 def divisor_magic(d: int) -> tuple:
     """``(mul, sh1, sh2)`` with ``q = (hi + ((j − hi) >> sh1)) >> sh2``,
@@ -259,6 +268,28 @@ def _rows_leaf(n: int, seed: int, block_elems: int, k: int,
 
 
 # --------------------------------------------------------------------------- #
+# K7's and K9's route and vector divide
+# --------------------------------------------------------------------------- #
+def rows_route(x: torch.Tensor, block_elems: int) -> str:
+    """The route a K7 or K9 launch on leaf ``x`` (read and written in place)
+    takes, by ``vector_route``'s rule in ``csrc/zo_rows.cu``: ``"vector"``
+    when x starts on 16 bytes and a row-block (``block_elems`` clamped to
+    the leaf) is a whole number of 16-byte vectors, ``"scalar"`` otherwise
+    — every selected element then takes the scalar loop."""
+    be = min(int(block_elems), max(x.numel(), 1))
+    whole = be * x.element_size() % 16 == 0
+    return "vector" if whole and x.data_ptr() % 16 == 0 else "scalar"
+
+
+def _vector_divide(block_elems: int, itemsize: int) -> tuple:
+    """K7's and K9's ``(mul, sh1 | sh2 << 8)``: ``divisor_magic`` of the
+    vectors per row-block, ``block_elems // N`` with N = 16 / itemsize (1
+    where a block holds no whole vector: the scalar route reads neither)."""
+    mul, sh1, sh2 = divisor_magic(max(1, block_elems * itemsize // 16))
+    return mul, sh1 | sh2 << 8
+
+
+# --------------------------------------------------------------------------- #
 # The CUDA kernels' wrappers
 # --------------------------------------------------------------------------- #
 def _lib():
@@ -266,16 +297,18 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, i64, i, u32, f = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                               ctypes.c_uint32, ctypes.c_float)
-        lib.zo_affine_rows.argtypes = [vp, vp, i64, i, u32, u32, u32, u32, f,
-                                       f, i, vp]
-        for name in ("zo_affine_chain_rows", "zo_affine_multi_rows"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, i64, i, u32, u32, u32, vp, vp, vp, i, i,
-                           vp]
+        lib.zo_affine_rows.argtypes = [vp, vp, i64, i, u32, u32, u32, u32,
+                                       u32, u32, f, f, i, vp]
+        lib.zo_affine_chain_rows.argtypes = [vp, vp, i64, i, u32, u32, u32,
+                                             u32, u32, vp, vp, vp, i, i, vp]
+        lib.zo_affine_multi_rows.argtypes = [vp, vp, i64, i, u32, u32, u32,
+                                             vp, vp, vp, i, i, vp]
         lib.zo_sqnorm_rows_many.argtypes = [vp, vp, vp, i, i, vp]
+        lib.zo_rows_route.argtypes = [vp, vp, u32, i]
         for name in ("zo_affine_rows", "zo_affine_chain_rows",
                      "zo_affine_multi_rows", "zo_sqnorm_rows_many",
-                     "zo_rows_leaf_fields", "zo_rows_max_leaves"):
+                     "zo_rows_route", "zo_rows_leaf_fields",
+                     "zo_rows_max_leaves"):
             getattr(lib, name).restype = i
         if (lib.zo_rows_leaf_fields(), lib.zo_rows_max_leaves()) != (
                 _LEAF_FIELDS, ROWS_MAX_LEAVES):
@@ -319,10 +352,11 @@ def zo_affine_rows(x: torch.Tensor, seed: int, a: float, b: float,
     lib = _lib()
     err = lib.zo_affine_rows(_build.ptr(y), _build.ptr(y), sel,
                              DTYPE_CODES[x.dtype], be, k, phase,
+                             *_vector_divide(be, x.element_size()),
                              int(seed) & _MASK, _f32(a), _f32(b),
                              DIST_CODES[dist], _build.stream_of(x))
     _build.check(lib, err, "zo_affine_rows")
-    _build.count("zo_affine_rows")
+    _build.count("zo_affine_rows", rows_route(y, be))
     return y
 
 
@@ -373,15 +407,16 @@ def zo_affine_chain_rows(x: torch.Tensor, seeds, a, b, block_elems: int,
     sel = _selected_or_raise(n, be, k, phase, "zo_affine_chain_rows")
     y = _in_place_target(x, out, "zo_affine_chain_rows")
     lib = _lib()
+    divide, route = _vector_divide(be, x.element_size()), rows_route(y, be)
     for j0 in range(0, len(seeds), MAX_STREAMS):
         j1 = min(j0 + MAX_STREAMS, len(seeds))
         err = lib.zo_affine_chain_rows(
             _build.ptr(y), _build.ptr(y), sel, DTYPE_CODES[x.dtype], be, k,
-            phase, _u32_array(seeds[j0:j1]), _f32_array(a[j0:j1]),
+            phase, *divide, _u32_array(seeds[j0:j1]), _f32_array(a[j0:j1]),
             _f32_array(b[j0:j1]), j1 - j0, DIST_CODES[dist],
             _build.stream_of(x))
         _build.check(lib, err, "zo_affine_chain_rows")
-        _build.count("zo_affine_chain_rows")
+        _build.count("zo_affine_chain_rows", route)
     return y
 
 

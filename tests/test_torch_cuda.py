@@ -38,6 +38,7 @@ from repro_torch.kernels.zo_fused.rows import (ROWS_MAX_LEAVES, SQNORM_RTOL,
                                                zo_affine_multi_rows_plain,
                                                zo_affine_rows,
                                                zo_affine_rows_plain,
+                                               rows_route,
                                                zo_sqnorm_rows,
                                                zo_sqnorm_rows_many,
                                                zo_sqnorm_rows_plain)
@@ -477,6 +478,86 @@ def test_cuda_rows_kernels_match_the_jax_fixture(cuda):
         assert abs(got - float(g[f"sq_{i}"])) <= SQNORM_RTOL * g[f"sq_{i}"]
         i += 1
     assert i == 4
+
+
+#: K7's and K9's routes: (shape, R, k, offset of the leaf in its buffer,
+#: the route): a row-block of whole 16-byte vectors (at R = 3 with a ragged
+#: last block too), odd widths, the 1-D be = 1, a leaf off 16 bytes
+ROUTE_CASES = [((301, 64), 1, 4, 0, "vector"), ((301, 64), 3, 2, 0, "vector"),
+               ((301, 67), 1, 4, 0, "scalar"), ((896,), 1, 4, 0, "scalar"),
+               ((301, 64), 1, 4, 1, "scalar")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+@pytest.mark.parametrize("shape,R,k,offset,route", ROUTE_CASES,
+                         ids=["vector", "ragged", "odd", "1d", "offset"])
+def test_cuda_rows_routes_bitwise(cuda, dtype, dist, shape, R, k, offset,
+                                  route):
+    """Both routes of K7 and K9, in place, at every phase: bitwise their
+    plain versions, each launch counted under the route rows_route names,
+    and no element outside the selection — nor outside the leaf in its
+    buffer — changed."""
+    n = int(np.prod(shape))
+    be = R * (1 if len(shape) == 1 else int(np.prod(shape[1:])))
+    base = torch.randn(n + 16, device=cuda).to(dtype)
+    x = base[offset:offset + n].view(shape)
+    for phase in range(k):
+        for name, run, plain in (
+                ("zo_affine_rows",
+                 lambda y: zo_affine_rows(y, 7, 0.999, -0.0123, be, k, phase,
+                                          dist, out=y),
+                 lambda: zo_affine_rows_plain(x, 7, 0.999, -0.0123, be, k,
+                                              phase, dist)),
+                ("zo_affine_chain_rows",
+                 lambda y: zo_affine_chain_rows(y, SEEDS, A, B, be, k, phase,
+                                                dist, out=y),
+                 lambda: zo_affine_chain_rows_plain(x, SEEDS, A, B, be, k,
+                                                    phase, dist))):
+            buf = base.clone()
+            y = buf[offset:offset + n].view(shape)
+            assert rows_route(y, be) == route
+            _build.reset_launch_counts()
+            run(y)
+            assert _build.launch_counts[name] == 1
+            assert _build.route_counts == {f"{name}/{route}": 1}
+            assert torch.equal(_bytes(y), _bytes(plain()))
+            assert torch.equal(_bytes(buf[:offset]), _bytes(base[:offset]))
+            assert torch.equal(_bytes(buf[offset + n:]),
+                               _bytes(base[offset + n:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+def test_cuda_rows_chain_of_70_streams_on_the_vector_route(cuda, dist):
+    """70 streams run as two launches, both on the vector route, bitwise
+    the plain sequential fold."""
+    x = torch.randn(301, 64, device=cuda).to(torch.bfloat16)
+    seeds = list(range(70))
+    a, b = [0.999] * 70, [1e-3] * 70
+    _build.reset_launch_counts()
+    got = zo_affine_chain_rows(x, seeds, a, b, 64, 4, 1, dist)
+    assert _build.route_counts == {"zo_affine_chain_rows/vector": 2}
+    assert torch.equal(_bytes(got), _bytes(zo_affine_chain_rows_plain(
+        x, seeds, a, b, 64, 4, 1, dist)))
+
+
+@pytest.mark.cuda
+def test_cuda_rows_route_is_the_launchers(cuda):
+    """rows_route repeats the C launcher's rule (zo_rows_route)."""
+    from repro_torch.kernels.zo_fused.kernel import DTYPE_CODES
+    from repro_torch.kernels.zo_fused.rows import _lib
+    lib = _lib()
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        base = torch.zeros(4096, dtype=dtype, device=cuda)
+        for offset in (0, 1, 4, 8):
+            x = base[offset:offset + 2048]
+            for be in (1, 3, 4, 8, 64, 67, 896, 2048, 5000):
+                c = lib.zo_rows_route(x.data_ptr(), x.data_ptr(),
+                                      min(be, x.numel()), DTYPE_CODES[dtype])
+                assert c == (1 if rows_route(x, be) == "vector" else 0)
 
 
 def _wkv_inputs(cuda, B, S, H, hd, lw=None, seed=0):
