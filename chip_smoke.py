@@ -155,8 +155,11 @@ MLP_LEAF = (24, 896, 4864)           # the stacked MLP weight (w1 / w3)
 # (d): 2 groups × 3 live roundings + the 2-stream K3 fold (2), replay 2 →
 # 5·2 per step.
 # (e) and (h) are the (a) chain on the selected elements / the LoRA leaves.
+# (j): the xla stream rounds every op in bf16 — live θ+εz and θ−εz 2 each
+# (ε·z, the sum), the restore-update 5 (ε·z, the sum, decay·r, η·g·z, the
+# sum), replay 3 (decay·θ, coeff·z, the sum) → 12 per step.
 ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0, "e_rows_spsa": 4.0,
-                 "h_lora": 4.0, "i_ssm_spsa": 4.0}
+                 "h_lora": 4.0, "i_ssm_spsa": 4.0, "j_xla_spsa": 12.0}
 Z_MAX = 6.0
 MEM_SLACK = 1.10
 # the ssm phases: rwkv6-3b at full width and depth (32 layers, d 2560,
@@ -182,6 +185,11 @@ SSM_STATE_REL = 1e-3
 # batch: each mode's bf16 logits against its f32 logits
 SSM_MODES_F32_REL = 1e-4
 SSM_MODES_NOISE = 2.0
+# the default stream (``xla``, X1): spsa steps, and the applier / rescaled
+# estimators' steps, at qwen2-0.5b's full width
+XLA_STEPS = {"j_xla_spsa": 10}
+XLA_OTHER_STEPS = {"mezo_adam": 3, "trace": 3, "rescaled": 5}
+X1_GOLDEN = ROOT / "tests" / "data" / "x1_golden.npz"
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
 B8 = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
@@ -736,7 +744,8 @@ _KERNELS = ("flash_fwd_mma", "flash_fwd_sliced", "gather_kernel", "wkv6_fwd",
             "wkv6_tile", "zo_affine_kernel", "chain_kernel", "fanout_kernel",
             "selftest_kernel", "rows_tile_sums", "rows_fold_leaves",
             "sqnorm_rows_tiles", "tile_sums", "fold_leaves",
-            "affine_rows_kernel", "chain_rows_kernel", "multi_rows_kernel")
+            "affine_rows_kernel", "chain_rows_kernel", "multi_rows_kernel",
+            "threefry_kernel", "table_kernel", "normal_f32_kernel")
 _TARG = re.compile(r"13__nv_bfloat16|6__half|f|Li(-?\d+)E|Lb([01])E")
 
 
@@ -1252,9 +1261,10 @@ def make_opts():
 
 
 SSM_STEPS = {"i_ssm_spsa": 10}
-ALL_STEPS = {**STEPS, **SSM_STEPS}
+ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS}
 
 REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
+            "j_xla_spsa": ("zo_affine_threefry", "flash_attention"),
             "a_spsa": ("zo_affine", "flash_attention"),
             "b_fzoo": ("zo_affine_batched", "zo_affine_chain",
                        "flash_attention"),
@@ -1379,7 +1389,7 @@ def check_replays(torch, name, params0, trained, ledger, opt_factory):
     return r1
 
 
-def memory_and_busy(torch, cfg, params0, selection=None):
+def memory_and_busy(torch, cfg, params0, selection=None, backend="pallas"):
     """Peak device memory of one spsa step vs one forward on the same batch
     (no_grad), on a scratch copy of θ₀; and the device-busy share of a
     step under torch.profiler.  Under a ``selection``, the first step must
@@ -1393,8 +1403,10 @@ def memory_and_busy(torch, cfg, params0, selection=None):
                               vocab=cfg.vocab_size, seed=SEED),
                      device="cuda").batch(0)
     loss_fn = bundle(cfg).loss_fn()
-    opt = zo.mezo(lr=LR, eps=EPS, backend="pallas", selection=selection)
+    opt = zo.mezo(lr=LR, eps=EPS, backend=backend, selection=selection)
     what = "spsa" if selection is None else f"spsa {selection}"
+    if backend != "pallas":
+        what += f" on {backend}"
     state = opt.init(params, seed=SEED)
     step = opt.step_fn(loss_fn)
     with torch.no_grad():
@@ -1510,6 +1522,272 @@ def serve_finetune(torch, np, cfg, params0, trained_b, ledger_b, prompts,
     log(f"served the {what} fine-tune ({len(ledger_b)} {magic} records "
         f"replayed through composition_for_ledger): {len(reqs)} requests, "
         f"{sum(len(r.out_ids) for r in reqs)} tokens in {wall:.3f} s")
+
+
+# --------------------------------------------------------------------------- #
+# X1 and the default stream (``xla``)
+# --------------------------------------------------------------------------- #
+def check_x1(torch, np) -> float:
+    """X1 ``zo_affine_threefry`` on the card: the f32 gaussian over all 2^23
+    uniform mantissas and the bf16 / f16 tables against the plain version;
+    every dtype × dist × form (with and without a z scale, whole and on a
+    band list) on odd widths and a leaf off 16 bytes, bitwise; and z
+    against the JAX fixture (``tests/data/x1_golden.npz``).  Returns the max
+    abs error (0 when bitwise)."""
+    from repro_torch.kernels.threefry import kernel as x1
+    bad = x1.normal_f32_selftest("cuda")
+    tables = {dt: x1.table_selftest(dt, "cuda")
+              for dt in (torch.bfloat16, torch.float16)}
+    if bad or any(tables.values()):
+        fail(f"X1: f32 gaussian differs from the plain version on {bad} of "
+             f"2^23 mantissas; table entries differing {tables}")
+    g = torch.Generator().manual_seed(3)
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for n in (1, 4099, 1_000_003):
+            base = torch.randn(n + 1, generator=g).to(dt).cuda()
+            for x in (base[:n], base[1:]):           # on and off 16 bytes
+                for dist in ("gaussian", "rademacher"):
+                    for form in ("z", "axpbz", "xpbz", "restore"):
+                        for zs, bands in ((None, None), (0.75, None),
+                                          (None, [(0, n // 3),
+                                                  (n // 2, n)])):
+                            xin = None if form == "z" else x
+                            kw = dict(a=0.5, b=-0.25, e=0.125, zs=zs,
+                                      dist=dist, bands=bands)
+                            yk = x1.zo_affine_threefry(
+                                xin, (7, 2**31 + 5), form, out=x.clone(),
+                                **kw)
+                            yp = x1.zo_affine_threefry_plain(
+                                xin, (7, 2**31 + 5), form, out=x.clone(),
+                                **kw)
+                            if not same_bits(yk, yp):
+                                fail(f"X1 {dt} n={n} {dist} {form} zs={zs} "
+                                     f"bands={bands}: kernel != plain")
+                            cases += 1
+    gold = np.load(X1_GOLDEN)
+    key = tuple(int(k) for k in gold["key"])
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                     ("f16", torch.float16)):
+        for dist in ("gaussian", "rademacher"):
+            want = gold[f"{dist}_{name}"]
+            out = torch.empty(want.shape[0], dtype=dt, device="cuda")
+            z = x1.zo_affine_threefry(None, key, "z", dist=dist, out=out)
+            if not np.array_equal(z.float().cpu().numpy(), want):
+                fail(f"X1 {dist} {name} z != the JAX golden fixture")
+    log(f"X1 zo_affine_threefry: the f32 gaussian bitwise the plain version "
+        f"over all 2^23 uniform mantissas, the bf16 (256) and f16 (1024) "
+        f"tables bitwise; {cases} leaves (f32/bf16/f16 × gaussian/rademacher "
+        "× z/axpbz/xpbz/restore × plain, z-scaled, banded; odd sizes, off 16 "
+        "bytes) bitwise; z == the JAX golden fixture (f32/bf16/f16 × "
+        "gaussian/rademacher)")
+    return 0.0
+
+
+def x1_sass(_build) -> dict:
+    """X1's hot loop in SASS, by unit, for its bf16 gaussian axpbz whole-leaf
+    instance: the grid-stride loop (the last backward branch; the table
+    build before it is a loop of its own) holds one z per iteration."""
+    funcs = sass_of(_build.lib_path("zo_threefry"))
+    names = [n for n in funcs if re.search(
+        r"threefry_kernelI13__nv_bfloat16Li0ELi1ELb0E", n)]
+    if len(names) != 1:
+        fail(f"SASS: X1's bf16 gaussian axpbz kernel not found: {names}")
+    instrs = funcs[names[0]]
+    spans = []
+    for addr, op, rest in instrs:
+        m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    lo, hi = max(spans, key=lambda sp: sp[1])
+    counts = {g: 0 for g, _ in SASS_GROUPS}
+    counts["alu"] = 0
+    body = [op for a, op, _ in instrs if lo <= a <= hi]
+    for op in body:
+        counts[next((g for g, ops in SASS_GROUPS if op in ops), "alu")] += 1
+    counts["total"] = len(body)
+    counts["rsq_in_loop"] = 1
+    return counts
+
+
+def plain_replay_xla(params, led, np):
+    """The ledger replay with X1's plain version on the card — the scalars
+    of ``XLABackend.apply_rank1`` (1 − η·λ with λ = 0, −η·g, each cast to
+    the leaf dtype)."""
+    from repro_torch.kernels.threefry.kernel import zo_affine_threefry_plain
+    from repro_torch.perturb.stream import fold_in, prng_key, step_key
+    from repro_torch.perturb.xla import in_dtype
+    from repro_torch.tree_utils import is_floating, tree_leaves
+    f32 = np.float32
+    base = prng_key(led.base_seed)
+    for step, g, lr in zip(led.steps, led.grads, led.lrs):
+        key = step_key(base, step)
+        a = f32(1.0) - f32(lr) * f32(0.0)
+        b = -(f32(lr) * f32(g))
+        for i, p in enumerate(tree_leaves(params)):
+            if is_floating(p):
+                zo_affine_threefry_plain(p, fold_in(key, i), "axpbz",
+                                         a=in_dtype(a, p.dtype),
+                                         b=in_dtype(b, p.dtype), out=p)
+
+
+def other_step_phase(torch, cfg, params0, what, make_opt, steps, batch,
+                     fwd_peak, _build, counts, required) -> float:
+    """``steps`` steps of an optimizer whose steps a ledger cannot replay
+    (the appliers, rescaled SPSA along D·z), on a scratch copy of θ₀:
+    finite losses, θ moved; the peak over the steps (the copy of θ and
+    every temporary, over what was allocated before, as
+    ``memory_and_busy`` counts it) against one forward's is reported.
+    Returns the host-clock ms per step (steps 2..)."""
+    from repro_torch.models import bundle
+    from repro_torch.tree_utils import tree_leaves
+    base = torch.cuda.memory_allocated()       # as memory_and_busy's base
+    torch.cuda.reset_peak_memory_stats()
+    params = _clone_tree(params0)
+    opt = make_opt()
+    loss_fn = bundle(cfg).loss_fn()
+    _build.reset_launch_counts()
+    state = opt.init(params, seed=SEED)
+    step = opt.step_fn(loss_fn)
+    dts, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    add_counts(counts, _build, required, f"train {what}")
+    if not all(v == v and abs(v) < 1e30 for v in losses):
+        fail(f"{what}: losses not finite: {losses}")
+    moved = sum(int((bits_of(a) != bits_of(b)).sum()) for a, b in zip(
+        tree_leaves(params), tree_leaves(params0)))
+    if moved == 0:
+        fail(f"{what}: {steps} steps moved no parameter")
+    ms = 1e3 * sum(dts[1:]) / max(1, len(dts) - 1)
+    log(f"train {what}: {steps} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, {ms:.1f} ms per step (steps 2..), {moved} "
+        f"elements moved; peak {peak / 2**30:.3f} GiB = "
+        f"{peak / fwd_peak:.4f} × one forward's {fwd_peak / 2**30:.3f} GiB "
+        "(reported, not gated)")
+    del params, state
+    return ms
+
+
+def xla_paths(torch, np, cfg, params0, prompts, _build, counts, step_ms,
+              card, x1_err) -> dict:
+    """The default stream at qwen2-0.5b's full width: (j) spsa on ``xla``
+    through the training loop with a ledger (peak memory gated), its
+    ledger replayed through X1 twice and against the plain replay, served
+    with the prefix cache on; mezo-adam (recomputed, window 32), trace and
+    rescaled SPSA (param_norm, on ``xla`` and on ``pallas``).  Returns X1's
+    row of the ``kernels`` line."""
+    from repro_torch import zo
+    from repro_torch.core import replay
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.kernels.threefry import kernel as x1
+    from repro_torch.models import bundle
+    from repro_torch.serve.tenants import composition_for_ledger
+    from repro_torch.tree_utils import is_floating, tree_leaves
+    stp, fwd = memory_and_busy(torch, cfg, params0, backend="xla")
+    name = "j_xla_spsa"
+    p, led, _, ms = train_phase(
+        torch, cfg, params0, name,
+        lambda: zo.mezo(lr=LR, eps=EPS, backend="xla"), None, _build, counts)
+    step_ms[name] = ms
+    if led.backend != "xla" or led.to_bytes()[:5] != b"MZOL2":
+        fail(f"{name}: the ledger records {led.backend!r} "
+             f"{led.to_bytes()[:5]!r}, not xla MZOL2")
+    r1 = check_replays(torch, name, params0, p, led,
+                       lambda: zo.mezo(lr=LR, eps=EPS, backend="xla"))
+    del p
+    plain = _clone_tree(params0)
+    plain_replay_xla(plain, led, np)
+    torch.cuda.synchronize()
+    for a, b in zip(tree_leaves(r1), tree_leaves(plain)):
+        if not same_bits(a, b):
+            fail(f"{name}: the X1 replay != the plain X1 replay")
+    del plain
+    log(f"{name}: the ledger's replay through X1 ≡ its replay through X1's "
+        "plain version on the card, bitwise")
+    # serve the fine-tune: the MZOL2 ledger through composition_for_ledger
+    served = _clone_tree(params0)
+    _build.reset_launch_counts()
+    replay(served, led, composition_for_ledger(led))
+    _, reqs, wall = serve(cfg, served, prompts[:4], True, new_tokens=8)
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention",
+                                "paged_gather"), "serve the xla fine-tune")
+    for a, b in zip(tree_leaves(served), tree_leaves(r1)):
+        if not same_bits(a, b):
+            fail("the served xla fine-tune != the ledger's replay")
+    if any(len(r.out_ids) != 8 for r in reqs):
+        fail("an xla fine-tune request did not produce its tokens")
+    log(f"served the xla fine-tune ({len(led)} MZOL2 records replayed "
+        f"through composition_for_ledger, prefix cache on): {len(reqs)} "
+        f"requests, {sum(len(r.out_ids) for r in reqs)} tokens in "
+        f"{wall:.3f} s")
+    del served, r1
+    # the estimators a ledger cannot replay
+    batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                              vocab=cfg.vocab_size, seed=SEED),
+                     device="cuda").batch(0)
+    trace_opt = lambda: zo.ZOOptimizer(  # noqa: E731
+        zo.estimators.spsa(eps=EPS, backend="xla"),
+        zo.chain(zo.transforms.scale_by_schedule(LR),
+                 zo.transforms.trace(window=32)), name="trace")
+    for what, make, n, req in (
+            ("mezo_adam (recomputed, window 32)",
+             lambda: zo.mezo_adam(lr=LR, eps=EPS, window=32, backend="xla"),
+             XLA_OTHER_STEPS["mezo_adam"], ("zo_affine_threefry",)),
+            ("trace (window 32)", trace_opt, XLA_OTHER_STEPS["trace"],
+             ("zo_affine_threefry",)),
+            ("rescaled_spsa (param_norm) on xla",
+             lambda: zo.mezo_rescaled(lr=LR, eps=EPS, backend="xla"),
+             XLA_OTHER_STEPS["rescaled"], ("zo_affine_threefry",)),
+            ("rescaled_spsa (param_norm) on pallas",
+             lambda: zo.mezo_rescaled(lr=LR, eps=EPS, backend="pallas"),
+             XLA_OTHER_STEPS["rescaled"], ("zo_affine",))):
+        step_ms[what.split(" ")[0] + ("_pallas" if "pallas" in what
+                                      else "")] = other_step_phase(
+            torch, cfg, params0, what, make, n, batch, fwd, _build, counts,
+            req + ("flash_attention",))
+    # X1's time per pass over the 15 leaves: the replay / update write
+    leaves = [q for q in tree_leaves(params0) if is_floating(q)]
+    scratch = [q.clone() for q in leaves]
+    n_all = sum(q.numel() for q in leaves)
+    leaf_bytes = sum(q.numel() * q.element_size() for q in leaves)
+    bval = -0.0001220703125                       # a bf16 value: −η·g
+
+    def record(fn=x1.zo_affine_threefry):
+        for i, q in enumerate(scratch):
+            fn(q, (12345, i), "axpbz", a=1.0, b=bval, out=q)
+
+    with ClockSampler() as clock:
+        ms_x1 = cuda_ms(record, 10)
+        cuda_ms(record, 60)        # keeps the card busy while it samples
+    plain_ms = host_ms(lambda: record(x1.zo_affine_threefry_plain))
+    del scratch
+    c = x1_sass(_build)
+    mhz = clock.mhz if clock.mhz == clock.mhz else sm_clocks()[0]
+    floor = issue_floor_ms(n_all, c["total"], mhz)
+    bms, by = bound(2 * leaf_bytes, 4 * n_all, F32_FLOPS)
+    log(sass_line("X1 zo_affine_threefry (bf16 gaussian axpbz)", c))
+    log(f"X1 zo_affine_threefry, one pass over the {len(leaves)} qwen2-0.5b "
+        f"leaves ({n_all} bf16 elements, gaussian, the replay / update "
+        f"write): {ms_x1:.4f} ms (median of 10 CUDA-event pairs), plain "
+        f"version {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}); issue floor "
+        f"{floor:.4f} ms at {c['total']:.2f} SASS instructions per z and "
+        f"{mhz:.0f} MHz ({100 * floor / ms_x1:.1f}% of it reached) — on "
+        f"{card}")
+    log("X1 registers / shared memory / spills (gaussian axpbz, whole "
+        "leaf): " + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas_facts(
+            _build, "zo_threefry").items()) if k.endswith(", 0, 1, false>")))
+    return {"name": "zo_affine_threefry", "route": "cuda",
+            "source": "src/repro_torch/kernels/threefry/csrc/zo_threefry.cu",
+            "replaces": "src/repro/perturb/xla.py:38", "launches": 0,
+            "max_abs_err": x1_err, "ms": ms_x1, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 # --------------------------------------------------------------------------- #
@@ -2722,7 +3000,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke runs on the card")
     if not (SRC / "repro_torch").is_dir() or not all(
             f.exists() for f in (GOLDEN, MULTI_GOLDEN, ROWS_GOLDEN,
-                                 WKV6_GOLDEN)):
+                                 WKV6_GOLDEN, X1_GOLDEN)):
         fail(f"run from the root of a checkout ({SRC / 'repro_torch'} or a "
              f"fixture under {GOLDEN.parent} missing)")
     sys.path.insert(0, str(SRC))
@@ -2758,6 +3036,7 @@ def main() -> None:
     check_k7_k10(torch, np, kr)
     k11_err = check_k11(torch, np, kw, ko)
     check_k11_sweep(torch, ko)
+    x1_err = check_x1(torch, np)
 
     # ---- full width ---------------------------------------------------- #
     from repro_torch.models import all_archs, bundle
@@ -2843,9 +3122,15 @@ def main() -> None:
                    kernels=("zo_affine_chain_rows",), what="rows fzoo")
     del trained
 
+    # ---- paths 12-13: the default stream (xla, X1): train spsa, serve --- #
+    # ---- its fine-tune; mezo-adam, trace and rescaled SPSA ------------- #
+    x1_row = xla_paths(torch, np, cfg, params0, prompts, _build, counts,
+                       step_ms, card, x1_err)
+
     # ---- kernel times at the qwen2-0.5b paths' shapes ----------------- #
     rows = qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot,
                              k1_err, k2_err, card, kz, km, kr, kf, kp)
+    rows.append(x1_row)
     del params0, pool_k
 
     # ---- the ssm family: rwkv6-3b at full width and depth -------------- #

@@ -13,10 +13,13 @@ Conventions:
 * every entry point takes an explicit ``device``: ``None`` means the CUDA
   card, and raises when there is none — the CPU is used only when the caller
   asks for it (``device="cpu"``), as the tests do (:mod:`repro_torch.device`);
-* randomness comes from ``torch.Generator``; the z streams of the MeZO
-  ledger come from the counter-hash kernel and are bitwise-equal to JAX's.
+* model weights come from ``torch.Generator``; the z streams of the MeZO
+  ledger (JAX's threefry ``xla`` stream through X1, or the counter-hash
+  ``pallas+z2`` stream) and the step-indexed data are bitwise-equal to
+  JAX's.
 
-Each Pallas kernel on this slice's path has a hand-written CUDA kernel under
+Each Pallas kernel (and X1, the kernel of the ``xla`` stream) has a
+hand-written CUDA kernel under
 ``kernels/*/csrc/`` (built with nvcc at first use, bound through ctypes) and
 a plain torch version in the same module, which only CPU tensors take.
 """

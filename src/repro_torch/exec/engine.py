@@ -144,11 +144,19 @@ class StepProgram:
                     f"but the {self.plan.kind} plan runs n_groups={n}; the "
                     "plan's groups ARE the seed streams — use n_seeds=1 or "
                     f"n_seeds={n}")
-            if not est.replayable and n > 1:
+            one_group = self.plan.kind == "seed_parallel" and n == 1
+            if self.opt.info.get("applier") and not one_group:
+                raise ValueError(
+                    "applier transforms (scale_by_zo_adam / trace) "
+                    "materialize their update from the live tree and "
+                    "g-history; group updates are wire-replayable rank-1 "
+                    "applications — run appliers under the local plan")
+            if not est.replayable and not one_group:
                 raise ValueError(
                     f"the {est.name!r} estimator updates along D·z "
                     "(Definition 6), which the plan's rank-1 group updates "
-                    "cannot reproduce; use the local plan")
+                    "cannot reproduce; use modify_expectation=True or the "
+                    "local plan")
             if n > 1 and self.opt.info.get("lr_at") is None:
                 raise ValueError(
                     f"the {self.plan.kind} plan needs a transform chain with "
@@ -303,6 +311,11 @@ class StepProgram:
                               recorded_kind=getattr(ledger, "exec_plan", None),
                               active_kind=self.plan.kind)
         if n > 1:
+            if opt.info.get("applier"):
+                raise ValueError(
+                    f"{opt.name}: scalar-ledger replay cannot reproduce "
+                    "applier transforms (scale_by_zo_adam / trace); resume "
+                    "from a full state checkpoint instead of a ledger tail")
             if not opt.estimator.replayable:
                 raise ValueError(
                     f"{opt.name}: the {opt.estimator.name!r} estimator "

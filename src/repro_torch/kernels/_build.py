@@ -45,6 +45,8 @@ SOURCES: Dict[str, tuple] = {
     "zo_rows": ("zo_fused/csrc/zo_rows.cu", _NO_FMAD,
                 ("zo_affine_rows", "zo_affine_multi_rows",
                  "zo_affine_chain_rows", "zo_sqnorm_rows")),
+    "zo_threefry": ("threefry/csrc/zo_threefry.cu", _NO_FMAD,
+                    ("zo_affine_threefry",)),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu", (),
                         ("flash_attention",)),
     "paged_gather": ("paged/csrc/paged_gather.cu", (), ("paged_gather",)),

@@ -1,0 +1,450 @@
+"""X1 ``zo_affine_threefry``: y = a·x + b·z over one leaf, where z is
+``jax.random.normal`` / ``rademacher`` of the leaf's key — JAX's default
+``xla`` perturbation stream, reproduced bit for bit.
+
+JAX has no Pallas kernel here: XLA lowers threefry, ``erf_inv`` and the
+affine write into one loop fusion.  The port fuses them the same way in one
+hand-written kernel (``csrc/zo_threefry.cu``) so no leaf-sized temporary
+exists on the card; this module holds its plain torch version (the bitwise
+specification, run for CPU tensors) and its wrapper.
+
+The stream, under ``jax_threefry_partitionable`` (JAX's default since 0.5;
+the older layout is not reproduced):
+
+* **bits.** Element i of a leaf draws ``x0 ^ x1`` of
+  ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))`` — a function of (key,
+  flat index) alone, so a leaf can be generated in chunks or band by band.
+* **f32 normal.** u = max(lo, 2·(m·2⁻²³) + lo) with m = bits >> 9 and
+  lo = −(1 − 2⁻²⁴); z = √2 · erf_inv(u), erf_inv as XLA:CPU expands it:
+  w = −log1p(−u²) (XLA's Cephes-style log1p, its log a Cephes ``logf``),
+  Giles' two 9-term polynomials split at w < 5, every Horner step one FMA
+  (XLA:CPU contracts them), every other op separately rounded.
+* **bf16 / f16 normal.** JAX draws 8 (bf16) or 16 (f16) bits per element
+  and forms u in the leaf dtype, each op rounded there; erf_inv runs in f32
+  and is rounded back.  So z takes 128 (bf16) or 1024 (f16) values: a table
+  indexed by ``bits & 0xFF`` or ``(bits & 0xFFFF) >> 6``.
+* **rademacher.** ``bernoulli(0.5)`` on an f32 uniform: +1 when bit 31 of
+  the bits is clear, −1 otherwise.
+
+The affine write follows the graph JAX's ``xla`` backend traces for each
+method (``FORMS``), as XLA:CPU compiles it.  In f32 its algebraic
+simplifier folds z's √2 (and the z scale) into the scalar that multiplies z
+(``f32_scalars``) and LLVM contracts one multiply into each add; in bf16
+every op is rounded to the dtype, as written.  An optional z scale (``zs``,
+the sphere's √d/‖z‖ or rescaled SPSA's per-leaf d) multiplies z first, as
+JAX's ``z * s.astype(z.dtype)``.  f16 writes follow the bf16 rule, which
+XLA:CPU's f16 arithmetic leaves in the last bit on some elements (its z is
+bitwise).
+
+A CPU tensor takes the plain version (chunked, so temporaries stay small);
+a CUDA tensor launches X1 or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import struct
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.zo_fused.kernel import _fma, _sqrt_rn
+
+_MASK = 0xFFFFFFFF
+_CHUNK = 1 << 20                  # plain-version elements per pass (CPU)
+_CHUNK_CUDA = 1 << 24             # the plain version run on the card
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DIST_CODES = {"gaussian": 0, "rademacher": 1}
+#: the affine write of each backend method (``enum Form`` in the CUDA
+#: source), with u the unit z is built from (f32 gaussian: erf_inv(u), its
+#: √2 folded into b and e; else z) — f32 / half dtypes (rt: round to it):
+#:   z       rn(u·k)               | z                        (``leaf_z``)
+#:   axpbz   fma(a, x, rn(u·b))    | rt(rt(a·x) + rt(b·z))    (apply_rank1)
+#:   xpbz    fma(u, b, x)          | rt(x + rt(b·z))          (perturb)
+#:   restore fma(a, fma(u, e, x), rn(u·b))
+#:           | rt(rt(a·rt(x + rt(e·z))) + rt(b·z))    (fused_restore_update)
+FORMS = {"z": 0, "axpbz": 1, "xpbz": 2, "restore": 3}
+
+
+def _f(hex64: str) -> float:
+    """An f32 constant as it stands in XLA:CPU's LLVM IR (a double's bits)."""
+    v = struct.unpack(">d", bytes.fromhex(hex64))[0]
+    assert float(np.float32(v)) == v
+    return v
+
+
+# log(y), Cephes ``logf`` as XLA:CPU emits it
+_SQRTHF = _f("3FE6A09E60000000")
+_LOG_P = tuple(_f(h) for h in (
+    "3FB2043760000000", "BFBD7A3700000000", "BFBFCBA9E0000000",
+    "3FC23D37E0000000", "3FC999D580000000", "BFCFFFFF80000000",
+    "3FBDE4A340000000", "BFC555CA00000000", "3FD5555540000000"))
+_LOG_Q1, _LOG_Q2 = _f("BF2BD01060000000"), _f("3FE6300000000000")
+_FLT_MIN = _f("3810000000000000")
+# log1p(x) for |x| < √2 − 1: x − x²/2 + x³·P(x)/Q(x)
+_L1P_DEN = tuple(_f(h) for h in (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
+    "4073519460000000", "406B0DB140000000", "404E0F3040000000"))
+_L1P_NUM0 = _f("3F07BC0960000000")
+_L1P_NUM = tuple(_f(h) for h in (
+    "3FDFE818A0000000", "401A509F40000000", "403DE97380000000",
+    "404E798EC0000000", "404C8E75A0000000", "40340A2020000000"))
+_L1P_SMALL = _f("3FDA8279A0000000")
+# erf_inv (Giles), w < 5 and w >= 5
+_ERFINV_LT = tuple(_f(h) for h in (
+    "3E5E2CB100000000", "3E970966C0000000", "BECD8E6AE0000000",
+    "BED26B5820000000", "3F2CA65B60000000", "BF548A8100000000",
+    "BF711C9DE0000000", "3FCF91EC60000000", "3FF805C5E0000000"))
+_ERFINV_GE = tuple(_f(h) for h in (
+    "BF2A3E1360000000", "3F1A76AD60000000", "3F561B8E40000000",
+    "BF6E17BCE0000000", "3F77824F60000000", "BF7F38BAE0000000",
+    "3F8354AFC0000000", "3FF006DB60000000", "4006A9EFC0000000"))
+_SQRT2 = _f("3FF6A09E60000000")
+_LO32 = _f("BFEFFFFFE0000000")          # nextafter(-1, 0) in f32
+
+
+# --------------------------------------------------------------------------- #
+# Plain torch version (bitwise specification)
+# --------------------------------------------------------------------------- #
+def threefry_bits(key, idx: torch.Tensor) -> torch.Tensor:
+    """``x0 ^ x1`` of threefry2x32(key, (idx >> 32, idx & 0xFFFFFFFF)) for
+    int64 flat indices ``idx`` ≥ 0; int64 values in [0, 2³²)."""
+    k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = ((idx >> 32) + k0) & _MASK
+    x1 = ((idx & _MASK) + k1) & _MASK
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) & _MASK) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0 ^ x1
+
+
+def _full(t: torch.Tensor, v: float) -> torch.Tensor:
+    return torch.full_like(t, v)
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``log1p`` for x in (−1, 0]: a rational approximation
+    for |x| < √2 − 1, else Cephes ``logf(1 + x)`` — each multiply that LLVM
+    contracts into the following add written as one exact FMA."""
+    # large |x|: log(1 + x) = e·ln2 + log(m), m in [√½, √2)
+    y = x + 1.0
+    y = torch.where(y > _FLT_MIN, y, _full(y, _FLT_MIN))
+    bits = y.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0           # exact
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    low = m < _SQRTHF
+    t = (m - 1.0) + torch.where(low, m, _full(m, 0.0))
+    e = e - low.to(torch.float32)                                # exact
+    t2 = t * t
+    t3 = t2 * t
+    pa = _fma(t, _full(t, _LOG_P[0]), _LOG_P[1])
+    pb = _fma(t, _full(t, _LOG_P[2]), _LOG_P[3])
+    pc = _fma(t, _full(t, _LOG_P[4]), _LOG_P[5])
+    pa = _fma(pa, t, _LOG_P[6])
+    pb = _fma(pb, t, _LOG_P[7])
+    pc = _fma(pc, t, _LOG_P[8])
+    p = _fma(_fma(pa, t3, pb), t3, pc)
+    p = _fma(p, t3, e * _LOG_Q1)
+    large = _fma(e, _full(e, _LOG_Q2), (t - t2 * 0.5) + p)
+    # small |x|: x − x²/2 + x³·num(x)/den(x)
+    x2 = x * x
+    den = _full(x, 1.0)
+    for c in _L1P_DEN:
+        den = _fma(den, x, c)
+    num = _full(x, _L1P_NUM0)
+    for c in _L1P_NUM:
+        num = _fma(num, x, c)
+    small = x + _fma(x2, _full(x2, -0.5), (x * x2) * (num / den))
+    return torch.where(torch.abs(x) < _L1P_SMALL, small, large)
+
+
+def erf_inv_f32(u: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` (Giles' single-precision approximation) as
+    XLA:CPU computes it."""
+    lg = xla_log1p(u * (-u))
+    lt = lg > -5.0                                    # w = −lg < 5
+    ww = torch.where(lt, -2.5 - lg, _sqrt_rn(torch.clamp_min(-lg, 0.0)) - 3.0)
+    p = torch.where(lt, _ERFINV_LT[0], _ERFINV_GE[0]).to(torch.float32)
+    for ca, cb in zip(_ERFINV_LT[1:], _ERFINV_GE[1:]):
+        p = _fma(p, ww, torch.where(lt, ca, cb).to(torch.float32))
+    p = torch.where(torch.abs(u) == 1.0, _full(p, float("inf")), p)
+    return u * p
+
+
+def normal_f32(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.normal``'s f32 value of 32 random bits (int64 tensor)."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp_min(f * 2.0 + _LO32, _LO32)
+    return erf_inv_f32(u) * _SQRT2
+
+
+@functools.lru_cache(maxsize=None)
+def _half_table(dtype: torch.dtype) -> torch.Tensor:
+    """The f32 values of a bf16 (256 entries, index ``bits & 0xFF``) or f16
+    (1024 entries, index ``(bits & 0xFFFF) >> 6``) gaussian z: u formed in
+    the dtype with every op rounded there, erf_inv in f32 rounded back,
+    times √2 in the dtype — the graph of ``jax.random.normal``."""
+    def rt(v):
+        return v.to(dtype).to(torch.float32)
+
+    if dtype == torch.bfloat16:
+        idx = torch.arange(256, dtype=torch.int32)
+        fbits = (idx >> 1) | 0x3F80
+    else:
+        idx = torch.arange(1024, dtype=torch.int32)
+        fbits = idx | 0x3C00
+    one = fbits.to(torch.int16).view(dtype).to(torch.float32)
+    lo = float(torch.nextafter(torch.tensor(-1.0, dtype=dtype),
+                               torch.tensor(0.0, dtype=dtype)))
+    span = float(rt(torch.tensor(1.0 - lo)))
+    f = rt(one - 1.0)
+    u = torch.clamp_min(rt(rt(f * span) + lo), lo)
+    sqrt2 = float(rt(torch.tensor(np.sqrt(2.0), dtype=torch.float64)))
+    return rt(rt(erf_inv_f32(u)) * sqrt2)
+
+
+def z_from_bits(bits: torch.Tensor, dtype: torch.dtype,
+                dist: str) -> torch.Tensor:
+    """f32 values of the leaf-dtype z for threefry ``bits``."""
+    if dist == "gaussian" and dtype == torch.float32:
+        return normal_f32(bits)
+    return _z_unit(bits, dtype, dist)
+
+
+def _z_unit(bits: torch.Tensor, dtype: torch.dtype,
+            dist: str) -> torch.Tensor:
+    """What the affine write multiplies: z itself, except for the f32
+    gaussian, where it is erf_inv(u) — XLA folds the √2 into the scalar
+    that multiplies z (``f32_scalars``)."""
+    if dist == "rademacher":
+        return torch.where(bits >= (1 << 31), -1.0, 1.0).to(torch.float32)
+    if dtype == torch.float32:
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+        return erf_inv_f32(torch.clamp_min((f - 1.0) * 2.0 + _LO32, _LO32))
+    table = _half_table(dtype).to(bits.device)
+    idx = bits & 0xFF if dtype == torch.bfloat16 else (bits & 0xFFFF) >> 6
+    return table[idx]
+
+
+def f32_scalars(dist: str, b: float, e: float, zs: Optional[float]):
+    """The scalars an f32 leaf's write multiplies z by.  XLA's algebraic
+    simplifier reassociates a broadcast scalar times z = erf_inv(u)·√2
+    (times the z scale) into erf_inv(u) · (√2·zs·b): so b and e become
+    rn(rn(√2·zs)·b) and rn(rn(√2·zs)·e); rademacher's unit is ±1.  Returns
+    (the z form's multiplier, b, e)."""
+    k = np.float32(_SQRT2 if dist == "gaussian" else 1.0)
+    if zs is not None:
+        k = np.float32(k * np.float32(zs))
+    return (float(k), float(np.float32(k * np.float32(b))),
+            float(np.float32(k * np.float32(e))))
+
+
+def _rt(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return v.to(dtype).to(torch.float32)
+
+
+def _combine(form: int, x, zu, a: float, b: float, e: float, k: float,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The affine write of ``form``: f32 on the unit ``zu`` with the folded
+    scalars of ``f32_scalars``; half dtypes on z (already times the z
+    scale), every op rounded to the dtype."""
+    if dtype == torch.float32:
+        if form == FORMS["z"]:
+            return zu * k
+        if form == FORMS["axpbz"]:
+            return _fma(_full(x, a), x, zu * b)
+        if form == FORMS["xpbz"]:
+            return _fma(zu, _full(zu, b), x)
+        return _fma(_full(x, a), _fma(zu, _full(zu, e), x), zu * b)
+    if form == FORMS["z"]:
+        return zu
+    if form == FORMS["axpbz"]:
+        return _rt(x * a, dtype) + _rt(zu * b, dtype)
+    if form == FORMS["xpbz"]:
+        return x + _rt(zu * b, dtype)
+    r = _rt(x + _rt(zu * e, dtype), dtype)
+    return _rt(r * a, dtype) + _rt(zu * b, dtype)
+
+
+def check_scalars(dtype: torch.dtype, *vals) -> None:
+    """Half-dtype scalars must be values of the dtype (JAX casts them to
+    the leaf dtype before the write)."""
+    for v in vals:
+        if v is not None and float(torch.tensor(v).to(dtype)) != float(v):
+            raise ValueError(f"zo_affine_threefry: scalar {v!r} is not a "
+                             f"{dtype} value; round it to the leaf dtype")
+
+
+def zo_affine_threefry_plain(x: Optional[torch.Tensor], key, form: str,
+                             a: float = 0.0, b: float = 0.0, e: float = 0.0,
+                             zs: Optional[float] = None,
+                             dist: str = "gaussian",
+                             out: Optional[torch.Tensor] = None,
+                             bands: Optional[Sequence] = None,
+                             offset: int = 0) -> torch.Tensor:
+    """Plain X1 on any device.  ``x=None`` (form ``z``) writes z into
+    ``out``; ``bands`` is a list of flat ``(lo, hi)`` ranges, the only
+    elements written (a rows plan); ``offset`` is added to every flat
+    index (a chunk of a longer leaf)."""
+    fcode = FORMS[form]
+    y = out if out is not None else torch.empty_like(x)
+    dtype = y.dtype
+    k = 1.0
+    if dtype == torch.float32:
+        k, b, e = f32_scalars(dist, b, e, zs)
+        zs = None
+    yflat = y.view(-1)
+    xflat = x.reshape(-1) if x is not None else None
+    ranges = [(0, yflat.numel())] if bands is None else bands
+    chunk = _CHUNK_CUDA if y.device.type == "cuda" else _CHUNK
+    for lo0, hi0 in ranges:
+        for lo in range(lo0, hi0, chunk):
+            hi = min(lo + chunk, hi0)
+            idx = torch.arange(lo + offset, hi + offset, dtype=torch.int64,
+                               device=y.device)
+            zu = _z_unit(threefry_bits(key, idx), dtype, dist)
+            if zs is not None:
+                zu = _rt(zu * zs, dtype)
+            xv = None if xflat is None else xflat[lo:hi].to(torch.float32)
+            yflat[lo:hi] = _combine(fcode, xv, zu, a, b, e, k,
+                                    dtype).to(dtype)
+    return y
+
+
+# --------------------------------------------------------------------------- #
+# The CUDA kernel's wrapper
+# --------------------------------------------------------------------------- #
+def _lib():
+    lib = _build.load("zo_threefry")
+    if not getattr(lib, "_typed", False):
+        vp, i64, i, f, u32, u64 = (ctypes.c_void_p, ctypes.c_int64,
+                                   ctypes.c_int, ctypes.c_float,
+                                   ctypes.c_uint32, ctypes.c_uint64)
+        lib.zo_threefry.argtypes = [vp, vp, i64, i, u32, u32, u64, i, i, f,
+                                    f, f, f, i, f, vp, vp, i, i64, vp]
+        lib.zo_threefry.restype = i
+        lib.zo_threefry_normal_f32.argtypes = [vp, i64, i64, vp]
+        lib.zo_threefry_normal_f32.restype = i
+        lib.zo_threefry_table.argtypes = [vp, i, vp]
+        lib.zo_threefry_table.restype = i
+        lib._typed = True
+    return lib
+
+
+def band_route(bands) -> str:
+    """``"bands"`` when a rows plan restricts the launch, else ``"whole"``."""
+    return "whole" if bands is None else "bands"
+
+
+def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
+                       a: float = 0.0, b: float = 0.0, e: float = 0.0,
+                       zs: Optional[float] = None, dist: str = "gaussian",
+                       out: Optional[torch.Tensor] = None,
+                       bands: Optional[Sequence] = None,
+                       offset: int = 0) -> torch.Tensor:
+    """X1: the affine write ``form`` of z(key) over one leaf (see ``FORMS``),
+    in place when ``out`` is ``x``.  Scalars are f32 values (half dtypes:
+    values of the leaf dtype).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if dist not in DIST_CODES:
+        raise NotImplementedError(
+            f"zo_affine_threefry has no generator for dist={dist!r}; sphere "
+            "is the gaussian stream times sqrt(d)/||z|| (pass it as zs)")
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; one of {sorted(FORMS)}")
+    y = out if out is not None else (None if x is None
+                                     else torch.empty_like(x))
+    if y is None:
+        raise ValueError("zo_affine_threefry: form 'z' needs out")
+    if (x is None) != (form == "z"):
+        raise ValueError("zo_affine_threefry: x is given for every form "
+                         "but 'z'")
+    if y.dtype not in DTYPE_CODES:
+        raise TypeError(f"zo_affine_threefry takes float32/bfloat16/float16 "
+                        f"leaves, got {y.dtype}")
+    if x is not None and (x.shape != y.shape or x.dtype != y.dtype
+                          or x.device != y.device):
+        raise ValueError("zo_affine_threefry: out must match x in shape, "
+                         "dtype and device")
+    if y.dtype != torch.float32:
+        check_scalars(y.dtype, a, b, e, zs)
+    if y.device.type == "cpu":
+        return zo_affine_threefry_plain(x, key, form, a, b, e, zs, dist, y,
+                                        bands, offset)
+    if y.device.type != "cuda":
+        raise RuntimeError(f"zo_affine_threefry: no kernel for {y.device}")
+    if not y.is_contiguous() or (x is not None and not x.is_contiguous()):
+        raise ValueError("zo_affine_threefry: the CUDA kernel takes "
+                         "contiguous leaves")
+    if y.numel() == 0:
+        return y
+    starts = cum = None
+    nb, total = 0, y.numel()
+    if bands is not None:
+        bl = torch.tensor([[lo, hi] for lo, hi in bands], dtype=torch.int64)
+        lens = bl[:, 1] - bl[:, 0]
+        starts = bl[:, 0].to(y.device)
+        cum = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(lens, 0)]).to(y.device)
+        nb, total = len(bands), int(lens.sum())
+        if total == 0:
+            return y
+    k = 1.0
+    if y.dtype == torch.float32:
+        k, b, e = f32_scalars(dist, b, e, zs)
+        zs = None
+    lib = _lib()
+    err = lib.zo_threefry(
+        None if x is None else _build.ptr(x), _build.ptr(y), y.numel(),
+        DTYPE_CODES[y.dtype], int(key[0]) & _MASK, int(key[1]) & _MASK,
+        int(offset), DIST_CODES[dist], FORMS[form], float(np.float32(a)),
+        float(np.float32(b)), float(np.float32(e)), float(np.float32(k)),
+        int(zs is not None), float(np.float32(0.0 if zs is None else zs)),
+        None if starts is None else _build.ptr(starts),
+        None if cum is None else _build.ptr(cum), nb, total,
+        _build.stream_of(y))
+    _build.check(lib, err, "zo_affine_threefry")
+    _build.count("zo_affine_threefry", band_route(bands))
+    return y
+
+
+def normal_f32_selftest(device="cuda") -> int:
+    """X1's f32 gaussian over all 2²³ uniform mantissas (bits = m << 9)
+    against ``normal_f32`` run through torch on the same card; returns the
+    count of mantissas whose z bits differ."""
+    lib = _lib()
+    n = 1 << 23
+    got = torch.empty(n, dtype=torch.float32, device=device)
+    _build.check(lib, lib.zo_threefry_normal_f32(_build.ptr(got), 0, n,
+                                                 _build.stream_of(got)),
+                 "zo_threefry_normal_f32")
+    bad = 0
+    for lo in range(0, n, 1 << 21):
+        bits = torch.arange(lo, lo + (1 << 21), dtype=torch.int64,
+                            device=device) << 9
+        want = normal_f32(bits)
+        bad += int((got[lo:lo + (1 << 21)].view(torch.int32)
+                    != want.view(torch.int32)).sum())
+    return bad
+
+
+def table_selftest(dtype: torch.dtype, device="cuda") -> int:
+    """The kernel's bf16 / f16 gaussian table against ``half_table``;
+    returns the count of entries whose bits differ."""
+    lib = _lib()
+    n = 256 if dtype == torch.bfloat16 else 1024
+    got = torch.empty(n, dtype=torch.float32, device=device)
+    _build.check(lib, lib.zo_threefry_table(_build.ptr(got),
+                                            DTYPE_CODES[dtype],
+                                            _build.stream_of(got)),
+                 "zo_threefry_table")
+    want = _half_table(dtype).to(device)
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+

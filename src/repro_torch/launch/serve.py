@@ -3,7 +3,8 @@
 The port of ``repro.launch.serve``, with its flags plus ``--device``:
 builds the model from a seeded ``torch.Generator``, optionally replays a
 MeZO scalar ledger onto the init params (a JAX- or port-written MZOL file of
-the ``pallas+z2`` stream), then serves a synthetic request workload through
+the ``xla`` stream — MZOL1 implies it — or of ``pallas+z2``), then serves
+a synthetic request workload through
 the engine: paged for dense archs, the per-slot recurrent path for ssm ones
 (``--arch rwkv6-3b``).  Multi-tenant mode (``--tenants``) arrives with the
 tenants slice.

@@ -6,14 +6,17 @@ supports plus ``--device``: registry model (random weights from a seeded
 ``zo.fzoo``, the local or seed-parallel plan (on one card), step-indexed
 data, checkpoint manager + scalar ledger, heartbeat.
 
-``--backend`` defaults to ``xla`` as in JAX, and that stream is not ported
-yet: pass ``--backend pallas``.  ``--select`` takes every selection spec of
+``--backend`` defaults to ``xla`` as in JAX (the threefry stream, X1 on the
+card); ``pallas`` is the counter stream.  ``--optimizer mezo-adam`` trains
+``zo.mezo_adam`` (the recomputed ring-buffer mode; no ledger, as in JAX:
+its steps replay only from a full checkpoint).  ``--select`` takes every
+selection spec of
 ``repro_torch.select`` (``auto`` → the registry's per-family default) and is
 recorded in the checkpoint meta and the MZOL5 ledger header.  The ported
 families are dense and ssm: ``--model-family ssm`` (or ``--arch rwkv6-3b``)
 trains rwkv6, ``--scan-mode`` picks its forward (``chunk``, K11 on the
 card, or ``fused_recurrent``).  Options of later slices (``--optimizer
-mezo-adam|adam|sgd``, ``--objective`` other than ``ce``, ``--model-family
+adam|sgd``, ``--objective`` other than ``ce``, ``--model-family
 moe|hybrid|encdec``) exit with a message naming the slice.
 """
 from __future__ import annotations
@@ -51,9 +54,8 @@ def main(argv=None):
     ap.add_argument("--eps", type=float, default=1e-3)
     ap.add_argument("--backend", default="xla",
                     choices=["xla", "pallas", "pallas-interpret"],
-                    help="perturbation backend; the port has 'pallas' (the "
-                         "counter stream) — 'xla', JAX's default, comes with "
-                         "a later slice")
+                    help="perturbation backend: 'xla' (JAX's default, the "
+                         "threefry stream) or 'pallas' (the counter stream)")
     ap.add_argument("--select", default="full",
                     help="parameter selection (repro_torch.select) for the ZO "
                          "optimizers: 'full', 'leaves(<regex>)', "
@@ -92,10 +94,10 @@ def main(argv=None):
         # applier transform refuses selections at composition time)
         sys.exit(f"--select {args.select!r} requires --optimizer mezo "
                  f"(got {args.optimizer!r})")
-    if args.optimizer != "mezo":
-        sys.exit(f"--optimizer {args.optimizer}: mezo-adam comes with the "
-                 "mezo_adam slice and adam/sgd with the backprop-baseline "
-                 "slice (ROADMAP Queue 1); the port trains --optimizer mezo")
+    if args.optimizer in ("adam", "sgd"):
+        sys.exit(f"--optimizer {args.optimizer}: the backprop baseline "
+                 "(train/adam.py) comes with a later slice (ROADMAP Queue 1 "
+                 "item 6); the port trains --optimizer mezo or mezo-adam")
     if args.objective != "ce":
         sys.exit(f"--objective {args.objective!r}: the non-differentiable "
                  "objectives come with the objectives slice (core/nondiff)")
@@ -103,10 +105,6 @@ def main(argv=None):
         sys.exit(f"--model-family {args.model_family}: the other families "
                  "come with the families slice (ROADMAP Queue 1, Slice D); "
                  f"the port has {', '.join(sorted(FAMILY_ARCHS))}")
-    if args.backend == "xla":
-        sys.exit("--backend xla (the default, as in JAX): the threefry "
-                 "'xla' stream comes with a later slice of the port; pass "
-                 "--backend pallas")
     if args.backend == "pallas-interpret":
         sys.exit("--backend pallas-interpret is JAX's CPU interpreter; the "
                  "port runs --backend pallas, on the CPU with --device cpu")
@@ -130,7 +128,11 @@ def main(argv=None):
     pipe = Pipeline(DataSpec("lm", batch=args.batch, seq=args.seq,
                              vocab=cfg.vocab_size, seed=args.seed),
                     device=device)
-    if args.estimator == "fzoo":
+    ledger = None
+    if args.optimizer == "mezo-adam":
+        opt = zo.mezo_adam(lr=args.lr or 1e-4, eps=args.eps,
+                           backend=args.backend)
+    elif args.estimator == "fzoo":
         opt = zo.fzoo(lr=args.lr or 1e-6, eps=args.eps,
                       batch_seeds=args.batch_seeds, backend=args.backend,
                       selection=args.select)
@@ -140,12 +142,16 @@ def main(argv=None):
                       selection=args.select)
     if args.select != "full":
         print(f"[train] parameter selection: {opt.selection_spec}")
-    ledger = TrajectoryLedger(base_seed=args.seed, grad_dtype="float32",
-                              backend=opt.backend_name,
-                              batch_seeds=opt.batch_seeds,
-                              selection=opt.selection_spec,
-                              sel_phase=opt.selection_phase)
+    if args.optimizer == "mezo":
+        ledger = TrajectoryLedger(base_seed=args.seed, grad_dtype="float32",
+                                  backend=opt.backend_name,
+                                  batch_seeds=opt.batch_seeds,
+                                  selection=opt.selection_spec,
+                                  sel_phase=opt.selection_phase)
     if args.exec_plan == "seed_parallel":
+        if args.optimizer != "mezo":
+            sys.exit("--exec-plan seed_parallel needs a seed-replayable ZO "
+                     "optimizer (--optimizer mezo, any --estimator)")
         if args.batch % args.n_groups:
             sys.exit(f"--batch {args.batch} must divide evenly into "
                      f"--n-groups {args.n_groups} slices")
@@ -162,7 +168,9 @@ def main(argv=None):
     print(f"[train] done: {res.steps_run} steps "
           f"(resumed from {res.resumed_from}); "
           f"final loss {res.losses[-1][1]:.4f}")
-    print(f"[train] ledger: {len(ledger)} entries, {ledger.nbytes()} bytes")
+    if ledger is not None:
+        print(f"[train] ledger: {len(ledger)} entries, "
+              f"{ledger.nbytes()} bytes")
 
 
 if __name__ == "__main__":

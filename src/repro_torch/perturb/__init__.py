@@ -1,14 +1,16 @@
 """``repro_torch.perturb`` — the z-stream identity and the perturbation
-backend (the counter-hash stream of the zo_fused kernels, stream id
-``pallas+z2``)."""
+backends: ``xla`` (JAX's default, the threefry-normal stream, through the
+X1 kernel) and ``pallas`` (the counter-hash stream of the zo_fused kernels,
+stream id ``pallas+z2``)."""
 import os
 
 from repro_torch.perturb.base import (BackendMismatchError, PerturbBackend,
                                       check_replay_backend, per_stream_scales)
 from repro_torch.perturb.counter import CounterBackend
 from repro_torch.perturb.stream import StreamRef, prng_key, step_key
+from repro_torch.perturb.xla import XLABackend
 
-_FACTORIES = {"pallas": CounterBackend}
+_FACTORIES = {"xla": XLABackend, "pallas": CounterBackend}
 _INSTANCES: dict = {}
 
 
@@ -20,25 +22,12 @@ def get_backend(spec=None) -> PerturbBackend:
     """Resolve a backend as ``repro.perturb.get_backend`` does: ``None`` →
     the ``REPRO_BACKEND`` environment variable, falling back to ``"xla"``;
     a string → the registry; an instance → itself (one cached instance per
-    name).
-
-    The port has the counter stream (``"pallas"``) only.  JAX's default,
-    the threefry ``"xla"`` stream, arrives with a later slice: resolving to
-    it raises rather than silently training on another stream than JAX
-    would.  ``"pallas-interpret"`` (JAX's CPU interpreter of the TPU kernel)
+    name).  ``"pallas-interpret"`` (JAX's CPU interpreter of the TPU kernel)
     has no meaning here: the plain torch versions run for CPU tensors."""
     if spec is None:
         spec = os.environ.get("REPRO_BACKEND") or "xla"
     if isinstance(spec, PerturbBackend):
         return spec
-    if spec == "xla":
-        raise NotImplementedError(
-            "the 'xla' perturbation backend (JAX's threefry-normal stream, "
-            "the default when no backend is named and REPRO_BACKEND is "
-            "unset) is not ported yet — it comes with a later slice of the "
-            "port (ROADMAP Queue 1).  Pass backend='pallas' (or set "
-            "REPRO_BACKEND=pallas) for the counter-hash stream 'pallas+z2', "
-            "which the port runs bitwise-equal to JAX")
     if spec == "pallas-interpret":
         raise ValueError(
             "'pallas-interpret' is JAX's CPU interpreter of the TPU kernel "
@@ -54,5 +43,6 @@ def get_backend(spec=None) -> PerturbBackend:
 
 
 __all__ = ["BackendMismatchError", "CounterBackend", "PerturbBackend",
-           "StreamRef", "available_backends", "check_replay_backend",
-           "get_backend", "per_stream_scales", "prng_key", "step_key"]
+           "StreamRef", "XLABackend", "available_backends",
+           "check_replay_backend", "get_backend", "per_stream_scales",
+           "prng_key", "step_key"]

@@ -98,9 +98,19 @@ class PerturbBackend:
         raise NotImplementedError
 
     def apply_rank1(self, params: PyTree, ref: StreamRef, coeff,
-                    decay_term=0.0, dist: str = "gaussian") -> PyTree:
+                    decay_term=0.0, dist: str = "gaussian",
+                    d_tree: Optional[PyTree] = None) -> PyTree:
         """θ ← (1 − decay_term)·θ − coeff·z(ref): the primitive shared by
-        live steps and ledger replay."""
+        live steps and ledger replay.  ``d_tree`` (one positive f32 scalar
+        per leaf) rescales z leaf by leaf — Definition 6's D·z."""
+        raise NotImplementedError
+
+    def perturb_leaf(self, p: torch.Tensor, ref: StreamRef, leaf_index: int,
+                     scale, dist: str = "gaussian") -> torch.Tensor:
+        """p + scale·z(ref, leaf ``leaf_index``) on one leaf, in place, in
+        one kernel pass — what rescaled SPSA's per-leaf perturbation writes
+        (JAX forms it from ``leaf_z``; sphere takes the plain gaussian
+        direction)."""
         raise NotImplementedError
 
     def leaf_z(self, ref: StreamRef, leaf_index: int, like: torch.Tensor,

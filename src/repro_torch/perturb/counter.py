@@ -17,7 +17,9 @@ bitwise ≡ ``full``.
 Which kernel serves which method (whole leaf | partial rows plan):
 
 * ``perturb`` / ``fused_restore_update`` / ``apply_rank1`` → K1
-  ``zo_affine`` | K7 ``zo_affine_rows``; ``leaf_z`` → K1;
+  ``zo_affine`` | K7 ``zo_affine_rows``; ``leaf_z`` and ``perturb_leaf``
+  → K1; ``apply_rank1`` along rescaled SPSA's D·z folds b = −coeff·d_i
+  into K1's scalar per leaf;
 * ``perturb_many`` with a shared scale → K5 ``zo_affine_batched``, with
   per-stream scales (spsa's ±ε pair) or ``sphere`` → K4 ``zo_affine_multi``
   | K8 ``zo_affine_multi_rows`` either way;
@@ -92,14 +94,16 @@ class CounterBackend(PerturbBackend):
     dists = frozenset({"gaussian", "rademacher", "sphere"})
     stream_version = 2
 
-    def _map(self, params: PyTree, ref: StreamRef, a, b, dist: str) -> PyTree:
+    def _map(self, params: PyTree, ref: StreamRef, a, b, dist: str,
+             b_leaves=None) -> PyTree:
         seed = ref.counter_seed()
         mask, blocks = ref.selection_mask(params), ref.selection_blocks(params)
-        a, b = float(f32(a)), float(f32(b))
+        a, b_shared = float(f32(a)), float(f32(b))
 
         def one(i, p):
             if not _active(p, mask, i):
                 return p
+            b = float(b_leaves[i]) if b_leaves is not None else b_shared
             rb = _leaf_blocks(blocks, i)
             if rb is None:
                 return zo_affine(p, leaf_seed(seed, i), a, b, dist, out=p)
@@ -175,16 +179,26 @@ class CounterBackend(PerturbBackend):
     def apply_rank1(self, params: PyTree, ref: StreamRef, coeff,
                     decay_term=0.0, dist: str = "gaussian",
                     d_tree: Optional[PyTree] = None) -> PyTree:
+        # along D·z, b = −coeff·d_i folds into K1's scalar leaf by leaf, as
+        # the pallas backend folds it (pallas.py:388)
         self.check_dist(dist)
-        if d_tree is not None:
-            raise NotImplementedError(
-                "apply_rank1 along D·z (rescaled_spsa's d_tree) is ported "
-                "with rescaled_spsa, a later slice")
         b = -f32(coeff)
+        b_leaves = (None if d_tree is None else
+                    [f32(b * f32(d)) for d in tree_leaves(d_tree)])
         if dist == "sphere":
-            b = f32(b * self._sphere_scale(params, ref))
+            sph = self._sphere_scale(params, ref)
+            b = f32(b * sph)
+            if b_leaves is not None:
+                b_leaves = [f32(bi * sph) for bi in b_leaves]
             dist = "gaussian"
-        return self._map(params, ref, f32(1.0) - f32(decay_term), b, dist)
+        return self._map(params, ref, f32(1.0) - f32(decay_term), b, dist,
+                         b_leaves)
+
+    def perturb_leaf(self, p: torch.Tensor, ref: StreamRef, leaf_index: int,
+                     scale, dist: str = "gaussian") -> torch.Tensor:
+        self.check_dist(dist)
+        return zo_affine(p, ref.leaf_seed(leaf_index), 1.0, float(f32(scale)),
+                         "gaussian" if dist == "sphere" else dist, out=p)
 
     def leaf_z(self, ref: StreamRef, leaf_index: int, like: torch.Tensor,
                dist: str = "gaussian") -> torch.Tensor:

@@ -87,8 +87,9 @@ class ZOEstimator(NamedTuple):
 class Updates(NamedTuple):
     """The value threaded through a transform chain, per seed: ``g`` the
     ledger scalar, ``coeff`` the η-scaled coefficient, ``lr`` the schedule's
-    η, ``decay`` the decoupled η·λ, ``final_params`` a materialized update
-    (applier transforms — a later slice)."""
+    η, ``decay`` the decoupled η·λ, ``final_params`` the parameters an
+    applier transform (``scale_by_zo_adam`` / ``trace``) has written, which
+    replace the default rank-1 application."""
     g: Any
     coeff: Any = None
     lr: Any = None
@@ -167,8 +168,24 @@ class ZOOptimizer:
         self.estimator = estimator
         self.transform = transform if transform is not None else identity()
         self.name = name or estimator.name
-        if estimator.selection is not None and \
-                self.transform.info.get("applier"):
+        applier = self.transform.info.get("applier")
+        if estimator.n_seeds > 1 and applier:
+            raise ValueError(
+                "stateful applier transforms (scale_by_zo_adam / trace) keep "
+                "one ledger entry per step and cannot run under interleaved "
+                "n-SPSA; use n_seeds=1")
+        if estimator.batch_seeds > 1 and applier:
+            raise ValueError(
+                "applier transforms (scale_by_zo_adam / trace) reconstruct "
+                "their update from one scalar per step and cannot consume a "
+                "batched-seed estimator's per-seed g vector; use "
+                "batch_seeds=1 or a scalar transform chain")
+        if applier and self.transform.info.get("scalar_decay"):
+            raise ValueError(
+                "add_weight_decay sets the scalar decay slot, which applier "
+                "transforms (scale_by_zo_adam / trace) bypass — pass "
+                "weight_decay= to the applier transform instead")
+        if estimator.selection is not None and applier:
             raise ValueError(
                 "applier transforms (scale_by_zo_adam / trace) materialize "
                 "their update over the FULL tree from the g-history, which "
@@ -246,6 +263,11 @@ class ZOOptimizer:
         rank-1 updates of a batched-seed step).  ``phase`` is the replayed
         step's schedule phase, derived from its step index as the live step
         derived it."""
+        if self.info.get("applier"):
+            raise ValueError(
+                f"{self.name}: scalar-ledger replay cannot reproduce applier "
+                "transforms (scale_by_zo_adam / trace); resume from a full "
+                "state checkpoint instead of a ledger tail")
         if not self.estimator.replayable:
             raise ValueError(
                 f"{self.name}: the {self.estimator.name!r} estimator updates "
@@ -291,8 +313,11 @@ class ZOOptimizer:
                                    restore=e.restore, backend=backend)
                 u, tf_state = tf.update(Updates(g=e.projected_grad),
                                         tf_state, ctx)
-                coeff = u.coeff if u.coeff is not None else u.g
-                p = e.apply_update(coeff, u.decay)
+                if u.final_params is not None:
+                    p = u.final_params
+                else:
+                    coeff = u.coeff if u.coeff is not None else u.g
+                    p = e.apply_update(coeff, u.decay)
                 gs.append(u.g)
                 losses.append(e.loss)
                 aux.update(e.aux)

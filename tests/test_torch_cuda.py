@@ -21,6 +21,7 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6.kernel import plan as wkv6_plan
 from repro_torch.kernels.rwkv6.kernel import wkv6_chunked
+from repro_torch.kernels.threefry import kernel as x1
 from repro_torch.kernels.zo_fused.kernel import (zo_affine,
                                                  zo_affine_batched,
                                                  zo_affine_batched_plain,
@@ -692,3 +693,36 @@ def test_cuda_wkv6_tiled_route_empty_sequence(cuda):
     assert wkv6_plan(r, k, v, lw) == "tile"
     y, s = wkv_ops.wkv6(r, k, v, lw, u, s0, chunk=16)
     assert y.shape == (2, 0, 40, 64) and torch.equal(s, s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+@pytest.mark.parametrize("form", ["z", "axpbz", "xpbz", "restore"])
+def test_cuda_x1_equals_plain(cuda, dtype, dist, form):
+    """X1 ≡ its plain version bitwise: odd widths, a leaf off 16 bytes, a z
+    scale and a band list."""
+    g = torch.Generator().manual_seed(0)
+    base = torch.randn(1 + 1001 * 3, generator=g).to(dtype).to(cuda)
+    x = base[1:]                                   # off 16 bytes
+    for zs, bands in ((None, None), (0.75, None),
+                      (None, [(3, 700), (1500, 2999)])):
+        kw = dict(a=0.5, b=-0.25, e=0.125, zs=zs, dist=dist, bands=bands)
+        xin = None if form == "z" else x
+        got = x1.zo_affine_threefry(xin, (5, 9), form, out=x.clone(), **kw)
+        want = x1.zo_affine_threefry_plain(xin, (5, 9), form, out=x.clone(),
+                                           **kw)
+        assert torch.equal(got.view(torch.int16 if dtype != torch.float32
+                                    else torch.int32),
+                           want.view(torch.int16 if dtype != torch.float32
+                                     else torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_x1_exhaustive_f32_and_tables(cuda):
+    """The f32 gaussian over all 2^23 uniform mantissas and the bf16 / f16
+    tables: the kernel's against the plain version's, bitwise."""
+    assert x1.normal_f32_selftest(cuda) == 0
+    for dt in (torch.bfloat16, torch.float16):
+        assert x1.table_selftest(dt, cuda) == 0

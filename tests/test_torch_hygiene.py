@@ -118,8 +118,9 @@ def test_train_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    ([], "backend pallas"),
-    (["--backend", "pallas", "--optimizer", "mezo-adam"], "mezo_adam"),
+    (["--backend", "pallas-interpret"], "JAX's CPU interpreter"),
+    (["--optimizer", "mezo-adam", "--exec-plan", "seed_parallel",
+      "--n-groups", "2"], "seed-replayable"),
     (["--backend", "pallas", "--optimizer", "adam"], "backprop"),
     (["--backend", "pallas", "--optimizer", "mezo-adam", "--select",
       "rows(block=1,k=4)"], "requires --optimizer mezo"),
@@ -137,8 +138,7 @@ def test_train_cli_refuses_later_slices(argv, slice_name):
 @pytest.mark.parametrize("spec", [None, "pallas", "xla", "nope"])
 def test_backend_resolution_matches_jax(monkeypatch, env, spec):
     """``get_backend`` resolves as JAX's does — None → $REPRO_BACKEND, else
-    "xla" — and refuses loudly where JAX would build the unported xla
-    stream."""
+    "xla" — to a backend with JAX's stream id."""
     from repro.perturb import get_backend as jax_get_backend
     from repro_torch.perturb import get_backend
     if env is None:
@@ -151,14 +151,10 @@ def test_backend_resolution_matches_jax(monkeypatch, env, spec):
         with pytest.raises(KeyError, match="unknown perturbation backend"):
             get_backend(spec)
         return
-    if want == "xla":
-        with pytest.raises(NotImplementedError, match="backend='pallas'"):
-            get_backend(spec)
-    else:
-        got = get_backend(spec)
-        assert got.name == want and got.stream_id == jax_get_backend(
-            spec).stream_id
-        assert get_backend(spec) is got                # one cached instance
+    got = get_backend(spec)
+    assert got.name == want and got.stream_id == jax_get_backend(
+        spec).stream_id
+    assert get_backend(spec) is got                    # one cached instance
 
 
 def test_pallas_interpret_is_refused_with_a_pointer_to_the_cpu(monkeypatch):

@@ -144,9 +144,8 @@ def test_replay_refusals_match_jax(smoke_params):
     led.append(0, 1.0, 1e-3)
     with pytest.raises(BackendMismatchError, match="'xla' perturbation"):
         replay(params, led, opt)
-    # the header names the xla stream, which the port refuses to build
-    with pytest.raises(NotImplementedError, match="backend='pallas'"):
-        composition_for_ledger(led)
+    # the header names the xla stream: the composition replays on it
+    assert composition_for_ledger(led).backend_name == "xla"
     led = TrajectoryLedger(base_seed=0, backend="pallas+z1")
     led.append(0, 1.0, 1e-3)
     with pytest.raises(BackendMismatchError, match="z-generator arithmetic"):

@@ -41,7 +41,7 @@ from repro_torch import convert
 from repro_torch import exec as texec
 from repro_torch import zo
 from repro_torch.core import TrajectoryLedger, replay
-from repro_torch.data import DataSpec, Pipeline, plant_structure
+from repro_torch.data import DataSpec, Pipeline, lm_batch, plant_structure
 from repro_torch.models import all_archs, bundle
 from repro_torch.train import train
 from repro_torch.tree_utils import tree_clone, tree_leaves
@@ -286,14 +286,21 @@ def test_one_point_perturbs_a_copy(weights):
 # --------------------------------------------------------------------------- #
 def test_planted_structure_matches_jax_on_jax_base_tokens():
     """JAX's base tokens (threefry randint) through the port's planting
-    function reproduce JAX's batch exactly — wrapping int32, floor mod."""
+    function reproduce JAX's batch exactly — wrapping int32, floor mod —
+    and the port's ``lm_batch``, which draws those base tokens itself, is
+    JAX's whole batch (tokens, labels, mask)."""
     seed, step, batch, seq, vocab = 5, 9, 3, 33, 151_936
-    key = jax.random.fold_in(jax.random.PRNGKey(seed), step)
-    base = np.asarray(jax.random.randint(key, (batch, seq), 0, vocab,
-                                         jnp.int32))
-    want = np.asarray(jax_lm_batch(seed, step, batch, seq, vocab)["tokens"])
+    with jax.threefry_partitionable(True):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), step)
+        base = np.asarray(jax.random.randint(key, (batch, seq), 0, vocab,
+                                             jnp.int32))
+        jb = jax_lm_batch(seed, step, batch, seq, vocab)
+    want = np.asarray(jb["tokens"])
     got = plant_structure(torch.from_numpy(base), vocab).numpy()
     assert got.dtype == np.int32 and np.array_equal(got, want)
+    full = lm_batch(seed, step, batch, seq, vocab)
+    for k in ("tokens", "labels", "loss_mask"):
+        assert np.array_equal(full[k].numpy(), np.asarray(jb[k])), k
 
 
 def test_pipeline_is_a_pure_function_of_the_step():
