@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
-    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11
+    python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
 
 In order: prints the card's name and power limit; builds the seven CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -25,18 +25,23 @@ every head dim of ``K11_SWEEP_HD``.  ``zo_selftest`` runs every rewrite of
 the z generator (``zo_stream.cuh``) against its specification over the
 whole domain (any mismatch fails).  K7 and K9 are also held on both their
 routes (a row-block of whole 16-byte vectors, or not), each launch counted
-under its route.  It then counts the SASS instructions
-per z by unit of K1, K3, the K4 / K5 fan-out, K6, K7, K9 and K10 and times them
-through their C entry points, and times K11 at the rwkv6-3b training shape
-and a single-request prefill (CUDA-graph runs) — with ``--parent`` (a ``git
+under its route; X1 ``zo_affine_threefry`` on all three of its routes
+(``vector``, ``scalar``, ``bands``) and on launches whose counters cross
+2^32.  X1's pipe probes read each pipe's rate (ALU, IMAD, FP32; which
+opcodes share one).  It then counts the SASS instructions per z by pipe of
+K1, K3, the K4 / K5 fan-out, K6, K7, K9, K10 and X1, prints each one's
+issue floor and pipe floor (``pipe_floor``: the busiest of the issue port
+and the pipes, ALU and IMAD at 16 lanes), and times them through their C
+entry points, and times K11 at the rwkv6-3b training shape and a
+single-request prefill (CUDA-graph runs) — with ``--parent`` (a ``git
 archive`` of the parent commit) the parent's K1, K3, K4, K5, K6, K7, K9,
-K10 (K6 and K10 one call per leaf) and K11 too, built with the same flags,
-in turns,
-the parent's outputs and norms held bitwise to this tree's — and times K2
-at OPT-13b's head dim 128 beside one SDPA call.  Every K11 launch of the
+K10 (K6 and K10 one call per leaf), K11 and X1 too, built with the same
+flags, in turns, the parent's outputs and norms held bitwise to this
+tree's — and times K2 at OPT-13b's head dim 128 beside one SDPA call.  Every K11 launch of the
 counted paths must take the tiled route, every K4 / K5 launch the vector
-route, and every K7 / K9 launch on a qwen2 leaf whose row-block is a whole
-number of 16-byte vectors the vector route.  Then it
+route, every K7 / K9 launch on a qwen2 leaf whose row-block is a whole
+number of 16-byte vectors the vector route, and every X1 launch the vector
+route.  Then it
 drives the port's paths at the full width of qwen2-0.5b (random bf16
 weights from a seeded ``torch.Generator``, all 24 layers, ``pallas_flash``
 attention), each with the launch counts set to 0 just before it and read
@@ -745,7 +750,8 @@ _KERNELS = ("flash_fwd_mma", "flash_fwd_sliced", "gather_kernel", "wkv6_fwd",
             "selftest_kernel", "rows_tile_sums", "rows_fold_leaves",
             "sqnorm_rows_tiles", "tile_sums", "fold_leaves",
             "affine_rows_kernel", "chain_rows_kernel", "multi_rows_kernel",
-            "threefry_kernel", "table_kernel", "normal_f32_kernel")
+            "threefry_kernel", "whole_kernel", "bands_kernel",
+            "probe_kernel", "table_kernel", "normal_f32_kernel")
 _TARG = re.compile(r"13__nv_bfloat16|6__half|f|Li(-?\d+)E|Lb([01])E")
 
 
@@ -803,19 +809,59 @@ def build_facts(_build) -> None:
         + ", ".join(f"{k} {v}" for k, v in sorted(hmma.items())))
 
 
-# SASS opcodes by the unit that issues them; every other opcode (LOP3,
-# IADD3, SHF, ISETP, FSETP, FSEL, SEL, FMNMX, PRMT, LEA, MOV, …) is "alu"
+# SASS opcodes by the pipe that executes them; U-prefixed opcodes run on
+# the uniform datapath ("uniform"), and every other opcode (LOP3, IADD3,
+# SHF, ISETP, FSETP, FSEL, SEL, FMNMX, PRMT, LEA, MOV, F2FP, …) is "alu".
+# F2FP shares the ALU pipe with LOP3 and VIADD runs beside it on the IMAD
+# pipe (X1's pipe probes, ``check_pipes``).
 SASS_GROUPS = (
     ("mufu", ("MUFU",)),
-    ("conversion", ("I2F", "F2I", "FRND", "F2F", "I2FP", "F2IP", "F2FP",
-                    "I2I")),
-    ("imad", ("IMAD",)),
-    ("fp32", ("FFMA", "FMUL", "FADD", "FSWZADD")),
+    ("conversion", ("I2F", "F2I", "FRND", "F2F", "I2FP", "F2IP", "I2I")),
+    ("imad", ("IMAD", "VIADD")),
+    ("fp32", ("FFMA", "FMUL", "FADD", "FSWZADD", "HFMA2", "HMUL2",
+              "HADD2")),
     ("memory", ("LDG", "STG", "LDS", "STS", "LDC", "LDL", "STL", "LD", "ST",
-                "ULDC", "LDGSTS", "LDSM")),
+                "LDGSTS", "LDSM")),
     ("control", ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "NOP",
                  "WARPSYNC", "BAR", "JMP", "BPT")),
 )
+#: lanes per SM partition of each pipe (a warp-instruction occupies its pipe
+#: 32 / lanes cycles): ALU and IMAD at 16 (half the issue rate), as X1's
+#: pipe probes measure; FP32 at 32; conversions and MUFU at 4 (16 results
+#: per SM per clock, the CUDA C++ Programming Guide's arithmetic-throughput
+#: table for compute capability 9.0).  Memory, control and uniform
+#: instructions count to issue only.
+PIPE_LANES = {"alu": 16, "imad": 16, "fp32": 32, "conversion": 4, "mufu": 4}
+
+
+def sass_group(op: str) -> str:
+    if op.startswith("U"):
+        return "uniform"
+    return next((g for g, ops in SASS_GROUPS if op in ops), "alu")
+
+
+def pipe_floor(c: dict) -> tuple:
+    """(issue slots per z of a warp that the busiest of the issue port and
+    the pipes needs, its name): the instructions per z, or each pipe's
+    instructions per z × 32 / its lanes, whichever is largest."""
+    slots = {"issue": c["total"]}
+    slots.update({g: c[g] * 32 / lanes for g, lanes in PIPE_LANES.items()})
+    name = max(slots, key=slots.get)
+    return slots[name], name
+
+
+def floors_text(n_z: float, c: dict, mhz: float, measured=None) -> str:
+    """The issue floor and the pipe floor of ``n_z`` z at ``c``'s counts,
+    which of them binds, and the share of the pipe floor ``measured`` ms
+    reaches."""
+    issue = issue_floor_ms(n_z, c["total"], mhz)
+    slots, name = pipe_floor(c)
+    pipe = issue_floor_ms(n_z, slots, mhz)
+    return (f"issue floor {issue:.3f} ms, pipe floor {pipe:.3f} ms ({name} "
+            f"binds: {slots:.2f} issue slots per z — alu {c['alu']:.2f} and "
+            f"imad {c['imad']:.2f} instructions per z at 16 lanes)"
+            + ("" if measured is None else
+               f", {100 * pipe / measured:.0f}% of the pipe floor reached"))
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
                         r"([A-Z][A-Z0-9_]*)([^;]*);")
 
@@ -871,10 +917,9 @@ def sass_loop(instrs, innermost: bool = False) -> dict:
         return {}
     (rsq, _), body = best
     counts = {g: 0 for g, _ in SASS_GROUPS}
-    counts["alu"] = 0
+    counts.update(alu=0, uniform=0)
     for op, _ in body:
-        group = next((g for g, ops in SASS_GROUPS if op in ops), "alu")
-        counts[group] += 1
+        counts[sass_group(op)] += 1
     per_z = {g: n / rsq for g, n in counts.items()}
     per_z["total"] = len(body) / rsq
     per_z["rsq_in_loop"] = rsq
@@ -902,7 +947,7 @@ def sass_line(label: str, c: dict) -> str:
     return (f"{label}: {c['total']:.2f} SASS instructions per z in the hot "
             "loop — " + ", ".join(f"{g} {c[g]:.2f}" for g in
                                   ("fp32", "alu", "imad", "conversion",
-                                   "mufu", "memory", "control"))
+                                   "mufu", "memory", "control", "uniform"))
             + f" ({c['rsq_in_loop']} z per loop iteration)")
 
 
@@ -947,8 +992,8 @@ def sm_clocks() -> tuple:
 
 
 def build_parent_libs(_build, parent: Path) -> dict:
-    """K1's, K3–K5's, K6's, K7–K10's and K11's libraries built from another
-    checkout's
+    """K1's, K3–K5's, K6's, K7–K10's, K11's and X1's libraries built from
+    another checkout's
     sources (the parent commit, unpacked with ``git archive``)
     with this tree's flags, into ``build/parent_kernels``; {library name:
     path}."""
@@ -958,7 +1003,7 @@ def build_parent_libs(_build, parent: Path) -> dict:
     procs, paths = [], {}
     srcs = {name: kern / _build.SOURCES[name][0]
             for name in ("zo_affine", "zo_multi", "zo_sqnorm", "zo_rows",
-                         "wkv6")}
+                         "wkv6", "zo_threefry")}
     for name, path in srcs.items():
         lib = out_dir / f"{name}.so"
         flags = _build.SOURCES[name][1]
@@ -1534,6 +1579,7 @@ def check_x1(torch, np) -> float:
     band list) on odd widths and a leaf off 16 bytes, bitwise; and z
     against the JAX fixture (``tests/data/x1_golden.npz``).  Returns the max
     abs error (0 when bitwise)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.threefry import kernel as x1
     bad = x1.normal_f32_selftest("cuda")
     tables = {dt: x1.table_selftest(dt, "cuda")
@@ -1543,18 +1589,20 @@ def check_x1(torch, np) -> float:
              f"2^23 mantissas; table entries differing {tables}")
     g = torch.Generator().manual_seed(3)
     cases = 0
+    _build.reset_launch_counts()
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for n in (1, 4099, 1_000_003):
             base = torch.randn(n + 1, generator=g).to(dt).cuda()
             for x in (base[:n], base[1:]):           # on and off 16 bytes
                 for dist in ("gaussian", "rademacher"):
                     for form in ("z", "axpbz", "xpbz", "restore"):
-                        for zs, bands in ((None, None), (0.75, None),
-                                          (None, [(0, n // 3),
-                                                  (n // 2, n)])):
+                        for zs, bands, off in (
+                                (None, None, 0), (0.75, None, 0),
+                                (None, [(0, n // 3), (n // 2, n)], 0),
+                                (None, None, (1 << 32) - n // 2)):
                             xin = None if form == "z" else x
                             kw = dict(a=0.5, b=-0.25, e=0.125, zs=zs,
-                                      dist=dist, bands=bands)
+                                      dist=dist, bands=bands, offset=off)
                             yk = x1.zo_affine_threefry(
                                 xin, (7, 2**31 + 5), form, out=x.clone(),
                                 **kw)
@@ -1563,8 +1611,13 @@ def check_x1(torch, np) -> float:
                                 **kw)
                             if not same_bits(yk, yp):
                                 fail(f"X1 {dt} n={n} {dist} {form} zs={zs} "
-                                     f"bands={bands}: kernel != plain")
+                                     f"bands={bands} offset={off}: kernel "
+                                     "!= plain")
                             cases += 1
+    routes = dict(_build.route_counts)
+    if min(routes.get(f"zo_affine_threefry/{r}", 0)
+           for r in ("vector", "scalar", "bands")) == 0:
+        fail(f"X1's checks missed a route: {routes}")
     gold = np.load(X1_GOLDEN)
     key = tuple(int(k) for k in gold["key"])
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16),
@@ -1578,19 +1631,24 @@ def check_x1(torch, np) -> float:
     log(f"X1 zo_affine_threefry: the f32 gaussian bitwise the plain version "
         f"over all 2^23 uniform mantissas, the bf16 (256) and f16 (1024) "
         f"tables bitwise; {cases} leaves (f32/bf16/f16 × gaussian/rademacher "
-        "× z/axpbz/xpbz/restore × plain, z-scaled, banded; odd sizes, off 16 "
-        "bytes) bitwise; z == the JAX golden fixture (f32/bf16/f16 × "
-        "gaussian/rademacher)")
+        "× z/axpbz/xpbz/restore × plain, z-scaled, banded, counters across "
+        "2^32; odd sizes, off 16 bytes) bitwise, launches by route "
+        + ", ".join(f"{k.split('/')[1]} {v}" for k, v in sorted(
+            routes.items())) + "; z == the JAX golden fixture (f32/bf16/f16 "
+        "× gaussian/rademacher)")
     return 0.0
 
 
-def x1_sass(_build) -> dict:
-    """X1's hot loop in SASS, by unit, for its bf16 gaussian axpbz whole-leaf
-    instance: the grid-stride loop (the last backward branch; the table
-    build before it is a loop of its own) holds one z per iteration."""
-    funcs = sass_of(_build.lib_path("zo_threefry"))
-    names = [n for n in funcs if re.search(
-        r"threefry_kernelI13__nv_bfloat16Li0ELi1ELb0E", n)]
+def x1_sass(lib_path, parent: bool = False) -> dict:
+    """X1's hot loop in SASS, by unit, per z, for its bf16 gaussian axpbz
+    whole-leaf instance: this tree's 16-byte vector loop — the backward
+    branch's span that holds the most table reads (LDS, one per z) — or,
+    with ``parent``, the first design's grid-stride loop (the last backward
+    branch; one z per iteration)."""
+    funcs = sass_of(lib_path)
+    pat = (r"threefry_kernelI13__nv_bfloat16Li0ELi1ELb0E" if parent
+           else r"whole_kernelI13__nv_bfloat16Li0ELi1EE")
+    names = [n for n in funcs if re.search(pat, n)]
     if len(names) != 1:
         fail(f"SASS: X1's bf16 gaussian axpbz kernel not found: {names}")
     instrs = funcs[names[0]]
@@ -1599,15 +1657,84 @@ def x1_sass(_build) -> dict:
         m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
         if m and int(m.group(1), 16) < addr:
             spans.append((int(m.group(1), 16), addr))
-    lo, hi = max(spans, key=lambda sp: sp[1])
+    best = None
+    for lo, hi in spans:
+        body = [op for a, op, _ in instrs if lo <= a <= hi]
+        nz = 1 if parent else body.count("LDS")
+        key = (hi, 0) if parent else (nz, -len(body))
+        if nz and (best is None or key > best[0]):
+            best = (key, body, nz)
+    if best is None:
+        fail(f"SASS: no z loop in {names[0]}")
+    _, body, nz = best
     counts = {g: 0 for g, _ in SASS_GROUPS}
-    counts["alu"] = 0
-    body = [op for a, op, _ in instrs if lo <= a <= hi]
+    counts.update(alu=0, uniform=0)
     for op in body:
-        counts[next((g for g, ops in SASS_GROUPS if op in ops), "alu")] += 1
-    counts["total"] = len(body)
-    counts["rsq_in_loop"] = 1
-    return counts
+        counts[sass_group(op)] += 1
+    per_z = {g: v / nz for g, v in counts.items()}
+    per_z["total"] = len(body) / nz
+    per_z["rsq_in_loop"] = nz
+    return per_z
+
+
+#: X1's pipe probes (``enum Probe`` in zo_threefry.cu): name, and the
+#: opcodes whose rate each reads
+PIPE_PROBES = (("LOP3", ("LOP3",)), ("SHF", ("SHF",)), ("IADD3", ("IADD3",)),
+               ("F2FP", ("F2FP",)), ("IMAD", ("IMAD",)),
+               ("VIADD", ("VIADD",)), ("IMAD.HI", ("IMAD",)),
+               ("FFMA", ("FFMA",)), ("LOP3+F2FP", ("LOP3", "F2FP")),
+               ("LOP3+VIADD", ("LOP3", "VIADD")),
+               ("IMAD+VIADD", ("IMAD", "VIADD")),
+               ("round", ("IMAD", "IADD3", "SHF", "LOP3")))
+
+
+def check_pipes(_build, card) -> dict:
+    """Each pipe's rate on the card, read from X1's pipe probes: chains of
+    one instruction kind (or two interleaved) on every SM, timed with CUDA
+    events while nvidia-smi samples the SM clock; the probe loop's opcodes
+    counted in its SASS.  Returns {probe: results per SM per clock of its
+    opcodes together}: 64 is a pipe of 16 lanes per partition (half the
+    issue rate), 128 one of 32; two kinds that share a pipe add up to one
+    pipe's rate, two on separate pipes to more."""
+    import torch
+    from repro_torch.kernels.threefry import kernel as x1
+    lib = x1._lib()
+    if lib.zo_threefry_probes() != len(PIPE_PROBES):
+        fail("X1's pipe probes and PIPE_PROBES differ in number")
+    blocks, iters = 132 * 8, 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    stream = _build.stream_of(out)
+    ms = {}
+    with ClockSampler() as clock:
+        for i, _ in enumerate(PIPE_PROBES):
+            def run(i=i):
+                _build.check(lib, lib.zo_threefry_pipe_probe(
+                    i, _build.ptr(out), blocks, iters, stream),
+                    "zo_threefry_pipe_probe")
+            run()
+            ms[i] = cuda_ms(run, 10)
+    funcs = sass_of(_build.lib_path("zo_threefry"))
+    rates, warps = {}, blocks * 256 / 32
+    for i, (name, ops) in enumerate(PIPE_PROBES):
+        fn = [n for n in funcs if re.search(rf"probe_kernelILi{i}E", n)]
+        if len(fn) != 1:
+            fail(f"SASS: pipe probe {i} not found: {fn}")
+        instrs = funcs[fn[0]]
+        spans = [(int(m.group(1), 16), a) for a, op, r in instrs
+                 for m in [re.search(r"0x([0-9a-f]+)", r)]
+                 if op == "BRA" and m and int(m.group(1), 16) < a]
+        lo, hi = max(spans, key=lambda sp: sp[1] - sp[0])
+        body = [op for a, op, _ in instrs if lo <= a <= hi]
+        n_ops = sum(1 for op in body if op in ops)
+        per_clock = (n_ops * iters * warps
+                     / (ms[i] * 1e-3 * clock.mhz * 1e6 * 132))
+        rates[name] = 32 * per_clock
+        log(f"pipe probe {name}: {ms[i]:.4f} ms, {n_ops} of {len(body)} "
+            f"loop instructions {'/'.join(ops)}: {32 * per_clock:.1f} results"
+            f" per SM per clock = {8 * per_clock:.1f} lanes per partition "
+            f"({per_clock / 4 * 100:.0f}% of the issue rate) at "
+            f"{clock.mhz:.0f} MHz — on {card}")
+    return rates
 
 
 def plain_replay_xla(params, led, np):
@@ -1766,23 +1893,28 @@ def xla_paths(torch, np, cfg, params0, prompts, _build, counts, step_ms,
     with ClockSampler() as clock:
         ms_x1 = cuda_ms(record, 10)
         cuda_ms(record, 60)        # keeps the card busy while it samples
+    _build.reset_launch_counts()
+    record()
+    routes = dict(_build.route_counts)
     plain_ms = host_ms(lambda: record(x1.zo_affine_threefry_plain))
     del scratch
-    c = x1_sass(_build)
+    c = x1_sass(_build.lib_path("zo_threefry"))
     mhz = clock.mhz if clock.mhz == clock.mhz else sm_clocks()[0]
     floor = issue_floor_ms(n_all, c["total"], mhz)
     bms, by = bound(2 * leaf_bytes, 4 * n_all, F32_FLOPS)
     log(sass_line("X1 zo_affine_threefry (bf16 gaussian axpbz)", c))
     log(f"X1 zo_affine_threefry, one pass over the {len(leaves)} qwen2-0.5b "
         f"leaves ({n_all} bf16 elements, gaussian, the replay / update "
-        f"write): {ms_x1:.4f} ms (median of 10 CUDA-event pairs), plain "
-        f"version {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}); issue floor "
-        f"{floor:.4f} ms at {c['total']:.2f} SASS instructions per z and "
-        f"{mhz:.0f} MHz ({100 * floor / ms_x1:.1f}% of it reached) — on "
-        f"{card}")
+        f"write; launches {routes}): {ms_x1:.4f} ms (median of 10 "
+        f"CUDA-event pairs), plain version {plain_ms:.1f} ms, bound "
+        f"{bms:.4f} ms ({by}); issue floor {floor:.4f} ms at "
+        f"{c['total']:.2f} SASS instructions per z and {mhz:.0f} MHz "
+        f"({100 * floor / ms_x1:.1f}% of it reached); "
+        + floors_text(n_all, c, mhz, ms_x1) + f" — on {card}")
     log("X1 registers / shared memory / spills (gaussian axpbz, whole "
         "leaf): " + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas_facts(
-            _build, "zo_threefry").items()) if k.endswith(", 0, 1, false>")))
+            _build, "zo_threefry").items())
+            if k.startswith("whole_kernel") and k.endswith(", 0, 1>")))
     return {"name": "zo_affine_threefry", "route": "cuda",
             "source": "src/repro_torch/kernels/threefry/csrc/zo_threefry.cu",
             "replaces": "src/repro/perturb/xla.py:38", "launches": 0,
@@ -2021,7 +2153,7 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
     from repro_torch.kernels.zo_fused.kernel import _f32
     libs = {"change": {name: _build.lib_path(name) for name in
                        ("zo_affine", "zo_multi", "zo_sqnorm", "zo_rows",
-                        "wkv6")}}
+                        "wkv6", "zo_threefry")}}
     if parent is not None:
         libs["parent"] = build_parent_libs(_build, parent)
     n_all = sum(p.numel() for p in leaves)
@@ -2078,12 +2210,14 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
         for name in libs:
             per_z = counts[name][label]["total"]
             floor = issue_floor_ms(nz, per_z, mhz)
-            log(f"{label} {name}: " + ", ".join(
-                f"{t:.3f}" for t in times[key][name])
+            ts = times[key][name]
+            log(f"{label} {name}: " + ", ".join(f"{t:.3f}" for t in ts)
                 + f" ms ({order.count(name)} runs in turns "
                 f"{'/'.join(order)}); issue floor {floor:.3f} ms = {nz} z × "
                 f"{per_z:.2f} instructions / (4 warp-instructions × 32 × 132 "
-                f"SMs × {mhz:.0f} MHz) — on {card}")
+                f"SMs × {mhz:.0f} MHz); " + floors_text(
+                    nz, counts[name][label], mhz, sum(ts) / len(ts))
+                + f" — on {card}")
     log(f"SM clock during the runs {mhz:.0f} MHz (median of nvidia-smi "
         f"samples every 100 ms), {cur:.0f} MHz after, {mx:.0f} MHz max")
     k6_turns(torch, _build, leaves, libs, order, card, mhz)
@@ -2091,7 +2225,78 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
     k10_turns(torch, _build, leaves, libs, order, card, mhz)
     rows_turns(torch, _build, leaves, libs, order, card, mhz)
     k11_turns(torch, _build, libs, card)
+    x1_turns(torch, _build, leaves, libs, order, card, mhz)
     return counts["change"]
+
+
+def x1_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
+    """X1's bf16 gaussian axpbz pass over ``leaves`` (the replay / update
+    write of the default stream) through the C entry points, in turns
+    ``order``: the parent's ``zo_threefry`` (its first design, one launch
+    per leaf) and this tree's ``zo_threefry_whole`` (the launches
+    ``kernel.whole_launches`` plans); one pass of each from the same leaves
+    held bitwise equal.  Prints the times, each side's SASS instructions
+    per z by pipe and its issue and pipe floors."""
+    import ctypes
+    from repro_torch.kernels.threefry import kernel as x1
+    vp, i64, i, f, u32, u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_uint32,
+                               ctypes.c_uint64)
+    bval = -0.0001220703125                       # a bf16 value: −η·g
+    stream = _build.stream_of(leaves[0])
+    new = ctypes.CDLL(str(libs["change"]["zo_threefry"])).zo_threefry_whole
+    new.argtypes = [vp, vp, u32, u32, u32, i, u32, u32, u32, u32, i, i, f, f,
+                    f, f, i, f, vp]
+    new.restype = i
+    plans = [x1.whole_launches(q.numel(), 0, q.data_ptr(), q.data_ptr(),
+                               q.element_size()) for q in leaves]
+
+    def change(ys):
+        for j, (q, plan) in enumerate(zip(ys, plans)):
+            for ln in plan:
+                at = q.data_ptr() + ln.start * q.element_size()
+                if new(at, at, ln.n, ln.head, ln.nvec, 1, 12345, j, ln.hi,
+                       ln.lo, 0, 1, 1.0, bval, 0.0, 1.0, 0, 0.0, stream):
+                    fail("X1 timing launch failed")
+    fns = {"change": change}
+    if "parent" in libs:
+        old = ctypes.CDLL(str(libs["parent"]["zo_threefry"])).zo_threefry
+        old.argtypes = [vp, vp, i64, i, u32, u32, u64, i, i, f, f, f, f, i, f,
+                        vp, vp, i, i64, vp]
+        old.restype = i
+
+        def parent(ys):
+            for j, q in enumerate(ys):
+                if old(q.data_ptr(), q.data_ptr(), q.numel(), 1, 12345, j, 0,
+                       0, 1, 1.0, bval, 0.0, 1.0, 0, 0.0, None, None, 0,
+                       q.numel(), stream):
+                    fail("the parent's X1 timing launch failed")
+        fns["parent"] = parent
+        outs = {}
+        for name, fn in fns.items():
+            outs[name] = [q.clone() for q in leaves]
+            fn(outs[name])
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(outs["parent"],
+                                                   outs["change"])):
+            fail("X1: this tree's pass != the parent's pass")
+        del outs
+    times = {}
+    for name in order:
+        times.setdefault(name, []).append(
+            cuda_ms(lambda fn=fns[name]: fn(leaves), 10))
+    n_all = sum(q.numel() for q in leaves)
+    for name in fns:
+        c = x1_sass(libs[name]["zo_threefry"], parent=name == "parent")
+        log(f"{name} " + sass_line("X1 (bf16 gaussian axpbz)", c))
+        ts = times[name]
+        log(f"X1 {name}: " + ", ".join(f"{t:.3f}" for t in ts)
+            + f" ms per pass over {len(leaves)} leaves ({order.count(name)} "
+            f"runs in turns {'/'.join(order)}); " + floors_text(
+                n_all, c, mhz, sum(ts) / len(ts)) + f" — on {card}")
+    if "parent" in fns:
+        log("X1: one pass of the parent's kernel and of this tree's from the "
+            "same leaves are bitwise equal")
 
 
 def k6_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
@@ -2156,7 +2361,9 @@ def k6_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
             + f" ms per pass over {len(ns)} leaves ({order.count(name)} "
             f"runs in turns {'/'.join(order)}; {how[name]}); "
             f"issue floor {floor:.3f} ms = {n_all} z × {c['total']:.2f} "
-            f"instructions at {mhz:.0f} MHz — on {card}")
+            f"instructions at {mhz:.0f} MHz; " + floors_text(
+                n_all, c, mhz, sum(times[name]) / len(times[name]))
+            + f" — on {card}")
 
 
 def _regs(_build, paths, lib: str, prefix: str) -> str:
@@ -2241,7 +2448,9 @@ def fanout_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
                 + f" ms per {B_SEEDS}-stream fan-out of {len(leaves)} leaves "
                 f"({order.count(name)} runs in turns {'/'.join(order)}); "
                 f"issue floor {floor:.3f} ms = {n_z} z × {c['total']:.2f} "
-                f"instructions at {mhz:.0f} MHz — on {card}")
+                f"instructions at {mhz:.0f} MHz; " + floors_text(
+                    n_z, c, mhz, sum(times[which, name])
+                    / len(times[which, name])) + f" — on {card}")
     log("fan-out routes of the timed pass (this tree): " + ", ".join(
         f"{r} {n} leaves" for r, n in sorted(routes.items()))
         + ("; the parent's outputs bitwise equal, every leaf, K4 and K5"
@@ -2317,7 +2526,9 @@ def k10_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
             f"({order.count(name)} runs in turns {'/'.join(order)}; "
             f"{how[name]}); "
             f"issue floor {floor:.3f} ms = {n_sel} z × {c['total']:.2f} "
-            f"instructions at {mhz:.0f} MHz — on {card}")
+            f"instructions at {mhz:.0f} MHz; " + floors_text(
+                n_sel, c, mhz, sum(times[name]) / len(times[name]))
+            + f" — on {card}")
     if "parent" in outs:
         log(f"K10: the parent's norms ({how['parent']}) and this tree's "
             f"({how['change']}) are bitwise equal")
@@ -2416,7 +2627,8 @@ def rows_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
                 f"call per leaf, {sigs[name]} C signature); issue floor "
                 f"{floor:.3f} ms = {nz} z × {c['total']:.2f} instructions at "
                 f"{mhz:.0f} MHz, {100 * floor * len(ts) / sum(ts):.0f}% of it"
-                f" reached — on {card}")
+                f" reached; " + floors_text(nz, c, mhz, sum(ts) / len(ts))
+                + f" — on {card}")
     log("K7/K9 routes of the timed pass (this tree): " + ", ".join(
         f"{r} {n} leaves" for r, n in sorted(routes.items()))
         + ("; every leaf's K7 and K9 output bitwise the parent's"
@@ -2840,7 +3052,8 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
         floor = issue_floor_ms(nz, c["total"], clock.mhz)
         log(sass_line(name, c) + f"; issue floor {floor:.3f} ms for {nz} z "
             f"at {clock.mhz:.0f} MHz (measured {times[name][0]:.3f} ms, "
-            f"{100 * floor / times[name][0]:.0f}% of it)")
+            f"{100 * floor / times[name][0]:.0f}% of it); "
+            + floors_text(nz, c, clock.mhz, times[name][0]))
 
     g = torch.Generator(device="cuda").manual_seed(6)
     S = TRAIN_SEQ
@@ -2991,8 +3204,8 @@ def main() -> None:
                          "128, then stop")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit (git archive): "
-                         "its K1, K3-K7 and K9-K11 are built and timed in "
-                         "turns with this tree's")
+                         "its K1, K3-K7, K9-K11 and X1 are built and timed "
+                         "in turns with this tree's")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -3037,6 +3250,7 @@ def main() -> None:
     k11_err = check_k11(torch, np, kw, ko)
     check_k11_sweep(torch, ko)
     x1_err = check_x1(torch, np)
+    check_pipes(_build, card)
 
     # ---- full width ---------------------------------------------------- #
     from repro_torch.models import all_archs, bundle
@@ -3142,6 +3356,12 @@ def main() -> None:
                           k11_err))
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
+    x1_vec = counts.get("zo_affine_threefry/vector", 0)
+    if x1_vec == 0 or x1_vec != counts.get("zo_affine_threefry", 0):
+        fail(f"X1 on the counted paths: {x1_vec} vector-route launches of "
+             f"{counts.get('zo_affine_threefry', 0)}")
+    log(f"X1 over the counted paths: all {x1_vec} launches on the vector "
+        "route")
     k11_tile = counts.get("wkv6_chunked/tile", 0)
     if k11_tile == 0 or k11_tile != counts.get("wkv6_chunked", 0):
         fail(f"K11 on the counted paths: {k11_tile} tiled launches of "

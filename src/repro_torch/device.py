@@ -6,7 +6,7 @@ its own — the CPU is used only when the caller names it (the CPU tests pass
 ``device="cpu"``)."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 

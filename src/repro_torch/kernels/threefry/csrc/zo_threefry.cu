@@ -13,29 +13,66 @@
 //  * f32 gaussian: u = max(2(m 2^-23) + lo, lo), m = bits >> 9, then
 //    erf_inv(u) as XLA:CPU expands it (log1p: a rational approximation for
 //    |x| < sqrt(2) - 1, else Cephes logf(1 + x); Giles' polynomials), every
-//    multiply that LLVM contracts into an add written as __fmaf_rn.  The
-//    sqrt(2) and any z scale are folded into the host's scalars, as XLA's
-//    algebraic simplifier folds them (kernel.f32_scalars);
-//  * bf16 / f16 gaussian: a 256-entry (bits & 0xFF) or 1024-entry
-//    ((bits & 0xFFFF) >> 6) table, built in shared memory by every block
-//    from the same f32 erf_inv with u formed in the dtype;
+//    multiply that LLVM contracts into an add written as __fmaf_rn;
+//  * bf16 gaussian: a 256-entry table (bits & 0xFF) of z, built by every
+//    block from the same f32 erf_inv with u formed in bf16; f16 gaussian: a
+//    1024-entry table ((bits & 0xFFFF) >> 6) of erf_inv(u) rounded to f16;
 //  * rademacher: +1 when bit 31 is clear, -1 otherwise;
-//  * the affine write of the caller's form (kernel.FORMS): f32 with the
-//    contracted FMAs, half dtypes with every op rounded to the dtype.
+//  * the affine write of the caller's form (kernel.FORMS).  f32 and f16:
+//    on the unit (f32 / f16 gaussian: erf_inv(u)) with z's sqrt(2) and any
+//    z scale folded into the host's scalars, as XLA's algebraic simplifier
+//    folds them (kernel.folded_scalars), and one multiply contracted into
+//    each add — __fmaf_rn in f32, __hfma2 in f16 (XLA:CPU's native half
+//    FMAs); bf16: on z, every op rounded to bf16, the z-side products
+//    (rt(b*z), rt(e*z), the z scale) read from the block's table.
+//
+// What bounds X1 on the H100.  Each element is read and written once (4
+// bytes in bf16): 0.75 ms per qwen2-0.5b pass.  The 20 threefry rounds are
+// an add, a rotate and a xor each.  The ALU pipe (LOP3, SHF, IADD3, and
+// F2FP) takes 16 lanes per SM partition, half the issue rate; IMAD and
+// VIADD run on the FMA pipe's integer side, also at 16 lanes, beside it
+// (the pipe probes below; chip_smoke.py prints their rates).  ptxas issues
+// most round adds as IMAD by itself, so what stays on the ALU pipe is the
+// rotates (SHF) and the xors (LOP3): X1 is bound by that pipe — its first
+// design issued 66 ALU instructions per z, 2.5 ms of ALU time per qwen2
+// pass at 1 980 MHz.  The design takes every other instruction off it:
+//
+//  * the counter's high word is a per-launch constant: the host splits a
+//    call at counters that are multiples of 2^31, so no launch crosses
+//    2^32, and round 1's x0 = hi + k0 is one constant (x1 = lo + k1 + i, a
+//    32-bit index inside the launch); the key schedule's sums (k2 + r) are
+//    launch constants read from the parameter bank;
+//  * the last key injection is an IMAD that also scales the bits into a
+//    table's byte offset, and one LOP3 xors and masks them;
+//  * K1's 16-byte vectors: 8 bf16 / f16 or 4 f32 elements per thread step,
+//    one load and one store, their 4-8 z independent chains; a scalar head
+//    and tail take the elements off the 16-byte grid, and x and y that lie
+//    differently against 16 bytes run all scalar (kernel.whole_launches
+//    computes the split; its routes are counted apart);
+//  * bf16: a*x is one HMUL2 per pair, a store packs two elements per F2FP,
+//    and the z-side products come from the table, built per block (256
+//    entries against ~600 000 z per block on a qwen2 pass).
+//
+// What is left on the ALU pipe is about 46 instructions per z: 20 SHF, 21
+// LOP3, the injections' IADD3.  Rotates as IMAD + IMAD.HI (IMAD.HI takes
+// two slots of the FMA pipe), as IMAD.WIDE, or the injections forced onto
+// IMAD each made the bf16 pass slower on the card, so the rounds stay as
+// written.
 //
 // A rows plan passes its bands (flat [start, start + len) ranges) as a
-// start array and a prefix sum of lengths; element j of the launch is
-// found by binary search in the prefix sum.  The counter is the flat index
-// in the leaf, so a band draws the bits of that slice of the whole leaf.
+// start array and a prefix sum of lengths (the `bands` route: one element
+// per thread step, binary search for the band, the general 64-bit
+// counter); the counter is the flat index in the leaf, so a band draws the
+// bits of that slice of the whole leaf.
 //
-// Design: a simple grid-stride loop, one element per thread step, no
-// vectors, 64-bit indices; the form and the band route are template
-// arguments.  The threefry hash (about 100 integer instructions per z)
-// dominates, so the kernel is bound by instruction issue, not by bytes.
+// zo_threefry_pipe_probe times chains of the instructions X1 is made of,
+// one kind per probe, for chip_smoke.py's reading of each pipe's rate.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,23 +80,70 @@ constexpr int THREADS = 256;
 
 enum Form { FORM_Z = 0, FORM_AXPBZ = 1, FORM_XPBZ = 2, FORM_RESTORE = 3 };
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
+// threefry2x32's launch constants (the kernel's parameter bank)
+struct Key {
+  uint32_t inj0[4];       // key injections after rounds 4, 8, 12, 16
+  uint32_t inj1[4];
+  uint32_t mul;           // 2^s: the final injection scales the bits by it
+  uint32_t fin0, fin1;    // (k2 << s), ((k0 + 5) << s)
+  uint32_t k0, k1;        // for the general (64-bit counter) route
+};
+
+// round r's rotation: 13, 15, 26, 6, 17, 29, 16, 24, repeating
+__host__ __device__ constexpr int rot_of(int r) {
+  return (r % 8 == 0) ? 13 : (r % 8 == 1) ? 15 : (r % 8 == 2) ? 26
+       : (r % 8 == 3) ? 6 : (r % 8 == 4) ? 17 : (r % 8 == 5) ? 29
+       : (r % 8 == 6) ? 16 : 24;
 }
 
-// x0 ^ x1 of threefry2x32((k0, k1), (c0, c1))
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t c0, uint32_t c1) {
+Key make_key(uint32_t k0, uint32_t k1, int shift) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-#define TF_R(r) x0 += x1; x1 = rotl(x1, r) ^ x0;
-  TF_R(13) TF_R(15) TF_R(26) TF_R(6)  x0 += k1; x1 += k2 + 1u;
-  TF_R(17) TF_R(29) TF_R(16) TF_R(24) x0 += k2; x1 += k0 + 2u;
-  TF_R(13) TF_R(15) TF_R(26) TF_R(6)  x0 += k0; x1 += k1 + 3u;
-  TF_R(17) TF_R(29) TF_R(16) TF_R(24) x0 += k1; x1 += k2 + 4u;
-  TF_R(13) TF_R(15) TF_R(26) TF_R(6)  x0 += k2; x1 += k0 + 5u;
-#undef TF_R
-  return x0 ^ x1;
+  const uint32_t ks[3] = {k0, k1, k2};
+  Key k{};
+  for (int i = 0; i < 4; ++i) {
+    k.inj0[i] = ks[(i + 1) % 3];
+    k.inj1[i] = ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  k.mul = 1u << shift;
+  k.fin0 = k2 << shift;
+  k.fin1 = (k0 + 5u) << shift;
+  k.k0 = k0;
+  k.k1 = k1;
+  return k;
+}
+
+// round R of threefry2x32 (0-based), with the key injection that follows
+// rounds 4, 8, 12 and 16; ptxas issues most of the adds as IMAD on the FMA
+// pipe by itself, the rotate is one SHF and the xor one LOP3 (ALU pipe)
+template <int R>
+__device__ __forceinline__ void tf_round(uint32_t& x0, uint32_t& x1,
+                                         const Key& k) {
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, rot_of(R)) ^ x0;
+  if constexpr (R % 4 == 3 && R < 19) {
+    x0 += k.inj0[R / 4];
+    x1 += k.inj1[R / 4];
+  }
+}
+
+template <int R = 0>
+__device__ __forceinline__ void tf_rounds(uint32_t& x0, uint32_t& x1,
+                                          const Key& k) {
+  if constexpr (R < 20) {
+    tf_round<R>(x0, x1, k);
+    tf_rounds<R + 1>(x0, x1, k);
+  }
+}
+
+// (x0 + k2) << s and (x1 + k0 + 5) << s of threefry2x32 with round 1's
+// (c0 + k0, c1 + k1) given: the bits, scaled, are A ^ B
+struct Pre {
+  uint32_t A, B;
+};
+__device__ __forceinline__ Pre threefry(uint32_t x0, uint32_t x1,
+                                        const Key& k) {
+  tf_rounds(x0, x1, k);
+  return Pre{x0 * k.mul + k.fin0, x1 * k.mul + k.fin1};
 }
 
 __device__ __forceinline__ float f_(uint32_t bits) {
@@ -141,191 +225,379 @@ __device__ __forceinline__ float unit_f32(uint32_t bits) {
   return erf_inv_f32(fmaxf(__fadd_rn(__fmul_rn(f, 2.0f), lo), lo));
 }
 
-template <typename T> struct Half;
-template <> struct Half<float> {
-  static constexpr int TABLE = 0;
-};
-template <> struct Half<__nv_bfloat16> {
-  static constexpr int TABLE = 256;
-  static __device__ float rt(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  static __device__ float one_plus(int i) {        // 1 + mantissa of i
-    return __bfloat162float(
-        __ushort_as_bfloat16((unsigned short)((i >> 1) | 0x3F80)));
-  }
-  static __device__ float lo() { return -0.99609375f; }   // nextafter(-1,0)
-  static __device__ float sqrt2() { return 1.4140625f; }
-  static __device__ uint32_t index(uint32_t bits) { return bits & 0xFFu; }
-};
-template <> struct Half<__half> {
-  static constexpr int TABLE = 1024;
-  static __device__ float rt(float v) { return __half2float(__float2half_rn(v)); }
-  static __device__ float one_plus(int i) {
-    return __half2float(__ushort_as_half((unsigned short)(i | 0x3C00)));
-  }
-  static __device__ float lo() { return -0.99951171875f; }
-  static __device__ float sqrt2() { return 1.4140625f; }
-  static __device__ uint32_t index(uint32_t bits) {
-    return (bits & 0xFFFFu) >> 6;
-  }
-};
+__device__ __forceinline__ float rt_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float rt_f16(float v) {
+  return __half2float(__float2half_rn(v));
+}
 
-// gaussian z of table entry i of a half dtype: u formed in the dtype (each
-// op rounded there), erf_inv in f32 rounded back, times sqrt(2) in it
+// gaussian table entry i of a half dtype, as f32: u formed in the dtype
+// (each op rounded there), erf_inv in f32 rounded back — bf16: z, times
+// sqrt(2) in bf16; f16: the unit erf_inv(u) (its sqrt(2) is folded)
 template <typename T>
-__device__ float table_entry(int i) {
-  using H = Half<T>;
-  const float lo = H::lo();
-  const float span = H::rt(__fsub_rn(1.0f, lo));
-  const float f = H::rt(__fsub_rn(H::one_plus(i), 1.0f));
-  const float u = fmaxf(H::rt(__fadd_rn(H::rt(__fmul_rn(f, span)), lo)), lo);
-  return H::rt(__fmul_rn(H::rt(erf_inv_f32(u)), H::sqrt2()));
+__device__ float table_entry(int i);
+template <>
+__device__ float table_entry<__nv_bfloat16>(int i) {
+  const float lo = -0.99609375f;                    // nextafter(-1, 0)
+  const float one_plus = __bfloat162float(
+      __ushort_as_bfloat16((unsigned short)((i >> 1) | 0x3F80)));
+  const float span = rt_bf16(__fsub_rn(1.0f, lo));
+  const float f = rt_bf16(__fsub_rn(one_plus, 1.0f));
+  const float u = fmaxf(rt_bf16(__fadd_rn(rt_bf16(__fmul_rn(f, span)), lo)),
+                        lo);
+  return rt_bf16(__fmul_rn(rt_bf16(erf_inv_f32(u)), 1.4140625f));
+}
+template <>
+__device__ float table_entry<__half>(int i) {
+  const float lo = -0.99951171875f;
+  const float one_plus =
+      __half2float(__ushort_as_half((unsigned short)(i | 0x3C00)));
+  const float span = rt_f16(__fsub_rn(1.0f, lo));
+  const float f = rt_f16(__fsub_rn(one_plus, 1.0f));
+  const float u = fmaxf(rt_f16(__fadd_rn(rt_f16(__fmul_rn(f, span)), lo)),
+                        lo);
+  return rt_f16(erf_inv_f32(u));
 }
 
-__device__ __forceinline__ float load_f(const float* p, int64_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float load_f(const __half* p, int64_t i) {
-  return __half2float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, int64_t i, float v) {
-  p[i] = v;
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, int64_t i,
-                                        float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void store_f(__half* p, int64_t i, float v) {
-  p[i] = __float2half_rn(v);
-}
-
-struct Args {
-  uint32_t k0, k1;
-  uint64_t offset;
-  float a, b, e, k;      // f32: k, b, e carry the folded sqrt(2) and z scale
+// the write's scalars: f32 / f16 carry the folded sqrt(2) and z scale in
+// k, b, e (kernel.folded_scalars); bf16 takes the z scale zs
+struct Scal {
+  float a, b, e, k;
   int zs_on;
-  float zs;              // half dtypes: z <- rt(z * zs)
-  const int64_t* starts;  // bands (nb > 0): flat starts
+  float zs;
+};
+
+// ---------------------------------------------------------------------------
+// The per-block table of a half dtype, and the bits -> unit lookups
+// ---------------------------------------------------------------------------
+// bf16: entry of z (or its sign, rademacher) -> what the write reads: z for
+// the z form, else rt(b*z) — and for restore the pair (rt(b*z), rt(e*z)),
+// z first scaled as rt(z*zs).  f16: the unit as __half (rademacher: none).
+template <typename T, int DIST, int FORM>
+struct Table {
+  static constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  // bf16: 256 entries (gaussian) or 2 (rademacher); f16 gaussian: 1024
+  static constexpr int ENTRIES =
+      BF16 ? (DIST == 0 ? 256 : 2)
+           : (std::is_same<T, __half>::value && DIST == 0 ? 1024 : 0);
+  static constexpr bool PAIR = BF16 && FORM == FORM_RESTORE;
+  static constexpr int SHIFT = BF16 ? (PAIR ? 3 : 2) : 0;   // log2 bytes
+  static constexpr int BYTES =
+      BF16 ? ENTRIES << SHIFT : (ENTRIES > 0 ? ENTRIES * 2 : 16);
+};
+
+template <typename T, int DIST, int FORM>
+__device__ __forceinline__ void build_table(char* tab, const Scal& s) {
+  using TB = Table<T, DIST, FORM>;
+  if constexpr (TB::BF16) {
+    for (int i = threadIdx.x; i < TB::ENTRIES; i += THREADS) {
+      float z = DIST == 1 ? (i ? -1.0f : 1.0f) : table_entry<T>(i);
+      if (s.zs_on) z = rt_bf16(__fmul_rn(z, s.zs));
+      float* p = reinterpret_cast<float*>(tab + (i << TB::SHIFT));
+      p[0] = FORM == FORM_Z ? z : rt_bf16(__fmul_rn(z, s.b));
+      if constexpr (TB::PAIR) p[1] = rt_bf16(__fmul_rn(z, s.e));
+    }
+  } else if constexpr (TB::ENTRIES > 0) {
+    for (int i = threadIdx.x; i < TB::ENTRIES; i += THREADS)
+      reinterpret_cast<__half*>(tab)[i] =
+          __float2half_rn(table_entry<T>(i));
+  }
+}
+
+// bf16: the byte offset of the entry for bits A ^ B (scaled by 2^SHIFT)
+template <typename T, int DIST, int FORM>
+__device__ __forceinline__ uint32_t bf16_offset(const Pre& p) {
+  using TB = Table<T, DIST, FORM>;
+  if constexpr (DIST == 1)
+    return ((p.A ^ p.B) >> 31) << TB::SHIFT;
+  else
+    return (p.A ^ p.B) & (0xFFu << TB::SHIFT);
+}
+
+// f16: the unit for bits A ^ B
+template <int DIST>
+__device__ __forceinline__ __half f16_unit(const Pre& p, const char* tab) {
+  const uint32_t bits = p.A ^ p.B;
+  if constexpr (DIST == 1)
+    return __ushort_as_half((unsigned short)(0x3C00u | ((bits >> 16) &
+                                                        0x8000u)));
+  else
+    return reinterpret_cast<const __half*>(tab)[(bits & 0xFFFFu) >> 6];
+}
+
+// ---------------------------------------------------------------------------
+// The writes: f32 one element, bf16 / f16 a pair (lo = the lower address)
+// ---------------------------------------------------------------------------
+template <int DIST, int FORM>
+__device__ __forceinline__ float write_f32(float x, const Pre& p,
+                                           const Scal& s) {
+  const uint32_t bits = p.A ^ p.B;
+  const float u = DIST == 1 ? ((bits >> 31) ? -1.0f : 1.0f) : unit_f32(bits);
+  if constexpr (FORM == FORM_Z) return __fmul_rn(u, s.k);
+  if constexpr (FORM == FORM_AXPBZ)
+    return __fmaf_rn(s.a, x, __fmul_rn(u, s.b));
+  if constexpr (FORM == FORM_XPBZ) return __fmaf_rn(u, s.b, x);
+  return __fmaf_rn(s.a, __fmaf_rn(u, s.e, x), __fmul_rn(u, s.b));
+}
+
+__device__ __forceinline__ float2 widen_bf16(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xFFFF0000u));
+}
+__device__ __forceinline__ uint32_t narrow_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t hmul_bf16(uint32_t a2, uint32_t w) {
+  const __nv_bfloat162 r =
+      __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a2),
+              *reinterpret_cast<const __nv_bfloat162*>(&w));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// bf16: rt(rt(a*x) + rt(b*z)) and the other forms, the sums in f32 and
+// rounded once to bf16 as XLA:CPU writes them (a2 = (a, a) as bf16x2)
+template <int FORM>
+__device__ __forceinline__ uint32_t write_bf16(uint32_t w, uint32_t a2,
+                                               const char* tab,
+                                               uint32_t off0,
+                                               uint32_t off1) {
+  const float* t0 = reinterpret_cast<const float*>(tab + off0);
+  const float* t1 = reinterpret_cast<const float*>(tab + off1);
+  if constexpr (FORM == FORM_Z) return narrow_bf16(t0[0], t1[0]);
+  if constexpr (FORM == FORM_AXPBZ) {
+    const float2 ax = widen_bf16(hmul_bf16(a2, w));
+    return narrow_bf16(__fadd_rn(ax.x, t0[0]), __fadd_rn(ax.y, t1[0]));
+  }
+  const float2 xf = widen_bf16(w);
+  if constexpr (FORM == FORM_XPBZ)
+    return narrow_bf16(__fadd_rn(xf.x, t0[0]), __fadd_rn(xf.y, t1[0]));
+  const uint32_t r = narrow_bf16(__fadd_rn(xf.x, t0[1]),
+                                 __fadd_rn(xf.y, t1[1]));
+  const float2 ar = widen_bf16(hmul_bf16(a2, r));
+  return narrow_bf16(__fadd_rn(ar.x, t0[0]), __fadd_rn(ar.y, t1[0]));
+}
+
+// f16: the folded form with native half FMAs (a2, b2, e2, k2 = (v, v))
+template <int FORM>
+__device__ __forceinline__ uint32_t write_f16(uint32_t w, __half2 u,
+                                              __half2 a2, __half2 b2,
+                                              __half2 e2, __half2 k2) {
+  const __half2 x = *reinterpret_cast<const __half2*>(&w);
+  __half2 r;
+  if constexpr (FORM == FORM_Z) r = __hmul2_rn(u, k2);
+  if constexpr (FORM == FORM_AXPBZ) r = __hfma2(a2, x, __hmul2_rn(u, b2));
+  if constexpr (FORM == FORM_XPBZ) r = __hfma2(u, b2, x);
+  if constexpr (FORM == FORM_RESTORE)
+    r = __hfma2(a2, __hfma2(u, e2, x), __hmul2_rn(u, b2));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// What a launch of one dtype, dist and form needs beside the key: the
+// scalars packed in the dtype, and the block's table
+template <typename T, int DIST, int FORM>
+struct Writer {
+  const char* tab;
+  uint32_t a2;                        // bf16: (a, a)
+  __half2 ha, hb, he, hk;             // f16
+
+  __device__ __forceinline__ Writer(const char* t, const Scal& s) : tab(t) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      a2 = narrow_bf16(s.a, s.a);
+    } else if constexpr (std::is_same<T, __half>::value) {
+      ha = __float2half2_rn(s.a);
+      hb = __float2half2_rn(s.b);
+      he = __float2half2_rn(s.e);
+      hk = __float2half2_rn(s.k);
+    }
+  }
+
+  // a pair of half elements (w: their bits) at bits p0, p1
+  __device__ __forceinline__ uint32_t pair(uint32_t w, const Pre& p0,
+                                           const Pre& p1) const {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      return write_bf16<FORM>(w, a2, tab, bf16_offset<T, DIST, FORM>(p0),
+                              bf16_offset<T, DIST, FORM>(p1));
+    } else {
+      return write_f16<FORM>(
+          w, __halves2half2(f16_unit<DIST>(p0, tab), f16_unit<DIST>(p1, tab)),
+          ha, hb, he, hk);
+    }
+  }
+
+  // one element at index i of x / y
+  __device__ __forceinline__ void one(const T* x, T* y, uint32_t i,
+                                      const Pre& p, const Scal& s) const {
+    if constexpr (sizeof(T) == 4) {
+      y[i] = write_f32<DIST, FORM>(FORM == FORM_Z ? 0.0f : x[i], p, s);
+    } else {
+      const uint32_t w =
+          FORM == FORM_Z ? 0u
+                         : (uint32_t)reinterpret_cast<const uint16_t*>(x)[i];
+      reinterpret_cast<uint16_t*>(y)[i] = (uint16_t)pair(w, p, p);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The whole route: a leaf (or a chunk of it) whose counters share their
+// high word, in 16-byte vectors with a scalar head and tail
+// ---------------------------------------------------------------------------
+struct Whole {
+  uint32_t n, head, nvec;   // elements; scalar head; whole 16-byte vectors
+  uint32_t x0c, x1c;        // round 1's hi + k0 and lo + k1
+};
+
+template <typename T, int DIST, int FORM>
+__global__ void __launch_bounds__(THREADS)
+whole_kernel(const T* x, T* y, Whole g, Key k, Scal s) {
+  using TB = Table<T, DIST, FORM>;
+  __shared__ __align__(16) char tab[TB::BYTES];
+  build_table<T, DIST, FORM>(tab, s);
+  if constexpr (TB::ENTRIES > 0) __syncthreads();
+  const Writer<T, DIST, FORM> wr(tab, s);
+  constexpr int N = 16 / sizeof(T);
+  const uint32_t tid = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t nthreads = gridDim.x * THREADS;
+  for (uint32_t v = tid; v < g.nvec; v += nthreads) {
+    const uint32_t i0 = g.head + v * N;
+    uint4 xv = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (FORM != FORM_Z)
+      xv = *reinterpret_cast<const uint4*>(x + i0);
+    const uint32_t c = g.x1c + i0;
+    Pre p[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) p[j] = threefry(g.x0c, c + (uint32_t)j, k);
+    uint32_t w[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (sizeof(T) == 4)
+        w[q] = __float_as_uint(
+            write_f32<DIST, FORM>(__uint_as_float(w[q]), p[q], s));
+      else
+        w[q] = wr.pair(w[q], p[2 * q], p[2 * q + 1]);
+    }
+    *reinterpret_cast<uint4*>(y + i0) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  const uint32_t body_end = g.head + g.nvec * N;
+  for (uint32_t r = tid; r < g.n - g.nvec * N; r += nthreads) {
+    const uint32_t i = r < g.head ? r : body_end + (r - g.head);
+    wr.one(x, y, i, threefry(g.x0c, g.x1c + i, k), s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bands route: rows plans, one element per thread step, 64-bit counter
+// ---------------------------------------------------------------------------
+struct Bands {
+  uint64_t offset;
+  const int64_t* starts;  // flat starts
   const int64_t* cum;     // and the prefix sum of their lengths (nb + 1)
   int nb;
   int64_t total;          // elements written
 };
 
-// FORM and BANDS are template arguments so the loop holds only the write
-// it runs (and its SASS count is the count per z)
-template <typename T, int DIST, int FORM, bool BANDS>
+template <typename T, int DIST, int FORM>
 __global__ void __launch_bounds__(THREADS)
-threefry_kernel(const T* x, T* y, Args g) {
-  constexpr int TABLE = Half<T>::TABLE;
-  __shared__ float table[TABLE > 0 ? TABLE : 1];
-  if constexpr (TABLE > 0 && DIST == 0) {
-    for (int i = threadIdx.x; i < TABLE; i += THREADS)
-      table[i] = table_entry<T>(i);
-    __syncthreads();
-  }
+bands_kernel(const T* x, T* y, Bands g, Key k, Scal s) {
+  using TB = Table<T, DIST, FORM>;
+  __shared__ __align__(16) char tab[TB::BYTES];
+  build_table<T, DIST, FORM>(tab, s);
+  if constexpr (TB::ENTRIES > 0) __syncthreads();
+  const Writer<T, DIST, FORM> wr(tab, s);
   const int64_t stride = (int64_t)gridDim.x * THREADS;
   for (int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x; j < g.total;
        j += stride) {
-    int64_t flat = j;
-    if constexpr (BANDS) {            // the band holding element j
-      int lo = 0, hi = g.nb - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (g.cum[mid] <= j) lo = mid; else hi = mid - 1;
-      }
-      flat = g.starts[lo] + (j - g.cum[lo]);
+    int lo = 0, hi = g.nb - 1;                 // the band holding element j
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (g.cum[mid] <= j) lo = mid; else hi = mid - 1;
     }
+    const int64_t flat = g.starts[lo] + (j - g.cum[lo]);
     const uint64_t idx = (uint64_t)flat + g.offset;
-    const uint32_t bits = threefry_bits(g.k0, g.k1, (uint32_t)(idx >> 32),
-                                        (uint32_t)idx);
-    float u;
-    if constexpr (DIST == 1) {
-      u = (bits >> 31) ? -1.0f : 1.0f;
-    } else if constexpr (TABLE == 0) {
-      u = unit_f32(bits);
-    } else {
-      u = table[Half<T>::index(bits)];
-    }
-    float out;
-    if constexpr (TABLE == 0) {               // f32: scalars pre-folded
-      if constexpr (FORM == FORM_Z) {
-        out = __fmul_rn(u, g.k);
-      } else if constexpr (FORM == FORM_AXPBZ) {
-        out = __fmaf_rn(g.a, load_f(x, flat), __fmul_rn(u, g.b));
-      } else if constexpr (FORM == FORM_XPBZ) {
-        out = __fmaf_rn(u, g.b, load_f(x, flat));
-      } else {
-        out = __fmaf_rn(g.a, __fmaf_rn(u, g.e, load_f(x, flat)),
-                        __fmul_rn(u, g.b));
-      }
-    } else {                                   // every op rounded to T
-      using H = Half<T>;
-      const float z = g.zs_on ? H::rt(__fmul_rn(u, g.zs)) : u;
-      if constexpr (FORM == FORM_Z) {
-        out = z;
-      } else if constexpr (FORM == FORM_AXPBZ) {
-        out = __fadd_rn(H::rt(__fmul_rn(load_f(x, flat), g.a)),
-                        H::rt(__fmul_rn(z, g.b)));
-      } else if constexpr (FORM == FORM_XPBZ) {
-        out = __fadd_rn(load_f(x, flat), H::rt(__fmul_rn(z, g.b)));
-      } else {
-        const float r =
-            H::rt(__fadd_rn(load_f(x, flat), H::rt(__fmul_rn(z, g.e))));
-        out = __fadd_rn(H::rt(__fmul_rn(r, g.a)), H::rt(__fmul_rn(z, g.b)));
-      }
-    }
-    store_f(y, flat, out);
+    const Pre p = threefry((uint32_t)(idx >> 32) + k.k0,
+                           (uint32_t)idx + k.k1, k);
+    // flat < 2^31 elements per band launch is not assumed: index by pointer
+    wr.one(x == nullptr ? nullptr : x + flat, y + flat, 0u, p, s);
   }
 }
 
-int grid_for(int64_t total) {
-  static int sms = 0;
-  if (sms == 0) {
+// Blocks of THREADS for a grid-stride kernel with `work` steps to take: at
+// most its occupancy times the SM count (read once per kernel)
+template <auto Kernel>
+int resident_grid(uint64_t work) {
+  static int sms = 0, per_sm = 0;
+  if (per_sm == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, THREADS,
+                                                  0);
+    if (per_sm < 1) per_sm = 1;
   }
-  const int64_t want = (total + THREADS - 1) / THREADS;
-  const int64_t cap = (int64_t)sms * 8;
-  return (int)(want < cap ? want : cap);
+  const uint64_t want = (work + THREADS - 1) / THREADS;
+  const uint64_t cap = (uint64_t)sms * per_sm;
+  return (int)(want < cap ? (want > 0 ? want : 1) : cap);
+}
+
+// the table's entry size as the shift the final injection scales by
+template <typename T, int DIST, int FORM>
+constexpr int key_shift() {
+  return Table<T, DIST, FORM>::BF16 && DIST == 0
+             ? Table<T, DIST, FORM>::SHIFT : 0;
+}
+
+// dispatch dtype x dist x form onto a launcher L<T, DIST, FORM>::run
+template <template <typename, int, int> class L, typename... A>
+cudaError_t dispatch(int dtype, int dist, int form, A&&... args) {
+  auto by_form = [&](auto t, auto d) {
+    using T = decltype(t);
+    constexpr int D = decltype(d)::value;
+    switch (form) {
+      case FORM_Z: L<T, D, FORM_Z>::run(args...); break;
+      case FORM_AXPBZ: L<T, D, FORM_AXPBZ>::run(args...); break;
+      case FORM_XPBZ: L<T, D, FORM_XPBZ>::run(args...); break;
+      default: L<T, D, FORM_RESTORE>::run(args...);
+    }
+  };
+  auto by_dist = [&](auto t) {
+    if (dist == 0) by_form(t, std::integral_constant<int, 0>{});
+    else by_form(t, std::integral_constant<int, 1>{});
+  };
+  switch (dtype) {
+    case 0: by_dist(float{}); break;
+    case 1: by_dist(__nv_bfloat16{}); break;
+    case 2: by_dist(__half{}); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 template <typename T, int DIST, int FORM>
-void launch_f(const void* x, void* y, const Args& g, cudaStream_t s) {
-  const int grid = grid_for(g.total);
-  if (g.nb > 0)
-    threefry_kernel<T, DIST, FORM, true>
-        <<<grid, THREADS, 0, s>>>((const T*)x, (T*)y, g);
-  else
-    threefry_kernel<T, DIST, FORM, false>
-        <<<grid, THREADS, 0, s>>>((const T*)x, (T*)y, g);
-}
-
-template <typename T, int DIST>
-void launch_d(const void* x, void* y, int form, const Args& g,
-              cudaStream_t s) {
-  switch (form) {
-    case FORM_Z: launch_f<T, DIST, FORM_Z>(x, y, g, s); break;
-    case FORM_AXPBZ: launch_f<T, DIST, FORM_AXPBZ>(x, y, g, s); break;
-    case FORM_XPBZ: launch_f<T, DIST, FORM_XPBZ>(x, y, g, s); break;
-    default: launch_f<T, DIST, FORM_RESTORE>(x, y, g, s);
+struct WholeL {
+  static void run(const void* x, void* y, const Whole& g, uint32_t k0,
+                  uint32_t k1, const Scal& s, cudaStream_t st) {
+    constexpr int N = 16 / sizeof(T);
+    const uint32_t rest = g.n - g.nvec * N;
+    const int grid = resident_grid<whole_kernel<T, DIST, FORM>>(
+        g.nvec > rest ? g.nvec : rest);
+    whole_kernel<T, DIST, FORM><<<grid, THREADS, 0, st>>>(
+        (const T*)x, (T*)y, g, make_key(k0, k1, key_shift<T, DIST, FORM>()),
+        s);
   }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, void* y, int dist, int form,
-                   const Args& g, cudaStream_t s) {
-  if (dist == 0)
-    launch_d<T, 0>(x, y, form, g, s);
-  else
-    launch_d<T, 1>(x, y, form, g, s);
-  return cudaGetLastError();
-}
+};
+template <typename T, int DIST, int FORM>
+struct BandsL {
+  static void run(const void* x, void* y, const Bands& g, uint32_t k0,
+                  uint32_t k1, const Scal& s, cudaStream_t st) {
+    const int grid =
+        resident_grid<bands_kernel<T, DIST, FORM>>((uint64_t)g.total);
+    bands_kernel<T, DIST, FORM><<<grid, THREADS, 0, st>>>(
+        (const T*)x, (T*)y, g, make_key(k0, k1, key_shift<T, DIST, FORM>()),
+        s);
+  }
+};
 
 __global__ void normal_f32_kernel(float* out, int64_t m0, int64_t n) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -335,9 +607,108 @@ __global__ void normal_f32_kernel(float* out, int64_t m0, int64_t n) {
 }
 
 template <typename T>
-__global__ void table_kernel(float* out) {
-  for (int i = threadIdx.x; i < Half<T>::TABLE; i += blockDim.x)
+__global__ void table_kernel(float* out, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
     out[i] = table_entry<T>(i);
+}
+
+// ---------------------------------------------------------------------------
+// Pipe probes: PROBE_CHAINS independent chains of one instruction kind per
+// thread, `iters` loop trips, the result stored so nothing is dead
+// ---------------------------------------------------------------------------
+enum Probe {
+  PROBE_LOP3,       // a ^= b & c; b ^= a | c            (LOP3)
+  PROBE_SHF,        // funnel shifts                     (SHF)
+  PROBE_IADD3,      // a = a + b + c                     (IADD3)
+  PROBE_F2FP,       // bf16x2 packs                      (F2FP)
+  PROBE_IMAD,       // a = a * one + b                   (IMAD)
+  PROBE_VIADD,      // a = a + immediate                 (VIADD)
+  PROBE_MULHI,      // a = hi(a * c)                     (IMAD.HI)
+  PROBE_FFMA,       // f = f * p + q                     (FFMA)
+  PROBE_LOP3_F2FP,  // two kinds interleaved: one pipe, or two
+  PROBE_LOP3_VIADD,
+  PROBE_IMAD_VIADD,
+  PROBE_ROUND,      // X1's round: add, rotate, xor
+  N_PROBES
+};
+constexpr int PROBE_CHAINS = 8;
+
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+probe_kernel(uint32_t* out, int iters, uint32_t one, uint32_t c) {
+  uint32_t a[PROBE_CHAINS], b[PROBE_CHAINS];
+  float f[PROBE_CHAINS], g[PROBE_CHAINS];
+  const uint32_t t = blockIdx.x * THREADS + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < PROBE_CHAINS; ++j) {
+    a[j] = t * 0x9E3779B9u + j;
+    b[j] = t ^ (0x85EBCA6Bu * (j + 1));
+    f[j] = __uint_as_float(0x3F800000u | (a[j] >> 9));
+    g[j] = __uint_as_float(0x3F000000u | (b[j] >> 9));
+  }
+  const float fp = __uint_as_float(0x3F7FFFF0u | (c & 7u));
+  const float fq = __uint_as_float(0x33800000u | (c >> 9));
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < PROBE_CHAINS; ++j) {
+      if constexpr (P == PROBE_LOP3) {
+        a[j] ^= b[j] & c;
+        b[j] ^= a[j] | c;
+      } else if constexpr (P == PROBE_SHF) {
+        a[j] = __funnelshift_l(a[j], b[j], 13);
+        b[j] = __funnelshift_l(b[j], a[j], 7);
+      } else if constexpr (P == PROBE_IADD3) {
+        a[j] = a[j] + b[j] + c;
+        b[j] = b[j] + a[j] + one;
+      } else if constexpr (P == PROBE_F2FP) {
+        f[j] = __uint_as_float(narrow_bf16(f[j], g[j]));
+        g[j] = __uint_as_float(narrow_bf16(g[j], f[j]));
+      } else if constexpr (P == PROBE_IMAD) {
+        a[j] = a[j] * one + b[j];
+        b[j] = b[j] * one + a[j];
+      } else if constexpr (P == PROBE_VIADD) {
+        a[j] = a[j] + 0x3C6EF372u;
+        b[j] = b[j] + 0x5A827999u;
+      } else if constexpr (P == PROBE_MULHI) {
+        a[j] = __umulhi(a[j], c);
+        b[j] = __umulhi(b[j], c);
+      } else if constexpr (P == PROBE_FFMA) {
+        f[j] = __fmaf_rn(f[j], fp, fq);
+        g[j] = __fmaf_rn(g[j], fp, fq);
+      } else if constexpr (P == PROBE_LOP3_F2FP) {
+        a[j] ^= b[j] & c;
+        f[j] = __uint_as_float(narrow_bf16(f[j], g[j]));
+      } else if constexpr (P == PROBE_LOP3_VIADD) {
+        a[j] ^= b[j] & c;
+        b[j] = b[j] + 0x5A827999u;
+      } else if constexpr (P == PROBE_IMAD_VIADD) {
+        a[j] = a[j] * one + b[j];
+        b[j] = b[j] + 0x5A827999u;
+      } else {
+        a[j] = a[j] + b[j];
+        b[j] = __funnelshift_l(b[j], b[j], 13) ^ a[j];
+      }
+    }
+  }
+  uint32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < PROBE_CHAINS; ++j)
+    acc ^= a[j] ^ b[j] ^ __float_as_uint(f[j]) ^ __float_as_uint(g[j]);
+  out[t] = acc;
+}
+
+template <int P = 0>
+cudaError_t launch_probe(int probe, uint32_t* out, int blocks, int iters,
+                         cudaStream_t s) {
+  if constexpr (P < N_PROBES) {
+    if (probe == P) {
+      probe_kernel<P><<<blocks, THREADS, 0, s>>>(out, iters, 1u, 0x2545F491u);
+      return cudaGetLastError();
+    }
+    return launch_probe<P + 1>(probe, out, blocks, iters, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -349,26 +720,45 @@ const char* kernel_error_string(int code) {
 }
 
 // dtype: 0 = f32, 1 = bf16, 2 = f16; dist: 0 = gaussian, 1 = rademacher;
-// form: enum Form.  x may be null for FORM_Z.  nb = 0: the whole leaf
-// (total == n); else starts / cum (device int64) give the bands.
-int zo_threefry(const void* x, void* y, int64_t n, int dtype, uint32_t k0,
-                uint32_t k1, uint64_t offset, int dist, int form, float a,
-                float b, float e, float k, int zs_on, float zs,
-                const int64_t* starts, const int64_t* cum, int nb,
-                int64_t total, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n <= 0 || total <= 0) return 0;
+// form: enum Form.  x may be null for FORM_Z.
+//
+// zo_threefry_whole: one launch of the whole route over n elements
+// (n < 2^31) at x, y whose counters are (hi, lo + i) with lo + n <= 2^32;
+// the first `head` elements and those past head + nvec 16-byte vectors
+// take the scalar loop (kernel.whole_launches computes the split).
+int zo_threefry_whole(const void* x, void* y, uint32_t n, uint32_t head,
+                      uint32_t nvec, int dtype, uint32_t k0, uint32_t k1,
+                      uint32_t hi, uint32_t lo, int dist, int form, float a,
+                      float b, float e, float k, int zs_on, float zs,
+                      void* stream) {
+  if (n == 0) return 0;
   if ((dist != 0 && dist != 1) || form < 0 || form > 3 ||
+      (x == nullptr && form != FORM_Z) || n >= (1u << 31) ||
+      (uint64_t)lo + n > (1ull << 32) || head > n ||
+      (uint64_t)nvec * (16 / (dtype == 0 ? 4 : 2)) > n - head)
+    return (int)cudaErrorInvalidValue;
+  const Whole g{n, head, nvec, hi + k0, lo + k1};
+  const Scal s{a, b, e, k, zs_on, zs};
+  return (int)dispatch<WholeL>(dtype, dist, form, x, y, g, k0, k1, s,
+                               (cudaStream_t)stream);
+}
+
+// zo_threefry_bands: the elements of the flat bands [starts[i], starts[i] +
+// len_i) of a leaf, counters offset + flat index; starts / cum (device
+// int64) hold the starts and the prefix sum of the lengths (nb + 1).
+int zo_threefry_bands(const void* x, void* y, int dtype, uint32_t k0,
+                      uint32_t k1, uint64_t offset, int dist, int form,
+                      float a, float b, float e, float k, int zs_on,
+                      float zs, const int64_t* starts, const int64_t* cum,
+                      int nb, int64_t total, void* stream) {
+  if (total <= 0) return 0;
+  if ((dist != 0 && dist != 1) || form < 0 || form > 3 || nb <= 0 ||
       (x == nullptr && form != FORM_Z))
     return (int)cudaErrorInvalidValue;
-  const Args g{k0, k1, offset, a, b, e, k, zs_on, zs, starts, cum, nb,
-               total};
-  switch (dtype) {
-    case 0: return (int)launch<float>(x, y, dist, form, g, s);
-    case 1: return (int)launch<__nv_bfloat16>(x, y, dist, form, g, s);
-    case 2: return (int)launch<__half>(x, y, dist, form, g, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Bands g{offset, starts, cum, nb, total};
+  const Scal s{a, b, e, k, zs_on, zs};
+  return (int)dispatch<BandsL>(dtype, dist, form, x, y, g, k0, k1, s,
+                               (cudaStream_t)stream);
 }
 
 // out[j] = the f32 gaussian z of bits (m0 + j) << 9, j < n: every uniform
@@ -380,16 +770,26 @@ int zo_threefry_normal_f32(float* out, int64_t m0, int64_t n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The kernel's gaussian table of a half dtype (1 = bf16: 256 entries,
-// 2 = f16: 1024), as f32 values.
+// The kernel's gaussian table of a half dtype as f32 values (1 = bf16:
+// z, 256 entries; 2 = f16: the unit, 1024).
 int zo_threefry_table(float* out, int dtype, void* stream) {
   if (dtype == 1)
-    table_kernel<__nv_bfloat16><<<1, 256, 0, (cudaStream_t)stream>>>(out);
+    table_kernel<__nv_bfloat16><<<1, 256, 0, (cudaStream_t)stream>>>(out,
+                                                                     256);
   else if (dtype == 2)
-    table_kernel<__half><<<1, 256, 0, (cudaStream_t)stream>>>(out);
+    table_kernel<__half><<<1, 256, 0, (cudaStream_t)stream>>>(out, 1024);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The number of pipe probes (enum Probe) and one run of probe `probe`:
+// `blocks` blocks of 256 threads, `iters` trips of PROBE_CHAINS chains
+// each; out holds blocks * 256 uint32.
+int zo_threefry_probes() { return N_PROBES; }
+int zo_threefry_pipe_probe(int probe, uint32_t* out, int blocks, int iters,
+                           void* stream) {
+  return (int)launch_probe(probe, out, blocks, iters, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -27,14 +27,14 @@ the older layout is not reproduced):
   the bits is clear, −1 otherwise.
 
 The affine write follows the graph JAX's ``xla`` backend traces for each
-method (``FORMS``), as XLA:CPU compiles it.  In f32 its algebraic
+method (``FORMS``), as XLA:CPU compiles it.  In f32 and f16 its algebraic
 simplifier folds z's √2 (and the z scale) into the scalar that multiplies z
-(``f32_scalars``) and LLVM contracts one multiply into each add; in bf16
-every op is rounded to the dtype, as written.  An optional z scale (``zs``,
-the sphere's √d/‖z‖ or rescaled SPSA's per-leaf d) multiplies z first, as
-JAX's ``z * s.astype(z.dtype)``.  f16 writes follow the bf16 rule, which
-XLA:CPU's f16 arithmetic leaves in the last bit on some elements (its z is
-bitwise).
+(``folded_scalars``, the products rounded to the dtype) and LLVM contracts
+one multiply into each add: f32 FMAs, and in f16 the native half FMAs of a
+host with AVX512-FP16 (``vfmadd…ph``; a host without them rounds
+otherwise, within an f16 ulp); in bf16 every op is rounded to the dtype,
+as written.  An optional z scale (``zs``, the sphere's √d/‖z‖ or rescaled
+SPSA's per-leaf d) multiplies z first, as JAX's ``z * s.astype(z.dtype)``.
 
 A CPU tensor takes the plain version (chunked, so temporaries stay small);
 a CUDA tensor launches X1 or raises.
@@ -44,13 +44,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-from typing import Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.zo_fused.kernel import _fma, _sqrt_rn
+from repro_torch.kernels.zo_fused.kernel import _fma, _fma_odd, _sqrt_rn
 
 _MASK = 0xFFFFFFFF
 _CHUNK = 1 << 20                  # plain-version elements per pass (CPU)
@@ -59,8 +59,9 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DIST_CODES = {"gaussian": 0, "rademacher": 1}
 #: the affine write of each backend method (``enum Form`` in the CUDA
-#: source), with u the unit z is built from (f32 gaussian: erf_inv(u), its
-#: √2 folded into b and e; else z) — f32 / half dtypes (rt: round to it):
+#: source), with u the unit z is built from (f32 / f16 gaussian:
+#: erf_inv(u), its √2 folded into k, b and e; else z) — f32 and f16 (fma
+#: and rn in the dtype) | bf16 (rt: round to it):
 #:   z       rn(u·k)               | z                        (``leaf_z``)
 #:   axpbz   fma(a, x, rn(u·b))    | rt(rt(a·x) + rt(b·z))    (apply_rank1)
 #:   xpbz    fma(u, b, x)          | rt(x + rt(b·z))          (perturb)
@@ -103,6 +104,7 @@ _ERFINV_GE = tuple(_f(h) for h in (
     "BF6E17BCE0000000", "3F77824F60000000", "BF7F38BAE0000000",
     "3F8354AFC0000000", "3FF006DB60000000", "4006A9EFC0000000"))
 _SQRT2 = _f("3FF6A09E60000000")
+_SQRT2_F16 = 1.4140625                  # √2 rounded to f16
 _LO32 = _f("BFEFFFFFE0000000")          # nextafter(-1, 0) in f32
 
 
@@ -187,10 +189,13 @@ def normal_f32(bits: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _half_table(dtype: torch.dtype) -> torch.Tensor:
-    """The f32 values of a bf16 (256 entries, index ``bits & 0xFF``) or f16
-    (1024 entries, index ``(bits & 0xFFFF) >> 6``) gaussian z: u formed in
-    the dtype with every op rounded there, erf_inv in f32 rounded back,
-    times √2 in the dtype — the graph of ``jax.random.normal``."""
+    """The unit a bf16 (256 entries, index ``bits & 0xFF``) or f16 (1024
+    entries, index ``(bits & 0xFFFF) >> 6``) gaussian write multiplies, as
+    f32 values: u formed in the dtype with every op rounded there, erf_inv
+    in f32 rounded back — the graph of ``jax.random.normal``.  bf16's entry
+    is z itself, times √2 in the dtype (XLA:CPU writes bf16 op by op); f16's
+    is erf_inv(u), since there XLA folds the √2 into the scalar
+    (``folded_scalars``)."""
     def rt(v):
         return v.to(dtype).to(torch.float32)
 
@@ -206,23 +211,15 @@ def _half_table(dtype: torch.dtype) -> torch.Tensor:
     span = float(rt(torch.tensor(1.0 - lo)))
     f = rt(one - 1.0)
     u = torch.clamp_min(rt(rt(f * span) + lo), lo)
-    sqrt2 = float(rt(torch.tensor(np.sqrt(2.0), dtype=torch.float64)))
-    return rt(rt(erf_inv_f32(u)) * sqrt2)
-
-
-def z_from_bits(bits: torch.Tensor, dtype: torch.dtype,
-                dist: str) -> torch.Tensor:
-    """f32 values of the leaf-dtype z for threefry ``bits``."""
-    if dist == "gaussian" and dtype == torch.float32:
-        return normal_f32(bits)
-    return _z_unit(bits, dtype, dist)
+    unit = rt(erf_inv_f32(u))
+    return unit if dtype == torch.float16 else rt(unit * _SQRT2_F16)
 
 
 def _z_unit(bits: torch.Tensor, dtype: torch.dtype,
             dist: str) -> torch.Tensor:
-    """What the affine write multiplies: z itself, except for the f32
-    gaussian, where it is erf_inv(u) — XLA folds the √2 into the scalar
-    that multiplies z (``f32_scalars``)."""
+    """What the affine write multiplies: z itself, except for the f32 and
+    f16 gaussian, where it is erf_inv(u) — XLA folds the √2 into the scalar
+    that multiplies z (``folded_scalars``)."""
     if dist == "rademacher":
         return torch.where(bits >= (1 << 31), -1.0, 1.0).to(torch.float32)
     if dtype == torch.float32:
@@ -233,36 +230,62 @@ def _z_unit(bits: torch.Tensor, dtype: torch.dtype,
     return table[idx]
 
 
-def f32_scalars(dist: str, b: float, e: float, zs: Optional[float]):
-    """The scalars an f32 leaf's write multiplies z by.  XLA's algebraic
-    simplifier reassociates a broadcast scalar times z = erf_inv(u)·√2
-    (times the z scale) into erf_inv(u) · (√2·zs·b): so b and e become
-    rn(rn(√2·zs)·b) and rn(rn(√2·zs)·e); rademacher's unit is ±1.  Returns
-    (the z form's multiplier, b, e)."""
-    k = np.float32(_SQRT2 if dist == "gaussian" else 1.0)
+#: dtypes whose write folds z's scalars and contracts one multiply per add
+#: (f32 on every host; f16 as XLA:CPU compiles it with native half FMAs)
+FOLDED = (torch.float32, torch.float16)
+
+
+def folded_scalars(dtype: torch.dtype, dist: str, b: float, e: float,
+                   zs: Optional[float]):
+    """The scalars an f32 or f16 leaf's write multiplies its unit by.  XLA's
+    algebraic simplifier reassociates a broadcast scalar times z =
+    erf_inv(u)·√2 (times the z scale) into erf_inv(u) · (√2·zs·b), each
+    scalar product rounded to the dtype: so b and e become rn(rn(√2·zs)·b)
+    and rn(rn(√2·zs)·e); rademacher's unit is ±1.  Returns (the z form's
+    multiplier, b, e)."""
+    t = np.float32 if dtype == torch.float32 else np.float16
+    k = t(_SQRT2 if dist == "gaussian" else 1.0)
     if zs is not None:
-        k = np.float32(k * np.float32(zs))
-    return (float(k), float(np.float32(k * np.float32(b))),
-            float(np.float32(k * np.float32(e))))
+        k = t(k * t(zs))
+    return float(k), float(t(k * t(b))), float(t(k * t(e)))
 
 
 def _rt(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return v.to(dtype).to(torch.float32)
 
 
+def _fma16(a, b, c) -> torch.Tensor:
+    """Exactly rounded f16 fused multiply-add of f16 values held in f32 —
+    XLA:CPU's native half FMA (``vfmadd…ph`` on an AVX512-FP16 host).  a·b
+    + c is rounded to odd in f64 (``_fma_odd``), to odd again in f32, then
+    once to f16: a correct single rounding (24 ≥ 11 + 2 bits), where one
+    f64 → f16 conversion through f32 would round twice."""
+    v = _fma_odd(a, b, c)
+    r = v.to(torch.float32)
+    bits = r.view(torch.int32)
+    inexact = r.double() != v
+    bits = torch.where(inexact & (r.double().abs() > v.abs()), bits - 1, bits)
+    bits = torch.where(inexact, bits | 1, bits)
+    return _rt(bits.view(torch.float32), torch.float16)
+
+
 def _combine(form: int, x, zu, a: float, b: float, e: float, k: float,
              dtype: torch.dtype) -> torch.Tensor:
-    """The affine write of ``form``: f32 on the unit ``zu`` with the folded
-    scalars of ``f32_scalars``; half dtypes on z (already times the z
-    scale), every op rounded to the dtype."""
-    if dtype == torch.float32:
+    """The affine write of ``form``: f32 and f16 on the unit ``zu`` with
+    the scalars of ``folded_scalars``, one multiply contracted into each
+    add; bf16 on z (already times the z scale), every op rounded to it."""
+    if dtype in FOLDED:
+        if dtype == torch.float32:
+            fma, rn = _fma, (lambda v: v)
+        else:
+            fma, rn = _fma16, (lambda v: _rt(v, dtype))
         if form == FORMS["z"]:
-            return zu * k
+            return rn(zu * k)
         if form == FORMS["axpbz"]:
-            return _fma(_full(x, a), x, zu * b)
+            return fma(_full(x, a), x, rn(zu * b))
         if form == FORMS["xpbz"]:
-            return _fma(zu, _full(zu, b), x)
-        return _fma(_full(x, a), _fma(zu, _full(zu, e), x), zu * b)
+            return fma(zu, _full(zu, b), x)
+        return fma(_full(x, a), fma(zu, _full(zu, e), x), rn(zu * b))
     if form == FORMS["z"]:
         return zu
     if form == FORMS["axpbz"]:
@@ -297,8 +320,8 @@ def zo_affine_threefry_plain(x: Optional[torch.Tensor], key, form: str,
     y = out if out is not None else torch.empty_like(x)
     dtype = y.dtype
     k = 1.0
-    if dtype == torch.float32:
-        k, b, e = f32_scalars(dist, b, e, zs)
+    if dtype in FOLDED:
+        k, b, e = folded_scalars(dtype, dist, b, e, zs)
         zs = None
     yflat = y.view(-1)
     xflat = x.reshape(-1) if x is not None else None
@@ -327,20 +350,74 @@ def _lib():
         vp, i64, i, f, u32, u64 = (ctypes.c_void_p, ctypes.c_int64,
                                    ctypes.c_int, ctypes.c_float,
                                    ctypes.c_uint32, ctypes.c_uint64)
-        lib.zo_threefry.argtypes = [vp, vp, i64, i, u32, u32, u64, i, i, f,
-                                    f, f, f, i, f, vp, vp, i, i64, vp]
-        lib.zo_threefry.restype = i
+        lib.zo_threefry_whole.argtypes = [vp, vp, u32, u32, u32, i, u32, u32,
+                                          u32, u32, i, i, f, f, f, f, i, f,
+                                          vp]
+        lib.zo_threefry_whole.restype = i
+        lib.zo_threefry_bands.argtypes = [vp, vp, i, u32, u32, u64, i, i, f,
+                                          f, f, f, i, f, vp, vp, i, i64, vp]
+        lib.zo_threefry_bands.restype = i
         lib.zo_threefry_normal_f32.argtypes = [vp, i64, i64, vp]
         lib.zo_threefry_normal_f32.restype = i
         lib.zo_threefry_table.argtypes = [vp, i, vp]
         lib.zo_threefry_table.restype = i
+        lib.zo_threefry_pipe_probe.argtypes = [i, vp, i, i, vp]
+        lib.zo_threefry_pipe_probe.restype = i
         lib._typed = True
     return lib
 
 
-def band_route(bands) -> str:
-    """``"bands"`` when a rows plan restricts the launch, else ``"whole"``."""
-    return "whole" if bands is None else "bands"
+#: elements of one whole-route launch at most, and the counter multiple a
+#: call is split at: no launch's counters cross 2^32, so their high word is
+#: a launch constant, and the kernel indexes a launch in 32 bits
+LAUNCH_SPAN = 1 << 31
+
+
+class Launch(NamedTuple):
+    """One launch of the whole route: elements [start, start + n) of the
+    leaf, counters (hi, lo + i) for element start + i; the first ``head``
+    elements and those past ``head + nvec`` 16-byte vectors take the
+    kernel's scalar loop."""
+    start: int
+    n: int
+    hi: int
+    lo: int
+    head: int
+    nvec: int
+
+
+def launch_route(x_addr: Optional[int], y_addr: int, itemsize: int) -> str:
+    """``"vector"`` when x and y lie alike against 16 bytes (on an element
+    boundary), so a launch's body runs in 16-byte vectors; ``"scalar"``
+    when every element takes the scalar loop.  x_addr is None for the z
+    form."""
+    ay = y_addr % 16
+    ax = ay if x_addr is None else x_addr % 16
+    return "vector" if ax == ay and ax % itemsize == 0 else "scalar"
+
+
+def whole_launches(n: int, offset: int, x_addr: Optional[int], y_addr: int,
+                   itemsize: int) -> List[Launch]:
+    """The launches of a whole-leaf X1 call over ``n`` elements whose flat
+    counters start at ``offset`` (x at ``x_addr``, None for the z form; y
+    at ``y_addr``).  The call is cut where the counter reaches a multiple
+    of ``LAUNCH_SPAN``; each launch's head runs up to y's first 16-byte
+    boundary, or over every element on the ``scalar`` route."""
+    per_vec = 16 // itemsize
+    scalar = launch_route(x_addr, y_addr, itemsize) == "scalar"
+    out, i = [], 0
+    while i < n:
+        c = offset + i
+        m = min(n - i, LAUNCH_SPAN - c % LAUNCH_SPAN)
+        if scalar:
+            head, nvec = m, 0
+        else:
+            head = min((16 - (y_addr + i * itemsize) % 16) % 16 // itemsize,
+                       m)
+            nvec = (m - head) // per_vec
+        out.append(Launch(i, m, c >> 32, c & _MASK, head, nvec))
+        i += m
+    return out
 
 
 def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
@@ -352,7 +429,9 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
     """X1: the affine write ``form`` of z(key) over one leaf (see ``FORMS``),
     in place when ``out`` is ``x``.  Scalars are f32 values (half dtypes:
     values of the leaf dtype).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel: the ``whole`` route (``whole_launches``,
+    each launch counted as ``vector`` or ``scalar``) or, for a rows plan's
+    ``bands``, the ``bands`` route."""
     if dist not in DIST_CODES:
         raise NotImplementedError(
             f"zo_affine_threefry has no generator for dist={dist!r}; sphere "
@@ -385,33 +464,43 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
                          "contiguous leaves")
     if y.numel() == 0:
         return y
-    starts = cum = None
-    nb, total = 0, y.numel()
+    k = 1.0
+    if y.dtype in FOLDED:
+        k, b, e = folded_scalars(y.dtype, dist, b, e, zs)
+        zs = None
+    lib = _lib()
+    k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
+    scal = (DIST_CODES[dist], FORMS[form], float(np.float32(a)),
+            float(np.float32(b)), float(np.float32(e)), float(np.float32(k)),
+            int(zs is not None), float(np.float32(0.0 if zs is None else zs)))
+    stream = _build.stream_of(y)
     if bands is not None:
         bl = torch.tensor([[lo, hi] for lo, hi in bands], dtype=torch.int64)
         lens = bl[:, 1] - bl[:, 0]
+        total = int(lens.sum())
+        if total == 0:
+            return y
         starts = bl[:, 0].to(y.device)
         cum = torch.cat([torch.zeros(1, dtype=torch.int64),
                          torch.cumsum(lens, 0)]).to(y.device)
-        nb, total = len(bands), int(lens.sum())
-        if total == 0:
-            return y
-    k = 1.0
-    if y.dtype == torch.float32:
-        k, b, e = f32_scalars(dist, b, e, zs)
-        zs = None
-    lib = _lib()
-    err = lib.zo_threefry(
-        None if x is None else _build.ptr(x), _build.ptr(y), y.numel(),
-        DTYPE_CODES[y.dtype], int(key[0]) & _MASK, int(key[1]) & _MASK,
-        int(offset), DIST_CODES[dist], FORMS[form], float(np.float32(a)),
-        float(np.float32(b)), float(np.float32(e)), float(np.float32(k)),
-        int(zs is not None), float(np.float32(0.0 if zs is None else zs)),
-        None if starts is None else _build.ptr(starts),
-        None if cum is None else _build.ptr(cum), nb, total,
-        _build.stream_of(y))
-    _build.check(lib, err, "zo_affine_threefry")
-    _build.count("zo_affine_threefry", band_route(bands))
+        err = lib.zo_threefry_bands(
+            None if x is None else _build.ptr(x), _build.ptr(y),
+            DTYPE_CODES[y.dtype], k0, k1, int(offset), *scal,
+            _build.ptr(starts), _build.ptr(cum), len(bands), total, stream)
+        _build.check(lib, err, "zo_affine_threefry")
+        _build.count("zo_affine_threefry", "bands")
+        return y
+    size = y.element_size()
+    x_addr = None if x is None else x.data_ptr()
+    route = launch_route(x_addr, y.data_ptr(), size)
+    for ln in whole_launches(y.numel(), int(offset), x_addr, y.data_ptr(),
+                             size):
+        err = lib.zo_threefry_whole(
+            None if x is None else x_addr + ln.start * size,
+            y.data_ptr() + ln.start * size, ln.n, ln.head, ln.nvec,
+            DTYPE_CODES[y.dtype], k0, k1, ln.hi, ln.lo, *scal, stream)
+        _build.check(lib, err, "zo_affine_threefry")
+        _build.count("zo_affine_threefry", route)
     return y
 
 

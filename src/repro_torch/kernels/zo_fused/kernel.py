@@ -96,6 +96,12 @@ def _fma(a, b, c) -> torch.Tensor:
     The f64 product of two f32 values is exact; TwoSum gives the exact error
     of the f64 sum; rounding that sum to odd and then once to f32 is a
     correct single rounding (53 ≥ 2·24 + 2 bits)."""
+    return _fma_odd(a, b, c).to(torch.float32)
+
+
+def _fma_odd(a, b, c) -> torch.Tensor:
+    """a·b + c of f32 (or narrower) operands rounded to odd in f64: exact
+    product, TwoSum, and the last bit set where the f64 sum is inexact."""
     p = a.double() * b.double()
     cd = c.double() if isinstance(c, torch.Tensor) else c
     s = p + cd
@@ -105,7 +111,7 @@ def _fma(a, b, c) -> torch.Tensor:
     odd_fix = (err != 0) & ((bits & 1) == 0)
     step = torch.where((err > 0) == (s > 0), 1, -1)
     bits = torch.where(odd_fix, bits + step, bits)
-    return bits.view(torch.float64).to(torch.float32)
+    return bits.view(torch.float64)
 
 
 def _sqrt_rn(t: torch.Tensor) -> torch.Tensor:

@@ -65,8 +65,10 @@ from repro_torch.kernels.zo_fused.kernel import (_CHUNK, _MASK, DIST_CODES,
                                                  _f32, _f32_array, _fma,
                                                  _u32_array, z_from_counter)
 from repro_torch.kernels.zo_fused.multi import (_PER_THREAD, _TILE_THREADS,
-                                                SQNORM_RTOL, TILE_ELEMS,
-                                                _fold_f32, _streams)
+                                                TILE_ELEMS, _fold_f32,
+                                                _streams)
+# K10's tolerance is K6's: re-exported for the rows tests
+from repro_torch.kernels.zo_fused.multi import SQNORM_RTOL as SQNORM_RTOL
 
 #: K10's leaves per launch and uint32 fields per leaf (``ROWS_MAX_LEAVES``
 #: and ``LEAF_FIELDS`` in csrc/zo_rows.cu)

@@ -10,7 +10,7 @@ import pathlib
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention.kernel import (flash_attention,
                                                         flash_attention_plain)
@@ -717,6 +717,50 @@ def test_cuda_x1_equals_plain(cuda, dtype, dist, form):
                                     else torch.int32),
                            want.view(torch.int16 if dtype != torch.float32
                                      else torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+def test_cuda_x1_routes_and_counter_words(cuda, dtype, dist):
+    """X1 ≡ its plain version bitwise on each route — ``vector`` (x and y
+    alike against 16 bytes), ``scalar`` (x off by one element), ``bands``
+    — on leaves of 1, 7 and 8·37 + 3 elements, at counter offsets whose
+    launch crosses 2³² (cut into two launches, each with its own high
+    word), crosses 2³¹, or does neither; each launch counted under its
+    route."""
+    g = torch.Generator().manual_seed(1)
+    base = torch.randn(1 + 8 * 37 + 3, generator=g).to(dtype).to(cuda)
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    _build.reset_launch_counts()
+    calls = {"vector": 0, "scalar": 0, "bands": 0}
+    for n in (1, 7, 8 * 37 + 3):
+        for off in ((1 << 32) - 150, (1 << 31) - 2, (1 << 32) + 5, 0):
+            for route in calls:
+                x = base[1:n + 1] if route == "scalar" else base[:n].clone()
+                bands = [(0, n // 2 + 1)] if route == "bands" else None
+                for form in ("z", "axpbz", "xpbz", "restore"):
+                    kw = dict(a=0.5, b=-0.25, e=0.125, dist=dist,
+                              bands=bands, offset=off)
+                    xin = None if form == "z" else x
+                    y = torch.empty(n, dtype=dtype, device=cuda)
+                    got = x1.zo_affine_threefry(xin, (7, 3), form,
+                                                out=y, **kw)
+                    want = x1.zo_affine_threefry_plain(
+                        xin, (7, 3), form, out=torch.empty_like(y), **kw)
+                    if bands is not None:
+                        got, want = got[:n // 2 + 1], want[:n // 2 + 1]
+                    assert torch.equal(got.view(ints), want.view(ints)), (
+                        n, off, route, form)
+                    r = "vector" if form == "z" and route == "scalar" \
+                        else route
+                    launches = (1 if bands is not None else len(
+                        x1.whole_launches(n, off, None, y.data_ptr(),
+                                          y.element_size())))
+                    calls[r] += launches
+    assert {r: _build.route_counts.get(f"zo_affine_threefry/{r}", 0)
+            for r in calls} == calls
 
 
 @pytest.mark.cuda

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import msgpack
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.checkpoint.io import load_tree as jax_load_tree
 from repro.checkpoint.io import save_tree as jax_save_tree

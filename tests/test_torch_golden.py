@@ -12,7 +12,9 @@ import pathlib
 
 import jax.numpy as jnp
 import numpy as np
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 from repro.kernels.zo_fused import ref
 from repro_torch.kernels.zo_fused.kernel import z_for, zo_affine

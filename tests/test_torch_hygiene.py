@@ -6,7 +6,7 @@ import ast
 import pathlib
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import TrajectoryLedger as JaxLedger
 from repro_torch.launch import serve as serve_cli
@@ -16,6 +16,7 @@ from repro_torch.serve.engine import ServeEngine
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -33,6 +34,81 @@ def test_port_imports_neither_jax_nor_repro():
     bad = {str(p.relative_to(ROOT)): sorted(r & {"jax", "jaxlib", "repro"})
            for p in PORT_FILES
            if _imported_roots(p) & {"jax", "jaxlib", "repro"}}
+    assert not bad, bad
+
+
+def _imports_torch(node) -> bool:
+    if isinstance(node, ast.Import):
+        return any(a.name.split(".")[0] in ("torch", "repro_torch")
+                   for a in node.names)
+    return (isinstance(node, ast.ImportFrom) and node.level == 0
+            and node.module.split(".")[0] in ("torch", "repro_torch"))
+
+
+def _is_torch_skip(node) -> bool:
+    """``torch = pytest.importorskip("torch")``"""
+    return (isinstance(node, ast.Assign) and isinstance(node.value, ast.Call)
+            and isinstance(node.value.func, ast.Attribute)
+            and node.value.func.attr == "importorskip"
+            and [ast.literal_eval(a) for a in node.value.args] == ["torch"])
+
+
+def test_port_tests_skip_without_torch():
+    """Every port test module skips at collection where torch is missing
+    (CI's JAX legs install no torch): ``pytest.importorskip("torch")``
+    comes before any statement that imports torch or repro_torch."""
+    assert len(PORT_TESTS) >= 29
+    late = []
+    for path in PORT_TESTS:
+        for node in ast.parse(path.read_text()).body:
+            if _is_torch_skip(node):
+                break
+            if _imports_torch(node):
+                late.append(path.name)
+                break
+        else:
+            late.append(path.name)
+    assert not late, late
+
+
+def _unused_imports(path: pathlib.Path) -> list:
+    """Names an import binds in ``path`` that the file never reads — what
+    ruff's F401 reports — except explicit re-exports (``import x as x``,
+    ``from m import x as x``, a name in ``__all__``) and statements marked
+    ``# noqa: F401``."""
+    text = path.read_text()
+    tree = ast.parse(text, filename=str(path))
+    lines = text.splitlines()
+    exported = set()
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            exported.update(ast.literal_eval(node.value))
+    bound = {}
+    for node in ast.walk(tree):
+        if not isinstance(node, (ast.Import, ast.ImportFrom)):
+            continue
+        if isinstance(node, ast.ImportFrom) and node.module == "__future__":
+            continue
+        if any("noqa: F401" in ln
+               for ln in lines[node.lineno - 1:node.end_lineno]):
+            continue
+        for a in node.names:
+            if a.name == "*" or a.asname == a.name:
+                continue
+            bound[a.asname or a.name.split(".")[0]] = node.lineno
+    read = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    return [f"{path.relative_to(ROOT)}:{line} {name}"
+            for name, line in sorted(bound.items(), key=lambda kv: kv[1])
+            if name not in read and name not in exported]
+
+
+def test_no_unused_imports_in_the_port():
+    """CI lints ``src`` and ``tests`` with ruff's F401 (a fatal rule): no
+    module of the port and no port test imports a name it never uses."""
+    files = [p for p in PORT_FILES if p.name != "chip_smoke.py"] + PORT_TESTS
+    bad = [hit for p in files for hit in _unused_imports(p)]
     assert not bad, bad
 
 

@@ -18,7 +18,7 @@ The CUDA kernels are held to these plain versions on the card by
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_attention.kernel import flash_attention_bhsd
 from repro.kernels.flash_attention.ref import attention_ref

@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.data.pipeline import DataSpec as JaxSpec
 from repro.data.pipeline import Pipeline as JaxPipeline

@@ -12,10 +12,9 @@ JAX-initialized LoRA and prefix trees carried across with ``convert``
   quirk, ROADMAP Queue 3).
 """
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.data.synthetic import lm_batch as jax_lm_batch
 from repro.models import all_archs as jax_archs

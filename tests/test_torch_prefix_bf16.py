@@ -17,7 +17,7 @@ do not; the port's engine (its CPU path, the same weights) behaves alike
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.models import all_archs as jax_archs
 from repro.models import bundle as jax_bundle

@@ -28,7 +28,7 @@ import pathlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.zo_fused import ref
 from repro.kernels.zo_fused.rows import tile_plan, zo_sqnorm_rows_ref

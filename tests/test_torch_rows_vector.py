@@ -21,7 +21,7 @@ The kernels are held to the plain versions on the card
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

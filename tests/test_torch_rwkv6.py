@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.models.rwkv6 as JR
 from repro.kernels.rwkv6 import kernel as jkernel

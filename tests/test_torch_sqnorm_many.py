@@ -12,7 +12,7 @@ them on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.zo_fused.multi import zo_sqnorm_ref
 from repro_torch.kernels.zo_fused.multi import (SQNORM_RTOL, TILE_ELEMS,

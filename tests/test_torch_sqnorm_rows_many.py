@@ -17,7 +17,7 @@ runs the plain versions; the kernel is held to them on the card
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro import zo as jzo
 from repro.core import TrajectoryLedger as JaxLedger
@@ -39,7 +39,6 @@ from repro_torch.models import all_archs, bundle
 from repro_torch.perturb import BackendMismatchError
 from repro_torch.serve.tenants import composition_for_ledger
 from repro_torch.train import train
-from repro_torch.tree_utils import tree_leaves
 
 torch.set_num_threads(1)   # tiny tensors: no oversubscription under xdist
 

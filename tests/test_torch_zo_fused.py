@@ -10,7 +10,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.zo_fused import ref
 from repro.perturb.pallas import zo_affine as jax_zo_affine

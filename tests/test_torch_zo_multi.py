@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.zo_fused import ref
 from repro.kernels.zo_fused.multi import zo_sqnorm_ref
