@@ -76,10 +76,38 @@ and depth of rwkv6-3b (32 layers, random bf16 weights from a seeded
   carried state, f32), and the chunk forward against ``fused_recurrent``
   (f32, and bf16 against the bf16 noise measured on the same batch).
 
+Then the paper's own models, each at full width and depth with random
+bf16 weights from seed 0 (initialized on the card, each leaf filled one
+layer at a time), on the default ``xla`` stream, each with the trees
+before it freed:
+
+* (k) roberta-large (``causal=False``): ``mezo`` spsa under the accuracy
+  objective on ``PromptClassification`` batches of 16, 20 steps (X1 on
+  every write; K2 zero times — JAX's routing rule sends ``causal=False``
+  to the chunked path), two replays, label-word accuracy printed;
+* (l) opt-13b: the spsa step's peak against one forward's and its
+  profiler breakdown, then 5 spsa steps on CE in place (X1, K2 at hd 128);
+  θ₀ regenerated from the seed, the ledger replayed (X1) and held to the
+  trained θ, the fine-tune served through the paged engine (K2 hd 128 on
+  the cold prefill, K12), a second replay bitwise the first; (m) 3 steps
+  of the F1 objective on ``SpanExtraction`` batches (X1, K2); K1 and X1
+  over its 4 194 304 000-element ``w1`` leaf, held bitwise to their
+  plain versions on windows at its start, around counter 2^31 and at its
+  end;
+* (n) opt-30b (56.47 GiB of parameters): 3 spsa steps on CE in place,
+  their peak gated against one forward's and printed against the card's
+  memory; θ₀ regenerated twice from the seed, the ledger replayed in
+  place each time (X1), per-leaf checksums equal and host samples of the
+  trained θ within the ulp bound; K1 and X1 over its 9 865 003 008-element
+  ``w1`` leaf on windows across counters 2^31, 2^32, 3·2^31 and 2^33.
+  opt-66b's analytic size is printed only.
+
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
 within a stated bound in bf16 ulps of the trained θ; the spsa steps' peak
-memory (full and rows) within 10 % of one forward's; after one rows step
+memory (full and rows; qwen2-0.5b, opt-13b, opt-30b) within 10 % of one
+forward's; an initializer's peak over its parameters within its largest
+f32 draw; after one rows step
 every unselected element is θ₀'s; after the LoRA phase every base leaf is
 θ₀'s; the served fine-tunes equal the trained θ bitwise (the rwkv6 one, an
 spsa chain, equals its replay bitwise and the trained θ within the ulp
@@ -163,8 +191,11 @@ MLP_LEAF = (24, 896, 4864)           # the stacked MLP weight (w1 / w3)
 # (j): the xla stream rounds every op in bf16 — live θ+εz and θ−εz 2 each
 # (ε·z, the sum), the restore-update 5 (ε·z, the sum, decay·r, η·g·z, the
 # sum), replay 3 (decay·θ, coeff·z, the sum) → 12 per step.
+# (k), (l) and (n) are (j)'s chain at other models.
 ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0, "e_rows_spsa": 4.0,
-                 "h_lora": 4.0, "i_ssm_spsa": 4.0, "j_xla_spsa": 12.0}
+                 "h_lora": 4.0, "i_ssm_spsa": 4.0, "j_xla_spsa": 12.0,
+                 "k_roberta_acc": 12.0, "l_opt13b_spsa": 12.0,
+                 "n_opt30b_spsa": 12.0}
 Z_MAX = 6.0
 MEM_SLACK = 1.10
 # the ssm phases: rwkv6-3b at full width and depth (32 layers, d 2560,
@@ -194,6 +225,28 @@ SSM_MODES_NOISE = 2.0
 # estimators' steps, at qwen2-0.5b's full width
 XLA_STEPS = {"j_xla_spsa": 10}
 XLA_OTHER_STEPS = {"mezo_adam": 3, "trace": 3, "rescaled": 5}
+# the paper's own models on the default stream, each at full width and
+# depth: (k) roberta-large on prompt classification under the accuracy
+# objective, (l) opt-13b spsa on CE and (m) on F1 over span extraction,
+# (n) opt-30b spsa on CE
+PAPER_STEPS = {"k_roberta_acc": 20, "l_opt13b_spsa": 5, "m_opt13b_f1": 3,
+               "n_opt30b_spsa": 3}
+PAPER_BATCH = 16
+# a random head puts no mass on the task's label words, so argmax over the
+# whole vocabulary never lands on one and the accuracy objective is 0 at
+# θ and θ ± εz alike; θ₀'s head columns of the label words are scaled by
+# this gain, as a pretrained masked LM's [MASK] slot favours its verbalizer
+VERBALIZER_GAIN = 16.0
+# opt-13b's serving pool: 40 layers × 40 heads × 128 × 2 (K, V) bf16 is
+# 0.78 MiB of KV per token; 512 rows per slot hold the template (320), a
+# suffix (8-40) and the 16 new tokens
+OPT_MAX_LEN = 512
+# K1 / X1 held to their plain versions on windows of a real leaf past 2^31
+# (opt-13b's w1) and past 2^32 (opt-30b's w1): WINDOW elements at 0, around
+# every counter multiple of 2^31 the leaf reaches, and at its end
+WINDOW = 1 << 16
+# checksums and ulp comparisons walk a leaf in chunks of this many elements
+CHUNK = 1 << 26
 X1_GOLDEN = ROOT / "tests" / "data" / "x1_golden.npz"
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
@@ -724,13 +777,15 @@ def _hold_rows(torch, kr, x, be, k, ph, dist, what) -> None:
         del got
 
 
-def check_k12(torch, kp, L: int, n_blocks: int, D: int) -> None:
-    """K12 vs plain, bitwise, with the table on the host and on the card:
-    a decode step's random table, repeated ids, one id, the pool's ends."""
+def check_k12(torch, kp, L: int, n_blocks: int, D: int,
+              max_len: int = MAX_LEN) -> None:
+    """K12 vs plain, bitwise, with the table on the host and on the card,
+    on a pool of ``n_blocks`` blocks of ``L`` layers × ``D`` values: a
+    decode step's random table, repeated ids, one id, the pool's ends."""
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(L, n_blocks * BLOCK, D, generator=g,
                     device="cuda").to(torch.bfloat16)
-    tab = torch.randint(0, n_blocks, (SLOTS * (MAX_LEN // BLOCK),),
+    tab = torch.randint(0, n_blocks, (SLOTS * (max_len // BLOCK),),
                         generator=torch.Generator().manual_seed(4))
     tables = [tab, torch.tensor([5, 5, 5, 0, 5]), torch.tensor([7]),
               torch.tensor([n_blocks - 1, 0, n_blocks - 1])]
@@ -742,7 +797,8 @@ def check_k12(torch, kp, L: int, n_blocks: int, D: int) -> None:
                 fail(f"K12 paged_gather != plain ({where} table of "
                      f"{t.numel()} ids)")
     log(f"K12 paged_gather: bitwise vs plain with host and device tables "
-        f"({len(tables)} tables, up to {tab.numel()} ids, {L} layers)")
+        f"({len(tables)} tables, up to {tab.numel()} ids, {L} layers, "
+        f"{n_blocks} blocks of {BLOCK} rows × {D} bf16)")
 
 
 _KERNELS = ("flash_fwd_mma", "flash_fwd_sliced", "gather_kernel", "wkv6_fwd",
@@ -1050,9 +1106,10 @@ def workload(np, vocab: int):
             for _ in range(N_REQUESTS)]
 
 
-def serve(cfg, params, prompts, prefix_cache: bool, new_tokens=NEW_TOKENS):
+def serve(cfg, params, prompts, prefix_cache: bool, new_tokens=NEW_TOKENS,
+          max_len=MAX_LEN):
     from repro_torch.serve.engine import Request, ServeEngine
-    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN, block=BLOCK,
+    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=max_len, block=BLOCK,
                       prefix_cache=prefix_cache, device="cuda")
     reqs = [Request(i, p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
@@ -1062,6 +1119,10 @@ def serve(cfg, params, prompts, prefix_cache: bool, new_tokens=NEW_TOKENS):
     eng.run()
     wall = time.perf_counter() - t0
     return eng, reqs, wall
+
+
+# substrings of cuBLAS's GEMM kernel names (sm90 xmma / cutlass / nvjet)
+GEMM_TAGS = ("gemm", "xmma", "cutlass", "nvjet")
 
 
 def device_busy(torch, fn, n: int = 1) -> tuple:
@@ -1083,6 +1144,10 @@ def device_busy(torch, fn, n: int = 1) -> tuple:
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
     tops = ", ".join(f"{e.key[:40]} {e.self_device_time_total / n / 1e3:.3f}"
                      " ms" for e in top)
+    gemm = [e for e in kern if any(t in e.key.lower() for t in GEMM_TAGS)]
+    tops += (f"; cuBLAS GEMMs "
+             f"{sum(e.self_device_time_total for e in gemm) / n / 1e3:.3f} "
+             f"ms ({sum(e.count for e in gemm) / n:.0f} launches)")
     # the port's own kernels: csrc/*.cu define them in anonymous namespaces
     # (a template's name starts with its return type; PyTorch's name at::)
     ours = sorted((e for e in kern
@@ -1306,10 +1371,14 @@ def make_opts():
 
 
 SSM_STEPS = {"i_ssm_spsa": 10}
-ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS}
+ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS, **PAPER_STEPS}
 
 REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
             "j_xla_spsa": ("zo_affine_threefry", "flash_attention"),
+            "k_roberta_acc": ("zo_affine_threefry",),
+            "l_opt13b_spsa": ("zo_affine_threefry", "flash_attention"),
+            "m_opt13b_f1": ("zo_affine_threefry", "flash_attention"),
+            "n_opt30b_spsa": ("zo_affine_threefry", "flash_attention"),
             "a_spsa": ("zo_affine", "flash_attention"),
             "b_fzoo": ("zo_affine_batched", "zo_affine_chain",
                        "flash_attention"),
@@ -1336,7 +1405,12 @@ class StepClock:
 
 
 def train_phase(torch, cfg, params0, name, make_opt, make_plan, _build,
-                counts):
+                counts, loss_fn=None, pipe=None, in_place=False,
+                with_ckpt=True):
+    """``ALL_STEPS[name]`` steps through ``train.loop.train`` with a ledger
+    (and, ``with_ckpt``, a checkpoint directory), on a copy of θ₀ or, with
+    ``in_place``, on θ₀ itself; the lm stream and CE unless ``pipe`` /
+    ``loss_fn`` are given.  Returns (θ, ledger, optimizer, ms per step)."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import TrajectoryLedger
     from repro_torch.data.pipeline import DataSpec, Pipeline
@@ -1345,19 +1419,24 @@ def train_phase(torch, cfg, params0, name, make_opt, make_plan, _build,
     from repro_torch.models.peft import peft_loss_fn
     from repro_torch.train.loop import train
     steps = ALL_STEPS[name]
-    params = _clone_tree(params0)
-    loss_fn = (peft_loss_fn(cfg, "lora") if name == "h_lora"
-               else bundle(cfg).loss_fn())
+    params = params0 if in_place else _clone_tree(params0)
+    if loss_fn is None:
+        loss_fn = (peft_loss_fn(cfg, "lora") if name == "h_lora"
+                   else bundle(cfg).loss_fn())
     opt = make_opt()
     prog = StepProgram(opt, make_plan()) if make_plan else opt
     ledger = TrajectoryLedger(base_seed=SEED, grad_dtype="float32",
                               backend=opt.backend_name,
                               batch_seeds=opt.batch_seeds)
     run = RUN_DIR / name
-    shutil.rmtree(run, ignore_errors=True)
-    ckpt = CheckpointManager(str(run), interval=10**9)
-    pipe = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                             vocab=cfg.vocab_size, seed=SEED), device="cuda")
+    ckpt = None
+    if with_ckpt:
+        shutil.rmtree(run, ignore_errors=True)
+        ckpt = CheckpointManager(str(run), interval=10**9)
+    if pipe is None:
+        pipe = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                 vocab=cfg.vocab_size, seed=SEED),
+                        device="cuda")
     clock = StepClock()
     _build.reset_launch_counts()
     res = train(loss_fn, params, prog, pipe,
@@ -1365,18 +1444,19 @@ def train_phase(torch, cfg, params0, name, make_opt, make_plan, _build,
                 monitor=clock.mon, log_every=1, seed=SEED)
     torch.cuda.synchronize()
     add_counts(counts, _build, REQUIRED[name], f"train {name}")
-    saved = ckpt.load_ledger()
-    if saved is None or saved.to_bytes() != ledger.to_bytes():
-        fail(f"{name}: the ledger on disk != the run's ledger")
-    if not ckpt.steps() == [steps]:
-        fail(f"{name}: no final checkpoint at step {steps}")
-    shutil.rmtree(run)
+    if ckpt is not None:
+        saved = ckpt.load_ledger()
+        if saved is None or saved.to_bytes() != ledger.to_bytes():
+            fail(f"{name}: the ledger on disk != the run's ledger")
+        if not ckpt.steps() == [steps]:
+            fail(f"{name}: no final checkpoint at step {steps}")
+        shutil.rmtree(run)
     losses = [loss for _, loss in res.losses]
     if len(losses) != steps or not all(
             map(lambda v: v == v and abs(v) < 1e30, losses)):
         fail(f"{name}: losses not finite: {losses}")
     step_ms = 1e3 * sum(clock.dts[1:]) / max(1, len(clock.dts) - 1)
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    tok_s = pipe.spec.batch * pipe.seq_len / (step_ms / 1e3)
     log(f"train {name}: {steps} steps, loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}, {step_ms:.1f} ms per step (steps 2..), "
         f"{tok_s:.0f} batch tokens/s, ledger {ledger.to_bytes()[:5].decode()} "
@@ -1388,14 +1468,39 @@ def ulp_diff(torch, a, b) -> tuple:
     """(max difference in bf16 ulps at the magnitude the chain rounds at,
     max(|a|, |b|) + ε·Z_MAX; share of differing elements; max abs
     difference) of two bf16 leaves."""
-    af, bf = a.float(), b.float()
-    m = torch.maximum(af.abs(), bf.abs()) + EPS * Z_MAX
-    _, e = torch.frexp(m)
-    ulp = torch.ldexp(torch.ones_like(m), e - 8)
-    d = (af - bf).abs()
-    ulps = torch.where(d > 0, d / ulp, torch.zeros_like(d))
-    return (ulps.max().item(), (d > 0).float().mean().item(),
-            d.max().item())
+    worst, n_diff, worst_abs = 0.0, 0, 0.0
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    for lo in range(0, fa.numel(), CHUNK):          # f32 temporaries of a
+        af = fa[lo:lo + CHUNK].float()              # chunk, not the leaf
+        bf = fb[lo:lo + CHUNK].float()
+        m = torch.maximum(af.abs(), bf.abs()) + EPS * Z_MAX
+        _, e = torch.frexp(m)
+        ulp = torch.ldexp(torch.ones_like(m), e - 8)
+        d = (af - bf).abs()
+        ulps = torch.where(d > 0, d / ulp, torch.zeros_like(d))
+        worst = max(worst, ulps.max().item())
+        n_diff += int((d > 0).sum())
+        worst_abs = max(worst_abs, d.max().item())
+    return worst, n_diff / max(1, fa.numel()), worst_abs
+
+
+def hold_ulps(torch, name, pairs) -> str:
+    """Hold (replay, trained) leaf pairs to the sequential-spsa bound of
+    ``name`` in bf16 ulps at |θ| + ε·Z_MAX; returns the log text (max
+    ulps, max abs difference, share of differing elements)."""
+    bound = ULPS_PER_STEP[name] * ALL_STEPS[name]
+    worst, worst_abs, n_diff, n_all = 0.0, 0.0, 0.0, 0
+    for a, b in pairs:
+        u, share, mx = ulp_diff(torch, a, b)
+        worst, worst_abs = max(worst, u), max(worst_abs, mx)
+        n_diff += share * a.numel()
+        n_all += a.numel()
+    if worst > bound:
+        fail(f"{name}: replay vs trained θ differ by {worst} bf16 ulps (at "
+             f"|θ| + ε·{Z_MAX}) > the bound {bound}")
+    return (f"max {worst:.2f} bf16 ulps at |θ| + ε·{Z_MAX} (bound "
+            f"{bound:.0f}), max abs {worst_abs:.3e}, "
+            f"{100 * n_diff / n_all:.3f}% of {n_all} elements differ")
 
 
 def check_replays(torch, name, params0, trained, ledger, opt_factory):
@@ -1409,21 +1514,9 @@ def check_replays(torch, name, params0, trained, ledger, opt_factory):
             fail(f"{name}: two replays of the ledger differ")
     pairs = list(zip(tree_leaves(r1), tree_leaves(trained)))
     if name in ULPS_PER_STEP:
-        bound = ULPS_PER_STEP[name] * ALL_STEPS[name]
-        worst_ulps, worst_abs, n_diff, n_all = 0.0, 0.0, 0.0, 0
-        for a, b in pairs:
-            u, share, mx = ulp_diff(torch, a, b)
-            worst_ulps, worst_abs = max(worst_ulps, u), max(worst_abs, mx)
-            n_diff += share * a.numel()
-            n_all += a.numel()
-        if worst_ulps > bound:
-            fail(f"{name}: replay vs trained θ differ by {worst_ulps} bf16 "
-                 f"ulps (at |θ| + ε·{Z_MAX}) > the bound {bound}")
-        log(f"{name}: replay ≡ replay bitwise; replay vs trained θ: max "
-            f"{worst_ulps:.2f} bf16 ulps at |θ| + ε·{Z_MAX} (bound "
-            f"{bound:.0f}), max abs "
-            f"{worst_abs:.3e}, {100 * n_diff / n_all:.3f}% of elements "
-            "differ (the live chain rounds θ±εz in bf16)")
+        log(f"{name}: replay ≡ replay bitwise; replay vs trained θ: "
+            + hold_ulps(torch, name, pairs)
+            + " (the live chain rounds θ±εz in bf16)")
     else:
         for a, b in pairs:
             if not same_bits(a, b):
@@ -1434,20 +1527,23 @@ def check_replays(torch, name, params0, trained, ledger, opt_factory):
     return r1
 
 
-def memory_and_busy(torch, cfg, params0, selection=None, backend="pallas"):
+def memory_and_busy(torch, cfg, params0, selection=None, backend="pallas",
+                    loss_fn=None, batch=None):
     """Peak device memory of one spsa step vs one forward on the same batch
     (no_grad), on a scratch copy of θ₀; and the device-busy share of a
     step under torch.profiler.  Under a ``selection``, the first step must
-    leave every unselected element at θ₀'s bits."""
+    leave every unselected element at θ₀'s bits.  CE on a 16 × 256 lm
+    batch unless ``loss_fn`` / ``batch`` are given."""
     from repro_torch import zo
     from repro_torch.data.pipeline import DataSpec, Pipeline
     from repro_torch.models import bundle
     base = torch.cuda.memory_allocated()
     params = _clone_tree(params0)
-    batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                              vocab=cfg.vocab_size, seed=SEED),
-                     device="cuda").batch(0)
-    loss_fn = bundle(cfg).loss_fn()
+    if batch is None:
+        batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                  vocab=cfg.vocab_size, seed=SEED),
+                         device="cuda").batch(0)
+    loss_fn = loss_fn or bundle(cfg).loss_fn()
     opt = zo.mezo(lr=LR, eps=EPS, backend=backend, selection=selection)
     what = "spsa" if selection is None else f"spsa {selection}"
     if backend != "pallas":
@@ -1482,7 +1578,8 @@ def memory_and_busy(torch, cfg, params0, selection=None, backend="pallas"):
     def one():
         holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
 
-    line = busy_line(f"one {what} step ({TRAIN_BATCH} × {TRAIN_SEQ} tokens, "
+    B, S = batch["tokens"].shape
+    line = busy_line(f"one {what} step ({B} × {S} tokens, "
                      f"{cfg.name}, {cfg.n_layers} layers)",
                      *device_busy(torch, one, 2))
     log(line)
@@ -2043,7 +2140,8 @@ def check_k2_sweep(torch, kf, _build) -> None:
                     err = _hold_k2(torch, kf, q, k, v, window,
                                    f"hd={hd} {dt} S={S} window={window}")
                     if "+copy" in route or _build.route_counts != {
-                            f"flash_attention/{route}": 1}:
+                            f"flash_attention/{route}": 1,
+                            f"flash_attention/hd{hd}": 1}:
                         fail(f"K2 hd={hd} {dt}: launched "
                              f"{_build.route_counts}, planned {route}")
                     key = f"{route} hd {hd}"
@@ -2066,7 +2164,8 @@ def check_k2_sweep(torch, kf, _build) -> None:
             route = kf.plan(q, k, k).route
             _build.reset_launch_counts()
             _hold_k2(torch, kf, q, k, k, 64, f"{what} {dt}")
-            if _build.route_counts != {f"flash_attention/{route}": 1}:
+            if _build.route_counts != {f"flash_attention/{route}": 1,
+                                       f"flash_attention/hd{q.shape[3]}": 1}:
                 fail(f"K2 {what} {dt}: launched {_build.route_counts}")
             copies.append(f"{what} {dt} -> {route}")
     log("K2 inputs the kernels cannot read as they are, within tolerance: "
@@ -2733,8 +2832,15 @@ def time_k2_hd128(torch, kf, card) -> dict:
         f"({RUN_N} launches per CUDA graph and event pair, in turns), plain "
         f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
         f"{err:.2e} — on {card}")
-    return {"ms": run["kernel"], "library_ms": run["library"],
-            "bound_ms": bms}
+    # the hd-128 row of the ``kernels`` line: its launches are K2's on
+    # the opt-13b / opt-30b paths (MHA at hd 128), filled in by main
+    return {"name": "flash_attention_hd128", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+            "launches": 0, "max_abs_err": err, "ms": run["kernel"],
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": run["library"]}
 
 
 def ssm_prompts(np, vocab: int):
@@ -3195,6 +3301,489 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# The paper's own models: roberta-large, opt-13b, opt-30b
+# --------------------------------------------------------------------------- #
+def free_card(torch, what: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{what} freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        "still allocated")
+
+
+def init_logged(torch, arch: str):
+    """(cfg with ``pallas_flash``, θ₀ on the card): the registry's init
+    from seed 0, timed, its peak allocation over the parameters logged and
+    held to the largest f32 draw (one layer's slice of a stacked leaf, or
+    a whole 2-D leaf) — the initializer allocates each leaf once."""
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.tree_utils import tree_leaves
+    cfg = all_archs()[arch].cfg.replace(attention_impl="pallas_flash")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle(cfg).init(0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n = sum(p.numel() for p in leaves)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves)
+    draw = 4 * max(p[0].numel() if p.dim() == 3 else p.numel()
+                   for p in leaves)
+    extra = torch.cuda.max_memory_allocated() - base - nbytes
+    if extra > draw + (64 << 20):
+        fail(f"{arch} init: {extra / 2**30:.3f} GiB over the parameters, "
+             f"more than the largest f32 draw {draw / 2**30:.3f} GiB")
+    log(f"{arch}: {n} params bf16 in {len(leaves)} leaves ({nbytes / 2**30:.2f}"
+        f" GiB; JAX's analytic n_params {cfg.n_params()}, active "
+        f"{cfg.n_active_params()}), {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads × {cfg.hd}, d_ff {cfg.d_ff}; init on the card "
+        f"{init_s:.1f} s, peak {extra / 2**30:.3f} GiB over the parameters "
+        f"(largest f32 draw {draw / 2**30:.3f} GiB)")
+    return cfg, params
+
+
+def checksums(torch, tree) -> list:
+    """A bitwise checksum per leaf, computed on the card: the int64 sums of
+    the raw bits and of the bits times (index mod 65521) + 1."""
+    from repro_torch.tree_utils import tree_leaves
+    out = []
+    for leaf in tree_leaves(tree):
+        flat = bits_of(leaf).reshape(-1)
+        s1 = s2 = 0
+        for lo in range(0, flat.numel(), CHUNK):
+            b = flat[lo:lo + CHUNK].to(torch.int64)
+            w = torch.arange(lo, lo + b.numel(), device=b.device) % 65521 + 1
+            s1 += int(b.sum())
+            s2 += int((b * w).sum())
+        out.append((s1, s2))
+    return out
+
+
+def sample_slices(tree) -> dict:
+    """{path: slice} of a few slices per leaf: the whole of each 1-D leaf
+    outside ``layers`` (the final norm), and layers 0 and L−1 of each
+    stacked leaf."""
+    from repro_torch.tree_utils import flatten_with_path
+    out = {}
+    for path, leaf in flatten_with_path(tree):
+        if "layers" in path:
+            out[path + "[0]"], out[path + "[-1]"] = leaf[0], leaf[-1]
+        elif leaf.dim() == 1:
+            out[path] = leaf
+    return out
+
+
+def samples_vs(torch, name, tree, samples) -> None:
+    """``tree``'s slices against ``samples`` (host copies of the trained
+    θ's) within the sequential-spsa bf16-ulp bound of ``name``."""
+    got = sample_slices(tree)
+    text = hold_ulps(torch, name, ((got[k], want.to("cuda"))
+                                   for k, want in samples.items()))
+    log(f"{name}: replay vs trained θ on {len(samples)} sampled slices "
+        f"(layers 0 and L−1 of every stacked leaf, the final norm): {text}")
+
+
+def hold_windows(torch, np, leaf, what) -> None:
+    """K1 (one ``pallas+z2`` write) and then X1 (one bf16 axpbz write), each
+    in place over the whole of ``leaf``, held bitwise to their plain
+    versions on WINDOW-element windows: the first elements, those around
+    every counter multiple of 2^31 the leaf reaches, and the last.  K1's
+    counter is the flat index mod 2^32 (JAX's uint32 counter wraps); X1's
+    the 64-bit index (threefry's two counter words)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.threefry import kernel as x1
+    from repro_torch.kernels.zo_fused import kernel as kz
+    flat = leaf.view(-1)
+    n = flat.numel()
+    starts = sorted({0, n - WINDOW} | {
+        m - WINDOW // 2 for m in range(1 << 31, n, 1 << 31)})
+    seed, key, bval = 987654321, (31337, 7), -0.0001220703125
+    for kernel in ("K1", "X1"):
+        saved = [(s, flat[s:s + WINDOW].clone()) for s in starts]
+        _build.reset_launch_counts()
+        if kernel == "K1":
+            kz.zo_affine(leaf, seed, 1.0, 1e-3, out=leaf)
+        else:
+            x1.zo_affine_threefry(leaf, key, "axpbz", a=1.0, b=bval,
+                                  out=leaf)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        for s, x in saved:
+            if kernel == "K1":
+                want = kz.zo_affine_plain(x, seed, 1.0, 1e-3, offset=s)
+            else:
+                want = x1.zo_affine_threefry_plain(x, key, "axpbz", a=1.0,
+                                                   b=bval, offset=s)
+            if not same_bits(flat[s:s + WINDOW], want):
+                fail(f"{kernel} on {what} != its plain version on the window "
+                     f"at {s}")
+        log(f"{kernel} on {what} ({n} elements, bf16, in place; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+            + f"): windows of {WINDOW} at " + ", ".join(map(str, starts))
+            + " bitwise its plain version")
+    _build.reset_launch_counts()
+
+
+def require_signal(name, ledger) -> int:
+    """The number of steps whose recorded g is nonzero; fails at none — an
+    objective that stays put between θ + εz and θ − εz records g = 0 at
+    every step, and then only the bf16 roundings of θ ± εz move θ."""
+    moved = sum(1 for g in ledger.grads if g != 0.0)
+    if moved == 0:
+        fail(f"{name}: every recorded g is 0 — the objective never moved "
+             "between θ + εz and θ − εz")
+    return moved
+
+
+class FixedBatches:
+    """A pipeline of given batches, ``batches[step]`` at each step, with the
+    ``spec`` and ``seq_len`` of the pipeline they were drawn from."""
+
+    def __init__(self, pipe, batches: dict):
+        self.spec, self.seq_len, self._batches = pipe.spec, pipe.seq_len, \
+            batches
+
+    def batch(self, step: int) -> dict:
+        return self._batches[step]
+
+
+def record_k2_shapes(shapes: set):
+    """Records the shape of every K2 call the models make into ``shapes``
+    (the attention module calls the wrapper by its module-level name);
+    returns the function that stops the recording."""
+    from repro_torch.models import attention
+    inner = attention.flash_attention
+
+    def recording(q, k, v, **kw):
+        shapes.add((tuple(q.shape), k.shape[2], q.dtype, kw.get("causal", True),
+                    kw.get("window", 0)))
+        return inner(q, k, v, **kw)
+
+    attention.flash_attention = recording
+
+    def stop():
+        attention.flash_attention = inner
+    return stop
+
+
+def hold_k2_shapes(torch, kf, shapes: set, what: str) -> None:
+    """K2 against its plain version on random q, k, v at every recorded
+    shape (B, S, H, hd) with its KV heads, dtype and window."""
+    if not shapes:
+        fail(f"K2: no call recorded on {what}")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    worst = 0.0
+    for (B, S, H, hd), KV, dt, causal, window in sorted(shapes, key=str):
+        if not causal:
+            fail(f"K2 was called with causal=False on {what}")
+        q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        worst = max(worst, _hold_k2(torch, kf, q, k, v, window,
+                                    f"at ({B}, {S}, {H}, {hd}) KV {KV}"))
+    log(f"K2 held to its plain version at every shape {what} gave it "
+        f"({len(shapes)}: " + ", ".join(
+            f"{tuple(sh)} KV {kv}" for sh, kv, *_ in sorted(shapes, key=str))
+        + f"), max abs err {worst:.2e}")
+
+
+def roberta_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """(k) roberta-large at full width (24 layers, d 1024, 16 × 64,
+    causal=False, GELU, sinusoidal positions, bf16): mezo spsa on ``xla``
+    under the accuracy objective on prompt-classification batches through
+    the training loop with a ledger and a checkpoint; two replays bitwise
+    equal and within the ulp bound of the trained θ; K2 launched zero times
+    (JAX's routing rule sends causal=False to the chunked path), X1 on
+    every write; label-word accuracy before and after, printed only.  θ₀'s
+    head columns of the label words are scaled by VERBALIZER_GAIN, and the
+    phase fails unless some step records a nonzero g."""
+    from repro_torch import zo
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.data.synthetic import PromptClassification
+    from repro_torch.models import bundle
+    from repro_torch.perturb.stream import prng_key
+    from repro_torch.tree_utils import is_floating, tree_leaves
+    cfg, params0 = init_logged(torch, "roberta-large")
+    b = bundle(cfg)
+    task = PromptClassification(vocab=cfg.vocab_size, seed=SEED)
+    words = task.label_word(torch.arange(task.n_classes))
+    params0["head"][:, words] *= VERBALIZER_GAIN
+    pipe = Pipeline(DataSpec("prompt_cls", batch=PAPER_BATCH,
+                             vocab=cfg.vocab_size, seed=SEED), device="cuda")
+    loss_fn = b.loss_fn("accuracy")
+    memory_and_busy(torch, cfg, params0, backend="xla", loss_fn=loss_fn,
+                    batch=pipe.batch(0))
+    with torch.no_grad():
+        obj0 = -float(loss_fn(params0, pipe.batch(0)))
+
+    def accuracy(params):
+        return task.eval_accuracy(cfg, b.train_logits_fn(), params,
+                                  prng_key(SEED + 1), n=256, device="cuda")
+
+    acc0 = accuracy(params0)
+    name = "k_roberta_acc"
+
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla")
+
+    p, led, _, ms = train_phase(torch, cfg, params0, name, make_opt, None,
+                                _build, counts, loss_fn=loss_fn, pipe=pipe)
+    step_ms[name] = ms
+    moved = require_signal(name, led)
+    got = dict(_build.launch_counts)
+    n_leaves = sum(1 for q in tree_leaves(params0) if is_floating(q))
+    want_x1 = 3 * n_leaves * ALL_STEPS[name]
+    if got["flash_attention"] or got["zo_affine_threefry"] != want_x1:
+        fail(f"{name}: K2 launched {got['flash_attention']} times (0 under "
+             f"causal=False), X1 {got['zo_affine_threefry']} (3 writes × "
+             f"{n_leaves} leaves × {ALL_STEPS[name]} steps = {want_x1})")
+    r1 = check_replays(torch, name, params0, p, led, make_opt)
+    acc1 = accuracy(p)
+    log(f"{name}: K2 0 launches (causal=False takes the chunked path), X1 "
+        f"{want_x1} (every write of every leaf); g nonzero at {moved} of "
+        f"{len(led)} steps (the label words' head columns × "
+        f"{VERBALIZER_GAIN}: accuracy over the whole vocabulary "
+        f"{obj0:.4f} on the first batch at θ₀); label-word accuracy on 256 "
+        f"held-out prompts {acc0:.4f} before, {acc1:.4f} after "
+        f"{ALL_STEPS[name]} steps (random weights: printed, not a claim) — "
+        f"on {card}")
+    del p, r1, params0
+
+
+def opt13b_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """opt-13b at full width and depth (40 layers, d 5120, 40 × 128, d_ff
+    20480, ReLU, LayerNorm, bf16, ``pallas_flash``): (l) mezo spsa on
+    ``xla``, CE on 16 × 256 lm batches, peak gated at 1.10 × one forward's,
+    the step's profiler breakdown; two replays of its ledger from θ₀
+    regenerated from the seed, bitwise equal and within the ulp bound of
+    the trained θ; the fine-tune served through the paged engine (X1, K2 at
+    hd 128, K12), K12 held to its plain version at the serving pool's
+    shape first and the served ids to a serve through the plain gather;
+    (m) the F1 objective on span-extraction batches whose labels are θ's
+    own greedy answers; K1 / X1 on windows of the 4.19e9-element w1
+    leaf."""
+    from repro_torch import zo
+    from repro_torch.core import replay
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.kernels.paged import gather as kp
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.serve.tenants import composition_for_ledger
+    from repro_torch.tree_utils import tree_leaves
+    big = all_archs()["opt-13b"].cfg
+    n_blocks = 1 + 2 * SLOTS * (OPT_MAX_LEN // BLOCK)
+    check_k12(torch, kp, big.n_layers, n_blocks, big.kv_heads * big.hd,
+              OPT_MAX_LEN)
+    free_card(torch, "K12's check at opt-13b's pool")
+    cfg, params = init_logged(torch, "opt-13b")
+    b = bundle(cfg)
+    sums0 = checksums(torch, params)
+    memory_and_busy(torch, cfg, params, backend="xla")
+    name = "l_opt13b_spsa"
+
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla")
+
+    trained, led, _, ms = train_phase(torch, cfg, params, name, make_opt,
+                                      None, _build, counts, in_place=True,
+                                      with_ckpt=False)
+    step_ms[name] = ms
+    # the fine-tune: θ₀ from the seed again, its ledger replayed (X1) and
+    # held to the trained θ, which is then freed; the fine-tune served
+    prompts = workload(np, cfg.vocab_size)
+    warm, _, _ = serve(cfg, trained, prompts[:1], True, max_len=OPT_MAX_LEN)
+    del warm                                        # cuBLAS warm-up
+    r1 = b.init(0, device="cuda")
+    if checksums(torch, r1) != sums0:
+        fail("opt-13b: θ₀ regenerated from the seed differs from θ₀")
+    _build.reset_launch_counts()
+    replay(r1, led, composition_for_ledger(led))
+    text = hold_ulps(torch, name, zip(tree_leaves(r1), tree_leaves(trained)))
+    del trained, params
+    free_card(torch, "opt-13b's trained θ")
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, wall = serve(cfg, r1, prompts, True, max_len=OPT_MAX_LEN)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention",
+                                "paged_gather"), "serve the opt-13b fine-tune")
+    if any(len(r.out_ids) != NEW_TOKENS for r in reqs):
+        fail("an opt-13b request did not produce its tokens")
+    pool = tuple(eng.pool.k.shape)
+    if pool != (cfg.n_layers, n_blocks * BLOCK, cfg.kv_heads, cfg.hd):
+        fail(f"opt-13b's serving pool {pool} is not the one K12 was held "
+             f"to: {n_blocks} blocks of {BLOCK}")
+    ps = eng.prefix_stats()
+    tokens = tokens_of([r.out_ids for r in reqs])
+    ttft = sorted(r.times["prefill"] - r.times["queued"] for r in reqs)
+    log(f"opt-13b served {len(reqs)} requests / {tokens} tokens in "
+        f"{wall:.3f} s: {tokens / wall:.1f} tok/s, TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, peak memory "
+        f"{peak / 2**30:.2f} GiB (pool {eng.pool.k.numel() * 4 / 2**30:.2f}"
+        f" GiB of K and V), prefix hit rate {ps['prefix_hit_rate']:.2f} — "
+        f"on {card}")
+    del eng
+    # the served ids against two more serves: through K12's plain version
+    # (K12 is its plain version bit for bit, so every id must agree), and
+    # with the prefix cache off (bf16 near-ties may flip: reported)
+    ids = [r.out_ids for r in reqs]
+    serve_engine.paged_gather = kp.paged_gather_plain
+    try:
+        _, plain_reqs, _ = serve(cfg, r1, prompts, True, max_len=OPT_MAX_LEN)
+    finally:
+        serve_engine.paged_gather = kp.paged_gather
+    if [r.out_ids for r in plain_reqs] != ids:
+        fail("opt-13b: the served ids differ when the engine gathers "
+             "through K12's plain version")
+    _, off, _ = serve(cfg, r1, prompts, False, max_len=OPT_MAX_LEN)
+    same = sum(a == b for r, o in zip(reqs, off)
+               for a, b in zip(r.out_ids, o.out_ids))
+    log(f"opt-13b served ids: identical through K12's plain gather "
+        f"({tokens} tokens); with the prefix cache off, bf16 ids agree on "
+        f"{same}/{tokens}")
+    del plain_reqs, off
+    # a second replay, bitwise the first
+    r2 = b.init(0, device="cuda")
+    replay(r2, led, make_opt())
+    torch.cuda.synchronize()
+    for x, y in zip(tree_leaves(r1), tree_leaves(r2)):
+        if not same_bits(x, y):
+            fail(f"{name}: two replays of the ledger differ")
+    del r2
+    log(f"{name}: replay ≡ replay bitwise; replay vs trained θ: {text}")
+    # (m) the F1 objective on span extraction, on the served fine-tune.  A
+    # random model's greedy answer shares no token with a random span, so
+    # F1 is 0 at θ ± εz alike; the labels under the mask are θ's own greedy
+    # answers (F1 = 1 at θ), which θ ± εz moves
+    name = "m_opt13b_f1"
+    span = Pipeline(DataSpec("span", batch=PAPER_BATCH, vocab=cfg.vocab_size,
+                             seed=SEED), device="cuda")
+    f1, logits_fn = b.loss_fn("f1"), b.train_logits_fn()
+    batches = {}
+    with torch.no_grad():
+        task_f1 = -float(f1(r1, span.batch(0)))
+        for step in range(ALL_STEPS[name]):
+            bt = dict(span.batch(step))
+            pred = torch.argmax(logits_fn(r1, bt)[..., :cfg.vocab_size], -1)
+            bt["labels"] = torch.where(bt["loss_mask"] > 0,
+                                       pred.to(bt["labels"].dtype),
+                                       bt["labels"])
+            batches[step] = bt
+    _, led, _, ms = train_phase(torch, cfg, r1, name, make_opt, None, _build,
+                                counts, loss_fn=f1,
+                                pipe=FixedBatches(span, batches),
+                                in_place=True, with_ckpt=False)
+    step_ms[name] = ms
+    log(f"{name}: g nonzero at {require_signal(name, led)} of {len(led)} "
+        f"steps; F1 on the task's own labels at θ {task_f1:.4f}")
+    hold_windows(torch, np, r1["layers"]["mlp"]["w1"],
+                 "opt-13b's w1 (40, 5120, 20480)")
+    del r1
+
+
+def opt30b_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """opt-30b at full width and depth (48 layers, d 7168, 56 × 128, d_ff
+    28672, 56.47 GiB of bf16) initialized on the card: (n) mezo spsa on
+    ``xla``, CE on 16 × 256 lm batches, in place, peak gated at 1.10 × one
+    forward's and printed against the card's memory; two in-place replays
+    from θ₀ regenerated from the seed — no second copy of θ fits — their
+    per-leaf checksums equal, the first within the ulp bound of host
+    samples of the trained θ; K1 / X1 on windows of the 9.87e9-element w1
+    leaf, across counters 2^31, 2^32 and 2^33.  opt-66b is only logged."""
+    from repro_torch import zo
+    from repro_torch.core import replay
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import all_archs, bundle
+    cfg, params = init_logged(torch, "opt-30b")
+    b = bundle(cfg)
+    sums0 = checksums(torch, params)
+    loss_fn = b.loss_fn()
+    batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                              vocab=cfg.vocab_size, seed=SEED),
+                     device="cuda").batch(0)
+    with torch.no_grad():
+        loss_fn(params, batch).item()                    # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        loss_fn(params, batch).item()
+    torch.cuda.synchronize()
+    fwd = torch.cuda.max_memory_allocated() - base
+    del batch
+    name = "n_opt30b_spsa"
+
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla")
+
+    torch.cuda.reset_peak_memory_stats()
+    trained, led, _, ms = train_phase(torch, cfg, params, name, make_opt,
+                                      None, _build, counts, in_place=True,
+                                      with_ckpt=False)
+    step_ms[name] = ms
+    peak_abs = torch.cuda.max_memory_allocated()
+    stp = peak_abs - base
+    _, total = torch.cuda.mem_get_info()
+    if stp > MEM_SLACK * fwd:
+        fail(f"{name}: the steps peak {stp / 2**30:.3f} GiB over θ > "
+             f"{MEM_SLACK} × one forward's {fwd / 2**30:.3f} GiB")
+    log(f"memory (opt-30b): {ALL_STEPS[name]} spsa steps peak at "
+        f"{stp / 2**30:.3f} GiB over θ, one forward (no_grad) at "
+        f"{fwd / 2**30:.3f} GiB — ratio {stp / fwd:.4f}; the whole peak "
+        f"{peak_abs / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB "
+        f"({100 * peak_abs / total:.1f}%) — on {card}")
+    samples = {k: v.cpu() for k, v in sample_slices(trained).items()}
+    # one more step's profile, in place on the trained θ (its samples are
+    # taken; no second copy of θ fits)
+    batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                              vocab=cfg.vocab_size, seed=SEED),
+                     device="cuda").batch(0)
+    opt = make_opt()
+    holder = {"p": trained, "s": opt.init(trained, seed=SEED)}
+    step = opt.step_fn(loss_fn)
+
+    def one():
+        holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
+
+    log(busy_line(f"one spsa on xla step ({TRAIN_BATCH} × {TRAIN_SEQ} "
+                  f"tokens, {cfg.name}, {cfg.n_layers} layers)",
+                  *device_busy(torch, one, 2)))
+    del holder, opt, step, batch, trained, params
+    free_card(torch, "opt-30b's trained θ")
+    sums = []
+    for rep in range(2):
+        p = b.init(0, device="cuda")
+        if checksums(torch, p) != sums0:
+            fail("opt-30b: θ₀ regenerated from the seed differs from θ₀")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        replay(p, led, make_opt())
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        if rep == 0:
+            add_counts(counts, _build, ("zo_affine_threefry",),
+                       "replay the opt-30b fine-tune")
+            samples_vs(torch, name, p, samples)
+        sums.append(checksums(torch, p))
+        log(f"{name}: in-place replay {rep + 1} of {len(led)} records in "
+            f"{replay_s:.3f} s")
+        if rep == 0:
+            del p
+            free_card(torch, "opt-30b's first replay")
+    if sums[0] != sums[1]:
+        fail(f"{name}: the two in-place replays' checksums differ")
+    log(f"{name}: the two in-place replays' per-leaf checksums are equal "
+        f"({len(sums[0])} leaves)")
+    hold_windows(torch, np, p["layers"]["mlp"]["w1"],
+                 "opt-30b's w1 (48, 7168, 28672)")
+    del p, samples
+    big = all_archs()["opt-66b"].cfg
+    log(f"opt-66b: {big.n_params()} params by JAX's n_params, "
+        f"{2 * big.n_params() / 2**30:.1f} GiB of bf16 against the card's "
+        f"{total / 2**30:.2f} GiB: not run on one card (its shapes wait for "
+        "launch/dryrun)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -3348,14 +3937,38 @@ def main() -> None:
     del params0, pool_k
 
     # ---- the ssm family: rwkv6-3b at full width and depth -------------- #
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"qwen2-0.5b trees freed: {torch.cuda.memory_allocated() / 2**30:.3f}"
-        " GiB still allocated")
+    free_card(torch, "qwen2-0.5b's trees")
     rows.append(ssm_paths(torch, np, kw, ko, _build, counts, step_ms, card,
                           k11_err))
+
+    # ---- the paper's models at full width: roberta-large (accuracy), --- #
+    # ---- opt-13b (CE, serving, F1) and opt-30b (CE), on the xla stream - #
+    free_card(torch, "rwkv6-3b's trees")
+    k2_shapes: set = set()
+    stop = record_k2_shapes(k2_shapes)
+    try:
+        roberta_paths(torch, np, _build, counts, step_ms, card)
+        free_card(torch, "roberta-large's trees")
+        opt13b_paths(torch, np, _build, counts, step_ms, card)
+        free_card(torch, "opt-13b's trees")
+        opt30b_paths(torch, np, _build, counts, step_ms, card)
+    finally:
+        stop()
+    free_card(torch, "opt-30b's trees")
+    hold_k2_shapes(torch, kf, k2_shapes, "the roberta / opt paths")
+    rows.append(k2_hd128)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
+    # K2's two rows: its launches at hd 64 (qwen2) and at hd 128 (opt)
+    k2_hd = {hd: counts.get(f"flash_attention/hd{hd}", 0) for hd in (64, 128)}
+    if sum(k2_hd.values()) != counts.get("flash_attention", 0):
+        fail(f"K2 on the counted paths: {counts.get('flash_attention', 0)} "
+             f"launches, {k2_hd} at hd 64 / 128")
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches"] = k2_hd[64]
+        elif row["name"] == "flash_attention_hd128":
+            row["launches"] = k2_hd[128]
     x1_vec = counts.get("zo_affine_threefry/vector", 0)
     if x1_vec == 0 or x1_vec != counts.get("zo_affine_threefry", 0):
         fail(f"X1 on the counted paths: {x1_vec} vector-route launches of "
@@ -3383,8 +3996,9 @@ def main() -> None:
         fail(f"K2 on the counted paths: {k2_mma} bf16 mma.sync launches of "
              f"{counts.get('flash_attention', 0)}; copies {copied}")
     log(f"K2 over the counted paths: all {k2_mma} launches on the bf16 "
-        "mma.sync route, none on a +copy route; K2 hd 128 (OPT-13b's "
-        f"shape): {k2_hd128['ms']:.4f} ms, SDPA "
+        f"mma.sync route, none on a +copy route: {k2_hd[64]} at hd 64 (the "
+        f"qwen2 paths), {k2_hd[128]} at hd 128 (the opt-13b / opt-30b "
+        f"paths); K2 hd 128 (OPT-13b's shape): {k2_hd128['ms']:.4f} ms, SDPA "
         f"{k2_hd128['library_ms']:.4f} ms, bound {k2_hd128['bound_ms']:.4f}")
     log("training step ms: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in step_ms.items())

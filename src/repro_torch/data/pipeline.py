@@ -3,15 +3,17 @@
 
 ``pipeline.batch(step)`` is a pure function of (spec, step): no iterator
 state exists, so checkpoints carry only the step counter and restarts are
-exactly reproducible.  The ``lm`` kind is ported; the prompt-classification
-and span tasks come with the objectives slice.  Batches land on the card
-unless the pipeline is built with ``device="cpu"``.
+exactly reproducible.  Kinds: ``lm`` (the step-indexed LM stream),
+``prompt_cls`` (``PromptClassification``) and ``span``
+(``SpanExtraction``).  Batches land on the card unless the pipeline is
+built with ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.data.synthetic import lm_batch
+from repro_torch.data.synthetic import (PromptClassification,
+                                        SpanExtraction, lm_batch)
 from repro_torch.device import DeviceSpec, resolve_device
 
 
@@ -28,17 +30,26 @@ class DataSpec:
 
 class Pipeline:
     def __init__(self, spec: DataSpec, device: DeviceSpec = None):
-        if spec.kind != "lm":
-            raise NotImplementedError(
-                f"data kind {spec.kind!r} is ported with the objectives "
-                "slice; this slice has the step-indexed 'lm' stream")
         self.spec = spec
         self.device = resolve_device(device)
+        if spec.kind == "prompt_cls":
+            self.task = PromptClassification(vocab=spec.vocab or 256,
+                                             n_classes=spec.n_classes,
+                                             seed=spec.seed,
+                                             prompt=spec.prompt)
+        elif spec.kind == "span":
+            self.task = SpanExtraction(vocab=spec.vocab or 256,
+                                       seed=spec.seed)
+        else:
+            self.task = None
 
     def batch(self, step: int) -> dict:
         s = self.spec
-        return lm_batch(s.seed, step, s.batch, s.seq, s.vocab, self.device)
+        if s.kind == "lm":
+            return lm_batch(s.seed, step, s.batch, s.seq, s.vocab,
+                            self.device)
+        return self.task.batch_for_step(step, s.batch, self.device)
 
     @property
     def seq_len(self) -> int:
-        return self.spec.seq
+        return self.spec.seq if self.spec.kind == "lm" else self.task.seq_len

@@ -61,14 +61,15 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts: Dict[str, int] = {k: 0 for _, _, ks in SOURCES.values()
                                  for k in ks}
 #: launches by route, for a kernel whose wrapper picks one of several device
-#: functions: "kernel/route" -> count (K2: its bf16 and f32 routes)
+#: functions: "kernel/route" -> count (K2: its bf16 and f32 routes, and
+#: each launch once more under its head dim, "flash_attention/hd128")
 route_counts: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def count(name: str, route: Optional[str] = None) -> None:
+def count(name: str, *routes: str) -> None:
     launch_counts[name] += 1
-    if route is not None:
+    for route in routes:
         key = f"{name}/{route}"
         route_counts[key] = route_counts.get(key, 0) + 1
 

@@ -23,6 +23,9 @@ which device function runs and whether the inputs are copied first:
   same kernel, counted under the route's ``+copy`` name;
 * f32 at any hd, and bf16 / f16 past 256, run the scalar kernel, which walks
   hd in slices; only a non-unit hd stride is copied first.
+
+Each launch is counted under its route and once more under its head dim
+(``flash_attention/hd128``).
 """
 from __future__ import annotations
 
@@ -159,7 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vst[2], hd ** -0.5, int(bool(causal)), int(window),
         _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
-    _build.count("flash_attention", p.route)
+    _build.count("flash_attention", p.route, f"hd{hd}")
     return o
 
 

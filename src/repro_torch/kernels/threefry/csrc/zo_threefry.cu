@@ -723,7 +723,8 @@ const char* kernel_error_string(int code) {
 // form: enum Form.  x may be null for FORM_Z.
 //
 // zo_threefry_whole: one launch of the whole route over n elements
-// (n < 2^31) at x, y whose counters are (hi, lo + i) with lo + n <= 2^32;
+// (n <= 2^31: every index the kernel forms is a uint32 below n) at x, y
+// whose counters are (hi, lo + i) with lo + n <= 2^32;
 // the first `head` elements and those past head + nvec 16-byte vectors
 // take the scalar loop (kernel.whole_launches computes the split).
 int zo_threefry_whole(const void* x, void* y, uint32_t n, uint32_t head,
@@ -733,7 +734,7 @@ int zo_threefry_whole(const void* x, void* y, uint32_t n, uint32_t head,
                       void* stream) {
   if (n == 0) return 0;
   if ((dist != 0 && dist != 1) || form < 0 || form > 3 ||
-      (x == nullptr && form != FORM_Z) || n >= (1u << 31) ||
+      (x == nullptr && form != FORM_Z) || n > (1u << 31) ||
       (uint64_t)lo + n > (1ull << 32) || head > n ||
       (uint64_t)nvec * (16 / (dtype == 0 ? 4 : 2)) > n - head)
     return (int)cudaErrorInvalidValue;

@@ -196,9 +196,12 @@ def z_for(shape, seed: int, dist: str = "gaussian",
 
 def zo_affine_plain(x: torch.Tensor, seed: int, a: float, b: float,
                     dist: str = "gaussian",
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    offset: int = 0) -> torch.Tensor:
     """Plain torch K1 on any device: y = fma(a, x, round(b·z)) in f32, cast
-    to x's dtype.  ``out`` may be ``x`` (in place)."""
+    to x's dtype.  ``out`` may be ``x`` (in place); ``offset`` is added to
+    every flat index (x is a window of a longer leaf), and the counter is
+    that index mod 2³², as JAX's uint32 counter wraps."""
     flat = x.reshape(-1)
     y = torch.empty_like(x) if out is None else out
     yflat = y.view(-1)
@@ -206,7 +209,8 @@ def zo_affine_plain(x: torch.Tensor, seed: int, a: float, b: float,
     b32 = _f32(b)
     for lo in range(0, flat.numel(), _CHUNK):
         hi = min(lo + _CHUNK, flat.numel())
-        idx = torch.arange(lo, hi, dtype=torch.int64, device=x.device) & _MASK
+        idx = torch.arange(lo + offset, hi + offset, dtype=torch.int64,
+                           device=x.device) & _MASK
         z = z_from_counter(idx, seed, dist)
         yflat[lo:hi] = _fma(a32, flat[lo:hi].to(torch.float32),
                             z * b32).to(x.dtype)

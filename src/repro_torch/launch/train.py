@@ -15,9 +15,13 @@ selection spec of
 recorded in the checkpoint meta and the MZOL5 ledger header.  The ported
 families are dense and ssm: ``--model-family ssm`` (or ``--arch rwkv6-3b``)
 trains rwkv6, ``--scan-mode`` picks its forward (``chunk``, K11 on the
-card, or ``fused_recurrent``).  Options of later slices (``--optimizer
-adam|sgd``, ``--objective`` other than ``ce``, ``--model-family
-moe|hybrid|encdec``) exit with a message naming the slice.
+card, or ``fused_recurrent``).  ``--arch`` takes every ported config
+(the paper's OPT-13B/30B/66B and RoBERTa-large among them), and
+``--objective`` every entry of ``OBJECTIVES``: the non-differentiable
+``accuracy`` / ``f1`` train through the ZO optimizers only.  The data is
+the ``lm`` stream, as in JAX's launcher.  Options of later slices
+(``--optimizer adam|sgd``, ``--model-family moe|hybrid|encdec``) exit with
+a message naming the slice.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import TrajectoryLedger
 from repro_torch.data.pipeline import DataSpec, Pipeline
 from repro_torch.device import resolve_device
-from repro_torch.models import FAMILY_ARCHS, all_archs, bundle
+from repro_torch.models import FAMILY_ARCHS, OBJECTIVES, all_archs, bundle
 from repro_torch.train.loop import HeartbeatMonitor, train
 from repro_torch.tree_utils import tree_leaves
 
@@ -68,8 +72,11 @@ def main(argv=None):
                          "group per step), or 'auto' for the registry's "
                          "per-family default; recorded in ckpt meta + the "
                          "MZOL5 ledger header")
-    ap.add_argument("--objective", default="ce",
-                    choices=["ce", "accuracy", "f1"])
+    ap.add_argument("--objective", default="ce", choices=list(OBJECTIVES),
+                    help="training objective: 'ce' (cross-entropy) or the "
+                         "non-differentiable 'accuracy'/'f1' metrics (paper "
+                         "§3.3) — zero gradient a.e., so they require a ZO "
+                         "optimizer (--optimizer mezo)")
     ap.add_argument("--scan-mode", default=None,
                     choices=["chunk", "fused_recurrent"],
                     help="ssm forward mode: 'chunk' (chunked WKV, K11 on the "
@@ -94,13 +101,16 @@ def main(argv=None):
         # applier transform refuses selections at composition time)
         sys.exit(f"--select {args.select!r} requires --optimizer mezo "
                  f"(got {args.optimizer!r})")
+    if args.objective != "ce" and args.optimizer not in ("mezo", "mezo-adam"):
+        # argmax metrics have zero gradient a.e. — backprop would "train"
+        # without ever changing the loss; refuse instead of silently stalling
+        sys.exit(f"--objective {args.objective!r} is "
+                 "non-differentiable and needs a ZO optimizer "
+                 f"(--optimizer mezo); got {args.optimizer!r}")
     if args.optimizer in ("adam", "sgd"):
         sys.exit(f"--optimizer {args.optimizer}: the backprop baseline "
                  "(train/adam.py) comes with a later slice (ROADMAP Queue 1 "
                  "item 6); the port trains --optimizer mezo or mezo-adam")
-    if args.objective != "ce":
-        sys.exit(f"--objective {args.objective!r}: the non-differentiable "
-                 "objectives come with the objectives slice (core/nondiff)")
     if args.model_family is not None and args.model_family not in FAMILY_ARCHS:
         sys.exit(f"--model-family {args.model_family}: the other families "
                  "come with the families slice (ROADMAP Queue 1, Slice D); "
@@ -111,7 +121,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.model_family is not None:
         args.arch = FAMILY_ARCHS[args.model_family]
-    arch = all_archs()[args.arch]
+    archs = all_archs()
+    if args.arch not in archs:
+        sys.exit(f"--arch {args.arch!r} is not a ported config; the port "
+                 f"has {', '.join(sorted(archs))}")
+    arch = archs[args.arch]
     cfg = arch.smoke_cfg if args.smoke else arch.cfg
     if args.scan_mode is not None:
         cfg = cfg.replace(scan_mode=args.scan_mode)
@@ -122,8 +136,11 @@ def main(argv=None):
         print(f"[train] --select auto -> {args.select!r}")
     params = b.init(args.seed, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"[train] {cfg.name}: {n_params / 1e6:.1f} M params, "
-          f"optimizer={args.optimizer}, device={device}")
+    print(f"[train] {cfg.name}: {n_params / 1e6:.1f} M params "
+          f"(analytic {cfg.n_params() / 1e6:.1f} M, "
+          f"{cfg.n_active_params() / 1e6:.1f} M active), "
+          f"optimizer={args.optimizer}, objective={args.objective}, "
+          f"device={device}")
 
     pipe = Pipeline(DataSpec("lm", batch=args.batch, seq=args.seq,
                              vocab=cfg.vocab_size, seed=args.seed),

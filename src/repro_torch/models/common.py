@@ -101,15 +101,30 @@ def sinusoidal_at(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 def dense_init(gen: torch.Generator, shape: tuple, dtype,
                fan_in: Optional[int] = None) -> torch.Tensor:
-    """N(0, 1/fan_in) in f32, cast to ``dtype``.  ``fan_in`` defaults to
-    ``shape[0]``; a leaf stacked over layers passes its own."""
+    """N(0, 1/fan_in) drawn in f32, stored in ``dtype``.  ``fan_in``
+    defaults to ``shape[0]``; a leaf stacked over layers passes its own.
+
+    The leaf is allocated once in ``dtype``; a 3-D leaf (stacked over
+    layers on axis 0) is filled one layer at a time, so the f32 draw held
+    at once is one layer's slice — OPT-30b's (48, 7168, 28672) ``w1`` would
+    need 79 GB of f32 temporaries drawn whole."""
     fan_in = fan_in or shape[0]
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for part in (out if len(shape) == 3 else out[None]):
+        _fill_normal(gen, part, 1.0 / math.sqrt(fan_in))
+    return out
 
 
 def embed_init(gen: torch.Generator, shape: tuple, dtype) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    _fill_normal(gen, out, 0.02)
+    return out
+
+
+def _fill_normal(gen: torch.Generator, part: torch.Tensor,
+                 scale: float) -> None:
+    """part ← N(0, scale²): an f32 draw of part's shape, scaled in place,
+    copied (cast) into ``part``."""
+    w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * 0.02).to(dtype)
+    part.copy_(w.mul_(scale))

@@ -96,5 +96,30 @@ class ModelConfig:
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), JAX's
+        formula for the families the port builds: dense and ssm."""
+        if self.family not in ("dense", "ssm") or self.n_experts:
+            raise NotImplementedError(
+                f"n_params of family {self.family!r}: moe, hybrid and encdec "
+                "come with the other-families slice")
+        d, ff, V = self.d_model, self.d_ff, self.padded_vocab
+        hd, H, KV = self.hd, self.n_heads, self.kv_heads
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":  # RWKV6 block accounting
+            tm = d * (H * hd) * 4 + d * (H * hd)        # r,k,v,g,o (o square)
+            tm += 2 * (d * 64 + 64 * d)                  # decay/ddlerp loras (approx)
+            cm = d * ff + ff * d
+            return emb + self.n_layers * (tm + cm)
+        att = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d
+        if self.qkv_bias:
+            att += H * hd + 2 * KV * hd
+        ffn = (3 if self.gated_ffn else 2) * d * ff
+        return emb + self.n_layers * (att + ffn)
+
+    def n_active_params(self) -> int:
+        """Active (per-token) parameters: every one, without experts."""
+        return self.n_params()
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -7,6 +7,8 @@ with the JAX signatures (``vmap`` becomes a batch dimension written out).
   ``ssm``    RWKV6 "Finch" recurrence — models/rwkv6.py; scan modes
              ``cfg.scan_mode`` ∈ {"chunk" (K11), "fused_recurrent"}
 
+``Bundle.loss_fn(objective)`` takes ``OBJECTIVES``: token cross-entropy
+and the paper's non-differentiable accuracy and F1 (``core/nondiff``).
 moe, hybrid and encdec come with the other-families slice.
 """
 from __future__ import annotations
@@ -16,10 +18,17 @@ from typing import Callable, Union
 
 import torch
 
+from repro_torch.core import nondiff
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv6, transformer
 from repro_torch.models.config import ModelConfig
+
+#: Registry-selectable training objectives (``Bundle.loss_fn(objective=...)``):
+#: "ce" is token cross-entropy; "accuracy" / "f1" are the paper §3.3
+#: non-differentiable objectives (argmax-based, zero gradient a.e. — only ZO
+#: optimizers make progress on them; core/nondiff.py).
+OBJECTIVES = ("ce", "accuracy", "f1")
 
 #: Representative registry arch per ported family — the ``--model-family``
 #: alias of ``launch/train`` (JAX's table also names moe, hybrid and encdec).
@@ -105,37 +114,74 @@ class Bundle:
         return logits_fn
 
     def loss_fn(self, objective: str = "ce") -> Callable:
-        if objective != "ce":
-            raise NotImplementedError(
-                f"objective {objective!r} is ported with the objectives "
-                "slice; the port has token cross-entropy ('ce')")
+        """(params, batch) -> scalar minimization objective, ``objective``
+        one of ``OBJECTIVES``:
+
+        * ``"ce"`` — masked token cross-entropy, the default;
+        * ``"accuracy"`` — −accuracy of argmax predictions over
+          ``batch["labels"]`` (under ``loss_mask``).  Logits are sliced to
+          the true ``vocab_size``, so padded vocab columns never win the
+          argmax;
+        * ``"f1"`` — −token F1 between the per-position argmax predictions
+          and the labels; masked-out positions become −1 on both sides, so
+          a real id-0 token still counts.
+        """
         cfg = self.cfg
-        if cfg.family == "ssm":
+        if objective == "ce":
+            if cfg.family == "ssm":
+                def loss(params, batch):
+                    logits, _ = rwkv6.forward(cfg, params,
+                                              tokens=batch["tokens"])
+                    return transformer.lm_loss(cfg, logits, batch["labels"],
+                                               batch.get("loss_mask"))
+                return loss
+            return transformer.train_loss_fn(cfg)
+        if objective not in OBJECTIVES:
+            raise ValueError(f"unknown objective {objective!r}; "
+                             f"available: {OBJECTIVES}")
+        logits_fn = self.train_logits_fn()
+        V = cfg.vocab_size
+        if objective == "accuracy":
             def loss(params, batch):
-                logits, _ = rwkv6.forward(cfg, params, tokens=batch["tokens"])
-                return transformer.lm_loss(cfg, logits, batch["labels"],
-                                           batch.get("loss_mask"))
+                logits = logits_fn(params, batch)[..., :V]
+                return nondiff.negative_accuracy(logits, batch["labels"],
+                                                 batch.get("loss_mask"))
             return loss
-        return transformer.train_loss_fn(cfg)
+
+        def loss(params, batch):      # objective == "f1"
+            logits = logits_fn(params, batch)[..., :V]
+            pred = torch.argmax(logits, dim=-1)
+            gold = batch["labels"].to(pred.dtype)
+            mask = batch.get("loss_mask")
+            if mask is not None:
+                keep = mask > 0
+                pred = torch.where(keep, pred, -1)
+                gold = torch.where(keep, gold, -1)
+            return nondiff.negative_f1(pred, gold, pad_id=-1)
+        return loss
 
     # ---- serving ---------------------------------------------------------- #
     def prefill_fn(self) -> Callable:
-        """(params, {"tokens": (B,S)}) -> (last logits (B,1,V), cache) —
-        for ssm the recurrent state after the prompt in place of a cache."""
+        """(params, {"tokens": (B,S)} or {"embeds": (B,S,d)}) -> (last
+        logits (B,1,V), cache) — for ssm the recurrent state after the
+        prompt in place of a cache."""
         cfg = self.cfg
 
         def prefill(params, batch):
-            tokens = batch["tokens"]
-            B, S = tokens.shape
+            tokens = batch.get("tokens")
             if cfg.family == "ssm":
                 logits, state = rwkv6.forward(
                     cfg, params, tokens=tokens,
-                    state=rwkv6.init_rwkv_state(cfg, B, tokens.device))
+                    state=rwkv6.init_rwkv_state(cfg, tokens.shape[0],
+                                                tokens.device))
                 return logits[:, -1:], state
+            embeds = batch.get("embeds")      # the vision_stub frontend
+            x = tokens if tokens is not None else embeds
+            B, S = x.shape[:2]
             cache = attn_lib.init_cache(cfg, B, max(S, cfg.max_seq),
-                                        cfg.param_dtype, tokens.device)
-            r = transformer.forward(cfg, params, tokens=tokens, cache=cache,
-                                    cache_pos=None)
+                                        cfg.param_dtype, x.device)
+            r = transformer.forward(cfg, params, tokens=tokens, embeds=embeds,
+                                    cache=cache, cache_pos=None)
             return r.logits[:, -1:], r.cache
 
         return prefill
@@ -175,7 +221,9 @@ class Bundle:
     def decode_fn(self) -> Callable:
         """(params, {"token" (B,1), "cache", "cache_pos"}) -> (logits,
         cache): ``cache_pos`` (B,) decodes every row at its own position
-        (continuous batching); a scalar decodes the batch in lockstep.  For
+        (continuous batching); a scalar decodes the batch in lockstep; a
+        vision_stub model may take ``"embed"`` (B,1,d) in place of the
+        token.  For
         ssm the batch carries ``"state"`` in place of a cache, and the new
         state comes back."""
         cfg = self.cfg
@@ -185,12 +233,14 @@ class Bundle:
                 return rwkv6.forward(cfg, params, tokens=batch["token"],
                                      state=batch["state"])
             pos = batch["cache_pos"]
+            token, embed = batch.get("token"), batch.get("embed")
             if isinstance(pos, torch.Tensor) and pos.dim() == 1:
                 positions = pos[:, None].to(torch.int32)
             else:
-                positions = torch.tensor([int(pos)], dtype=torch.int32,
-                                         device=batch["token"].device)
-            r = transformer.forward(cfg, params, tokens=batch["token"],
+                positions = torch.tensor(
+                    [int(pos)], dtype=torch.int32,
+                    device=(token if token is not None else embed).device)
+            r = transformer.forward(cfg, params, tokens=token, embeds=embed,
                                     positions=positions, cache=batch["cache"],
                                     cache_pos=pos)
             return r.logits, r.cache

@@ -168,7 +168,8 @@ def test_cuda_flash_attention_bf16_refuses_misaligned(cuda):
               flat[1:].view(1, 32, 14, 64)):                   # base + 2 B
         _build.reset_launch_counts()
         out = flash_attention(q, k, k)
-        assert _build.route_counts == {"flash_attention/bf16_mma+copy": 1}
+        assert _build.route_counts == {"flash_attention/bf16_mma+copy": 1,
+                                       "flash_attention/hd64": 1}
         _assert_bf16_close(out, flash_attention_plain(q, k, k))
         assert torch.equal(_bytes(out),
                            _bytes(flash_attention(q.contiguous(), k, k)))
@@ -770,3 +771,69 @@ def test_cuda_x1_exhaustive_f32_and_tables(cuda):
     assert x1.normal_f32_selftest(cuda) == 0
     for dt in (torch.bfloat16, torch.float16):
         assert x1.table_selftest(dt, cuda) == 0
+
+
+# --------------------------------------------------------------------------- #
+# Leaves of 2^32 elements and more; the initializer's peak
+# --------------------------------------------------------------------------- #
+BIG_N = (1 << 32) + (3 << 20) + 5       # one bf16 leaf past 2^32, 8.6 GB
+BIG_WINDOW = 1 << 16
+
+
+@pytest.mark.cuda
+def test_cuda_k1_and_x1_across_2_31_and_2_32_on_one_leaf(cuda):
+    """K1 (counter = flat index mod 2^32, JAX's uint32 wrap) and X1 (the
+    64-bit index in threefry's two counter words), each in place over one
+    bf16 leaf of more than 2^32 elements, bitwise their plain versions on
+    windows at its start, across counters 2^31, 2^32 and 3·2^31, and at its
+    end — when the card has room for the leaf."""
+    free, _ = torch.cuda.mem_get_info()
+    if free < 2 * BIG_N * 2:
+        pytest.skip(f"needs {2 * BIG_N * 2 / 2**30:.0f} GiB free on the card")
+    leaf = torch.empty(BIG_N, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for lo in range(0, BIG_N, 1 << 28):
+        hi = min(lo + (1 << 28), BIG_N)
+        leaf[lo:hi] = torch.randn(hi - lo, generator=g, device=cuda)
+    starts = [0, (1 << 31) - BIG_WINDOW // 2, (1 << 32) - BIG_WINDOW // 2,
+              (3 << 31) - BIG_WINDOW // 2, BIG_N - BIG_WINDOW]
+    key, b = (31337, 7), -0.0001220703125
+    for kernel in ("K1", "X1"):
+        saved = [(s, leaf[s:s + BIG_WINDOW].clone()) for s in starts]
+        if kernel == "K1":
+            zo_affine(leaf, 987654321, 1.0, 1e-3, out=leaf)
+        else:
+            x1.zo_affine_threefry(leaf, key, "axpbz", a=1.0, b=b, out=leaf)
+        for s, x in saved:
+            want = (zo_affine_plain(x, 987654321, 1.0, 1e-3, offset=s)
+                    if kernel == "K1" else
+                    x1.zo_affine_threefry_plain(x, key, "axpbz", a=1.0, b=b,
+                                                offset=s))
+            got = leaf[s:s + BIG_WINDOW]
+            assert torch.equal(got.view(torch.int16),
+                               want.view(torch.int16)), (kernel, s)
+
+
+@pytest.mark.cuda
+def test_cuda_init_peak_is_one_layer_over_the_parameters(cuda):
+    """The registry's initializer at one opt-30b layer's shapes (2 layers,
+    full width): the card's peak allocation over what it allocated before
+    is the parameters plus the largest f32 draw — one layer's slice of a
+    stacked leaf (7168 × 28672 f32 for w1) or the whole embedding / head —
+    never a whole stacked leaf in f32."""
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.tree_utils import tree_leaves
+    cfg = all_archs()["opt-30b"].cfg.replace(n_layers=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle(cfg).init(0, device=cuda)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves)
+    draw = 4 * max(p[0].numel() if p.dim() == 3 else p.numel()
+                   for p in leaves)
+    extra = torch.cuda.max_memory_allocated() - base - nbytes
+    assert 0 <= extra <= draw + (64 << 20), (extra, draw)
+    stacked = 4 * cfg.n_layers * cfg.d_model * cfg.d_ff
+    assert extra < stacked            # w1 drawn whole would need this much

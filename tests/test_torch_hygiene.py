@@ -200,7 +200,8 @@ def test_train_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
     (["--backend", "pallas", "--optimizer", "adam"], "backprop"),
     (["--backend", "pallas", "--optimizer", "mezo-adam", "--select",
       "rows(block=1,k=4)"], "requires --optimizer mezo"),
-    (["--backend", "pallas", "--objective", "accuracy"], "objectives"),
+    (["--backend", "pallas", "--objective", "accuracy", "--optimizer",
+      "adam"], "non-differentiable"),
     (["--backend", "pallas", "--model-family", "moe"], "Slice D"),
 ], ids=["xla", "mezo-adam", "adam", "select", "objective", "family"])
 def test_train_cli_refuses_later_slices(argv, slice_name):

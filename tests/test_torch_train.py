@@ -312,5 +312,9 @@ def test_pipeline_is_a_pure_function_of_the_step():
     assert torch.equal(a["labels"], torch.roll(a["tokens"], -1, dims=1))
     assert a["loss_mask"][:, -1].eq(0).all() and a["loss_mask"][:, :-1].eq(1).all()
     assert int(a["tokens"].max()) < 50 and int(a["tokens"].min()) >= 0
-    with pytest.raises(NotImplementedError, match="objectives slice"):
-        Pipeline(DataSpec("prompt_cls", batch=2), device="cpu")
+    for kind in ("prompt_cls", "span"):
+        task = Pipeline(DataSpec(kind, batch=2, vocab=256, seed=1),
+                        device="cpu")
+        a, b = task.batch(3), task.batch(3)
+        assert all(torch.equal(a[k], b[k]) for k in a
+                   if isinstance(a[k], torch.Tensor))
