@@ -102,6 +102,29 @@ before it freed:
   ``w1`` leaf on windows across counters 2^31, 2^32, 3·2^31 and 2^33.
   opt-66b's analytic size is printed only.
 
+Then the backprop baseline (``train.adam``) beside MeZO, each run from θ₀
+regenerated from seed 0 at full width and depth, JAX's default ``xla``
+attention (``pallas_flash`` refuses autograd in both packages):
+
+* (o) roberta-large FT, the paper's Table 1 baseline: CE on
+  ``PromptClassification(vocab=50265)`` (seq 32), batch 16, Adam
+  (lr 1e-5) 10 steps and MeZO spsa on ``xla`` 10 steps on the same
+  batches; (p) qwen2-0.5b on 16 × 256 lm batches: Adam, SGD and MeZO spsa,
+  5 steps each.  For each run: one forward's peak, the steps' peak over
+  the resident θ and in total, ms per step (host clock, median) and one
+  step's device-busy share; the Adam-to-MeZO ratio of total peaks.  The
+  MeZO runs keep the 1.10 × one forward's gate; Adam / SGD launch none of
+  the port's kernels and are held to finite losses, a finite gradient norm
+  > 0, θ moved and f32 moments;
+* (q) one Adam step of the same code on the card and on the CPU at
+  qwen2-0.5b's width, 2 layers, f32, 2 × 64: the loss, the gradient norm,
+  every gradient leaf and θ within stated tolerances; then autograd
+  through ``pallas_flash`` (K2) and through rwkv6's chunk mode (K11) on the
+  card must raise before any launch, and ``fused_recurrent`` must
+  differentiate;
+* (r) reckoned, not measured: Adam's θ + grads + m + v against MeZO's θ
+  for every registry arch, against the card's memory.
+
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
 within a stated bound in bf16 ulps of the trained θ; the spsa steps' peak
@@ -247,6 +270,20 @@ OPT_MAX_LEN = 512
 WINDOW = 1 << 16
 # checksums and ulp comparisons walk a leaf in chunks of this many elements
 CHUNK = 1 << 26
+# the backprop baseline (train.adam) beside MeZO, steps per run: (o)
+# roberta-large FT (Adam lr 1e-5, the paper's Table 1 baseline) and MeZO on
+# prompt classification; (p) qwen2-0.5b, Adam, SGD and MeZO on lm batches
+BACKPROP_STEPS = {"o_roberta": 10, "p_qwen2": 5}
+# (q) one Adam step of the same port code on the card and on the CPU, at
+# qwen2-0.5b's width with BP_LAYERS layers in f32 (TF32 off): the loss and
+# the gradients are f32 sums in cuBLAS's and the CPU BLAS's orders (loss
+# within BP_LOSS_REL of itself, each gradient leaf within BP_GRAD_REL of its
+# largest |g|); Adam's first step is η·sign(g) wherever |g| ≫ ε, so θ is
+# held within 2η everywhere and within BP_THETA_ATOL·η on all but
+# BP_THETA_OUTLIERS of its elements (a gradient near 0 can change sign)
+BP_LAYERS, BP_BATCH, BP_SEQ, BP_LR = 2, 2, 64, 1e-3
+BP_LOSS_REL, BP_GRAD_REL = 1e-5, 1e-4
+BP_THETA_ATOL, BP_THETA_OUTLIERS = 1e-2, 1e-3
 X1_GOLDEN = ROOT / "tests" / "data" / "x1_golden.npz"
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
@@ -3784,6 +3821,275 @@ def opt30b_paths(torch, np, _build, counts, step_ms, card) -> None:
         "launch/dryrun)")
 
 
+# --------------------------------------------------------------------------- #
+# The backprop baseline (train.adam) against MeZO, and the memory reckoning
+# --------------------------------------------------------------------------- #
+def _peak_forward(torch, loss_fn, params, batch) -> tuple:
+    """(total peak, peak over what was allocated before) of one no_grad
+    forward, after a warm-up forward."""
+    with torch.no_grad():
+        loss_fn(params, batch).item()                    # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        loss_fn(params, batch).item()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - base
+
+
+def bp_run(torch, np, _build, counts, step_ms, card, arch, name, make_opt,
+           pipe, steps) -> dict:
+    """One run of (o) / (p), CE under ``xla`` attention: θ₀ from seed 0 on
+    the card (each run from a fresh θ₀, so each total peak is this run's
+    alone), one forward's peak, ``steps`` steps through ``train.loop.train``, their
+    peak over the resident θ and in total, ms per step (host clock,
+    median of steps 2..), then one more step under torch.profiler.  Adam /
+    SGD runs launch none of the port's kernels (JAX's default ``xla``
+    attention, no z) and are held to finite losses, a finite gradient norm
+    > 0, θ moved and f32 moments; MeZO runs (X1 on every write) to a peak
+    within MEM_SLACK × one forward's."""
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.train import Adam
+    from repro_torch.train.loop import train
+    from repro_torch.tree_utils import tree_leaves
+    cfg = all_archs()[arch].cfg.replace(attention_impl="xla")
+    params = bundle(cfg).init(0, device="cuda")
+    loss_fn = bundle(cfg).loss_fn()
+    batch0 = pipe.batch(0)
+    fwd_total, fwd_over = _peak_forward(torch, loss_fn, params, batch0)
+    probe = {k: tree_leaves(params)[i].reshape(-1)[:4096].clone()
+             for k, i in (("first", 0), ("last", -1))}
+    opt = make_opt()
+    backprop = isinstance(opt, Adam)
+    clock = StepClock()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = train(loss_fn, params, opt, pipe, total_steps=steps,
+                monitor=clock.mon, log_every=1, seed=SEED)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if backprop:
+        got = {k: v for k, v in _build.launch_counts.items() if v}
+        if got:
+            fail(f"{name}: the backprop run launched the port's kernels "
+                 f"{got} (its path has none: xla attention, no z)")
+    else:
+        add_counts(counts, _build, ("zo_affine_threefry",), f"train {name}")
+    losses = [loss for _, loss in res.losses]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"{name}: losses not finite: {losses}")
+    ms = float(np.median(clock.dts[1:])) * 1e3
+    step_ms[name] = ms
+    params, state = res.params, res.opt_state
+    step = opt.step_fn(loss_fn)
+    holder = {"p": params, "s": state, "m": None}
+
+    def one():
+        holder["p"], holder["s"], holder["m"] = step(holder["p"],
+                                                     holder["s"], batch0)
+
+    busy = busy_line(f"one {name} step", *device_busy(torch, one, 2))
+    _build.reset_launch_counts()
+    if backprop:
+        gn = float(holder["m"]["grad_norm"])
+        if not (np.isfinite(gn) and gn > 0):
+            fail(f"{name}: grad_norm {gn} is not finite and > 0")
+        if all(torch.equal(v, tree_leaves(holder["p"])[i].reshape(-1)[:4096])
+               for v, i in ((probe["first"], 0), (probe["last"], -1))):
+            fail(f"{name}: θ did not move")
+        moments = tree_leaves((holder["s"].m, holder["s"].v))
+        if any(t.dtype != torch.float32 for t in moments):
+            fail(f"{name}: m / v are not f32 after step 1")
+        extra = (f"grad_norm {gn:.4g}; m, v f32 ({len(moments)} leaves, "
+                 f"{sum(t.numel() * 4 for t in moments) / 2**30:.3f} GiB)")
+        del moments
+    else:
+        extra = "X1 on every write"
+    log(f"{name} ({cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{pipe.spec.batch} × {pipe.seq_len} tokens): {steps} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {ms:.1f} ms per step "
+        f"(median, steps 2..); one forward peaks at {fwd_total / 2**30:.3f} "
+        f"GiB ({fwd_over / 2**30:.3f} over θ); the steps peak at "
+        f"{peak / 2**30:.3f} GiB in total, {(peak - base) / 2**30:.3f} GiB "
+        f"over the resident θ ({base / 2**30:.3f} GiB); {extra} — on {card}")
+    log(busy)
+    if not backprop and peak > MEM_SLACK * fwd_total:
+        fail(f"{name}: the MeZO steps peak at {peak / 2**30:.3f} GiB > "
+             f"{MEM_SLACK} × one forward's {fwd_total / 2**30:.3f} GiB")
+    del holder, params, state, res, step, opt
+    free_card(torch, f"{name}'s trees")
+    return {"total": peak, "over": peak - base, "fwd": fwd_total, "ms": ms}
+
+
+def backprop_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """(o) roberta-large FT, the paper's Table 1 baseline: CE on
+    ``PromptClassification(vocab=50265)`` (seq 32), batch 16, Adam
+    (lr 1e-5, 10 steps) beside MeZO spsa on ``xla`` (10 steps, the same
+    batches); (p) qwen2-0.5b on 16 × 256 lm batches under ``xla``
+    attention: Adam, SGD and MeZO spsa, 5 steps each.  Every run at full
+    width and depth from θ₀ of seed 0; the Adam-to-MeZO ratio of total
+    peaks (the paper's measure) printed per model."""
+    from repro_torch import zo
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import all_archs
+    from repro_torch.train import Adam, AdamConfig
+
+    def mezo():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla")
+
+    for arch, kind, runs in (
+            ("roberta-large", "o_roberta",
+             {"o_roberta_adam": lambda: Adam(AdamConfig(
+                 lr=1e-5, total_steps=BACKPROP_STEPS["o_roberta"])),
+              "o_roberta_mezo": mezo}),
+            ("qwen2-0.5b", "p_qwen2",
+             {"p_qwen2_adam": lambda: Adam(AdamConfig(
+                 lr=1e-4, total_steps=BACKPROP_STEPS["p_qwen2"])),
+              "p_qwen2_sgd": lambda: Adam(AdamConfig(
+                  lr=1e-3, sgd=True, total_steps=BACKPROP_STEPS["p_qwen2"])),
+              "p_qwen2_mezo": mezo})):
+        vocab = all_archs()[arch].cfg.vocab_size
+        spec = (DataSpec("prompt_cls", batch=PAPER_BATCH, vocab=vocab,
+                         seed=SEED) if kind == "o_roberta" else
+                DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=vocab,
+                         seed=SEED))
+        pipe = Pipeline(spec, device="cuda")
+        got = {name: bp_run(torch, np, _build, counts, step_ms, card, arch,
+                            name, make, pipe, BACKPROP_STEPS[kind])
+               for name, make in runs.items()}
+        adam, zo_run = got[f"{kind}_adam"], got[f"{kind}_mezo"]
+        log(f"Adam-to-MeZO ratio of total peaks ({arch}): "
+            f"{adam['total'] / 2**30:.3f} / {zo_run['total'] / 2**30:.3f} "
+            f"GiB = {adam['total'] / zo_run['total']:.2f}× (over the resident θ: "
+            f"{adam['over'] / 2**30:.3f} / {zo_run['over'] / 2**30:.3f} "
+            "GiB); "
+            + ", ".join(f"{n} {g['total'] / 2**30:.3f} GiB, {g['ms']:.1f} ms"
+                        for n, g in got.items()) + f" — on {card}")
+
+
+def backprop_card_vs_cpu(torch, np, _build) -> None:
+    """(q) the same port code on the card and on the CPU: one Adam step at
+    qwen2-0.5b's width with BP_LAYERS layers in f32 (TF32 off), batch
+    BP_BATCH × BP_SEQ — the loss, the gradient norm, every gradient leaf
+    and the updated θ within the stated tolerances; then the refusals of
+    K2 (``pallas_flash``) and K11 (rwkv6 chunk mode) under autograd on the
+    card, before any launch, and ``fused_recurrent`` differentiating."""
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.train import Adam, AdamConfig
+    from repro_torch.train.adam import value_and_grad
+    from repro_torch.tree_utils import flatten_with_path, tree_leaves, \
+        tree_map
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(
+        n_layers=BP_LAYERS, dtype="float32", attention_impl="xla")
+    loss_fn = bundle(cfg).loss_fn()
+    cpu0 = bundle(cfg).init(0, device="cpu")
+    batch = Pipeline(DataSpec("lm", batch=BP_BATCH, seq=BP_SEQ,
+                              vocab=cfg.vocab_size, seed=SEED),
+                     device="cpu").batch(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev, copy=True), cpu0)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, grads = value_and_grad(loss_fn, p, b)
+        opt = Adam(AdamConfig(lr=BP_LR))
+        p, state, m = opt.step_fn(loss_fn)(p, opt.init(p), b)
+        out[dev] = (float(loss), float(m["grad_norm"]),
+                    [(k, g.cpu()) for k, g in flatten_with_path(grads)],
+                    [t.cpu() for t in tree_leaves(p)])
+        del p, state, grads
+    (lc, nc, gc, pc), (lg, ng, gg, pg) = out["cpu"], out["cuda"]
+    if abs(lc - lg) > BP_LOSS_REL * abs(lc):
+        fail(f"(q): loss on the card {lg} vs the CPU {lc}")
+    if abs(nc - ng) > BP_GRAD_REL * nc:
+        fail(f"(q): grad_norm on the card {ng} vs the CPU {nc}")
+    worst_g = 0.0
+    for (path, a), (_, b) in zip(gc, gg):
+        rel = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        worst_g = max(worst_g, rel)
+        if rel > BP_GRAD_REL:
+            fail(f"(q): gradient {path}: card vs CPU {rel:.3e} of its "
+                 f"largest |g| > {BP_GRAD_REL}")
+    gaps = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(pc, pg)])
+    far = float((gaps > BP_THETA_ATOL * BP_LR).float().mean())
+    if float(gaps.max()) > 2 * BP_LR or far > BP_THETA_OUTLIERS:
+        fail(f"(q): θ after one Adam step: max gap {float(gaps.max()):.3e} "
+             f"(bound 2η = {2 * BP_LR}), {far:.2e} of the elements beyond "
+             f"{BP_THETA_ATOL}·η (bound {BP_THETA_OUTLIERS})")
+    log(f"(q) card ≡ CPU, one Adam step at qwen2-0.5b's width, "
+        f"{BP_LAYERS} layers, f32, {BP_BATCH} × {BP_SEQ}: loss {lg:.6f} vs "
+        f"{lc:.6f}, grad_norm {ng:.6f} vs {nc:.6f}, every gradient leaf "
+        f"within {worst_g:.2e} of its largest |g| (bound {BP_GRAD_REL}), θ "
+        f"max gap {float(gaps.max()):.2e} (2η = {2 * BP_LR}), {far:.2e} of "
+        f"its elements beyond {BP_THETA_ATOL}·η")
+    # the refusals, each before any launch
+    for what, rcfg, needle in (
+            ("pallas_flash", cfg.replace(attention_impl="pallas_flash"),
+             "flash_attention"),
+            ("rwkv6 chunk mode",
+             all_archs()["rwkv6-3b"].smoke_cfg.replace(scan_mode="chunk"),
+             "wkv6_chunked")):
+        params = bundle(rcfg).init(0, device="cuda")
+        b = {k: v[:, :32].to("cuda") for k, v in batch.items()}
+        b["tokens"] = b["tokens"] % rcfg.vocab_size
+        b["labels"] = b["labels"] % rcfg.vocab_size
+        _build.reset_launch_counts()
+        try:
+            value_and_grad(bundle(rcfg).loss_fn(), params, b)
+        except RuntimeError as e:
+            if needle not in str(e) or "no backward" not in str(e):
+                raise
+            if _build.launch_counts[needle]:
+                fail(f"(q): {needle} launched before it refused autograd")
+            log(f"(q) autograd through {what} on the card refused before "
+                f"any launch: {e}")
+        else:
+            fail(f"(q): autograd through {what} on the card did not raise")
+    rcfg = all_archs()["rwkv6-3b"].smoke_cfg.replace(
+        scan_mode="fused_recurrent")
+    params = bundle(rcfg).init(0, device="cuda")
+    loss, grads = value_and_grad(bundle(rcfg).loss_fn(), params, b)
+    if not (np.isfinite(float(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(grads))):
+        fail("(q): rwkv6 fused_recurrent gradients on the card not finite")
+    log(f"(q) rwkv6 fused_recurrent differentiates on the card: loss "
+        f"{float(loss):.4f}, {len(tree_leaves(grads))} finite gradient "
+        "leaves")
+    _build.reset_launch_counts()
+
+
+def reckon_adam_vs_mezo(torch, card) -> None:
+    """(r) reckoned, not measured: for every registry arch, Adam's
+    θ + grads (the arch's dtype) + m + v (f32) against MeZO's θ, both
+    without activations, against the card's total memory."""
+    from repro_torch.models import all_archs
+    total = torch.cuda.get_device_properties(0).total_memory
+    only_mezo = []
+    for arch_id, arch in sorted(all_archs().items(),
+                                key=lambda kv: kv[1].cfg.n_params()):
+        cfg = arch.cfg
+        n = cfg.n_params()
+        width = torch.empty((), dtype=cfg.param_dtype).element_size()
+        theta, adam = n * width, n * (2 * width + 8)
+        fits = (adam <= total, theta <= total)
+        if fits == (False, True):
+            only_mezo.append(arch_id)
+        log(f"reckoned, not measured — {arch_id}: {n} params; Adam θ + "
+            f"grads + m + v {adam / 2**30:.2f} GiB ({2 * width + 8} B a "
+            f"param), MeZO θ {theta / 2**30:.2f} GiB ({width} B), "
+            f"activations not counted; of the card's {total / 2**30:.2f} "
+            f"GiB Adam {'fits' if fits[0] else 'does not fit'}, MeZO "
+            f"{'fits' if fits[1] else 'does not fit'}")
+    log(f"reckoned, not measured: the arches MeZO holds on one {card} and "
+        f"Adam does not: {', '.join(only_mezo) or 'none'}; Adam holds at "
+        f"most {total / 12 / 1e9:.2f} × 10^9 bf16 parameters, MeZO "
+        f"{total / 2 / 1e9:.2f} × 10^9 (before activations)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -3956,6 +4262,13 @@ def main() -> None:
         stop()
     free_card(torch, "opt-30b's trees")
     hold_k2_shapes(torch, kf, k2_shapes, "the roberta / opt paths")
+
+    # ---- the backprop baseline against MeZO: (o) roberta-large and (p) - #
+    # ---- qwen2-0.5b at full width; (q) card ≡ CPU and K2's / K11's ----- #
+    # ---- refusals of autograd; (r) the memory reckoning ---------------- #
+    backprop_paths(torch, np, _build, counts, step_ms, card)
+    backprop_card_vs_cpu(torch, np, _build)
+    reckon_adam_vs_mezo(torch, card)
     rows.append(k2_hd128)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)

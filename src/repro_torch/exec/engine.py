@@ -125,6 +125,10 @@ def slice_group(batch, group: int, n_groups: int):
 class StepProgram:
     """A ``repro_torch.zo`` optimizer lowered onto an execution plan.
 
+    A non-ZO optimizer (a backprop baseline, ``train.adam.Adam``) runs on
+    the ``local`` plan only and passes straight through; its ``meta`` has
+    no seed-schedule coordinates (every one is None), as in JAX.
+
     >>> prog = StepProgram(zo.fzoo(lr=1e-6, batch_seeds=8, backend="pallas"),
     ...                    exec.seed_parallel(2))
     >>> state = prog.init(params, seed=0)
@@ -134,7 +138,22 @@ class StepProgram:
 
     def __init__(self, optimizer, plan: Optional[ExecPlan] = None):
         self.plan = plan if plan is not None else plan_mod.local()
-        self.opt = as_zo_optimizer(optimizer)
+        if callable(getattr(optimizer, "replay_update", None)) or \
+                getattr(optimizer, "estimator", None) is not None or \
+                (hasattr(optimizer, "eps") and hasattr(optimizer, "dist")):
+            self.opt = as_zo_optimizer(optimizer)
+            self.is_zo = True
+        else:
+            # a backprop baseline (train.adam): the local plan only, passed
+            # straight through
+            self.opt = optimizer
+            self.is_zo = False
+            if self.plan.kind != "local":
+                raise ValueError(
+                    f"{type(optimizer).__name__} is not a seed-replayable ZO "
+                    f"optimizer; only the local plan can run it "
+                    f"(got {self.plan.kind!r})")
+            return
         est = self.opt.estimator
         n = self.plan.n_groups
         if self.plan.kind in ("seed_parallel", "async_worker"):
@@ -167,35 +186,40 @@ class StepProgram:
 
     # -- identity ----------------------------------------------------------- #
     @property
-    def n_groups(self) -> int:
+    def n_groups(self) -> Optional[int]:
         """Seed streams folded per step at the group level: the plan's
-        groups, or — under the local plan — the estimator's n_seeds."""
+        groups, or — under the local plan — the estimator's n_seeds (None
+        for a backprop baseline)."""
+        if not self.is_zo:
+            return None
         if self.plan.kind == "local":
             return int(self.opt.estimator.n_seeds)
         return int(self.plan.n_groups)
 
     @property
-    def batch_seeds(self) -> int:
-        return self.opt.batch_seeds
+    def batch_seeds(self) -> Optional[int]:
+        return self.opt.batch_seeds if self.is_zo else None
 
     @property
-    def backend_name(self) -> str:
-        return self.opt.backend_name
+    def backend_name(self) -> Optional[str]:
+        return self.opt.backend_name if self.is_zo else None
 
     @property
     def selection(self):
-        return self.opt.selection
+        return self.opt.selection if self.is_zo else None
 
     @property
     def meta(self) -> dict:
         """The artifact stamp: what a resume/replay needs to re-derive (or
-        refuse to re-derive) the run's seed schedule."""
+        refuse to re-derive) the run's seed schedule; a backprop baseline
+        has none, and every coordinate is None."""
+        zo = self.is_zo
         return {"perturb_backend": self.backend_name,
                 "batch_seeds": self.batch_seeds,
-                "exec_plan": self.plan.kind,
+                "exec_plan": self.plan.kind if zo else None,
                 "n_groups": self.n_groups,
-                "selection": self.opt.selection_spec,
-                "sel_phase": self.opt.selection_phase}
+                "selection": self.opt.selection_spec if zo else None,
+                "sel_phase": self.opt.selection_phase if zo else None}
 
     # -- protocol delegation ------------------------------------------------ #
     def init(self, params: Optional[PyTree] = None, *, seed: int = 0):
@@ -205,7 +229,7 @@ class StepProgram:
         return self.opt.restore(state, step)
 
     def step_fn(self, loss_fn) -> Callable:
-        if self.plan.kind == "local":
+        if not self.is_zo or self.plan.kind == "local":
             return self.opt.step_fn(loss_fn)
         if self.plan.kind == "seed_parallel":
             if self.plan.n_groups == 1:

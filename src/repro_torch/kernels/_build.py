@@ -74,6 +74,19 @@ def count(name: str, *routes: str) -> None:
         route_counts[key] = route_counts.get(key, 0) + 1
 
 
+def refuse_autograd(kernel: str, tensors, instead: str) -> None:
+    """Raise where autograd would record through ``kernel``: a ctypes launch
+    writes into fresh tensors with no ``grad_fn``, so a gradient would stop
+    there without a word.  Called by a wrapper with no backward before it
+    launches; ``instead`` names what differentiates."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: autograd cannot differentiate "
+            f"through it (an input requires grad); use {instead}, or call "
+            "it under torch.no_grad()")
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0

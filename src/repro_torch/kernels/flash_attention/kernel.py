@@ -129,7 +129,13 @@ def _lib():
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd)."""
+    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd).  Forward only, on
+    every device: JAX's Pallas kernel has no backward either, so
+    ``attention_impl="pallas_flash"`` refuses autograd in both packages."""
+    _build.refuse_autograd(
+        "flash_attention (K2, attention_impl='pallas_flash')", (q, k, v),
+        "attention_impl='xla' or 'chunked', which differentiate in both "
+        "packages")
     qs, ks = q.shape, k.shape
     if len(qs) != 4 or ks != v.shape or ks[:2] != qs[:2] or ks[3] != qs[3] \
             or qs[2] % ks[2]:

@@ -98,9 +98,16 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with unit stride on hd; ``u`` read at element strides ``u_strides =
     (per b, per h)``; s0 (B, H, hd, hd) with row-major hd × hd matrices.
     Returns y (B, S, H, hd) and s_final (B, H, hd, hd), f32 contiguous.
-    The launch is counted under its route (``plan``)."""
-    B, S, H, hd = r.shape
+    The launch is counted under its route (``plan``).  Forward only: the
+    card path refuses autograd (the plain version on the CPU differentiates,
+    as JAX's jnp chunk form does; K11's backward is queued work)."""
     ts = (r, k, v, lw, u, s0)
+    _build.refuse_autograd(
+        "wkv6_chunked (K11, rwkv6 scan_mode='chunk' on the card)", ts,
+        "scan_mode='fused_recurrent', which differentiates on the card "
+        "(a K11 backward is queued in ROADMAP: 'K11 backward — rwkv6 "
+        "backprop in chunk mode on the card')")
+    B, S, H, hd = r.shape
     if any(t.device.type != "cuda" or t.device != r.device for t in ts):
         raise RuntimeError("wkv6_chunked: every input must be on one CUDA "
                            "device")

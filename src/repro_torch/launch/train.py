@@ -3,8 +3,10 @@
 The port of ``repro.launch.train``, with its flags for what the port
 supports plus ``--device``: registry model (random weights from a seeded
 ``torch.Generator``), MeZO through ``zo.mezo`` (spsa / one_point) or
-``zo.fzoo``, the local or seed-parallel plan (on one card), step-indexed
-data, checkpoint manager + scalar ledger, heartbeat.
+``zo.fzoo``, or the backprop baselines (``--optimizer adam|sgd``,
+``train.adam``: the local plan, checkpoints, no ledger), the local or
+seed-parallel plan (on one card), step-indexed data, checkpoint manager +
+scalar ledger, heartbeat.
 
 ``--backend`` defaults to ``xla`` as in JAX (the threefry stream, X1 on the
 card); ``pallas`` is the counter stream.  ``--optimizer mezo-adam`` trains
@@ -19,9 +21,11 @@ card, or ``fused_recurrent``).  ``--arch`` takes every ported config
 (the paper's OPT-13B/30B/66B and RoBERTa-large among them), and
 ``--objective`` every entry of ``OBJECTIVES``: the non-differentiable
 ``accuracy`` / ``f1`` train through the ZO optimizers only.  The data is
-the ``lm`` stream, as in JAX's launcher.  Options of later slices
-(``--optimizer adam|sgd``, ``--model-family moe|hybrid|encdec``) exit with
-a message naming the slice.
+the ``lm`` stream, as in JAX's launcher.  The refusals are JAX's, in its
+order (``--objective`` other than ``ce``, ``--select`` other than ``full``
+and ``--exec-plan seed_parallel`` need a ZO optimizer); options of later
+slices (``--model-family moe|hybrid|encdec``) exit with a message naming
+the slice.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from repro_torch.core import TrajectoryLedger
 from repro_torch.data.pipeline import DataSpec, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import FAMILY_ARCHS, OBJECTIVES, all_archs, bundle
+from repro_torch.train.adam import Adam, AdamConfig
 from repro_torch.train.loop import HeartbeatMonitor, train
 from repro_torch.tree_utils import tree_leaves
 
@@ -96,21 +101,18 @@ def main(argv=None):
                          "the plain torch versions of the kernels)")
     args = ap.parse_args(argv)
 
-    if args.select != "full" and args.optimizer != "mezo":
-        # every other optimizer would train the full tree (mezo-adam's
-        # applier transform refuses selections at composition time)
-        sys.exit(f"--select {args.select!r} requires --optimizer mezo "
-                 f"(got {args.optimizer!r})")
     if args.objective != "ce" and args.optimizer not in ("mezo", "mezo-adam"):
         # argmax metrics have zero gradient a.e. — backprop would "train"
         # without ever changing the loss; refuse instead of silently stalling
         sys.exit(f"--objective {args.objective!r} is "
                  "non-differentiable and needs a ZO optimizer "
                  f"(--optimizer mezo); got {args.optimizer!r}")
-    if args.optimizer in ("adam", "sgd"):
-        sys.exit(f"--optimizer {args.optimizer}: the backprop baseline "
-                 "(train/adam.py) comes with a later slice (ROADMAP Queue 1 "
-                 "item 6); the port trains --optimizer mezo or mezo-adam")
+    if args.select != "full" and args.optimizer != "mezo":
+        # every other optimizer would train the full tree (adam/sgd have no
+        # selection support; mezo-adam's applier transform refuses
+        # selections at composition time)
+        sys.exit(f"--select {args.select!r} requires --optimizer mezo "
+                 f"(got {args.optimizer!r})")
     if args.model_family is not None and args.model_family not in FAMILY_ARCHS:
         sys.exit(f"--model-family {args.model_family}: the other families "
                  "come with the families slice (ROADMAP Queue 1, Slice D); "
@@ -146,7 +148,12 @@ def main(argv=None):
                              vocab=cfg.vocab_size, seed=args.seed),
                     device=device)
     ledger = None
-    if args.optimizer == "mezo-adam":
+    if args.optimizer == "adam":
+        opt = Adam(AdamConfig(lr=args.lr or 1e-4, total_steps=args.steps))
+    elif args.optimizer == "sgd":
+        opt = Adam(AdamConfig(lr=args.lr or 1e-3, sgd=True,
+                              total_steps=args.steps))
+    elif args.optimizer == "mezo-adam":
         opt = zo.mezo_adam(lr=args.lr or 1e-4, eps=args.eps,
                            backend=args.backend)
     elif args.estimator == "fzoo":

@@ -119,8 +119,7 @@ def prefix_from_tokens(cfg: ModelConfig, params: dict,
         m = tokens.shape[1]
         positions = torch.arange(m, dtype=torch.int32, device=x.device)
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            lp = transformer.layer_slice(params["layers"], i)
+        for lp in transformer.layer_views(params["layers"], cfg.n_layers):
             h = apply_norm(cfg, x, lp["ln1"])
             _, k, v = attn_lib.project_qkv(cfg, lp["attn"], h, h)
             ks.append(k[0])
@@ -156,8 +155,8 @@ def _forward_with_prefix(cfg: ModelConfig, params: dict, prefix: dict,
                                   device=x.device), positions])
     if cfg.use_rope:
         cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        lp = transformer.layer_slice(params["layers"], i)
+    for i, lp in enumerate(transformer.layer_views(params["layers"],
+                                                   cfg.n_layers)):
         h = apply_norm(cfg, x, lp["ln1"])
         q, k, v = attn_lib.project_qkv(cfg, lp["attn"], h, h)
         if cfg.use_rope:

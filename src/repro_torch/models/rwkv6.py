@@ -31,7 +31,7 @@ from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.models.common import dense_init, embed_init, rmsnorm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_slice
+from repro_torch.models.transformer import layer_views
 
 LORA_R = 64
 SCAN_MODES = ("chunk", "fused_recurrent")
@@ -250,12 +250,12 @@ def forward(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
     x = params["embed"][tokens.long()]
     x = rmsnorm(x, params["ln_in_scale"])
     outs = []
-    for i in range(cfg.n_layers):
+    layers = layer_views(params["layers"], cfg.n_layers)
+    for i, p in enumerate(layers):
         st = (None if state is None else
               RWKVLayerState(state.shift_tm[i], state.shift_cm[i],
                              state.wkv[i]))
-        x, ns = rwkv_block(cfg, layer_slice(params["layers"], i), x, st,
-                           mode=mode)
+        x, ns = rwkv_block(cfg, p, x, st, mode=mode)
         outs.append(ns)
     new_state = RWKVLayerState(*(torch.stack(a) for a in zip(*outs)))
     x = rmsnorm(x, params["ln_f_scale"])

@@ -57,10 +57,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return params
 
 
-def layer_slice(tree: dict, i: int) -> dict:
-    """Layer ``i``'s view of the stacked leaves (no copy)."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def layer_views(tree: dict, n_layers: int) -> list:
+    """Each layer's view of the stacked leaves (no copy), one ``unbind`` per
+    leaf: under autograd its backward stacks the layers' gradients into one
+    leaf-sized tensor, where indexing ``v[i]`` per layer would build a
+    zero-filled leaf-sized gradient for every layer."""
+    per_leaf = {k: layer_views(v, n_layers) if isinstance(v, dict)
+                else v.unbind(0) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n_layers)]
 
 
 # --------------------------------------------------------------------------- #
@@ -109,12 +113,12 @@ def forward(cfg: ModelConfig, params: dict, *,
     if not cfg.use_rope:
         x = x + sinusoidal_at(positions, cfg.d_model, x.dtype)[None]
 
-    for i in range(cfg.n_layers):
+    layers = layer_views(params["layers"], cfg.n_layers)
+    for i, p in enumerate(layers):
         cache_l = (None if cache is None else
                    {"k": cache["k"][i], "v": cache["v"][i],
                     "pos": cache["pos"][i]})
-        x, _ = block(cfg, layer_slice(params["layers"], i), x, positions,
-                     cache_l, cache_pos)
+        x, _ = block(cfg, p, x, positions, cache_l, cache_pos)
 
     x = apply_norm(cfg, x, params["ln_f"])
     head = params.get("head")

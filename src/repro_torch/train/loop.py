@@ -7,11 +7,13 @@
     replacement worker rejoins without data access;
   * ``HeartbeatMonitor`` / ``FailureInjector`` hooks.
 
-``optimizer`` is a ``repro_torch.exec.StepProgram`` or a ZO optimizer
-(wrapped onto the local plan).  Every artifact is stamped with the program's
-seed-schedule coordinates, and resuming under mismatched ones refuses with
-JAX's errors (``BackendMismatchError`` / ``PlanMismatchError`` /
-``SelectionMismatchError`` / ``ValueError`` for batch_seeds).  Where JAX
+``optimizer`` is a ``repro_torch.exec.StepProgram``, a ZO optimizer
+(wrapped onto the local plan) or a backprop baseline (``train.adam.Adam``,
+local plan, no ledger).  Every artifact is stamped with the program's
+seed-schedule coordinates (None for a backprop baseline), and resuming under
+mismatched ones refuses with JAX's errors (``BackendMismatchError`` /
+``PlanMismatchError`` / ``SelectionMismatchError`` / ``ValueError`` for
+batch_seeds).  Where JAX
 jits the step with the parameter buffer donated, the port's step writes the
 parameters in place (``params`` is consumed; continue from the returned
 tree).
@@ -93,7 +95,8 @@ def _check_ckpt_meta(saved: dict, meta: dict) -> None:
     check_replay_backend(saved.get("perturb_backend"),
                          meta["perturb_backend"], "checkpoint")
     ckpt_bs = saved.get("batch_seeds")
-    if ckpt_bs is not None and int(ckpt_bs) != int(meta["batch_seeds"]):
+    if ckpt_bs is not None and meta["batch_seeds"] is not None \
+            and int(ckpt_bs) != int(meta["batch_seeds"]):
         raise ValueError(
             f"checkpoint was written by an optimizer with "
             f"batch_seeds={ckpt_bs} but the active optimizer uses "
@@ -120,7 +123,7 @@ def train(loss_fn: Callable, params: PyTree, optimizer, pipeline,
     program = as_step_program(optimizer)
     opt_state = program.init(params, seed=seed)
     meta = program.meta
-    if ledger is not None:
+    if ledger is not None and meta["perturb_backend"] is not None:
         _stamp_or_check_ledger(ledger, meta)
 
     start_step = 0
@@ -158,6 +161,11 @@ def train(loss_fn: Callable, params: PyTree, optimizer, pipeline,
         batch = pipeline.batch(step)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if ledger is not None:
+            if "projected_grad" not in metrics:
+                raise ValueError(
+                    "ledger recording requires a ZO optimizer whose step "
+                    "metrics expose 'projected_grad'/'lr'; "
+                    f"{type(optimizer).__name__} does not")
             # multi-stream steps expose the per-stream vector — record it so
             # replay can refold the rank-1 updates stream by stream
             g_rec = metrics.get("projected_grads")

@@ -130,9 +130,10 @@ def mezo_rescaled(lr: float = 1e-6, eps: float = 1e-3,
 
 def as_zo_optimizer(optimizer) -> ZOOptimizer:
     """Accept a protocol-conforming ZO optimizer (legacy config objects are
-    ported with the deprecated shims, a later slice)."""
+    ported with the deprecated shims, a later slice; a backprop baseline is
+    no ZO optimizer, and ``exec.StepProgram`` passes it through)."""
     if callable(getattr(optimizer, "replay_update", None)):
         return optimizer
     raise TypeError(f"{type(optimizer).__name__} is not a ZO optimizer "
-                    "(legacy config objects and backprop baselines are "
-                    "ported with later slices)")
+                    "(legacy config objects are ported with the deprecated "
+                    "shims, ROADMAP Queue 1 item 9)")

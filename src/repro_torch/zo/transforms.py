@@ -95,8 +95,8 @@ def scale_by_fzoo_std(std_floor: float = 1e-8) -> ZOTransform:
 # ZO-Adam / momentum (paper §2.2 + Appendix B.2)
 # --------------------------------------------------------------------------- #
 def _bias(beta: float, t: int) -> np.float32:
-    """1 − β^t in f32."""
-    return f32(f32(1.0) - f32(f32(beta) ** f32(t)))
+    """1 − β^t in f32, β^t by libm's ``powf`` as on XLA:CPU."""
+    return f32(f32(1.0) - schedules.powf(beta, t))
 
 
 def scale_by_zo_adam(beta1: float = 0.9, beta2: float = 0.999,
@@ -160,8 +160,8 @@ def scale_by_zo_adam(beta1: float = 0.9, beta2: float = 0.999,
         """App. B.2: m (and v) rebuilt one leaf at a time by replaying the
         window's z's — W z passes of compute, O(largest leaf) memory."""
         j_idx = np.arange(window, dtype=f32)           # 0 = most recent
-        pw1 = f32(beta1) ** j_idx
-        pw2 = f32(beta2) ** j_idx
+        pw1 = np.array([schedules.powf(beta1, j) for j in j_idx], f32)
+        pw2 = np.array([schedules.powf(beta2, j) for j in j_idx], f32)
         cm = f32(1.0 - beta1) * pw1 * g_hist
         cv = f32(1.0 - beta2) * pw2 * (g_hist * g_hist)
         refs = [StreamRef(step_key(base_key, cur_step - j))

@@ -837,3 +837,64 @@ def test_cuda_init_peak_is_one_layer_over_the_parameters(cuda):
     assert 0 <= extra <= draw + (64 << 20), (extra, draw)
     stacked = 4 * cfg.n_layers * cfg.d_model * cfg.d_ff
     assert extra < stacked            # w1 drawn whole would need this much
+
+
+@pytest.mark.cuda
+def test_cuda_k2_and_k11_refuse_autograd(cuda):
+    """K2 and K11 have no backward: on the card, an input that requires
+    grad under grad mode raises before any launch, where a ctypes launch
+    would return an output with no ``grad_fn``; under ``no_grad`` they
+    launch.  On the CPU K11's plain version differentiates."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(1, 16, 2, 8, generator=g, device=cuda).requires_grad_()
+    kv = torch.randn(1, 16, 2, 8, generator=g, device=cuda)
+    _build.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="flash_attention .* no backward"):
+        flash_attention(q, kv, kv)
+    assert _build.launch_counts["flash_attention"] == 0
+    with torch.no_grad():
+        flash_attention(q, kv, kv)
+    assert _build.launch_counts["flash_attention"] == 1
+    B, S, H, hd = 1, 32, 2, 16
+    r, k, v = (torch.randn(B, S, H, hd, generator=g, device=cuda)
+               for _ in range(3))
+    lw = -torch.rand(B, S, H, hd, generator=g, device=cuda)
+    u = torch.randn(H, hd, generator=g, device=cuda)
+    s0 = torch.zeros(B, H, hd, hd, device=cuda)
+    with pytest.raises(RuntimeError, match="wkv6_chunked .* no backward"):
+        wkv_ops.wkv6(r.requires_grad_(), k, v, lw, u, s0, chunk=16)
+    assert _build.launch_counts["wkv6_chunked"] == 0
+    with torch.no_grad():
+        wkv_ops.wkv6(r, k, v, lw, u, s0, chunk=16)
+    assert _build.launch_counts["wkv6_chunked"] == 1
+    y, _ = wkv_ops.wkv6(*(t.detach().cpu().requires_grad_() for t in
+                          (r, k, v, lw, u, s0)), chunk=16)
+    assert y.grad_fn is not None
+
+
+@pytest.mark.cuda
+def test_cuda_adam_step_is_the_cpu_step(cuda):
+    """One Adam step of the qwen2-0.5b smoke model in f32 (TF32 off) on the
+    card against the same step on the CPU: the loss, the gradient norm and
+    θ within the f32 summation-order gap (cuBLAS against the CPU's BLAS)."""
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.train import Adam, AdamConfig
+    from repro_torch.tree_utils import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = all_archs()["qwen2-0.5b"].smoke_cfg
+    cpu = bundle(cfg).init(0, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.arange(64, dtype=torch.int32).reshape(2, 32) % 256
+    out = {}
+    for name, params in (("cpu", cpu), ("cuda", card)):
+        opt = Adam(AdamConfig(lr=1e-3))
+        dev = tree_leaves(params)[0].device
+        batch = {"tokens": toks.to(dev), "labels": toks.roll(1).to(dev)}
+        p, _, m = opt.step_fn(bundle(cfg).loss_fn())(params, opt.init(params),
+                                                     batch)
+        out[name] = (float(m["loss"]), float(m["grad_norm"]),
+                     [t.cpu() for t in tree_leaves(p)])
+    assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-5
+    assert abs(out["cpu"][1] - out["cuda"][1]) < 1e-5 * out["cpu"][1]
+    for a, b in zip(out["cpu"][2], out["cuda"][2]):
+        assert float((a - b).abs().max()) <= 2e-3   # ≤ 2η: Adam's sign step

@@ -197,15 +197,21 @@ def test_train_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
     (["--backend", "pallas-interpret"], "JAX's CPU interpreter"),
     (["--optimizer", "mezo-adam", "--exec-plan", "seed_parallel",
       "--n-groups", "2"], "seed-replayable"),
-    (["--backend", "pallas", "--optimizer", "adam"], "backprop"),
+    # the backprop baseline is ported: --optimizer adam trains
+    (["--backend", "pallas", "--optimizer", "adam", "--steps", "1",
+      "--batch", "2", "--seq", "8"], None),
     (["--backend", "pallas", "--optimizer", "mezo-adam", "--select",
       "rows(block=1,k=4)"], "requires --optimizer mezo"),
     (["--backend", "pallas", "--objective", "accuracy", "--optimizer",
       "adam"], "non-differentiable"),
     (["--backend", "pallas", "--model-family", "moe"], "Slice D"),
 ], ids=["xla", "mezo-adam", "adam", "select", "objective", "family"])
-def test_train_cli_refuses_later_slices(argv, slice_name):
+def test_train_cli_refuses_later_slices(argv, slice_name, capsys):
     from repro_torch.launch import train as train_cli
+    if slice_name is None:
+        train_cli.main(["--smoke", "--device", "cpu"] + argv)
+        assert "done: 1 steps (resumed from 0)" in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit, match=slice_name):
         train_cli.main(["--smoke", "--device", "cpu"] + argv)
 
