@@ -5,7 +5,7 @@
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
     python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
 
-In order: prints the card's name and power limit; builds the seven CUDA
+In order: prints the card's name and power limit; builds the eight CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
 parallel); holds every kernel against its plain torch version on the card —
 K1 ``zo_affine``, K3 ``zo_affine_chain``, K4 ``zo_affine_multi``, K5
@@ -27,7 +27,11 @@ whole domain (any mismatch fails).  K7 and K9 are also held on both their
 routes (a row-block of whole 16-byte vectors, or not), each launch counted
 under its route; X1 ``zo_affine_threefry`` on all three of its routes
 (``vector``, ``scalar``, ``bands``) and on launches whose counters cross
-2^32.  X1's pipe probes read each pipe's rate (ALU, IMAD, FP32; which
+2^32, and its route for JAX's original threefry layout
+(``zo_affine_threefry_original``: ``pairs`` and ``bands``) against its
+plain version and the JAX fixture ``x1_original_golden.npz`` (odd and even
+word counts, windows straddling the half, windows of virtual leaves past
+2^32 − 1 words), timed beside the partitionable route in turns.  X1's pipe probes read each pipe's rate (ALU, IMAD, FP32; which
 opcodes share one).  It then counts the SASS instructions per z by pipe of
 K1, K3, the K4 / K5 fan-out, K6, K7, K9, K10 and X1, prints each one's
 issue floor and pipe floor (``pipe_floor``: the busiest of the issue port
@@ -125,6 +129,26 @@ attention (``pallas_flash`` refuses autograd in both packages):
 * (r) reckoned, not measured: Adam's θ + grads + m + v against MeZO's θ
   for every registry arch, against the card's memory.
 
+Then the moe family, random bf16 weights from seed 0 on the ``xla``
+stream, ``pallas_flash`` attention:
+
+* (s) granite-moe-3b-a800m at full width and depth (32 layers, 40
+  experts top-8, hd 64) with its experts in 4 leaf groups: one spsa step
+  under ``moe_experts(4)`` with its peak against one forward's, its busy
+  share and top kernels, the router and the inactive groups at θ₀'s bits
+  after it; 5 spsa steps through the training loop; two replays bitwise
+  equal; θ₀ regenerated from the seed ≡ θ₀, the MZOL5 ledger replayed onto
+  it and served through the paged engine (K2 hd 64, K12); one more step
+  under the original threefry layout (X1's original route), its replay ≡
+  the plain replay bitwise and within the ulp bound of the trained θ;
+* (t) mixtral-8x7b at full width, 24 of its 32 layers (20 when a step
+  would leave under 4 GiB free; the cut printed): 3 spsa steps in place,
+  their peak against one forward's and the card's memory; one replay from
+  θ₀ regenerated from the seed, held on sampled slices within the ulp
+  bound; K2 at hd 128 with the window 4096 held to its plain version at
+  every shape the moe paths gave it; the paged engine's refusal of the
+  sliding window.
+
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
 within a stated bound in bf16 ulps of the trained θ; the spsa steps' peak
@@ -214,11 +238,13 @@ MLP_LEAF = (24, 896, 4864)           # the stacked MLP weight (w1 / w3)
 # (j): the xla stream rounds every op in bf16 — live θ+εz and θ−εz 2 each
 # (ε·z, the sum), the restore-update 5 (ε·z, the sum, decay·r, η·g·z, the
 # sum), replay 3 (decay·θ, coeff·z, the sum) → 12 per step.
-# (k), (l) and (n) are (j)'s chain at other models.
+# (k), (l) and (n) are (j)'s chain at other models, and so are the moe
+# phases (s) and (t).
 ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0, "e_rows_spsa": 4.0,
                  "h_lora": 4.0, "i_ssm_spsa": 4.0, "j_xla_spsa": 12.0,
                  "k_roberta_acc": 12.0, "l_opt13b_spsa": 12.0,
-                 "n_opt30b_spsa": 12.0}
+                 "n_opt30b_spsa": 12.0, "s_granite_spsa": 12.0,
+                 "s_granite_orig": 12.0, "t_mixtral_spsa": 12.0}
 Z_MAX = 6.0
 MEM_SLACK = 1.10
 # the ssm phases: rwkv6-3b at full width and depth (32 layers, d 2560,
@@ -285,6 +311,19 @@ BP_LAYERS, BP_BATCH, BP_SEQ, BP_LR = 2, 2, 64, 1e-3
 BP_LOSS_REL, BP_GRAD_REL = 1e-5, 1e-4
 BP_THETA_ATOL, BP_THETA_OUTLIERS = 1e-2, 1e-3
 X1_GOLDEN = ROOT / "tests" / "data" / "x1_golden.npz"
+# X1's route for JAX's original threefry layout (jax_threefry_partitionable
+# off), against JAX's writes under that layout
+X1_ORIG_GOLDEN = ROOT / "tests" / "data" / "x1_original_golden.npz"
+# the moe family, after the backprop phases: (s) granite-moe-3b-a800m at
+# full width and depth under moe_experts(GRANITE_GROUPS), spsa on xla, then
+# one step under the original layout; (t) mixtral-8x7b at full width, its
+# depth cut to MIXTRAL_LAYERS of 32 (46.70e9 parameters, 86.99 GiB of bf16,
+# do not fit the card's 79.18 GiB), to MIXTRAL_FALLBACK_LAYERS when a step
+# would leave under MIXTRAL_MIN_FREE bytes free
+MOE_STEPS = {"s_granite_spsa": 5, "s_granite_orig": 1, "t_mixtral_spsa": 3}
+GRANITE_GROUPS = 4
+MIXTRAL_LAYERS, MIXTRAL_FALLBACK_LAYERS = 24, 20
+MIXTRAL_MIN_FREE = 4 << 30
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
 B8 = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
@@ -843,7 +882,8 @@ _KERNELS = ("flash_fwd_mma", "flash_fwd_sliced", "gather_kernel", "wkv6_fwd",
             "selftest_kernel", "rows_tile_sums", "rows_fold_leaves",
             "sqnorm_rows_tiles", "tile_sums", "fold_leaves",
             "affine_rows_kernel", "chain_rows_kernel", "multi_rows_kernel",
-            "threefry_kernel", "whole_kernel", "bands_kernel",
+            "threefry_kernel", "whole_kernel", "orig_bands_kernel",
+            "orig_kernel", "bands_kernel",
             "probe_kernel", "table_kernel", "normal_f32_kernel")
 _TARG = re.compile(r"13__nv_bfloat16|6__half|f|Li(-?\d+)E|Lb([01])E")
 
@@ -1408,7 +1448,7 @@ def make_opts():
 
 
 SSM_STEPS = {"i_ssm_spsa": 10}
-ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS, **PAPER_STEPS}
+ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS, **PAPER_STEPS, **MOE_STEPS}
 
 REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
             "j_xla_spsa": ("zo_affine_threefry", "flash_attention"),
@@ -1416,6 +1456,10 @@ REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
             "l_opt13b_spsa": ("zo_affine_threefry", "flash_attention"),
             "m_opt13b_f1": ("zo_affine_threefry", "flash_attention"),
             "n_opt30b_spsa": ("zo_affine_threefry", "flash_attention"),
+            "s_granite_spsa": ("zo_affine_threefry", "flash_attention"),
+            "s_granite_orig": ("zo_affine_threefry_original",
+                               "flash_attention"),
+            "t_mixtral_spsa": ("zo_affine_threefry", "flash_attention"),
             "a_spsa": ("zo_affine", "flash_attention"),
             "b_fzoo": ("zo_affine_batched", "zo_affine_chain",
                        "flash_attention"),
@@ -1492,10 +1536,12 @@ def train_phase(torch, cfg, params0, name, make_opt, make_plan, _build,
     if len(losses) != steps or not all(
             map(lambda v: v == v and abs(v) < 1e30, losses)):
         fail(f"{name}: losses not finite: {losses}")
-    step_ms = 1e3 * sum(clock.dts[1:]) / max(1, len(clock.dts) - 1)
+    timed = clock.dts[1:] or clock.dts           # a one-step run: its step
+    step_ms = 1e3 * sum(timed) / max(1, len(timed))
     tok_s = pipe.spec.batch * pipe.seq_len / (step_ms / 1e3)
     log(f"train {name}: {steps} steps, loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}, {step_ms:.1f} ms per step (steps 2..), "
+        f"{losses[-1]:.4f}, {step_ms:.1f} ms per step "
+        f"({'steps 2..' if steps > 1 else 'the one step'}), "
         f"{tok_s:.0f} batch tokens/s, ledger {ledger.to_bytes()[:5].decode()} "
         f"{ledger.nbytes()} bytes")
     return res.params, ledger, opt, step_ms
@@ -1662,6 +1708,8 @@ def _check_unselected(torch, sel, params, params0) -> None:
         rb = sel.block_mask(p0, phase)
         if not mask[i]:
             picked = torch.zeros(p0.numel(), dtype=torch.bool, device="cuda")
+        elif rb is None:                      # a whole selected leaf
+            picked = torch.ones(p0.numel(), dtype=torch.bool, device="cuda")
         else:
             e = torch.arange(p0.numel(), device="cuda")
             picked = rb.element_mask(e)
@@ -1871,10 +1919,12 @@ def check_pipes(_build, card) -> dict:
     return rates
 
 
-def plain_replay_xla(params, led, np):
+def plain_replay_xla(params, led, np, selection=None, partitionable=True):
     """The ledger replay with X1's plain version on the card — the scalars
     of ``XLABackend.apply_rank1`` (1 − η·λ with λ = 0, −η·g, each cast to
-    the leaf dtype)."""
+    the leaf dtype) — on the leaves ``selection`` picks at each step's
+    phase (every floating leaf without one), in the given threefry
+    layout."""
     from repro_torch.kernels.threefry.kernel import zo_affine_threefry_plain
     from repro_torch.perturb.stream import fold_in, prng_key, step_key
     from repro_torch.perturb.xla import in_dtype
@@ -1885,11 +1935,14 @@ def plain_replay_xla(params, led, np):
         key = step_key(base, step)
         a = f32(1.0) - f32(lr) * f32(0.0)
         b = -(f32(lr) * f32(g))
+        mask = (None if selection is None else
+                selection.leaf_mask(params, selection.phase_at(step)))
         for i, p in enumerate(tree_leaves(params)):
-            if is_floating(p):
+            if is_floating(p) and (mask is None or mask[i]):
                 zo_affine_threefry_plain(p, fold_in(key, i), "axpbz",
                                          a=in_dtype(a, p.dtype),
-                                         b=in_dtype(b, p.dtype), out=p)
+                                         b=in_dtype(b, p.dtype), out=p,
+                                         partitionable=partitionable)
 
 
 def other_step_phase(torch, cfg, params0, what, make_opt, steps, batch,
@@ -3348,14 +3401,16 @@ def free_card(torch, what: str) -> None:
         "still allocated")
 
 
-def init_logged(torch, arch: str):
-    """(cfg with ``pallas_flash``, θ₀ on the card): the registry's init
-    from seed 0, timed, its peak allocation over the parameters logged and
-    held to the largest f32 draw (one layer's slice of a stacked leaf, or
-    a whole 2-D leaf) — the initializer allocates each leaf once."""
+def init_logged(torch, arch: str, **replace):
+    """(cfg with ``pallas_flash`` and ``replace``, θ₀ on the card): the
+    registry's init from seed 0, timed, its peak allocation over the
+    parameters logged and held to the largest f32 draw (one layer's slice
+    of a stacked leaf, or a whole 2-D leaf) — the initializer allocates
+    each leaf once."""
     from repro_torch.models import all_archs, bundle
     from repro_torch.tree_utils import tree_leaves
-    cfg = all_archs()[arch].cfg.replace(attention_impl="pallas_flash")
+    cfg = all_archs()[arch].cfg.replace(attention_impl="pallas_flash",
+                                        **replace)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3365,7 +3420,7 @@ def init_logged(torch, arch: str):
     leaves = tree_leaves(params)
     n = sum(p.numel() for p in leaves)
     nbytes = sum(p.numel() * p.element_size() for p in leaves)
-    draw = 4 * max(p[0].numel() if p.dim() == 3 else p.numel()
+    draw = 4 * max(p[0].numel() if p.dim() >= 3 else p.numel()
                    for p in leaves)
     extra = torch.cuda.max_memory_allocated() - base - nbytes
     if extra > draw + (64 << 20):
@@ -4090,6 +4145,368 @@ def reckon_adam_vs_mezo(torch, card) -> None:
         f"{total / 2 / 1e9:.2f} × 10^9 (before activations)")
 
 
+# --------------------------------------------------------------------------- #
+# X1's route for the original threefry layout
+# --------------------------------------------------------------------------- #
+def check_x1_original(torch, np) -> float:
+    """X1's ``original`` route (``jax_threefry_partitionable`` off) against
+    its plain version, bitwise: every dtype × dist × form on whole leaves
+    whose word count is odd and even, windows (an offset and the leaf's
+    total) that straddle the half h, a band list, and windows of virtual
+    leaves past 2^32 − 1 words (one key per block, no leaf allocated); then
+    against JAX's writes under that layout (``x1_original_golden.npz``):
+    each form on leaves of odd and even m, the rank-1 write under a rows
+    plan, and the bits of windows past 2^32 − 1 words.  Returns the max abs
+    error (0 when bitwise)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.threefry import kernel as x1
+    from repro_torch.perturb import XLABackend
+    from repro_torch.perturb.stream import (StreamRef, fold_in,
+                                            threefry_partitionable)
+    from repro_torch.perturb.xla import in_dtype
+    from repro_torch.select import rows
+    g = torch.Generator().manual_seed(5)
+    _build.reset_launch_counts()
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        big = (1 << 32) + 10 if dt == torch.float32 else 17_179_869_201
+        layouts = [(n, 0, n, None) for n in (1, 3, 4097, 4102, 1_000_003)]
+        layouts += [(1000, 2000, 4097, None), (40, 2030, 4097, None),
+                    (4097, 0, 4097, [(3, 700), (1500, 2999), (4000, 4097)]),
+                    (4096, big - 4100, big, None),
+                    (4096, big - 4096, big, [(0, 1000), (3000, 4096)])]
+        for n, off, total, bands in layouts:
+            x = torch.randn(n, generator=g).to(dt).cuda()
+            for dist in ("gaussian", "rademacher"):
+                for form in ("z", "axpbz", "xpbz", "restore"):
+                    kw = dict(a=0.5, b=-0.25, e=0.125, dist=dist,
+                              bands=bands, offset=off, total=total,
+                              partitionable=False)
+                    xin = None if form == "z" else x
+                    yk = x1.zo_affine_threefry(xin, (7, 2**31 + 5), form,
+                                               out=x.clone(), **kw)
+                    yp = x1.zo_affine_threefry_plain(
+                        xin, (7, 2**31 + 5), form, out=x.clone(), **kw)
+                    if not same_bits(yk, yp):
+                        fail(f"X1 original {dt} n={n} offset={off} "
+                             f"total={total} {dist} {form}: kernel != plain")
+                    cases += 1
+    routes = {k: v for k, v in _build.route_counts.items()
+              if k.startswith("zo_affine_threefry_original")}
+    if _build.launch_counts["zo_affine_threefry"] or len(routes) != 2:
+        fail(f"X1 original's checks: launches {dict(_build.launch_counts)}, "
+             f"routes {routes}")
+    gold = np.load(X1_ORIG_GOLDEN)
+    key = fold_in(tuple(int(k) for k in gold["key"]), 0)
+    names = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "f16": torch.float16}
+    sizes = sorted({int(k.split("_")[1]) for k in gold.files
+                    if k.startswith("x_") and k != "x_bands"})
+    held = 0
+    for n in sizes:
+        for name, dt in names.items():
+            x = torch.from_numpy(gold[f"x_{n}"]).to(dt).cuda()
+            for dist in ("gaussian", "rademacher"):
+                for form, a, b, e in (("z", 0, 0, 0), ("xpbz", 0, 1e-3, 0),
+                                      ("axpbz", 1 - np.float32(1e-3), -0.37,
+                                       0),
+                                      ("restore", 1 - np.float32(1e-4),
+                                       -0.0123, 1e-3)):
+                    y = x1.zo_affine_threefry(
+                        None if form == "z" else x.clone(), key, form,
+                        in_dtype(a, dt), in_dtype(b, dt), in_dtype(e, dt),
+                        dist=dist, out=torch.empty_like(x),
+                        partitionable=False)
+                    want = gold[f"{dist}_{name}_{n}_{form}"]
+                    if not np.array_equal(y.float().cpu().numpy(), want):
+                        fail(f"X1 original {dist} {name} n={n} {form} != the "
+                             "JAX fixture")
+                    held += 1
+    with threefry_partitionable(False):
+        for name, dt in names.items():
+            ref = StreamRef(tuple(int(k) for k in gold["key"])).with_selection(
+                rows(block=2, k=3), 1)
+            tree = {"a": torch.from_numpy(gold["x_bands"]).to(dt).cuda()}
+            out = XLABackend().apply_rank1(tree, ref, np.float32(0.5),
+                                           np.float32(1e-3))
+            if not np.array_equal(out["a"].float().cpu().numpy(),
+                                  gold[f"bands_{name}"]):
+                fail(f"X1 original bands {name} != the JAX fixture")
+            held += 1
+    for i, (n, bw, lo, hi) in enumerate(((((1 << 32) + 10), 32,
+                                          (1 << 32) - 6, (1 << 32) + 10),
+                                         (17_179_869_201, 8, 17_179_869_170,
+                                          17_179_869_201))):
+        bits = torch.from_numpy(gold[f"window{i}_bits"]).cuda()
+        dt = torch.float32 if bw == 32 else torch.bfloat16
+        for dist in (("gaussian", "rademacher") if bw == 32
+                     else ("gaussian",)):
+            y = x1.zo_affine_threefry(None, key, "z", dist=dist,
+                                      out=torch.empty(hi - lo, dtype=dt,
+                                                      device="cuda"),
+                                      offset=lo, total=n, partitionable=False)
+            k = x1.folded_scalars(dt, dist, 0.0, 0.0, None)[0]
+            unit = x1._z_unit(bits, dt, dist)
+            want = (unit * k) if dt == torch.float32 else unit
+            if not same_bits(y, want.to(dt)):
+                fail(f"X1 original z on the window [{lo}, {hi}) of a "
+                     f"{n}-element leaf ({dist}) != JAX's bits")
+            held += 1
+    log(f"X1 original layout: {cases} writes (f32/bf16/f16 × gaussian/"
+        "rademacher × z/axpbz/xpbz/restore; whole leaves of odd and even "
+        "word counts, windows straddling h, bands, windows of virtual leaves "
+        "past 2^32 − 1 words) bitwise its plain version, launches by route "
+        + ", ".join(f"{k.split('/')[1]} {v}" for k, v in sorted(
+            routes.items())) + f"; {held} writes == the JAX fixture "
+        "(x1_original_golden.npz: every form, odd and even m, rows bands, "
+        "windows past 2^32 − 1 words)")
+    return 0.0
+
+
+def x1_original_row(torch, np, _build, params0, card, err) -> dict:
+    """X1's original route over the 15 qwen2-0.5b leaves (bf16 gaussian
+    axpbz, the replay / update write) in turns with the partitionable
+    route on the same leaves (P O O P, CUDA-event medians); its plain
+    version's time; its row of the ``kernels`` line (launches filled in
+    from the counted paths)."""
+    import statistics
+    from repro_torch.kernels.threefry import kernel as x1
+    from repro_torch.tree_utils import is_floating, tree_leaves
+    leaves = [q.clone() for q in tree_leaves(params0) if is_floating(q)]
+    n_all = sum(q.numel() for q in leaves)
+    leaf_bytes = sum(q.numel() * q.element_size() for q in leaves)
+    bval = -0.0001220703125
+
+    def record(part, fn=x1.zo_affine_threefry):
+        for i, q in enumerate(leaves):
+            fn(q, (12345, i), "axpbz", a=1.0, b=bval, out=q,
+               partitionable=part)
+
+    times = {True: [], False: []}
+    for part in (True, False, False, True):
+        times[part].append(cuda_ms(lambda: record(part), 10))
+    _build.reset_launch_counts()
+    record(False)
+    routes = {k: v for k, v in _build.route_counts.items()
+              if "original" in k}
+    plain_ms = host_ms(lambda: record(False, x1.zo_affine_threefry_plain))
+    del leaves
+    ms_o = statistics.median(times[False])
+    ms_p = statistics.median(times[True])
+    bms, by = bound(2 * leaf_bytes, 4 * n_all, F32_FLOPS)
+    log(f"X1 original layout, one pass over the 15 qwen2-0.5b leaves "
+        f"({n_all} bf16 elements, gaussian axpbz; launches {routes}): "
+        f"{ms_o:.4f} ms against the partitionable route's {ms_p:.4f} ms on "
+        f"the same leaves in turns (P O O P: " + ", ".join(
+            f"{t:.4f}" for t in (times[True][0], *times[False],
+                                 times[True][1]))
+        + f"), plain version {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}) — "
+        f"on {card}")
+    log("X1 original registers / shared memory / spills (bf16 gaussian "
+        "axpbz): " + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas_facts(
+            _build, "zo_threefry").items())
+            if k.startswith("orig_kernel") and k.endswith(", 0, 1>")))
+    return {"name": "zo_affine_threefry_original", "route": "cuda",
+            "source": "src/repro_torch/kernels/threefry/csrc/zo_threefry.cu",
+            "replaces": "src/repro/perturb/xla.py:38", "launches": 0,
+            "max_abs_err": err, "ms": ms_o, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+# --------------------------------------------------------------------------- #
+# The moe family: (s) granite-moe-3b-a800m, (t) mixtral-8x7b
+# --------------------------------------------------------------------------- #
+def granite_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """granite-moe-3b-a800m at full width and depth (32 layers, d 1536, 24
+    × 64 heads, GQA 8, 40 experts top-8, d_ff 512, bf16, ``pallas_flash``)
+    with its experts in GRANITE_GROUPS leaf groups: (s) mezo spsa on
+    ``xla`` under ``moe_experts(G)`` on 16 × 256 lm batches — one step's
+    peak against one forward's (the 1.10 gate), its busy share and top
+    kernels, the router and the inactive groups at θ₀'s bits after it; 5
+    steps through the training loop; two replays from θ₀ bitwise equal,
+    θ₀ regenerated from the seed bitwise θ₀; the fine-tune served through
+    the paged engine (K2 hd 64, K12); then one step with the threefry
+    layout switched off (X1's original route), its replay ≡ the plain
+    replay under the same layout bitwise, within the ulp bound of the
+    trained θ, and unlike the replay under the partitionable layout."""
+    from repro_torch import zo
+    from repro_torch.core import replay
+    from repro_torch.models import bundle
+    from repro_torch.perturb.stream import threefry_partitionable
+    from repro_torch.serve.tenants import composition_for_ledger
+    from repro_torch.tree_utils import tree_leaves
+    cfg, params0 = init_logged(torch, "granite-moe-3b-a800m",
+                               expert_groups=GRANITE_GROUPS)
+    b = bundle(cfg)
+    sel = b.default_selection()
+    if sel != f"moe_experts({GRANITE_GROUPS})":
+        fail(f"granite's default selection is {sel!r}")
+    sums0 = checksums(torch, params0)
+
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla", selection=sel)
+
+    memory_and_busy(torch, cfg, params0, selection=sel, backend="xla")
+    name = "s_granite_spsa"
+    p, led, _, ms = train_phase(torch, cfg, params0, name, make_opt, None,
+                                _build, counts)
+    step_ms[name] = ms
+    if led.selection != sel or led.to_bytes()[:5] != b"MZOL5":
+        fail(f"{name}: the ledger records {led.selection!r}, not {sel!r}")
+    r1 = check_replays(torch, name, params0, p, led, make_opt)
+    del p
+    again = b.init(0, device="cuda")
+    if checksums(torch, again) != sums0:
+        fail("granite: θ₀ regenerated from the seed differs from θ₀")
+    _build.reset_launch_counts()
+    replay(again, led, composition_for_ledger(led))
+    prompts = workload(np, cfg.vocab_size)
+    eng, reqs, wall = serve(cfg, again, prompts, True)
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention",
+                                "paged_gather"),
+               "serve the granite fine-tune")
+    hit = eng.prefix_stats()["prefix_hit_rate"]
+    del eng
+    for x, y in zip(tree_leaves(again), tree_leaves(r1)):
+        if not same_bits(x, y):
+            fail("granite: the served fine-tune (θ₀ regenerated, replayed "
+                 "through composition_for_ledger) != the replay from θ₀")
+    if any(len(r.out_ids) != NEW_TOKENS for r in reqs):
+        fail("a granite request did not produce its tokens")
+    tokens = tokens_of([r.out_ids for r in reqs])
+    log(f"granite: θ₀ regenerated from the seed ≡ θ₀ (per-leaf checksums); "
+        f"its {len(led)} MZOL5 records ({sel}) replayed through "
+        f"composition_for_ledger ≡ the replay; served {len(reqs)} requests "
+        f"/ {tokens} tokens in {wall:.3f} s through the paged engine "
+        f"({tokens / wall:.1f} tok/s, prefix hit rate {hit:.2f}) — on {card}")
+    del again, r1
+    # one step with the threefry layout off: X1's original route
+    name = "s_granite_orig"
+    with threefry_partitionable(False):
+        p, led_o, _, ms = train_phase(torch, cfg, params0, name, make_opt,
+                                      None, _build, counts)
+        step_ms[name] = ms
+        ro = replay(_clone_tree(params0), led_o, make_opt())
+        plain = _clone_tree(params0)
+        plain_replay_xla(plain, led_o, np, selection=make_opt().selection,
+                         partitionable=False)
+        torch.cuda.synchronize()
+    for x, y in zip(tree_leaves(ro), tree_leaves(plain)):
+        if not same_bits(x, y):
+            fail(f"{name}: the X1 original replay != the plain replay")
+    text = hold_ulps(torch, name, zip(tree_leaves(ro), tree_leaves(p)))
+    other = replay(_clone_tree(params0), led_o, make_opt())
+    moved = sum(not same_bits(x, y) for x, y in zip(tree_leaves(other),
+                                                     tree_leaves(ro)))
+    if moved == 0:
+        fail(f"{name}: the replay under the partitionable layout equals the "
+             "original layout's")
+    log(f"{name}: one spsa step under the original threefry layout; its "
+        f"replay through X1's original route ≡ the plain replay under that "
+        f"layout, bitwise; vs the trained θ: {text}; the same ledger under "
+        f"the partitionable layout moves {moved} leaves otherwise")
+    del p, ro, plain, other, params0
+
+
+def mixtral_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """mixtral-8x7b at full width (d 4096, 32 × 128 heads, GQA 8, sliding
+    window 4096, 8 experts top-2, d_ff 14336, bf16, ``pallas_flash``), its
+    depth cut to MIXTRAL_LAYERS of 32 (the cut printed): (t) 3 mezo spsa
+    steps on ``xla`` in place under its default selection, their peak
+    against one forward's and the card's memory; one replay from θ₀
+    regenerated from the seed (checksums ≡ θ₀), held on sampled slices
+    within the ulp bound of the trained θ; K2 at hd 128 with the window;
+    the paged engine's refusal of a sliding window."""
+    from repro_torch import zo
+    from repro_torch.core import replay
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.serve.engine import ServeEngine
+    full = all_archs()["mixtral-8x7b"].cfg
+    _, total = torch.cuda.mem_get_info()
+    log(f"mixtral-8x7b: {full.n_params()} params by JAX's n_params "
+        f"({full.n_active_params()} active), {2 * full.n_params() / 2**30:.2f}"
+        f" GiB of bf16 against the card's {total / 2**30:.2f} GiB: its depth "
+        f"is cut to {MIXTRAL_LAYERS} of {full.n_layers} layers, full width")
+    for layers in (MIXTRAL_LAYERS, MIXTRAL_FALLBACK_LAYERS):
+        cfg, params = init_logged(torch, "mixtral-8x7b", n_layers=layers)
+        b = bundle(cfg)
+        loss_fn = b.loss_fn()
+        batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                  vocab=cfg.vocab_size, seed=SEED),
+                         device="cuda").batch(0)
+        with torch.no_grad():
+            loss_fn(params, batch).item()                # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            loss_fn(params, batch).item()
+        torch.cuda.synchronize()
+        fwd = torch.cuda.max_memory_allocated() - base
+        room = total - base - MEM_SLACK * fwd
+        del batch
+        if room >= MIXTRAL_MIN_FREE or layers == MIXTRAL_FALLBACK_LAYERS:
+            break
+        log(f"mixtral-8x7b at {layers} layers: a step at {MEM_SLACK} × one "
+            f"forward's peak would leave {room / 2**30:.2f} GiB free (under "
+            f"{MIXTRAL_MIN_FREE / 2**30:.0f} GiB): cut to "
+            f"{MIXTRAL_FALLBACK_LAYERS} layers")
+        del params, loss_fn
+        free_card(torch, f"mixtral-8x7b at {layers} layers")
+    log(f"mixtral-8x7b cut to {cfg.n_layers} of {full.n_layers} layers "
+        "(full width): the whole model does not fit one card")
+    try:
+        ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN, device="cuda")
+    except NotImplementedError as e:
+        if "dense-slab" not in str(e):
+            fail(f"mixtral's engine refusal does not name the dense-slab "
+                 f"path: {e}")
+        log(f"mixtral-8x7b serving refused loudly: {e}")
+    else:
+        fail("the paged engine took mixtral-8x7b's sliding window")
+    sums0 = checksums(torch, params)
+    sel = b.default_selection()
+    name = "t_mixtral_spsa"
+
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla", selection=sel)
+
+    torch.cuda.reset_peak_memory_stats()
+    trained, led, _, ms = train_phase(torch, cfg, params, name, make_opt,
+                                      None, _build, counts, in_place=True,
+                                      with_ckpt=False)
+    step_ms[name] = ms
+    peak_abs = torch.cuda.max_memory_allocated()
+    stp = peak_abs - base
+    if stp > MEM_SLACK * fwd:
+        fail(f"{name}: the steps peak {stp / 2**30:.3f} GiB over θ > "
+             f"{MEM_SLACK} × one forward's {fwd / 2**30:.3f} GiB")
+    log(f"memory (mixtral-8x7b, {cfg.n_layers} layers, {sel}): "
+        f"{ALL_STEPS[name]} spsa steps peak at {stp / 2**30:.3f} GiB over θ, "
+        f"one forward (no_grad) at {fwd / 2**30:.3f} GiB — ratio "
+        f"{stp / fwd:.4f}; the whole peak {peak_abs / 2**30:.2f} GiB of the "
+        f"card's {total / 2**30:.2f} GiB ({100 * peak_abs / total:.1f}%) — "
+        f"on {card}")
+    samples = {k: v.cpu() for k, v in sample_slices(trained).items()}
+    del trained, params
+    free_card(torch, "mixtral-8x7b's trained θ")
+    p = b.init(0, device="cuda")
+    if checksums(torch, p) != sums0:
+        fail("mixtral: θ₀ regenerated from the seed differs from θ₀")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    replay(p, led, make_opt())
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry",),
+               "replay the mixtral fine-tune")
+    log(f"{name}: in-place replay of {len(led)} records in "
+        f"{time.perf_counter() - t0:.3f} s")
+    samples_vs(torch, name, p, samples)
+    del p, samples
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -4108,7 +4525,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke runs on the card")
     if not (SRC / "repro_torch").is_dir() or not all(
             f.exists() for f in (GOLDEN, MULTI_GOLDEN, ROWS_GOLDEN,
-                                 WKV6_GOLDEN, X1_GOLDEN)):
+                                 WKV6_GOLDEN, X1_GOLDEN, X1_ORIG_GOLDEN)):
         fail(f"run from the root of a checkout ({SRC / 'repro_torch'} or a "
              f"fixture under {GOLDEN.parent} missing)")
     sys.path.insert(0, str(SRC))
@@ -4145,6 +4562,7 @@ def main() -> None:
     k11_err = check_k11(torch, np, kw, ko)
     check_k11_sweep(torch, ko)
     x1_err = check_x1(torch, np)
+    x1o_err = check_x1_original(torch, np)
     check_pipes(_build, card)
 
     # ---- full width ---------------------------------------------------- #
@@ -4235,11 +4653,13 @@ def main() -> None:
     # ---- its fine-tune; mezo-adam, trace and rescaled SPSA ------------- #
     x1_row = xla_paths(torch, np, cfg, params0, prompts, _build, counts,
                        step_ms, card, x1_err)
+    x1o_row = x1_original_row(torch, np, _build, params0, card, x1o_err)
 
     # ---- kernel times at the qwen2-0.5b paths' shapes ----------------- #
     rows = qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot,
                              k1_err, k2_err, card, kz, km, kr, kf, kp)
     rows.append(x1_row)
+    rows.append(x1o_row)
     del params0, pool_k
 
     # ---- the ssm family: rwkv6-3b at full width and depth -------------- #
@@ -4269,6 +4689,25 @@ def main() -> None:
     backprop_paths(torch, np, _build, counts, step_ms, card)
     backprop_card_vs_cpu(torch, np, _build)
     reckon_adam_vs_mezo(torch, card)
+
+    # ---- the moe family: (s) granite-moe-3b-a800m at full width and ---- #
+    # ---- depth, (t) mixtral-8x7b at full width, depth cut -------------- #
+    free_card(torch, "the backprop phases' trees")
+    t_moe = time.perf_counter()
+    moe_shapes: set = set()
+    stop = record_k2_shapes(moe_shapes)
+    try:
+        granite_paths(torch, np, _build, counts, step_ms, card)
+        free_card(torch, "granite-moe-3b-a800m's trees")
+        mixtral_paths(torch, np, _build, counts, step_ms, card)
+    finally:
+        stop()
+    free_card(torch, "mixtral-8x7b's trees")
+    if not any(sh[3] == 128 and w == 4096 for sh, _, _, _, w in moe_shapes):
+        fail("K2 never ran at hd 128 with mixtral's window 4096")
+    hold_k2_shapes(torch, kf, moe_shapes, "the moe paths")
+    log(f"the moe phases (s) and (t) took {time.perf_counter() - t_moe:.1f} "
+        f"s — on {card}")
     rows.append(k2_hd128)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
@@ -4287,7 +4726,9 @@ def main() -> None:
         fail(f"X1 on the counted paths: {x1_vec} vector-route launches of "
              f"{counts.get('zo_affine_threefry', 0)}")
     log(f"X1 over the counted paths: all {x1_vec} launches on the vector "
-        "route")
+        "route; its original-layout route "
+        f"{counts.get('zo_affine_threefry_original', 0)} launches (pairs "
+        f"{counts.get('zo_affine_threefry_original/pairs', 0)})")
     k11_tile = counts.get("wkv6_chunked/tile", 0)
     if k11_tile == 0 or k11_tile != counts.get("wkv6_chunked", 0):
         fail(f"K11 on the counted paths: {k11_tile} tiled launches of "
@@ -4310,8 +4751,8 @@ def main() -> None:
              f"{counts.get('flash_attention', 0)}; copies {copied}")
     log(f"K2 over the counted paths: all {k2_mma} launches on the bf16 "
         f"mma.sync route, none on a +copy route: {k2_hd[64]} at hd 64 (the "
-        f"qwen2 paths), {k2_hd[128]} at hd 128 (the opt-13b / opt-30b "
-        f"paths); K2 hd 128 (OPT-13b's shape): {k2_hd128['ms']:.4f} ms, SDPA "
+        f"qwen2 and granite paths), {k2_hd[128]} at hd 128 (the opt-13b / "
+        f"opt-30b / mixtral paths); K2 hd 128 (OPT-13b's shape): {k2_hd128['ms']:.4f} ms, SDPA "
         f"{k2_hd128['library_ms']:.4f} ms, bound {k2_hd128['bound_ms']:.4f}")
     log("training step ms: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in step_ms.items())

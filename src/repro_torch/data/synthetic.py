@@ -7,22 +7,23 @@ JAX's batch bit for bit, drawn on the host and moved to ``device``.
 at step k regenerates the same batch with no iterator state to checkpoint.
 It is JAX's batch bit for bit: the base tokens are
 ``jax.random.randint(fold_in(PRNGKey(seed), step), (batch, seq), 0, vocab)``
-under the partitionable threefry layout (``randint``), and every other
+in the threefry layout in force (``randint``), and every other
 token is then ``(prev·1103515245 + 12345) mod vocab`` in wrapping int32
 arithmetic with a floor mod, as jnp computes it (``plant_structure``).  The
 tokens are drawn on the host CPU (a batch is small) and moved to
 ``device``.  The two task classes draw with ``split`` / ``randint`` /
-``bernoulli``, JAX's functions under the same layout.
+``bernoulli``, JAX's functions under the same layout (``split`` is
+``perturb.stream.split``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
 
 import torch
 
-from repro_torch.kernels.threefry.kernel import threefry_bits
-from repro_torch.perturb.stream import fold_in, prng_key
+from repro_torch.kernels.threefry.kernel import random_bits
+from repro_torch.perturb.stream import fold_in, partitionable, prng_key
+from repro_torch.perturb.stream import split as split
 
 _MASK = 0xFFFFFFFF
 
@@ -32,18 +33,24 @@ def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
     return ((v + (1 << 31)) % (1 << 32)) - (1 << 31)
 
 
+def _bits32(key, n: int) -> torch.Tensor:
+    """``_random_bits(key, 32, (n,))`` in the threefry layout in force."""
+    return random_bits(key, torch.arange(n, dtype=torch.int64), n, 32,
+                       partitionable())
+
+
 def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``: two
-    32-bit draws from the keys of ``split(key)`` (fold-like under the
-    partitionable layout: key j = threefry2x32(key, (0, j))), combined as
+    32-bit draws from the keys of ``split(key)``, combined as
     ``(hi % span) · ((2¹⁶ % span)² % span) + lo % span`` in wrapping uint32
-    arithmetic, mod span; an int64 tensor of int32 values."""
+    arithmetic, mod span; an int64 tensor of int32 values.  Both the split
+    and the draws follow the threefry layout in force."""
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64)
-    hi = threefry_bits(fold_in(key, 0), idx)
-    lo = threefry_bits(fold_in(key, 1), idx)
+    k_hi, k_lo = split(key)
+    hi = _bits32(k_hi, n)
+    lo = _bits32(k_lo, n)
     span = (maxval - minval) & _MASK if maxval > minval else 1
     mult = (1 << 16) % span
     mult = ((mult * mult) & _MASK) % span
@@ -52,20 +59,14 @@ def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     return _wrap_int32(off + minval).reshape(tuple(shape))
 
 
-def split(key, n: int = 2) -> List:
-    """``jax.random.split(key, n)`` under the partitionable layout: key j
-    is threefry2x32(key, (0, j)), which is ``fold_in(key, j)``."""
-    return [fold_in(key, j) for j in range(n)]
-
-
 def uniform(key, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in f32 on [0, 1): the top 23 of
     32 threefry bits as the mantissa of a float in [1, 2), minus 1."""
     n = 1
     for d in shape:
         n *= int(d)
-    bits = threefry_bits(key, torch.arange(n, dtype=torch.int64))
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    f = ((_bits32(key, n) >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32)
     return (f - 1.0).reshape(tuple(shape))
 
 

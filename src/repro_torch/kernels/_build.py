@@ -46,7 +46,7 @@ SOURCES: Dict[str, tuple] = {
                 ("zo_affine_rows", "zo_affine_multi_rows",
                  "zo_affine_chain_rows", "zo_sqnorm_rows")),
     "zo_threefry": ("threefry/csrc/zo_threefry.cu", _NO_FMAD,
-                    ("zo_affine_threefry",)),
+                    ("zo_affine_threefry", "zo_affine_threefry_original")),
     "flash_attention": ("flash_attention/csrc/flash_attention.cu", (),
                         ("flash_attention",)),
     "paged_gather": ("paged/csrc/paged_gather.cu", (), ("paged_gather",)),

@@ -65,6 +65,13 @@
 // counter); the counter is the flat index in the leaf, so a band draws the
 // bits of that slice of the whole leaf.
 //
+// The original layout (jax_threefry_partitionable off) has its own route:
+// element e of an n-element draw reads bits of word e / (32 / bw) of the
+// m = ceil(bw n / 32) words, and one hash gives the words p and p + h
+// (h = ceil(m / 2)), so a thread takes a pair and writes both words'
+// elements — half a hash per f32 element, an eighth per bf16 one.  The
+// affine write, erf_inv and the f16 FMA rule are the partitionable route's.
+//
 // zo_threefry_pipe_probe times chains of the instructions X1 is made of,
 // one kind per probe, for chip_smoke.py's reading of each pipe's rate.
 #include <cuda_bf16.h>
@@ -543,7 +550,7 @@ int resident_grid(uint64_t work) {
 
 // the table's entry size as the shift the final injection scales by
 template <typename T, int DIST, int FORM>
-constexpr int key_shift() {
+__host__ __device__ constexpr int key_shift() {
   return Table<T, DIST, FORM>::BF16 && DIST == 0
              ? Table<T, DIST, FORM>::SHIFT : 0;
 }
@@ -596,6 +603,122 @@ struct BandsL {
     bands_kernel<T, DIST, FORM><<<grid, THREADS, 0, st>>>(
         (const T*)x, (T*)y, g, make_key(k0, k1, key_shift<T, DIST, FORM>()),
         s);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The original layout (jax_threefry_partitionable off): a draw of m words
+// (bw bits per element, 32 / bw elements per word) hashes iota(m) in two
+// halves of h = ceil(m / 2) words: threefry2x32(key, (p, p + h)) gives word
+// p (output 0) and word p + h (output 1); for odd m the last pair's second
+// count is the pad 0 and its output 1 is dropped.  A draw past 2^32 - 1
+// words takes one key per block of that many words (the host splits the
+// launch at blocks and passes each block's key, word base and m).
+// ---------------------------------------------------------------------------
+struct Orig {
+  uint64_t wbase;       // the block's first word in the draw
+  uint32_t m, h;        // the block's words and its half
+  uint32_t p0, np;      // the launch's pairs [p0, p0 + np)
+  uint64_t e_lo, e_hi;  // the elements written, as draw indices
+  uint64_t off;         // the draw index of y[0] (and x[0])
+  int lg;               // log2(32 / bw): elements per word
+};
+
+// the element's bits within its word, as the writers read them (scaled
+// into a bf16 table's byte offset like threefry()'s A ^ B)
+template <typename T, int DIST, int FORM>
+__device__ __forceinline__ Pre orig_pre(uint32_t word, int j, int lg) {
+  const int bw = 32 >> lg;
+  const uint32_t v =
+      bw == 32 ? word : (word >> (bw * j)) & ((1u << bw) - 1u);
+  return Pre{v << key_shift<T, DIST, FORM>(), 0u};
+}
+
+// one word's elements that lie in [e_lo, e_hi)
+template <typename T, int DIST, int FORM>
+__device__ __forceinline__ void orig_word(const T* x, T* y, const Orig& g,
+                                          uint32_t w, uint32_t word,
+                                          const Writer<T, DIST, FORM>& wr,
+                                          const Scal& s) {
+  const int per = 1 << g.lg;
+  const uint64_t e0 = (g.wbase + w) << g.lg;
+  for (int j = 0; j < per; ++j) {
+    const uint64_t e = e0 + (uint64_t)j;
+    if (e < g.e_lo || e >= g.e_hi) continue;
+    const int64_t i = (int64_t)(e - g.off);
+    wr.one(x == nullptr ? nullptr : x + i, y + i, 0u,
+           orig_pre<T, DIST, FORM>(word, j, g.lg), s);
+  }
+}
+
+// whole leaves and windows: one hash per pair of words, both written
+template <typename T, int DIST, int FORM>
+__global__ void __launch_bounds__(THREADS)
+orig_kernel(const T* x, T* y, Orig g, Key k, Scal s) {
+  using TB = Table<T, DIST, FORM>;
+  __shared__ __align__(16) char tab[TB::BYTES];
+  build_table<T, DIST, FORM>(tab, s);
+  if constexpr (TB::ENTRIES > 0) __syncthreads();
+  const Writer<T, DIST, FORM> wr(tab, s);
+  const uint32_t stride = gridDim.x * THREADS;
+  for (uint32_t t = blockIdx.x * THREADS + threadIdx.x; t < g.np;
+       t += stride) {
+    const uint32_t p = g.p0 + t;
+    const bool has2 = p + g.h < g.m;
+    const Pre r = threefry(p + k.k0, (has2 ? p + g.h : 0u) + k.k1, k);
+    orig_word<T, DIST, FORM>(x, y, g, p, r.A, wr, s);
+    if (has2) orig_word<T, DIST, FORM>(x, y, g, p + g.h, r.B, wr, s);
+  }
+}
+
+// rows plans: one element per thread step, its word's hash kept for it
+template <typename T, int DIST, int FORM>
+__global__ void __launch_bounds__(THREADS)
+orig_bands_kernel(const T* x, T* y, Orig g, Bands b, Key k, Scal s) {
+  using TB = Table<T, DIST, FORM>;
+  __shared__ __align__(16) char tab[TB::BYTES];
+  build_table<T, DIST, FORM>(tab, s);
+  if constexpr (TB::ENTRIES > 0) __syncthreads();
+  const Writer<T, DIST, FORM> wr(tab, s);
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  for (int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x; j < b.total;
+       j += stride) {
+    int lo = 0, hi = b.nb - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (b.cum[mid] <= j) lo = mid; else hi = mid - 1;
+    }
+    const int64_t flat = b.starts[lo] + (j - b.cum[lo]);
+    const uint64_t e = (uint64_t)flat + g.off;
+    const uint32_t w = (uint32_t)((e >> g.lg) - g.wbase);
+    const bool first = w < g.h;
+    const uint32_t c0 = first ? w : w - g.h;
+    const uint32_t c1 = first ? (w + g.h < g.m ? w + g.h : 0u) : w;
+    const Pre r = threefry(c0 + k.k0, c1 + k.k1, k);
+    wr.one(x == nullptr ? nullptr : x + flat, y + flat, 0u,
+           orig_pre<T, DIST, FORM>(first ? r.A : r.B,
+                                   (int)(e & ((1u << g.lg) - 1u)), g.lg),
+           s);
+  }
+}
+
+template <typename T, int DIST, int FORM>
+struct OrigL {
+  static void run(const void* x, void* y, const Orig& g, uint32_t k0,
+                  uint32_t k1, const Scal& s, cudaStream_t st) {
+    const int grid = resident_grid<orig_kernel<T, DIST, FORM>>(g.np);
+    orig_kernel<T, DIST, FORM><<<grid, THREADS, 0, st>>>(
+        (const T*)x, (T*)y, g, make_key(k0, k1, 0), s);
+  }
+};
+template <typename T, int DIST, int FORM>
+struct OrigBandsL {
+  static void run(const void* x, void* y, const Orig& g, const Bands& b,
+                  uint32_t k0, uint32_t k1, const Scal& s, cudaStream_t st) {
+    const int grid =
+        resident_grid<orig_bands_kernel<T, DIST, FORM>>((uint64_t)b.total);
+    orig_bands_kernel<T, DIST, FORM><<<grid, THREADS, 0, st>>>(
+        (const T*)x, (T*)y, g, b, make_key(k0, k1, 0), s);
   }
 };
 
@@ -760,6 +883,52 @@ int zo_threefry_bands(const void* x, void* y, int dtype, uint32_t k0,
   const Scal s{a, b, e, k, zs_on, zs};
   return (int)dispatch<BandsL>(dtype, dist, form, x, y, g, k0, k1, s,
                                (cudaStream_t)stream);
+}
+
+// zo_threefry_original: one launch of the original layout over the pairs
+// [p0, p0 + np) of a block of m words (its first word wbase of the draw,
+// its key (k0, k1), h = ceil(m / 2)), writing the draw's elements in
+// [e_lo, e_hi); y[0] (and x[0]) is draw element `off`; bw bits per element.
+int zo_threefry_original(const void* x, void* y, int dtype, uint32_t k0,
+                         uint32_t k1, uint64_t wbase, uint32_t m, uint32_t h,
+                         uint32_t p0, uint32_t np, uint64_t e_lo,
+                         uint64_t e_hi, uint64_t off, int bw, int dist,
+                         int form, float a, float b, float e, float k,
+                         int zs_on, float zs, void* stream) {
+  if (np == 0 || e_hi <= e_lo) return 0;
+  const int lg = bw == 32 ? 0 : bw == 16 ? 1 : bw == 8 ? 2 : -1;
+  if ((dist != 0 && dist != 1) || form < 0 || form > 3 || lg < 0 ||
+      (dist == 1 && bw != 32) || (dtype == 0 && bw != 32) ||
+      (x == nullptr && form != FORM_Z) || h != m - m / 2 ||
+      (uint64_t)p0 + np > h || e_lo < off)
+    return (int)cudaErrorInvalidValue;
+  const Orig g{wbase, m, h, p0, np, e_lo, e_hi, off, lg};
+  const Scal s{a, b, e, k, zs_on, zs};
+  return (int)dispatch<OrigL>(dtype, dist, form, x, y, g, k0, k1, s,
+                              (cudaStream_t)stream);
+}
+
+// zo_threefry_original_bands: the original layout on the elements of the
+// flat bands of y (as zo_threefry_bands), every band inside one block of m
+// words at word wbase; y[0] is draw element `off`.
+int zo_threefry_original_bands(const void* x, void* y, int dtype, uint32_t k0,
+                               uint32_t k1, uint64_t wbase, uint32_t m,
+                               uint32_t h, uint64_t off, int bw, int dist,
+                               int form, float a, float b, float e, float k,
+                               int zs_on, float zs, const int64_t* starts,
+                               const int64_t* cum, int nb, int64_t total,
+                               void* stream) {
+  if (total <= 0) return 0;
+  const int lg = bw == 32 ? 0 : bw == 16 ? 1 : bw == 8 ? 2 : -1;
+  if ((dist != 0 && dist != 1) || form < 0 || form > 3 || nb <= 0 ||
+      lg < 0 || (dist == 1 && bw != 32) || (dtype == 0 && bw != 32) ||
+      (x == nullptr && form != FORM_Z) || h != m - m / 2)
+    return (int)cudaErrorInvalidValue;
+  const Orig g{wbase, m, h, 0u, 0u, 0u, 0u, off, lg};
+  const Bands bd{off, starts, cum, nb, total};
+  const Scal s{a, b, e, k, zs_on, zs};
+  return (int)dispatch<OrigBandsL>(dtype, dist, form, x, y, g, bd, k0, k1, s,
+                                   (cudaStream_t)stream);
 }
 
 // out[j] = the f32 gaussian z of bits (m0 + j) << 9, j < n: every uniform

@@ -8,12 +8,20 @@ hand-written kernel (``csrc/zo_threefry.cu``) so no leaf-sized temporary
 exists on the card; this module holds its plain torch version (the bitwise
 specification, run for CPU tensors) and its wrapper.
 
-The stream, under ``jax_threefry_partitionable`` (JAX's default since 0.5;
-the older layout is not reproduced):
+The stream, in either threefry layout (``jax_threefry_partitionable``,
+the port's switch ``perturb.stream.threefry_partitionable``):
 
-* **bits.** Element i of a leaf draws ``x0 ^ x1`` of
-  ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))`` — a function of (key,
-  flat index) alone, so a leaf can be generated in chunks or band by band.
+* **bits, partitionable** (JAX's default since 0.5). Element i of a leaf
+  draws ``x0 ^ x1`` of ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))`` — a
+  function of (key, flat index) alone, so a leaf can be generated in chunks
+  or band by band.
+* **bits, original.** A leaf of n elements drawn at bw bits (``bit_width``:
+  32 for f32 and rademacher, 8 for bf16, 16 for f16) hashes m =
+  ⌈bw·n/32⌉ words in the pairing of ``stream.original_word`` (word w and
+  w + ⌈m/2⌉ from one hash), past 2³² − 1 words under one key per block
+  (``block_keys``); element i takes bw bits of word i / (32/bw)
+  (``original_bits``).  A function of (key, n, i): chunks and bands are
+  still generated alone, given the leaf's n.
 * **f32 normal.** u = max(lo, 2·(m·2⁻²³) + lo) with m = bits >> 9 and
   lo = −(1 − 2⁻²⁴); z = √2 · erf_inv(u), erf_inv as XLA:CPU expands it:
   w = −log1p(−u²) (XLA's Cephes-style log1p, its log a Cephes ``logf``),
@@ -111,20 +119,107 @@ _LO32 = _f("BFEFFFFFE0000000")          # nextafter(-1, 0) in f32
 # --------------------------------------------------------------------------- #
 # Plain torch version (bitwise specification)
 # --------------------------------------------------------------------------- #
-def threefry_bits(key, idx: torch.Tensor) -> torch.Tensor:
-    """``x0 ^ x1`` of threefry2x32(key, (idx >> 32, idx & 0xFFFFFFFF)) for
-    int64 flat indices ``idx`` ≥ 0; int64 values in [0, 2³²)."""
+def threefry_pair(key, c0: torch.Tensor, c1: torch.Tensor):
+    """threefry2x32(key, (c0, c1)) on int64 tensors of uint32 counts: both
+    output words, int64 values in [0, 2³²)."""
     k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = ((idx >> 32) + k0) & _MASK
-    x1 = ((idx & _MASK) + k1) & _MASK
+    x0 = (c0 + k0) & _MASK
+    x1 = (c1 + k1) & _MASK
     for i in range(5):
         for r in _ROT[i % 2]:
             x0 = (x0 + x1) & _MASK
             x1 = (((x1 << r) & _MASK) | (x1 >> (32 - r))) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _MASK
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def threefry_bits(key, idx: torch.Tensor) -> torch.Tensor:
+    """``x0 ^ x1`` of threefry2x32(key, (idx >> 32, idx & 0xFFFFFFFF)) for
+    int64 flat indices ``idx`` ≥ 0; int64 values in [0, 2³²) — the
+    partitionable layout's bits of element idx."""
+    x0, x1 = threefry_pair(key, idx >> 32, idx & _MASK)
     return x0 ^ x1
+
+
+#: words one key hashes at most under the original layout; a longer draw
+#: splits its key into ⌈m / BLOCK_WORDS⌉ keys (JAX's ``nblocks + 1``)
+BLOCK_WORDS = (1 << 32) - 1
+
+
+def bit_width(dtype: torch.dtype, dist: str) -> int:
+    """Bits JAX draws per element: ``uniform`` takes the dtype's width, 8
+    for bf16 (fewer than 8 mantissa bits); rademacher is ``bernoulli(0.5)``
+    on an f32 uniform, 32 bits in every dtype."""
+    if dist == "rademacher" or dtype == torch.float32:
+        return 32
+    return 8 if dtype == torch.bfloat16 else 16
+
+
+def draw_words(n: int, bw: int) -> int:
+    """m = ⌈bw · n / 32⌉, the 32-bit words a draw of n elements hashes."""
+    return -(-bw * n // 32)
+
+
+def block_keys(key, m: int) -> List:
+    """The keys that hash an original-layout draw of m words: the key
+    itself below ``BLOCK_WORDS`` words, else ``split(key, nblocks + 1)``
+    in the original layout (block b hashes words [b·BLOCK_WORDS, …))."""
+    from repro_torch.perturb.stream import split, threefry_partitionable
+    nblocks = m // BLOCK_WORDS
+    if nblocks == 0:
+        return [(int(key[0]) & _MASK, int(key[1]) & _MASK)]
+    with threefry_partitionable(False):
+        return split(key, nblocks + 1)
+
+
+def block_words(m: int, b: int) -> int:
+    """Words hashed under block b's key (the last block: the remainder)."""
+    nblocks, rem = divmod(m, BLOCK_WORDS)
+    return BLOCK_WORDS if b < nblocks else rem
+
+
+def original_bits(key, idx: torch.Tensor, n: int, bw: int) -> torch.Tensor:
+    """The original layout's bw-bit value of elements ``idx`` (int64) of an
+    n-element draw: word W = idx // (32/bw) of the m-word stream, hashed
+    under block key W // BLOCK_WORDS at local count w = W % BLOCK_WORDS
+    in the pairing of ``stream.original_word``; element idx takes bits
+    bw · (idx % (32/bw)) and up of its word."""
+    epw = 32 // bw
+    m = draw_words(n, bw)
+    word = idx // epw
+    out = torch.empty_like(idx)
+    keys = block_keys(key, m)
+    blk = word // BLOCK_WORDS
+    for b in range(len(keys)):
+        sel = blk == b if len(keys) > 1 else None
+        w = word if sel is None else word[sel] - b * BLOCK_WORDS
+        mb = block_words(m, b)
+        h = (mb + 1) // 2
+        first = w < h
+        pair = w + h
+        c0 = torch.where(first, w, w - h)
+        c1 = torch.where(first, torch.where(pair < mb, pair, 0), w)
+        o0, o1 = threefry_pair(keys[b], c0, c1)
+        bits = torch.where(first, o0, o1)
+        if sel is None:
+            out = bits
+        else:
+            out[sel] = bits
+    if bw < 32:
+        out = (out >> (bw * (idx % epw))) & ((1 << bw) - 1)
+    return out
+
+
+def random_bits(key, idx: torch.Tensor, n: int, bw: int,
+                partitionable: bool) -> torch.Tensor:
+    """Element ``idx``'s random bits of an n-element draw of width bw in
+    the given layout (partitionable: all 32 bits of the element's hash,
+    which the z unit masks to bw)."""
+    if partitionable:
+        return threefry_bits(key, idx)
+    return original_bits(key, idx, n, bw)
 
 
 def _full(t: torch.Tensor, v: float) -> torch.Tensor:
@@ -311,11 +406,14 @@ def zo_affine_threefry_plain(x: Optional[torch.Tensor], key, form: str,
                              dist: str = "gaussian",
                              out: Optional[torch.Tensor] = None,
                              bands: Optional[Sequence] = None,
-                             offset: int = 0) -> torch.Tensor:
+                             offset: int = 0, total: Optional[int] = None,
+                             partitionable: bool = True) -> torch.Tensor:
     """Plain X1 on any device.  ``x=None`` (form ``z``) writes z into
     ``out``; ``bands`` is a list of flat ``(lo, hi)`` ranges, the only
     elements written (a rows plan); ``offset`` is added to every flat
-    index (a chunk of a longer leaf)."""
+    index (a chunk of a longer leaf) and ``total`` is that leaf's element
+    count (default offset + numel), which the original layout's pairing
+    reads."""
     fcode = FORMS[form]
     y = out if out is not None else torch.empty_like(x)
     dtype = y.dtype
@@ -327,12 +425,15 @@ def zo_affine_threefry_plain(x: Optional[torch.Tensor], key, form: str,
     xflat = x.reshape(-1) if x is not None else None
     ranges = [(0, yflat.numel())] if bands is None else bands
     chunk = _CHUNK_CUDA if y.device.type == "cuda" else _CHUNK
+    n = offset + yflat.numel() if total is None else int(total)
+    bw = bit_width(dtype, dist)
     for lo0, hi0 in ranges:
         for lo in range(lo0, hi0, chunk):
             hi = min(lo + chunk, hi0)
             idx = torch.arange(lo + offset, hi + offset, dtype=torch.int64,
                                device=y.device)
-            zu = _z_unit(threefry_bits(key, idx), dtype, dist)
+            zu = _z_unit(random_bits(key, idx, n, bw, partitionable), dtype,
+                         dist)
             if zs is not None:
                 zu = _rt(zu * zs, dtype)
             xv = None if xflat is None else xflat[lo:hi].to(torch.float32)
@@ -357,6 +458,15 @@ def _lib():
         lib.zo_threefry_bands.argtypes = [vp, vp, i, u32, u32, u64, i, i, f,
                                           f, f, f, i, f, vp, vp, i, i64, vp]
         lib.zo_threefry_bands.restype = i
+        lib.zo_threefry_original.argtypes = [vp, vp, i, u32, u32, u64, u32,
+                                             u32, u32, u32, u64, u64, u64,
+                                             i, i, i, f, f, f, f, i, f, vp]
+        lib.zo_threefry_original.restype = i
+        lib.zo_threefry_original_bands.argtypes = [vp, vp, i, u32, u32, u64,
+                                                   u32, u32, u64, i, i, i, f,
+                                                   f, f, f, i, f, vp, vp, i,
+                                                   i64, vp]
+        lib.zo_threefry_original_bands.restype = i
         lib.zo_threefry_normal_f32.argtypes = [vp, i64, i64, vp]
         lib.zo_threefry_normal_f32.restype = i
         lib.zo_threefry_table.argtypes = [vp, i, vp]
@@ -420,18 +530,79 @@ def whole_launches(n: int, offset: int, x_addr: Optional[int], y_addr: int,
     return out
 
 
+class OrigLaunch(NamedTuple):
+    """One launch of the original route: pairs [p0, p0 + np) of block
+    ``block`` (m words from word ``wbase`` of the draw, half h)."""
+    block: int
+    wbase: int
+    m: int
+    h: int
+    p0: int
+    np: int
+
+
+def original_launches(lo: int, hi: int, n: int, bw: int) -> List[OrigLaunch]:
+    """The launches that write elements [lo, hi) of an n-element draw of
+    width bw under the original layout: per block of ``BLOCK_WORDS`` words
+    the window's words fall in, the pairs holding them — the window's
+    words in the first half and, shifted by h, those in the second; one
+    launch when the two pair ranges meet, else two."""
+    if hi <= lo:
+        return []
+    epw = 32 // bw
+    m = draw_words(n, bw)
+    w_lo, w_hi = lo // epw, -(-hi // epw)
+    out = []
+    for b in range(w_lo // BLOCK_WORDS, (w_hi - 1) // BLOCK_WORDS + 1):
+        base = b * BLOCK_WORDS
+        mb = block_words(m, b)
+        h = (mb + 1) // 2
+        a0, a1 = max(w_lo - base, 0), min(w_hi - base, mb)
+        spans = [(lo_, hi_) for lo_, hi_ in ((a0, min(a1, h)),
+                                            (max(a0, h) - h, a1 - h))
+                 if hi_ > lo_]
+        spans.sort()
+        if len(spans) == 2 and spans[1][0] <= spans[0][1]:
+            spans = [(spans[0][0], max(spans[0][1], spans[1][1]))]
+        out += [OrigLaunch(b, base, mb, h, p0, p1 - p0) for p0, p1 in spans]
+    return out
+
+
+def _original_bands(bands: Sequence, offset: int, bw: int):
+    """A rows plan's bands (flat in y, y[0] = draw element ``offset``)
+    grouped by the block of words they lie in: [(block, [(lo, hi), …])]."""
+    span = BLOCK_WORDS * (32 // bw)
+    groups = {}
+    for lo, hi in bands:
+        e = lo + offset
+        while e < hi + offset:
+            b = e // span
+            end = min(hi + offset, (b + 1) * span)
+            groups.setdefault(b, []).append((e - offset, end - offset))
+            e = end
+    return sorted(groups.items())
+
+
 def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
                        a: float = 0.0, b: float = 0.0, e: float = 0.0,
                        zs: Optional[float] = None, dist: str = "gaussian",
                        out: Optional[torch.Tensor] = None,
                        bands: Optional[Sequence] = None,
-                       offset: int = 0) -> torch.Tensor:
+                       offset: int = 0, total: Optional[int] = None,
+                       partitionable: Optional[bool] = None) -> torch.Tensor:
     """X1: the affine write ``form`` of z(key) over one leaf (see ``FORMS``),
     in place when ``out`` is ``x``.  Scalars are f32 values (half dtypes:
-    values of the leaf dtype).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel: the ``whole`` route (``whole_launches``,
-    each launch counted as ``vector`` or ``scalar``) or, for a rows plan's
-    ``bands``, the ``bands`` route."""
+    values of the leaf dtype).  ``offset`` is the leaf index of y's first
+    element and ``total`` the leaf's element count (needed with an offset
+    under the original layout, whose pairing spans the whole leaf);
+    ``partitionable`` is the threefry layout, by default the one in force
+    (``perturb.stream.threefry_partitionable``).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel: under the partitionable
+    layout the ``whole`` route (``whole_launches``, each launch counted as
+    ``vector`` or ``scalar``) or, for a rows plan's ``bands``, the
+    ``bands`` route; under the original layout its own kernel,
+    ``zo_affine_threefry_original`` (``original_launches``, counted as
+    ``pairs``; bands as ``bands``)."""
     if dist not in DIST_CODES:
         raise NotImplementedError(
             f"zo_affine_threefry has no generator for dist={dist!r}; sphere "
@@ -454,9 +625,18 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
                          "dtype and device")
     if y.dtype != torch.float32:
         check_scalars(y.dtype, a, b, e, zs)
+    if partitionable is None:
+        from repro_torch.perturb.stream import partitionable as _layout
+        partitionable = _layout()
+    if total is None:
+        if offset and not partitionable:
+            raise ValueError("zo_affine_threefry: the original threefry "
+                             "layout pairs words across the whole leaf; "
+                             "give the leaf's total with an offset")
+        total = offset + y.numel()
     if y.device.type == "cpu":
         return zo_affine_threefry_plain(x, key, form, a, b, e, zs, dist, y,
-                                        bands, offset)
+                                        bands, offset, total, partitionable)
     if y.device.type != "cuda":
         raise RuntimeError(f"zo_affine_threefry: no kernel for {y.device}")
     if not y.is_contiguous() or (x is not None and not x.is_contiguous()):
@@ -474,6 +654,10 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
             float(np.float32(b)), float(np.float32(e)), float(np.float32(k)),
             int(zs is not None), float(np.float32(0.0 if zs is None else zs)))
     stream = _build.stream_of(y)
+    if not partitionable:
+        return _launch_original(lib, x, y, key, bands, int(offset),
+                                int(total), bit_width(y.dtype, dist), scal,
+                                stream)
     if bands is not None:
         bl = torch.tensor([[lo, hi] for lo, hi in bands], dtype=torch.int64)
         lens = bl[:, 1] - bl[:, 0]
@@ -501,6 +685,42 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
             DTYPE_CODES[y.dtype], k0, k1, ln.hi, ln.lo, *scal, stream)
         _build.check(lib, err, "zo_affine_threefry")
         _build.count("zo_affine_threefry", route)
+    return y
+
+
+def _launch_original(lib, x, y, key, bands, offset: int, total: int,
+                     bw: int, scal, stream) -> torch.Tensor:
+    """X1's original-layout launches for a CUDA leaf (see
+    ``zo_affine_threefry``)."""
+    m = draw_words(total, bw)
+    keys = block_keys(key, m)
+    xp = None if x is None else _build.ptr(x)
+    name = "zo_affine_threefry_original"
+    if bands is None:
+        for ln in original_launches(offset, offset + y.numel(), total, bw):
+            k0, k1 = keys[ln.block]
+            err = lib.zo_threefry_original(
+                xp, _build.ptr(y), DTYPE_CODES[y.dtype], k0, k1, ln.wbase,
+                ln.m, ln.h, ln.p0, ln.np, offset, offset + y.numel(), offset,
+                bw, *scal, stream)
+            _build.check(lib, err, name)
+            _build.count(name, "pairs")
+        return y
+    for blk, group in _original_bands(bands, offset, bw):
+        bl = torch.tensor(group, dtype=torch.int64)
+        lens = bl[:, 1] - bl[:, 0]
+        starts = bl[:, 0].to(y.device)
+        cum = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(lens, 0)]).to(y.device)
+        mb = block_words(m, blk)
+        k0, k1 = keys[blk]
+        err = lib.zo_threefry_original_bands(
+            xp, _build.ptr(y), DTYPE_CODES[y.dtype], k0, k1,
+            blk * BLOCK_WORDS, mb, (mb + 1) // 2, offset, bw, *scal,
+            _build.ptr(starts), _build.ptr(cum), len(group), int(lens.sum()),
+            stream)
+        _build.check(lib, err, name)
+        _build.count(name, "bands")
     return y
 
 

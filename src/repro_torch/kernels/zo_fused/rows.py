@@ -88,8 +88,14 @@ def _plan(n: int, block_elems: int, k: int, phase: int) -> tuple:
                          f"0 <= phase < k; got block_elems={be}, k={k}, "
                          f"phase={phase}")
     if n >= 1 << 32:
+        # the reference's own rows kernels disagree with its plan there:
+        # a tile's in-kernel mask forms the flat index in uint32, so past
+        # 2^32 it selects by the wrapped index, and its sqnorm raises
+        # (tests/test_torch_rows_past_2_32.py; ROADMAP Queue 3)
         raise ValueError(f"a {n}-element leaf exceeds the 2^32 counter "
-                         "indices of the z stream")
+                         "indices of the z stream: JAX's rows kernels mask "
+                         "by the wrapped index there (a reference fault), "
+                         "so rows plans refuse such a leaf")
     return n, min(be, max(n, 1)), k, phase
 
 

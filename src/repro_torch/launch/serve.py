@@ -5,9 +5,12 @@ builds the model from a seeded ``torch.Generator``, optionally replays a
 MeZO scalar ledger onto the init params (a JAX- or port-written MZOL file of
 the ``xla`` stream — MZOL1 implies it — or of ``pallas+z2``), then serves
 a synthetic request workload through
-the engine: paged for dense archs, the per-slot recurrent path for ssm ones
-(``--arch rwkv6-3b``).  Multi-tenant mode (``--tenants``) arrives with the
-tenants slice.
+the engine: paged for dense archs and moe ones without a sliding window
+(``--arch granite-moe-3b-a800m``), the per-slot recurrent path for ssm ones
+(``--arch rwkv6-3b``); a sliding-window arch (mixtral-8x7b) needs the
+dense-slab caches, which come with the other-families slice, and is
+refused.  Multi-tenant mode (``--tenants``) arrives with the tenants
+slice.
 """
 from __future__ import annotations
 
@@ -58,7 +61,11 @@ def main(argv=None):
         sys.exit("--tenants: multi-tenant serving is ported with the tenants "
                  "slice; run without --tenants for single-model serving")
     device = resolve_device(args.device)
-    arch = all_archs()[args.arch]
+    archs = all_archs()
+    if args.arch not in archs:
+        sys.exit(f"--arch {args.arch!r} is not a ported config; the port "
+                 f"has {', '.join(sorted(archs))}")
+    arch = archs[args.arch]
     cfg = arch.smoke_cfg if args.smoke else arch.cfg
     params = bundle(cfg).init(args.seed, device=device)
     if args.ledger and os.path.exists(args.ledger):

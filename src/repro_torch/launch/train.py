@@ -15,17 +15,20 @@ its steps replay only from a full checkpoint).  ``--select`` takes every
 selection spec of
 ``repro_torch.select`` (``auto`` → the registry's per-family default) and is
 recorded in the checkpoint meta and the MZOL5 ledger header.  The ported
-families are dense and ssm: ``--model-family ssm`` (or ``--arch rwkv6-3b``)
-trains rwkv6, ``--scan-mode`` picks its forward (``chunk``, K11 on the
-card, or ``fused_recurrent``).  ``--arch`` takes every ported config
+families are dense, moe and ssm: ``--model-family moe`` (mixtral-8x7b, or
+``--arch granite-moe-3b-a800m``) trains the mixture of experts,
+``--expert-groups G`` splitting its experts into G leaf groups for
+``--select moe_experts(G)`` (``auto`` picks it); ``--model-family ssm``
+(or ``--arch rwkv6-3b``) trains rwkv6, ``--scan-mode`` picks its forward
+(``chunk``, K11 on the card, or ``fused_recurrent``).  ``--arch`` takes every ported config
 (the paper's OPT-13B/30B/66B and RoBERTa-large among them), and
 ``--objective`` every entry of ``OBJECTIVES``: the non-differentiable
 ``accuracy`` / ``f1`` train through the ZO optimizers only.  The data is
 the ``lm`` stream, as in JAX's launcher.  The refusals are JAX's, in its
 order (``--objective`` other than ``ce``, ``--select`` other than ``full``
 and ``--exec-plan seed_parallel`` need a ZO optimizer); options of later
-slices (``--model-family moe|hybrid|encdec``) exit with a message naming
-the slice.
+slices (``--model-family hybrid|encdec``) exit with a message naming the
+slice.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ def main(argv=None):
     ap.add_argument("--model-family", default=None,
                     choices=["dense", "moe", "ssm", "hybrid", "encdec"],
                     help="architecture family: its representative arch "
-                         "(the port has dense and ssm)")
+                         "(the port has dense, moe and ssm)")
     ap.add_argument("--optimizer", default="mezo",
                     choices=["mezo", "mezo-adam", "adam", "sgd"])
     ap.add_argument("--estimator", default="spsa",
@@ -74,7 +77,8 @@ def main(argv=None):
                          "inside every leaf, ~1/K of each tensor per step), "
                          "'peft(lora|prefix)' for a merged PEFT tree, "
                          "'moe_experts(<G>)' (router frozen, one expert "
-                         "group per step), or 'auto' for the registry's "
+                         "group per step; needs --expert-groups G), or "
+                         "'auto' for the registry's "
                          "per-family default; recorded in ckpt meta + the "
                          "MZOL5 ledger header")
     ap.add_argument("--objective", default="ce", choices=list(OBJECTIVES),
@@ -82,6 +86,10 @@ def main(argv=None):
                          "non-differentiable 'accuracy'/'f1' metrics (paper "
                          "§3.3) — zero gradient a.e., so they require a ZO "
                          "optimizer (--optimizer mezo)")
+    ap.add_argument("--expert-groups", type=int, default=None,
+                    help="MoE only: split the expert tensors into G leaf "
+                         "groups (cfg.expert_groups) so moe_experts(G) "
+                         "selection can cycle one group per step")
     ap.add_argument("--scan-mode", default=None,
                     choices=["chunk", "fused_recurrent"],
                     help="ssm forward mode: 'chunk' (chunked WKV, K11 on the "
@@ -129,11 +137,17 @@ def main(argv=None):
                  f"has {', '.join(sorted(archs))}")
     arch = archs[args.arch]
     cfg = arch.smoke_cfg if args.smoke else arch.cfg
+    if args.expert_groups is not None:
+        if not cfg.n_experts:
+            sys.exit(f"--expert-groups needs an MoE arch (got {args.arch!r}, "
+                     f"family {cfg.family!r})")
+        cfg = cfg.replace(expert_groups=args.expert_groups)
     if args.scan_mode is not None:
         cfg = cfg.replace(scan_mode=args.scan_mode)
     b = bundle(cfg)
     if args.select == "auto":
-        # the registry's per-family default (full for dense and ssm)
+        # the registry's per-family default (moe: expert-wise cycling with
+        # the router frozen; dense and ssm: full)
         args.select = b.default_selection()
         print(f"[train] --select auto -> {args.select!r}")
     params = b.init(args.seed, device=device)

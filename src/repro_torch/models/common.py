@@ -107,10 +107,11 @@ def dense_init(gen: torch.Generator, shape: tuple, dtype,
     The leaf is allocated once in ``dtype``; a 3-D leaf (stacked over
     layers on axis 0) is filled one layer at a time, so the f32 draw held
     at once is one layer's slice — OPT-30b's (48, 7168, 28672) ``w1`` would
-    need 79 GB of f32 temporaries drawn whole."""
+    need 79 GB of f32 temporaries drawn whole (a 4-D moe expert leaf
+    (L, E, d, ff) likewise, one layer's experts at a time)."""
     fan_in = fan_in or shape[0]
     out = torch.empty(shape, dtype=dtype, device=gen.device)
-    for part in (out if len(shape) == 3 else out[None]):
+    for part in (out if len(shape) >= 3 else out[None]):
         _fill_normal(gen, part, 1.0 / math.sqrt(fan_in))
     return out
 

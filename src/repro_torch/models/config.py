@@ -98,10 +98,10 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count (embedding + blocks + head), JAX's
-        formula for the families the port builds: dense and ssm."""
-        if self.family not in ("dense", "ssm") or self.n_experts:
+        formula for the families the port builds: dense, moe and ssm."""
+        if self.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
-                f"n_params of family {self.family!r}: moe, hybrid and encdec "
+                f"n_params of family {self.family!r}: hybrid and encdec "
                 "come with the other-families slice")
         d, ff, V = self.d_model, self.d_ff, self.padded_vocab
         hd, H, KV = self.hd, self.n_heads, self.kv_heads
@@ -115,11 +115,17 @@ class ModelConfig:
         if self.qkv_bias:
             att += H * hd + 2 * KV * hd
         ffn = (3 if self.gated_ffn else 2) * d * ff
+        if self.n_experts:
+            ffn = ffn * self.n_experts + d * self.n_experts   # + router
         return emb + self.n_layers * (att + ffn)
 
     def n_active_params(self) -> int:
-        """Active (per-token) parameters: every one, without experts."""
-        return self.n_params()
+        """Active (per-token) parameters — MoE counts top_k of n_experts."""
+        if not self.n_experts:
+            return self.n_params()
+        dense_ffn = (3 if self.gated_ffn else 2) * self.d_model * self.d_ff
+        return self.n_params() - self.n_layers * dense_ffn * (
+            self.n_experts - self.top_k)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -36,6 +36,7 @@ from repro_torch.models.common import (apply_norm, apply_rope, dense_init,
                                        rope_cos_sin)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn
+from repro_torch.models.moe import moe_ffn
 from repro_torch.select import PEFT_MODES
 
 PREFIX_POS = -2  # sentinel k_pos: always attendable (see attention._mask)
@@ -124,7 +125,7 @@ def prefix_from_tokens(cfg: ModelConfig, params: dict,
             _, k, v = attn_lib.project_qkv(cfg, lp["attn"], h, h)
             ks.append(k[0])
             vs.append(v[0])
-            x, _ = transformer.block(cfg, lp, x, positions, None, None)
+            x = transformer.block(cfg, lp, x, positions, None, None)[0]
         return {"pk": torch.stack(ks).to(cfg.param_dtype),
                 "pv": torch.stack(vs).to(cfg.param_dtype)}
 
@@ -139,10 +140,11 @@ def init_prefix_from_tokens(cfg: ModelConfig, params: dict,
 
 
 def _forward_with_prefix(cfg: ModelConfig, params: dict, prefix: dict,
-                         batch) -> torch.Tensor:
-    """Logits of a forward pass in which each layer's attention sees
-    [prefix K/V ; K/V], the prefix at the always-attendable position −2."""
-    transformer._check_dense(cfg)
+                         batch):
+    """(logits, aux) of a forward pass in which each layer's attention
+    sees [prefix K/V ; K/V], the prefix at the always-attendable position
+    −2; aux the moe layers' summed load-balancing loss (None for dense)."""
+    transformer._check_family(cfg)
     tokens, embeds = batch.get("tokens"), batch.get("embeds")
     if embeds is None:
         x = transformer.embed_tokens(cfg, params, tokens)
@@ -155,6 +157,8 @@ def _forward_with_prefix(cfg: ModelConfig, params: dict, prefix: dict,
                                   device=x.device), positions])
     if cfg.use_rope:
         cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+           if cfg.n_experts else None)
     for i, lp in enumerate(transformer.layer_views(params["layers"],
                                                    cfg.n_layers)):
         h = apply_norm(cfg, x, lp["ln1"])
@@ -170,12 +174,17 @@ def _forward_with_prefix(cfg: ModelConfig, params: dict, prefix: dict,
                               k_pos=k_pos, causal=True,
                               window=cfg.sliding_window)
         x = x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-        x = x + ffn(cfg, lp["mlp"], apply_norm(cfg, x, lp["ln2"]))
+        h2 = apply_norm(cfg, x, lp["ln2"])
+        if cfg.n_experts:
+            mo, aux_l = moe_ffn(cfg, lp["moe"], h2)
+            x, aux = x + mo, aux + aux_l
+        else:
+            x = x + ffn(cfg, lp["mlp"], h2)
     x = apply_norm(cfg, x, params["ln_f"])
     head = params.get("head")
     if head is None:
         head = params["embed"].T
-    return x @ head
+    return x @ head, aux
 
 
 def prefix_loss_fn(cfg: ModelConfig, base_params: dict) -> Callable:
@@ -211,10 +220,10 @@ def peft_loss_fn(cfg: ModelConfig, mode: str) -> Callable:
                              batch)
     elif mode == "prefix":
         def loss(merged, batch):
-            logits = _forward_with_prefix(cfg, merged["base"],
-                                          merged["prefix"], batch)
+            logits, aux = _forward_with_prefix(cfg, merged["base"],
+                                               merged["prefix"], batch)
             return transformer.lm_loss(cfg, logits, batch["labels"],
-                                       batch.get("loss_mask"))
+                                       batch.get("loss_mask"), aux)
     else:
         raise ValueError(f"unknown peft mode {mode!r}; available: {PEFT_MODES}")
     return loss

@@ -1,15 +1,20 @@
 """Architecture registry — the port of ``repro.models.registry`` for the
-ported families, dense and ssm: ``Bundle`` gives ``init`` / ``loss_fn`` /
-``train_logits_fn`` / ``prefill_fn`` / ``chunk_prefill_fn`` / ``decode_fn``
-with the JAX signatures (``vmap`` becomes a batch dimension written out).
+ported families, dense, moe and ssm: ``Bundle`` gives ``init`` /
+``loss_fn`` / ``train_logits_fn`` / ``prefill_fn`` / ``chunk_prefill_fn`` /
+``decode_fn`` with the JAX signatures (``vmap`` becomes a batch dimension
+written out).
 
   ``dense``  decoder-only transformer — models/transformer.py
+  ``moe``    the transformer whose FFN is a GShard capacity-based top-k
+             mixture of experts — models/moe.py; the grouped
+             ``cfg.expert_groups`` layout for expert-wise ZO selection
   ``ssm``    RWKV6 "Finch" recurrence — models/rwkv6.py; scan modes
              ``cfg.scan_mode`` ∈ {"chunk" (K11), "fused_recurrent"}
 
 ``Bundle.loss_fn(objective)`` takes ``OBJECTIVES``: token cross-entropy
-and the paper's non-differentiable accuracy and F1 (``core/nondiff``).
-moe, hybrid and encdec come with the other-families slice.
+(plus the moe load-balancing term) and the paper's non-differentiable
+accuracy and F1 (``core/nondiff``).  hybrid and encdec come with the
+other-families slice.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv6, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import expert_group_count
 
 #: Registry-selectable training objectives (``Bundle.loss_fn(objective=...)``):
 #: "ce" is token cross-entropy; "accuracy" / "f1" are the paper §3.3
@@ -31,11 +37,22 @@ from repro_torch.models.config import ModelConfig
 OBJECTIVES = ("ce", "accuracy", "f1")
 
 #: Representative registry arch per ported family — the ``--model-family``
-#: alias of ``launch/train`` (JAX's table also names moe, hybrid and encdec).
+#: alias of ``launch/train`` (JAX's table also names hybrid and encdec).
 FAMILY_ARCHS = {
     "dense": "qwen2-0.5b",
+    "moe": "mixtral-8x7b",
     "ssm": "rwkv6-3b",
 }
+
+
+def default_selection(cfg: ModelConfig) -> str:
+    """Per-family default ``repro_torch.select`` spec, the value behind
+    ``--select auto``: ``moe_experts(G)`` for moe (the router frozen, expert
+    group t % G perturbed at step t; G = ``expert_group_count``, 1 for the
+    single-leaf layout), ``full`` for every other family."""
+    if cfg.n_experts:
+        return f"moe_experts({expert_group_count(cfg)})"
+    return "full"
 
 _REGISTRY: dict = {}
 
@@ -74,8 +91,8 @@ class Bundle:
         if cfg.family not in FAMILY_ARCHS:
             raise NotImplementedError(
                 f"family {cfg.family!r} is ported with the other-families "
-                f"slice (moe, hybrid, encdec); the port carries "
-                f"{' and '.join(FAMILY_ARCHS)}")
+                f"slice (hybrid, encdec); the port carries "
+                f"{', '.join(FAMILY_ARCHS)}")
         self.cfg = cfg
 
     # ---- init ---------------------------------------------------------- #
@@ -94,10 +111,8 @@ class Bundle:
         return transformer.init_params(self.cfg, gen)
 
     def default_selection(self) -> str:
-        """Per-family default ``repro_torch.select`` spec, the value behind
-        ``--select auto``: ``full`` for dense and ssm (JAX's rule gives MoE
-        ``moe_experts(G)``; that family is a later slice)."""
-        return "full"
+        """The config's ``default_selection``."""
+        return default_selection(self.cfg)
 
     # ---- training objectives ---------------------------------------------- #
     def train_logits_fn(self) -> Callable:
@@ -188,17 +203,20 @@ class Bundle:
 
     def chunk_prefill_fn(self) -> Callable:
         """Suffix prefill against pre-populated per-request caches — the
-        paged engine's batched-prefill primitive.
+        paged engine's batched-prefill primitive (dense and moe without a
+        sliding window).
 
         batch: ``"tokens"`` (B,S) right-padded suffixes; ``"cache"`` stacked
         (L,B,cap,KV,hd) with per-request ``"pos"`` (L,B,cap) (rows [0,plen_b)
         hold request b's prefix KV, the rest −1); ``"cache_pos"`` (B,) the
         prefix lengths.  Request b runs at positions plen_b + arange(S) and
         writes its suffix KV at rows [plen_b, plen_b+S) — JAX vmaps the
-        single-request forward over b; here b is the batch axis.  Returns
+        single-request forward over b; here b is the batch axis (a moe
+        group never spans two requests: M = min(moe_group_size, S) tokens
+        of one row, padding included, as in each vmapped call).  Returns
         (logits (B,S,V), cache), the cache updated in place."""
         cfg = self.cfg
-        if cfg.family != "dense" or cfg.sliding_window != 0:
+        if cfg.family not in ("dense", "moe") or cfg.sliding_window != 0:
             raise NotImplementedError(
                 f"chunk_prefill_fn: family={cfg.family!r} with "
                 f"sliding_window={cfg.sliding_window} has no "

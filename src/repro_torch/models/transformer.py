@@ -1,15 +1,18 @@
-"""Decoder-only transformer, dense family — the port of
+"""Decoder-only transformer, dense and moe families — the port of
 ``repro.models.transformer``.
 
 Params keep the JAX layout, block leaves stacked over layers on axis 0:
 
     {"embed": (V, d),
-     "layers": {"ln1": …, "attn": …, "mlp": …, "ln2": …},
+     "layers": {"ln1": …, "attn": …, ("mlp" | "moe"): …, "ln2": …},
      "ln_f": …, ["head": (d, V)]}
 
 so the leaf order (and hence every z stream's leaf seed) is the JAX one.
-The layer loop is a Python loop over the stacked leaves (``jax.lax.scan``
-has no counterpart to need); a cache, when given, is written in place.
+The moe family's FFN is ``models/moe.py``; its per-layer load-balancing
+losses are summed over the layers and enter ``lm_loss`` as
+``aux_coef · aux``.  The layer loop is a Python loop over the stacked
+leaves (``jax.lax.scan`` has no counterpart to need); a cache, when given,
+is written in place.
 """
 from __future__ import annotations
 
@@ -22,30 +25,39 @@ from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        norm_params, sinusoidal_at)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn, ffn_params
+from repro_torch.models.moe import moe_ffn, moe_params
+
+#: the load-balancing loss's weight in ``lm_loss`` (JAX's default)
+AUX_COEF = 0.01
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts:
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe") or (
+            cfg.family == "dense") != (not cfg.n_experts):
         raise NotImplementedError(
-            f"family {cfg.family!r} has no transformer forward in the port: "
-            "dense runs here, ssm in models/rwkv6.py, and moe, hybrid and "
-            "encdec come with the other-families slice")
+            f"family {cfg.family!r} (n_experts={cfg.n_experts}) has no "
+            "transformer forward in the port: dense and moe run here, ssm "
+            "in models/rwkv6.py, and hybrid and encdec come with the "
+            "other-families slice")
 
 
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random dense params on ``gen.device`` (N(0, 1/fan_in) projections,
-    N(0, 0.02²) embedding, zero biases and norm offsets)."""
-    _check_dense(cfg)
+    """Random params on ``gen.device`` (N(0, 1/fan_in) projections and
+    router, N(0, 0.02²) embedding, zero biases and norm offsets)."""
+    _check_family(cfg)
     dtype, dev, L = cfg.param_dtype, gen.device, cfg.n_layers
     layers = {
         "ln1": norm_params(cfg, cfg.d_model, dtype, dev, layers=L),
         "attn": attn_lib.attention_params(cfg, gen, dtype, L),
         "ln2": norm_params(cfg, cfg.d_model, dtype, dev, layers=L),
-        "mlp": ffn_params(cfg, gen, dtype, L),
     }
+    if cfg.n_experts:
+        layers["moe"] = moe_params(cfg, gen, dtype, L)
+    else:
+        layers["mlp"] = ffn_params(cfg, gen, dtype, L)
     params = {
         "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
         "layers": layers,
@@ -72,13 +84,17 @@ def layer_views(tree: dict, n_layers: int) -> list:
 # --------------------------------------------------------------------------- #
 def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, cache,
           cache_pos):
-    """One decoder block on layer ``p``'s leaves: (x_out, cache)."""
+    """One decoder block on layer ``p``'s leaves: (x_out, cache, aux) —
+    aux the moe layer's load-balancing loss (None for dense)."""
     h = apply_norm(cfg, x, p["ln1"])
     attn_out, new_cache = attn_lib.self_attention(cfg, p["attn"], h,
                                                   positions, cache, cache_pos)
     x = x + attn_out
-    x = x + ffn(cfg, p["mlp"], apply_norm(cfg, x, p["ln2"]))
-    return x, new_cache
+    h2 = apply_norm(cfg, x, p["ln2"])
+    if cfg.n_experts:
+        mo, aux = moe_ffn(cfg, p["moe"], h2)
+        return x + mo, new_cache, aux
+    return x + ffn(cfg, p["mlp"], h2), new_cache, None
 
 
 def embed_tokens(cfg: ModelConfig, params: dict,
@@ -93,6 +109,8 @@ def embed_tokens(cfg: ModelConfig, params: dict,
 class ForwardResult(NamedTuple):
     logits: torch.Tensor
     cache: Optional[dict]
+    #: the moe layers' load-balancing losses summed (f32); None for dense
+    aux_loss: Optional[torch.Tensor] = None
 
 
 def forward(cfg: ModelConfig, params: dict, *,
@@ -102,7 +120,7 @@ def forward(cfg: ModelConfig, params: dict, *,
             cache: Optional[dict] = None, cache_pos=None) -> ForwardResult:
     """tokens (B,S) int or embeds (B,S,d); ``cache`` stacked over layers
     (leading L axis) and updated in place."""
-    _check_dense(cfg)
+    _check_family(cfg)
     if embeds is None:
         x = embed_tokens(cfg, params, tokens)
     else:
@@ -114,26 +132,33 @@ def forward(cfg: ModelConfig, params: dict, *,
         x = x + sinusoidal_at(positions, cfg.d_model, x.dtype)[None]
 
     layers = layer_views(params["layers"], cfg.n_layers)
+    aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
+                 if cfg.n_experts else None)
     for i, p in enumerate(layers):
         cache_l = (None if cache is None else
                    {"k": cache["k"][i], "v": cache["v"][i],
                     "pos": cache["pos"][i]})
-        x, _ = block(cfg, p, x, positions, cache_l, cache_pos)
+        x, _, aux = block(cfg, p, x, positions, cache_l, cache_pos)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = apply_norm(cfg, x, params["ln_f"])
     head = params.get("head")
     if head is None:
         head = params["embed"].T
-    return ForwardResult(x @ head, cache)
+    return ForwardResult(x @ head, cache, aux_total)
 
 
 # --------------------------------------------------------------------------- #
 # Losses
 # --------------------------------------------------------------------------- #
 def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
-            loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            loss_mask: Optional[torch.Tensor] = None,
+            aux_loss: Optional[torch.Tensor] = None,
+            aux_coef: float = AUX_COEF) -> torch.Tensor:
     """Teacher-forcing cross entropy with padded-vocab masking, f32
-    logsumexp."""
+    logsumexp; plus ``aux_coef · aux_loss`` when a moe forward gives one
+    (JAX adds the term always, 0 for dense: x + 0 keeps x's bits)."""
     lg = logits.to(torch.float32)
     if cfg.padded_vocab != cfg.vocab_size:
         lg = lg.clone()
@@ -145,8 +170,12 @@ def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
     nll = logz - gold
     if loss_mask is not None:
         m = loss_mask.to(torch.float32)
-        return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
-    return torch.mean(nll)
+        loss = torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    else:
+        loss = torch.mean(nll)
+    if aux_loss is None:
+        return loss
+    return loss + torch.tensor(aux_coef, dtype=torch.float32) * aux_loss
 
 
 def train_loss_fn(cfg: ModelConfig):
@@ -155,6 +184,7 @@ def train_loss_fn(cfg: ModelConfig):
     def loss_fn(params, batch):
         r = forward(cfg, params, tokens=batch.get("tokens"),
                     embeds=batch.get("embeds"))
-        return lm_loss(cfg, r.logits, batch["labels"], batch.get("loss_mask"))
+        return lm_loss(cfg, r.logits, batch["labels"], batch.get("loss_mask"),
+                       r.aux_loss)
     return loss_fn
 

@@ -13,13 +13,28 @@ integer code, so the seeds equal JAX's bit for bit:
     leaf_seed(i)   = int32(counter_seed + 0x1000003 · i)  (wraparound)
 
 Keys are plain ``(k0, k1)`` tuples of Python ints; nothing here touches a
-tensor or a device.  A ref may carry a parameter selection
-(``with_selection``), which scopes which leaves and row-blocks consume the
-stream without changing its bits.
+tensor or a device.
+
+The threefry layout is JAX's ``jax_threefry_partitionable`` knob, and the
+port has the same knob (``threefry_partitionable(flag)``, a context manager,
+and ``set_threefry_partitionable``), its initial value read from
+``JAX_THREEFRY_PARTITIONABLE`` as JAX reads it, default on.  ``PRNGKey`` and
+``fold_in`` are the same in both layouts; ``split`` and every draw of random
+bits (``kernels.threefry``'s ``random_bits``) follow the switch.  Under the
+original layout a draw of m 32-bit words hashes the counts ``iota(m)`` cut
+in two halves of h = ⌈m/2⌉ (the odd count padded with a 0): word w < h is
+output 0 of ``threefry2x32(key, (w, w + h))`` (count m read as 0), word
+w ≥ h output 1 of ``threefry2x32(key, (w − h, w))`` (``original_word``).
+
+A ref may carry a parameter selection (``with_selection``), which scopes
+which leaves and row-blocks consume the stream without changing its bits.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import contextlib
+import os
+import threading
+from typing import List, NamedTuple, Optional, Tuple
 
 from repro_torch.tree_utils import tree_leaves
 
@@ -49,6 +64,72 @@ def threefry2x32(key: Key, count: Key) -> Key:
         x0 = (x0 + ks[(i + 1) % 3]) & _MASK
         x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
     return x0, x1
+
+
+_ENV = "JAX_THREEFRY_PARTITIONABLE"
+_TRUE = ("y", "yes", "t", "true", "on", "1")
+_FALSE = ("n", "no", "f", "false", "off", "0")
+
+
+def _env_flag() -> bool:
+    """The knob's initial value, from the environment variable JAX reads
+    for it (JAX's ``bool_env`` spellings; anything else raises)."""
+    val = os.getenv(_ENV, "true").lower()
+    if val in _TRUE:
+        return True
+    if val in _FALSE:
+        return False
+    raise ValueError(f"invalid truth value {val!r} for environment {_ENV!r}")
+
+
+_partitionable = _env_flag()
+_local = threading.local()
+
+
+def set_threefry_partitionable(flag: bool) -> None:
+    """``jax.config.update("jax_threefry_partitionable", flag)``."""
+    global _partitionable
+    _partitionable = bool(flag)
+
+
+def partitionable() -> bool:
+    """The layout in force: the innermost ``threefry_partitionable`` of
+    this thread, else the global value."""
+    stack = getattr(_local, "stack", None)
+    return stack[-1] if stack else _partitionable
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool):
+    """``jax.threefry_partitionable(flag)``: the layout inside the block
+    (this thread only)."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    stack.append(bool(flag))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def original_word(key: Key, m: int, w: int) -> int:
+    """Word w of ``threefry_2x32(key, iota(m))``, the original layout's
+    bits (m < 2³², the counts of one key)."""
+    h = (m + 1) // 2
+    if w < h:
+        return threefry2x32(key, (w, w + h if w + h < m else 0))[0]
+    return threefry2x32(key, (w - h, w))[1]
+
+
+def split(key: Key, n: int = 2) -> List[Key]:
+    """``jax.random.split(key, n)`` in the layout in force: partitionable,
+    key j is threefry2x32(key, (0, j)) = ``fold_in(key, j)``; original,
+    the 2n words of ``threefry_2x32(key, iota(2n))`` taken in pairs."""
+    if partitionable():
+        return [fold_in(key, j) for j in range(n)]
+    return [(original_word(key, 2 * n, 2 * j),
+             original_word(key, 2 * n, 2 * j + 1)) for j in range(n)]
 
 
 def prng_key(seed: int) -> Key:

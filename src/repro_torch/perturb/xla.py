@@ -2,9 +2,11 @@
 
 z for leaf ``i`` of stream ``ref`` is ``jax.random.normal`` (or
 ``rademacher``) of ``fold_in(ref.key, i)`` in the leaf's dtype, under the
-partitionable threefry layout: element e of a leaf hashes (leaf key, e), so
-a band of a leaf draws the same bits as that slice of the whole leaf and
-rows plans are generated band by band.  Every write is one X1 pass
+threefry layout in force (``perturb.stream.threefry_partitionable``, JAX's
+knob).  Either way element e's bits are a function of (leaf key, leaf
+size, e) — partitionable: the hash of (key, e); original: a word of the
+pairing across the whole leaf — so a band or a chunk is generated alone,
+given the leaf's size, and rows plans are written band by band.  Every write is one X1 pass
 (``kernels/threefry``): the CUDA kernel on the card, its plain torch version
 on the CPU, bitwise JAX's ``xla`` backend on the CPU for every method.  The
 stream id is ``xla``, so ledgers move between the two frameworks both ways
@@ -65,7 +67,7 @@ def leaf_sqnorm(p: torch.Tensor, key, bands=None) -> np.float32:
                 buf = torch.empty(min(SQNORM_CHUNK, hi0 - lo0),
                                   dtype=p.dtype, device=p.device)
             z = zo_affine_threefry(None, key, "z", out=buf[:hi - lo],
-                                   offset=lo)
+                                   offset=lo, total=p.numel())
             acc += float(torch.sum(z.float().square(), dtype=torch.float64))
     return f32(acc)
 

@@ -51,8 +51,7 @@ SELECTION_KINDS = ("full", "leaves", "block_cyclic", "peft", "moe_experts",
 PEFT_MODES = ("lora", "prefix")
 
 # grouped-MoE expert leaves: params[...]['moe']['eg{j}'][...] when
-# cfg.expert_groups > 1 (the MoE family is a later slice of the port; the
-# rule is ported so a dense tree refuses moe_experts as JAX does)
+# cfg.expert_groups > 1 (models/moe.py)
 _EG_RE = re.compile(r"\['eg(\d+)'\]")
 _ROUTER_KEY = "['router']"
 

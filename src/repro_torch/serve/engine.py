@@ -1,6 +1,6 @@
 """Continuous-batching serving engine — the port of ``repro.serve.engine``,
-single-model paths: the paged path for dense models, the per-slot
-recurrent path for the ssm family.
+single-model paths: the paged path for dense and moe models without a
+sliding window, the per-slot recurrent path for the ssm family.
 
 * ``submit`` queues a request (refusing over-long prompts and unknown
   adapters); ``step`` admits queued requests into free slots and runs one
@@ -28,8 +28,11 @@ would run through the recurrence and corrupt the state), through the chunk
 scan (K11 on the card), and writes the request's state into its slot; the
 lockstep decode carries the state for every slot.  Adapters and
 mixed-adapter decode come with the tenants slice; the hybrid family and the
-dense-slab caches (sliding window, ``paged=False`` on a dense model) with
-the other-families slice.
+dense-slab caches (a sliding window, as mixtral-8x7b's, or ``paged=False``
+on a dense or moe model) with the other-families slice.  A moe model's
+routing groups follow the forward's rule in every phase: a chunk prefill's
+padded rows share groups with the real tokens, and a decode step is one
+token per group (capacity 8, nothing dropped).
 """
 from __future__ import annotations
 
@@ -68,14 +71,16 @@ class ServeEngine:
                  seed: int = 0, block: int = 16,
                  pool_blocks: Optional[int] = None, prefix_cache: bool = True,
                  paged: Optional[bool] = None, device: DeviceSpec = None):
-        paged_ok = cfg.family == "dense" and cfg.sliding_window == 0
+        paged_ok = cfg.family in ("dense", "moe") and cfg.sliding_window == 0
         if cfg.family != "ssm" and (not paged_ok or paged is False):
             raise NotImplementedError(
                 f"family={cfg.family!r} sliding_window={cfg.sliding_window} "
-                f"paged={paged}: the port serves dense models without a "
-                "sliding window through the paged engine and the ssm family "
-                "through the per-slot recurrent path; the hybrid family and "
-                "the dense-slab caches come with the other-families slice")
+                f"paged={paged}: the port serves dense and moe models "
+                "without a sliding window through the paged engine and the "
+                "ssm family through the per-slot recurrent path; a sliding "
+                "window (SWA ring caches) and paged=False need the engine's "
+                "dense-slab path, which comes with the other-families slice "
+                "(ROADMAP Queue 1 item 7), as does the hybrid family")
         self.paged = paged_ok if paged is None else bool(paged)
         if self.paged and not paged_ok:
             raise ValueError(

@@ -765,6 +765,41 @@ def test_cuda_x1_routes_and_counter_words(cuda, dtype, dist):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+def test_cuda_x1_original_layout_equals_plain(cuda, dtype, dist):
+    """X1's original-layout route ≡ its plain version bitwise, every form:
+    whole leaves with odd and even word counts, windows (offset and the
+    leaf's total) that straddle the half h, a band list, and windows of
+    virtual leaves past 2^32 − 1 words (one key per block), each launch
+    counted under ``zo_affine_threefry_original``."""
+    g = torch.Generator().manual_seed(2)
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    big = (1 << 32) + 10 if dtype == torch.float32 else 17_179_869_201
+    cases = [(n, 0, n, None) for n in (1, 3, 5, 33 * 65, 4097, 4102)]
+    cases += [(1000, 2000, 4097, None), (40, 2030, 4097, None),
+              (4097, 0, 4097, [(3, 700), (1500, 2999), (4000, 4097)]),
+              (64, big - 80, big, None), (64, big - 64, big, [(0, 30)])]
+    _build.reset_launch_counts()
+    for n, off, total, bands in cases:
+        x = torch.randn(n, generator=g).to(dtype).to(cuda)
+        for form in ("z", "axpbz", "xpbz", "restore"):
+            kw = dict(a=0.5, b=-0.25, e=0.125, dist=dist, bands=bands,
+                      offset=off, total=total)
+            xin = None if form == "z" else x
+            got = x1.zo_affine_threefry(xin, (5, 9), form, out=x.clone(),
+                                        partitionable=False, **kw)
+            want = x1.zo_affine_threefry_plain(xin, (5, 9), form,
+                                               out=x.clone(),
+                                               partitionable=False, **kw)
+            assert torch.equal(got.view(ints), want.view(ints)), (
+                n, off, form)
+    assert _build.launch_counts["zo_affine_threefry_original"] > 0
+    assert _build.launch_counts["zo_affine_threefry"] == 0
+
+
+@pytest.mark.cuda
 def test_cuda_x1_exhaustive_f32_and_tables(cuda):
     """The f32 gaussian over all 2^23 uniform mantissas and the bf16 / f16
     tables: the kernel's against the plain version's, bitwise."""
@@ -898,3 +933,37 @@ def test_cuda_adam_step_is_the_cpu_step(cuda):
     assert abs(out["cpu"][1] - out["cuda"][1]) < 1e-5 * out["cpu"][1]
     for a, b in zip(out["cpu"][2], out["cuda"][2]):
         assert float((a - b).abs().max()) <= 2e-3   # ≤ 2η: Adam's sign step
+
+
+@pytest.mark.cuda
+def test_cuda_granite_smoke_spsa_step_is_the_cpu_step(cuda):
+    """One mezo spsa step on the ``xla`` stream of granite-moe-3b-a800m's
+    smoke config (f32, TF32 off, experts in 5 single leaves) under its
+    default selection, on the card and on the CPU: the losses at θ ± εz
+    within the f32 summation-order gap (1e-5), so g within 1e-5 / ε, and θ
+    within lr · |Δg| · 6 (|z| < 6) plus 1e-6 — z is X1's on the card and
+    its plain version on the CPU, bitwise."""
+    from repro_torch import zo
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.tree_utils import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = all_archs()["granite-moe-3b-a800m"].smoke_cfg
+    cpu = bundle(cfg).init(0, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    toks = (torch.arange(64, dtype=torch.int32).reshape(2, 32) * 7) % 256
+    out = {}
+    lr, eps = 1e-3, 1e-3
+    for name, params in (("cpu", cpu), ("cuda", card)):
+        opt = zo.mezo(lr=lr, eps=eps, backend="xla",
+                      selection=bundle(cfg).default_selection())
+        dev = tree_leaves(params)[0].device
+        batch = {"tokens": toks.to(dev), "labels": toks.roll(1).to(dev)}
+        p, _, m = opt.step_fn(bundle(cfg).loss_fn())(
+            params, opt.init(params, seed=0), batch)
+        out[name] = (float(m["loss"]), float(m["projected_grad"]),
+                     [t.cpu() for t in tree_leaves(p)])
+    assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-5
+    dg = abs(out["cpu"][1] - out["cuda"][1])
+    assert dg <= 1e-5 / eps
+    for a, b in zip(out["cpu"][2], out["cuda"][2]):
+        assert float((a - b).abs().max()) <= lr * dg * 6 + 1e-6

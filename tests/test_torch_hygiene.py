@@ -135,15 +135,29 @@ def test_no_refusal_names_the_selection_slice():
 
 
 def test_no_text_says_the_port_is_dense_only():
-    """The ssm family is ported: no docstring or refusal in the port says
-    it carries the dense family only, and the registry's refusal of an
-    unported family names both ported ones."""
+    """The ssm and moe families are ported: no docstring or refusal in the
+    port says it carries the dense family only, and the registry's refusal
+    of an unported family names the three ported ones."""
     hits = [str(p.relative_to(ROOT)) for p in PORT_FILES
             if "dense family only" in p.read_text()]
     assert not hits, hits
-    cfg = all_archs()["qwen2-0.5b"].smoke_cfg.replace(family="moe")
-    with pytest.raises(NotImplementedError, match="dense and ssm"):
+    cfg = all_archs()["qwen2-0.5b"].smoke_cfg.replace(family="hybrid")
+    with pytest.raises(NotImplementedError, match="dense, moe, ssm"):
         bundle(cfg)
+
+
+@pytest.mark.parametrize("name", [
+    "src/repro_torch/models/moe.py", "src/repro_torch/configs/mixtral_8x7b.py",
+    "src/repro_torch/configs/granite_moe_3b_a800m.py",
+    "tests/test_torch_moe.py", "tests/test_torch_threefry_original.py"])
+def test_new_modules_are_under_the_hygiene_checks(name):
+    """The moe modules and the original-layout tests are among the files
+    the checks above walk, import no JAX (modules) and no unused name."""
+    path = ROOT / name
+    assert path in PORT_FILES + PORT_TESTS
+    if name.startswith("src/"):
+        assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not _unused_imports(path)
 
 
 def test_serve_cli_replays_a_jax_ledger_on_cpu(tmp_path, capsys):
@@ -204,7 +218,7 @@ def test_train_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
       "rows(block=1,k=4)"], "requires --optimizer mezo"),
     (["--backend", "pallas", "--objective", "accuracy", "--optimizer",
       "adam"], "non-differentiable"),
-    (["--backend", "pallas", "--model-family", "moe"], "Slice D"),
+    (["--backend", "pallas", "--model-family", "hybrid"], "Slice D"),
 ], ids=["xla", "mezo-adam", "adam", "select", "objective", "family"])
 def test_train_cli_refuses_later_slices(argv, slice_name, capsys):
     from repro_torch.launch import train as train_cli

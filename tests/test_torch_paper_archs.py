@@ -1,10 +1,12 @@
-"""Port parity of the paper's dense archs and the other dense configs:
+"""Port parity of the paper's dense archs, the other dense configs and the
+moe configs:
 
 * every ported config (``repro_torch.configs``) has JAX's field values,
   notes, ``n_params`` and ``n_active_params``, full and ``SMOKE``; the arch
   lists ``ASSIGNED_ARCHS`` / ``PAPER_ARCHS`` are JAX's;
 * at each ``SMOKE`` config (opt-13b/30b/66b, roberta-large, qwen2-7b,
-  yi-6b, nemotron-4-340b; phi-3-vision through ``embeds``) ``loss_fn``,
+  yi-6b, nemotron-4-340b, granite-moe-3b-a800m, mixtral-8x7b;
+  phi-3-vision through ``embeds``) ``loss_fn``,
   ``prefill_fn`` and ``decode_fn`` equal JAX's in f32 within atol 1e-4
   (both frameworks sum f32 matmuls in their own order), under ``xla`` and
   ``pallas_flash`` (JAX's Pallas kernel in interpret mode, K2's plain
@@ -34,11 +36,14 @@ from repro_torch.models import attention as attn_lib
 torch.set_num_threads(1)   # tiny tensors: no oversubscription under xdist
 
 ATOL = 1e-4
-PORTED = ["nemotron-4-340b", "opt-13b", "opt-30b", "opt-66b",
-          "phi-3-vision-4.2b", "qwen2-0.5b", "qwen2-7b", "roberta-large",
-          "rwkv6-3b", "yi-6b"]
+PORTED = ["granite-moe-3b-a800m", "mixtral-8x7b", "nemotron-4-340b",
+          "opt-13b", "opt-30b", "opt-66b", "phi-3-vision-4.2b", "qwen2-0.5b",
+          "qwen2-7b", "roberta-large", "rwkv6-3b", "yi-6b"]
 NEW_DENSE = ["opt-13b", "opt-30b", "opt-66b", "roberta-large", "qwen2-7b",
              "yi-6b", "nemotron-4-340b", "phi-3-vision-4.2b"]
+#: the moe family (``models/moe.py``), held as the dense archs are; their
+#: routing margins at these inputs exceed the tolerance (test_torch_moe.py)
+MOE = ["granite-moe-3b-a800m", "mixtral-8x7b"]
 IMPLS = ["xla", "pallas_flash"]
 B, S = 2, 20
 
@@ -46,7 +51,7 @@ B, S = 2, 20
 def test_registry_holds_every_ported_config_and_jax_lists():
     assert sorted(all_archs()) == PORTED
     jax_dense = {k for k, a in jax_archs().items()
-                 if a.cfg.family in ("dense", "ssm")}
+                 if a.cfg.family in ("dense", "moe", "ssm")}
     assert set(PORTED) == jax_dense
     assert ASSIGNED_ARCHS == JAX_ASSIGNED and PAPER_ARCHS == JAX_PAPER
 
@@ -95,7 +100,7 @@ def _close(t, j):
 
 
 @pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("arch", NEW_DENSE)
+@pytest.mark.parametrize("arch", NEW_DENSE + MOE)
 def test_loss_matches_jax(arch, impl):
     jb, tb, w = _pair(arch, impl)
     cfg = tb.cfg
@@ -113,7 +118,7 @@ def test_loss_matches_jax(arch, impl):
 
 
 @pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("arch", NEW_DENSE)
+@pytest.mark.parametrize("arch", NEW_DENSE + MOE)
 def test_prefill_then_decode_match_jax(arch, impl):
     """A prefill of S positions, then one decode step at position S from
     each side's own cache (lockstep ``cache_pos``)."""

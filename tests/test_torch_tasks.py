@@ -161,4 +161,4 @@ def test_train_cli_refuses_a_nondiff_objective_without_zo():
                         "--optimizer", "sgd"])
     with pytest.raises(SystemExit, match="not a ported config"):
         train_cli.main(["--smoke", "--device", "cpu", "--arch",
-                        "mixtral-8x7b"])
+                        "hymba-1.5b"])
