@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
     python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
+    python3 chip_smoke.py --phases u,t,w   # build, then only the named family phases
 
 In order: prints the card's name and power limit; builds the eight CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -145,9 +146,35 @@ stream, ``pallas_flash`` attention:
   would leave under 4 GiB free; the cut printed): 3 spsa steps in place,
   their peak against one forward's and the card's memory; one replay from
   θ₀ regenerated from the seed, held on sampled slices within the ulp
-  bound; K2 at hd 128 with the window 4096 held to its plain version at
-  every shape the moe paths gave it; the paged engine's refusal of the
-  sliding window.
+  bound; the fine-tune served through the engine's dense slab (4
+  requests × 16 tokens: per-slot ring caches of the 4096 window, K2 hd 128
+  with the window in the bucketed prefills); K2 at hd 128 with the window
+  4096 held to its plain version at every shape the moe paths gave it.
+
+Then the hybrid and encdec families, random bf16 weights from seed 0 on
+the ``xla`` stream, ``pallas_flash`` attention:
+
+* (u) hymba-1.5b at full width and depth (32 layers, d 1600, 25 × 64
+  heads over 5 KV heads, 25 SSM heads of state 16, window 2048): one spsa
+  step's peak against one forward's, its busy share and top kernels; 10
+  spsa steps through the training loop (X1, K2 at hd 64 with the window);
+  two replays bitwise equal and within the ulp bound of the trained θ; one
+  ``pallas+z2`` step, its replay through K1 ≡ the plain replay bitwise; K2
+  at (1, 4096, 25, 64) with window 2048 held to its plain version; the
+  ring wrap in f32 at full width, 4 layers (prefill 2000 tokens, decode
+  past 2100, held to one full forward); the SSD chunk form against
+  ``fused_recurrent`` on one full-width layer in f32; θ₀ regenerated ≡ θ₀,
+  the ledger replayed onto it and served through the dense slab (8
+  requests of ~2000-token prompts and 96 new tokens, every ring wrapping;
+  K2 in the exact-length prefills), tok/s and TTFT p50;
+* (w) whisper-large-v3 at full width and depth (32 + 32 layers, d 1280,
+  20 × 64 heads): ``make_batch`` at 16 × 256 (frames from the stub normal,
+  X1's ``z`` form), one spsa step's peak against one forward's and its busy
+  share, 5 spsa steps, two replays bitwise equal and within the ulp bound;
+  greedy decode of 16 tokens for 2 rows through ``prefill_fn`` /
+  ``decode_fn`` (the 32 768-row decoder cache reckoned and printed); an
+  f32 check at full width, 4 layers: prefill + incremental decode against
+  teacher forcing; K2 only in the decoder's causal self-attention.
 
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
@@ -239,12 +266,15 @@ MLP_LEAF = (24, 896, 4864)           # the stacked MLP weight (w1 / w3)
 # (ε·z, the sum), the restore-update 5 (ε·z, the sum, decay·r, η·g·z, the
 # sum), replay 3 (decay·θ, coeff·z, the sum) → 12 per step.
 # (k), (l) and (n) are (j)'s chain at other models, and so are the moe
-# phases (s) and (t).
+# phases (s) and (t) and the family phases (u) and (w); (u)'s pallas+z2
+# step is (a)'s chain.
 ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0, "e_rows_spsa": 4.0,
                  "h_lora": 4.0, "i_ssm_spsa": 4.0, "j_xla_spsa": 12.0,
                  "k_roberta_acc": 12.0, "l_opt13b_spsa": 12.0,
                  "n_opt30b_spsa": 12.0, "s_granite_spsa": 12.0,
-                 "s_granite_orig": 12.0, "t_mixtral_spsa": 12.0}
+                 "s_granite_orig": 12.0, "t_mixtral_spsa": 12.0,
+                 "u_hymba_spsa": 12.0, "u_hymba_pallas": 4.0,
+                 "w_whisper_spsa": 12.0}
 Z_MAX = 6.0
 MEM_SLACK = 1.10
 # the ssm phases: rwkv6-3b at full width and depth (32 layers, d 2560,
@@ -324,6 +354,34 @@ MOE_STEPS = {"s_granite_spsa": 5, "s_granite_orig": 1, "t_mixtral_spsa": 3}
 GRANITE_GROUPS = 4
 MIXTRAL_LAYERS, MIXTRAL_FALLBACK_LAYERS = 24, 20
 MIXTRAL_MIN_FREE = 4 << 30
+# the hybrid and encdec families, after the moe phases: (u) hymba-1.5b and
+# (w) whisper-large-v3, each at full width and depth
+FAMILY_STEPS = {"u_hymba_spsa": 10, "u_hymba_pallas": 1,
+                "w_whisper_spsa": 5}
+# K2 at hymba's head shape over a sequence the 2048 window binds
+HYMBA_K2_SHAPE = (1, 4096, 25, 64)
+# the ring wrap in f32 at full width, RING_LAYERS layers: prefill
+# RING_PREFILL tokens, decode one at a time through position RING_END, and
+# hold the last logits to one full forward of the whole sequence (the same
+# math in other orders: the SSD chunk form against the per-token
+# recurrence, the ring against the window's mask) — max |Δ| within
+# RING_REL × max |logits|
+RING_LAYERS, RING_PREFILL, RING_END = 4, 2000, 2100
+RING_REL = 1e-4
+# the SSD chunk form against fused_recurrent on one full-width layer in f32
+# (JAX's SCAN_PARITY_ATOL, tests/test_zoo_conformance.py), rtol 1e-3
+SSD_ATOL, SSD_RTOL, SSD_SEQ = 1e-4, 1e-3, 256
+# hymba served through the dense slab: every prompt fits the 2048-row ring
+# and every decode wraps it
+HYMBA_SLOTS, HYMBA_PROMPT, HYMBA_NEW, HYMBA_MAX_LEN = 8, 2000, 96, 2200
+# mixtral's fine-tune served through the dense slab
+MIXTRAL_REQUESTS, MIXTRAL_NEW, MIXTRAL_MAX_LEN = 4, 16, 512
+# whisper: greedy decode of WHISPER_NEW tokens for WHISPER_ROWS rows
+# against WHISPER_FRAMES frames (1500 frames = 30 s of audio, padded);
+# the f32 check of prefill + incremental decode against teacher forcing at
+# WHISPER_CHECK_LAYERS layers, within WHISPER_REL × max |logits|
+WHISPER_ROWS, WHISPER_FRAMES, WHISPER_NEW = 2, 1504, 16
+WHISPER_CHECK_LAYERS, WHISPER_REL = 4, 1e-4
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
 B8 = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
@@ -1448,7 +1506,8 @@ def make_opts():
 
 
 SSM_STEPS = {"i_ssm_spsa": 10}
-ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS, **PAPER_STEPS, **MOE_STEPS}
+ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS, **PAPER_STEPS, **MOE_STEPS,
+             **FAMILY_STEPS}
 
 REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
             "j_xla_spsa": ("zo_affine_threefry", "flash_attention"),
@@ -1460,6 +1519,9 @@ REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
             "s_granite_orig": ("zo_affine_threefry_original",
                                "flash_attention"),
             "t_mixtral_spsa": ("zo_affine_threefry", "flash_attention"),
+            "u_hymba_spsa": ("zo_affine_threefry", "flash_attention"),
+            "u_hymba_pallas": ("zo_affine", "flash_attention"),
+            "w_whisper_spsa": ("zo_affine_threefry", "flash_attention"),
             "a_spsa": ("zo_affine", "flash_attention"),
             "b_fzoo": ("zo_affine_batched", "zo_affine_chain",
                        "flash_attention"),
@@ -4263,6 +4325,63 @@ def check_x1_original(torch, np) -> float:
     return 0.0
 
 
+def x1_original_sass(lib_path, per: int):
+    """SASS per z of X1's original-layout kernel (bf16 gaussian axpbz) on
+    its executed path, as (shortest, longest) per-z counts by unit, or
+    None when the kernel is not that shape.  One iteration of its
+    grid-stride loop hashes a pair of words (the loop's head, up to its
+    first branch) and writes ``per`` elements of each word in an inner
+    loop that nvcc versions (four copies a word, unrolled: each iteration
+    writes as many elements as it has LDS); which copy runs is not known
+    statically, so the shortest and the longest are both counted: per z,
+    (head + one word's loop × per / its LDS + the other's) / (2·per).  The
+    copies' dispatch (a few branches a word) is not counted."""
+    funcs = sass_of(lib_path)
+    names = [n for n in funcs
+             if re.search(r"orig_kernelI13__nv_bfloat16Li0ELi1EE", n)]
+    if len(names) != 1:
+        return None
+    instrs = funcs[names[0]]
+    spans = []
+    for addr, op, rest in instrs:
+        m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    if not spans:
+        return None
+    outer = max(spans, key=lambda sp: sp[1] - sp[0])
+    inner = sorted(sp for sp in spans if sp != outer and outer[0] <= sp[0]
+                   and sp[1] <= outer[1])
+    bodies = [[op for a, op, _ in instrs if lo <= a <= hi]
+              for lo, hi in inner]
+    first_branch = next((a for a, op, _ in instrs
+                         if op == "BRA" and a >= outer[0]), None)
+    if (len(bodies) % 2 or not bodies or first_branch is None
+            or any(b.count("LDS") == 0 or per % b.count("LDS")
+                   for b in bodies)):
+        return None
+    head = [op for a, op, _ in instrs if outer[0] <= a <= first_branch]
+    half = len(bodies) // 2
+    words = (bodies[:half], bodies[half:])
+
+    def per_z(pick):
+        counts = {g: 0.0 for g, _ in SASS_GROUPS}
+        counts.update(alu=0.0, uniform=0.0)
+        total = 0.0
+        for weight, ops in ([(1, head)] + [
+                (per // b.count("LDS"), b)
+                for b in (pick(w, key=len) for w in words)]):
+            for op in ops:
+                counts[sass_group(op)] += weight
+            total += weight * len(ops)
+        out = {g: v / (2 * per) for g, v in counts.items()}
+        out["total"] = total / (2 * per)
+        out["rsq_in_loop"] = 2 * per
+        return out
+
+    return per_z(min), per_z(max)
+
+
 def x1_original_row(torch, np, _build, params0, card, err) -> dict:
     """X1's original route over the 15 qwen2-0.5b leaves (bf16 gaussian
     axpbz, the replay / update write) in turns with the partitionable
@@ -4283,8 +4402,9 @@ def x1_original_row(torch, np, _build, params0, card, err) -> dict:
                partitionable=part)
 
     times = {True: [], False: []}
-    for part in (True, False, False, True):
-        times[part].append(cuda_ms(lambda: record(part), 10))
+    with ClockSampler() as clock:
+        for part in (True, False, False, True):
+            times[part].append(cuda_ms(lambda: record(part), 10))
     _build.reset_launch_counts()
     record(False)
     routes = {k: v for k, v in _build.route_counts.items()
@@ -4302,6 +4422,22 @@ def x1_original_row(torch, np, _build, params0, card, err) -> dict:
                                  times[True][1]))
         + f"), plain version {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}) — "
         f"on {card}")
+    per = 32 // x1.bit_width(torch.bfloat16, "gaussian")
+    both = x1_original_sass(_build.lib_path("zo_threefry"), per)
+    if both is None:
+        log("X1 original SASS per z: not counted (its loop is not a "
+            "grid-stride loop over word pairs around versioned loops over "
+            "a word's elements)")
+    else:
+        mhz = clock.mhz if clock.mhz == clock.mhz else sm_clocks()[0]
+        for what, c in zip(("shortest", "longest"), both):
+            log(sass_line(f"X1 zo_affine_threefry_original, its {what} "
+                          f"path (bf16 gaussian axpbz; {per} elements per "
+                          "32-bit word, one hash per 2 words)", c))
+            log(f"X1 original layout, {what} path: "
+                + floors_text(n_all, c, mhz, ms_o) + f" at {mhz:.0f} MHz; "
+                f"the bytes bound {bms:.4f} ms is "
+                f"{100 * bms / ms_o:.1f}% of its time — on {card}")
     log("X1 original registers / shared memory / spills (bf16 gaussian "
         "axpbz): " + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas_facts(
             _build, "zo_threefry").items())
@@ -4409,6 +4545,30 @@ def granite_paths(torch, np, _build, counts, step_ms, card) -> None:
     del p, ro, plain, other, params0
 
 
+def serve_slab(cfg, params, prompts, slots: int, max_len: int,
+               new_tokens: int):
+    """Serve ``prompts`` through the engine's dense slab (``paged=False``):
+    (engine, requests, wall seconds)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                      paged=False, device="cuda")
+    reqs = [Request(i, q, max_new_tokens=new_tokens)
+            for i, q in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def ttft_p50(reqs) -> float:
+    """Median ms from a request's submission to its first token (its
+    admission: the prefill samples the first token)."""
+    import statistics
+    return 1e3 * statistics.median(r.times["prefill"] - r.times["queued"]
+                                   for r in reqs)
+
+
 def mixtral_paths(torch, np, _build, counts, step_ms, card) -> None:
     """mixtral-8x7b at full width (d 4096, 32 × 128 heads, GQA 8, sliding
     window 4096, 8 experts top-2, d_ff 14336, bf16, ``pallas_flash``), its
@@ -4416,8 +4576,9 @@ def mixtral_paths(torch, np, _build, counts, step_ms, card) -> None:
     steps on ``xla`` in place under its default selection, their peak
     against one forward's and the card's memory; one replay from θ₀
     regenerated from the seed (checksums ≡ θ₀), held on sampled slices
-    within the ulp bound of the trained θ; K2 at hd 128 with the window;
-    the paged engine's refusal of a sliding window."""
+    within the ulp bound of the trained θ; the fine-tune served through the
+    engine's dense slab (per-slot ring caches of the window; K2 at hd 128
+    with the window in the bucketed prefills)."""
     from repro_torch import zo
     from repro_torch.core import replay
     from repro_torch.data.pipeline import DataSpec, Pipeline
@@ -4458,12 +4619,11 @@ def mixtral_paths(torch, np, _build, counts, step_ms, card) -> None:
     log(f"mixtral-8x7b cut to {cfg.n_layers} of {full.n_layers} layers "
         "(full width): the whole model does not fit one card")
     try:
-        ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN, device="cuda")
-    except NotImplementedError as e:
-        if "dense-slab" not in str(e):
-            fail(f"mixtral's engine refusal does not name the dense-slab "
-                 f"path: {e}")
-        log(f"mixtral-8x7b serving refused loudly: {e}")
+        ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN, paged=True,
+                    device="cuda")
+    except ValueError as e:
+        log(f"mixtral-8x7b: the paged engine refuses its window, as JAX's "
+            f"does: {e}")
     else:
         fail("the paged engine took mixtral-8x7b's sliding window")
     sums0 = checksums(torch, params)
@@ -4504,7 +4664,374 @@ def mixtral_paths(torch, np, _build, counts, step_ms, card) -> None:
     log(f"{name}: in-place replay of {len(led)} records in "
         f"{time.perf_counter() - t0:.3f} s")
     samples_vs(torch, name, p, samples)
-    del p, samples
+    del samples
+    # the fine-tune through the engine's dense slab
+    prompts = workload(np, cfg.vocab_size)[:MIXTRAL_REQUESTS]
+    _build.reset_launch_counts()
+    eng, reqs, wall = serve_slab(cfg, p, prompts, MIXTRAL_REQUESTS,
+                                 MIXTRAL_MAX_LEN, MIXTRAL_NEW)
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("flash_attention",),
+               "serve the mixtral fine-tune (dense slab)")
+    if eng.paged or eng.cache["k"].shape[2] != min(MIXTRAL_MAX_LEN,
+                                                   cfg.sliding_window):
+        fail("mixtral was not served through the dense slab's ring caches")
+    if any(len(r.out_ids) != MIXTRAL_NEW for r in reqs):
+        fail("a mixtral request did not produce its tokens")
+    tokens = tokens_of([r.out_ids for r in reqs])
+    log(f"mixtral-8x7b ({cfg.n_layers} layers): served {len(reqs)} requests "
+        f"(prompts {[len(q) for q in prompts]}) / {tokens} tokens in "
+        f"{wall:.3f} s through the dense slab ({eng.slots} slots × "
+        f"{eng.cache['k'].shape[2]} KV rows; {tokens / wall:.1f} tok/s, "
+        f"TTFT p50 {ttft_p50(reqs):.1f} ms) — on {card}")
+    del eng, p
+
+
+# --------------------------------------------------------------------------- #
+# The hybrid and encdec families: (u) hymba-1.5b, (w) whisper-large-v3
+# --------------------------------------------------------------------------- #
+def hymba_ring_check(torch, card) -> None:
+    """The SWA ring in f32 at hymba's full width, RING_LAYERS layers: a
+    prefill of RING_PREFILL tokens, then one-token decodes through position
+    RING_END (the 2048-row ring wraps past 2048), the last logits held to
+    one full forward of the whole sequence (``xla`` attention: the window's
+    mask in place of the ring).  Outside the counts."""
+    from repro_torch.models import all_archs, bundle, transformer
+    cfg = all_archs()["hymba-1.5b"].cfg.replace(
+        n_layers=RING_LAYERS, dtype="float32", attention_impl="xla")
+    b = bundle(cfg)
+    params = b.init(0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (1, RING_END + 1), generator=g,
+                         device="cuda")
+    dec = b.decode_fn()
+    with torch.no_grad():
+        full = transformer.forward(cfg, params, tokens=toks).logits[
+            0, RING_END, :cfg.vocab_size]
+        _, (cache, state) = b.prefill_fn()(params,
+                                           {"tokens": toks[:, :RING_PREFILL]})
+        cap = cache["k"].shape[2]
+        for t in range(RING_PREFILL, RING_END + 1):
+            lg, (cache, state) = dec(params, {
+                "token": toks[:, t:t + 1], "cache_pos": t, "cache": cache,
+                "state": state})
+    last = lg[0, 0, :cfg.vocab_size]
+    err = (last - full).abs().max().item()
+    top = full.abs().max().item()
+    if not bool(torch.isfinite(last).all()) or err > RING_REL * top:
+        fail(f"hymba ring wrap: max |Δ| {err:.3e} > {RING_REL} × max |logits| "
+             f"{top:.3e}")
+    log(f"hymba ring wrap (f32, full width, {RING_LAYERS} of 32 layers, "
+        f"cut for the f32 check; ring of {cap} rows): prefill "
+        f"{RING_PREFILL} tokens, decode through position {RING_END}; last "
+        f"logits vs one full forward: max |Δ| {err:.3e}, {err / top:.2e} of "
+        f"max |logits| {top:.3f} (bound {RING_REL}); argmax "
+        f"{int(last.argmax())} vs {int(full.argmax())} — on {card}")
+    del params, cache, state
+
+
+def hymba_ssd_check(torch, card) -> None:
+    """The SSD chunk form against the per-token recurrence on one
+    full-width hymba SSM layer in f32 (y and the final state), within
+    JAX's SCAN_PARITY_ATOL."""
+    from repro_torch.models import all_archs
+    from repro_torch.models import ssm
+    cfg = all_archs()["hymba-1.5b"].cfg.replace(dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    p = {k: v[0] for k, v in ssm.ssm_params(cfg, g, torch.float32,
+                                             1).items()}
+    u = torch.randn(2, SSD_SEQ + 7, cfg.d_model, generator=g, device="cuda")
+    with torch.no_grad():
+        yc, hc = ssm.ssm_scan(cfg, p, u, None, mode="chunk")
+        yr, hr = ssm.ssm_scan(cfg, p, u, None, mode="fused_recurrent")
+    worst = 0.0
+    for a, b, what in ((yc, yr, "y"), (hc, hr, "state")):
+        err = (a - b).abs()
+        if bool((err > SSD_ATOL + SSD_RTOL * b.abs()).any()):
+            fail(f"hymba SSD chunk vs fused_recurrent ({what}): max |Δ| "
+                 f"{err.max().item():.3e} beyond {SSD_ATOL} + {SSD_RTOL}·|x|")
+        worst = max(worst, err.max().item())
+    log(f"hymba SSD chunk vs fused_recurrent, one full-width layer in f32 "
+        f"(2 × {SSD_SEQ + 7} tokens, {SSD_SEQ // cfg.scan_chunk + 1} chunks "
+        f"of {cfg.scan_chunk}, the last padded): max |Δ| {worst:.3e} over y "
+        f"and the final state (bound {SSD_ATOL} + {SSD_RTOL}·|x|) — on "
+        f"{card}")
+
+
+def hymba_paths(torch, np, kf, _build, counts, step_ms, card) -> None:
+    """hymba-1.5b at full width and depth (32 layers, d 1600, 25 × 64
+    heads over 5 KV heads, SWA 2048, 25 SSM heads of state 16, d_ff 5504,
+    bf16, ``pallas_flash``): (u) mezo spsa on ``xla`` — one step's peak
+    against one forward's (the 1.10 gate), its busy share and top kernels;
+    10 steps through the training loop; two replays bitwise equal, within
+    the ulp bound of the trained θ; one ``pallas+z2`` step, its replay
+    through K1 ≡ the plain replay; K2 at HYMBA_K2_SHAPE with the window;
+    the ring wrap and the SSD modes in f32; θ₀ regenerated ≡ θ₀ and the
+    ledger replayed onto it through ``composition_for_ledger`` ≡ the
+    replay, then served through the dense slab (every ring wraps)."""
+    from repro_torch import zo
+    from repro_torch.core import replay
+    from repro_torch.models import bundle
+    from repro_torch.serve.tenants import composition_for_ledger
+    from repro_torch.tree_utils import tree_leaves
+    cfg, params0 = init_logged(torch, "hymba-1.5b")
+    b = bundle(cfg)
+    if b.default_selection() != "full":
+        fail(f"hymba's default selection is {b.default_selection()!r}")
+    sums0 = checksums(torch, params0)
+
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla")
+
+    def make_pallas():
+        return zo.mezo(lr=LR, eps=EPS, backend="pallas")
+
+    memory_and_busy(torch, cfg, params0, backend="xla")
+    name = "u_hymba_spsa"
+    p, led, _, ms = train_phase(torch, cfg, params0, name, make_opt, None,
+                                _build, counts)
+    step_ms[name] = ms
+    r1 = check_replays(torch, name, params0, p, led, make_opt)
+    del p
+    # one step on the counter stream, replayed through K1
+    name_k1 = "u_hymba_pallas"
+    p, led_k1, _, ms = train_phase(torch, cfg, params0, name_k1, make_pallas,
+                                   None, _build, counts, with_ckpt=False)
+    step_ms[name_k1] = ms
+    rk = check_replays(torch, name_k1, params0, p, led_k1, make_pallas)
+    plain = _clone_tree(params0)
+    plain_replay(plain, led_k1, np)
+    torch.cuda.synchronize()
+    for x, y in zip(tree_leaves(rk), tree_leaves(plain)):
+        if not same_bits(x, y):
+            fail(f"{name_k1}: the replay through K1 != K1's plain replay")
+    log(f"{name_k1}: its {led_k1.backend} record replayed through K1 ≡ K1's "
+        "plain replay, bitwise")
+    del p, rk, plain
+    # K2 at hymba's heads over a sequence the window binds
+    B_, S_, H_, hd_ = HYMBA_K2_SHAPE
+    gk = torch.Generator(device="cuda").manual_seed(25)
+    q = torch.randn(B_, S_, H_, hd_, generator=gk, device="cuda").bfloat16()
+    k, v = (torch.randn(B_, S_, cfg.kv_heads, hd_, generator=gk,
+                        device="cuda").bfloat16() for _ in range(2))
+    err = _hold_k2(torch, kf, q, k, v, cfg.sliding_window,
+                   f"at {HYMBA_K2_SHAPE} KV {cfg.kv_heads} window "
+                   f"{cfg.sliding_window}")
+    ms_k2 = cuda_ms(lambda: kf.flash_attention(q, k, v,
+                                               window=cfg.sliding_window), 20)
+    log(f"K2 at {HYMBA_K2_SHAPE} over {cfg.kv_heads} KV heads (group "
+        f"{H_ // cfg.kv_heads}), window {cfg.sliding_window}, bf16: held to "
+        f"its plain version, max abs err {err:.2e}; {ms_k2:.4f} ms (median "
+        f"of 20 CUDA-event pairs) — on {card}")
+    del q, k, v
+    hymba_ring_check(torch, card)
+    hymba_ssd_check(torch, card)
+    # θ₀ regenerated, the ledger replayed onto it, served through the slab
+    again = b.init(0, device="cuda")
+    if checksums(torch, again) != sums0:
+        fail("hymba: θ₀ regenerated from the seed differs from θ₀")
+    _build.reset_launch_counts()
+    replay(again, led, composition_for_ledger(led))
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry",),
+               "replay the hymba fine-tune")
+    for x, y in zip(tree_leaves(again), tree_leaves(r1)):
+        if not same_bits(x, y):
+            fail("hymba: the replay onto the regenerated θ₀ (through "
+                 "composition_for_ledger) != the replay from θ₀")
+    del r1
+    rng = np.random.default_rng(21)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size - 1,
+                                             HYMBA_PROMPT + 3 * i)]
+               for i in range(HYMBA_SLOTS)]
+    _build.reset_launch_counts()
+    eng, reqs, wall = serve_slab(cfg, again, prompts, HYMBA_SLOTS,
+                                 HYMBA_MAX_LEN, HYMBA_NEW)
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("flash_attention",),
+               "serve the hymba fine-tune (dense slab)")
+    cap = eng.cache["k"].shape[2]
+    if eng.paged or cap != cfg.sliding_window:
+        fail(f"hymba was not served through the dense slab's {cfg.sliding_window}"
+             f"-row rings (cap {cap})")
+    if any(len(r.out_ids) != HYMBA_NEW for r in reqs):
+        fail("a hymba request did not produce its tokens")
+    wrapped = sum(len(r.prompt_ids) + len(r.out_ids) - 1 > cap for r in reqs)
+    if wrapped != len(reqs):
+        fail(f"only {wrapped} of {len(reqs)} hymba requests wrapped the ring")
+    tokens = tokens_of([r.out_ids for r in reqs])
+    slab = sum(t.numel() * t.element_size() for t in eng.cache.values())
+    log(f"hymba: θ₀ regenerated ≡ θ₀; its {len(led)} records replayed "
+        f"through composition_for_ledger ≡ the replay; served "
+        f"{len(reqs)} requests (prompts {len(prompts[0])}–"
+        f"{len(prompts[-1])} tokens, {HYMBA_NEW} new each: every ring of "
+        f"{cap} rows wraps) / {tokens} tokens in {wall:.3f} s through the "
+        f"dense slab ({tokens / wall:.1f} tok/s, TTFT p50 "
+        f"{ttft_p50(reqs):.1f} ms; slab caches {slab / 2**30:.3f} GiB, SSM "
+        f"state {eng.state.numel() * 4 / 2**20:.1f} MiB) — on {card}")
+    del eng, again, params0
+
+
+def whisper_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """whisper-large-v3 at full width and depth (32 encoder + 32 decoder
+    layers, d 1280, 20 × 64 heads, MHA, layernorm, GELU, bf16,
+    ``pallas_flash``): (w) ``make_batch`` 16 × 256 batches (frames by the
+    stub normal), mezo spsa on ``xla`` — one step's peak against one
+    forward's and its busy share; 5 steps through the training loop; two
+    replays bitwise equal, within the ulp bound; greedy decode of
+    WHISPER_NEW tokens for WHISPER_ROWS rows through ``prefill_fn`` /
+    ``decode_fn``; the f32 prefill + decode vs teacher-forcing check."""
+    from repro_torch import zo
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import all_archs, bundle, encdec
+    from repro_torch.perturb.stream import fold_in, prng_key
+    cfg, params0 = init_logged(torch, "whisper-large-v3")
+    b = bundle(cfg)
+    key = prng_key(SEED)
+    batches = {t: b.make_batch(fold_in(key, t), TRAIN_BATCH, TRAIN_SEQ,
+                               device="cuda")
+               for t in range(FAMILY_STEPS["w_whisper_spsa"])}
+    f = batches[0]["frames"]
+    if f.shape != (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model) or \
+            f.dtype != torch.bfloat16 or not bool(torch.isfinite(f.float())
+                                                  .all()):
+        fail(f"whisper make_batch frames {tuple(f.shape)} {f.dtype}")
+    pipe = FixedBatches(Pipeline(DataSpec("lm", batch=TRAIN_BATCH,
+                                          seq=TRAIN_SEQ,
+                                          vocab=cfg.vocab_size, seed=SEED)),
+                        batches)
+    loss_fn = b.loss_fn()
+    memory_and_busy(torch, cfg, params0, backend="xla", loss_fn=loss_fn,
+                    batch=batches[0])
+
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla")
+
+    name = "w_whisper_spsa"
+    k2_before = counts.get("flash_attention", 0)
+    p, led, _, ms = train_phase(torch, cfg, params0, name, make_opt, None,
+                                _build, counts, loss_fn=loss_fn, pipe=pipe)
+    step_ms[name] = ms
+    k2 = counts.get("flash_attention", 0) - k2_before
+    want = 2 * cfg.n_layers * FAMILY_STEPS[name]
+    if k2 != want:
+        fail(f"{name}: K2 launched {k2} times, not once per decoder layer "
+             f"of each forward ({want}): the encoder and the cross-attention "
+             "are non-causal and never reach it")
+    log(f"{name}: K2 launched {k2} times = 2 forwards × {cfg.n_layers} "
+        f"decoder layers × {FAMILY_STEPS[name]} steps (the "
+        f"{cfg.encoder_layers} encoder layers and the cross-attention take "
+        "the chunked path)")
+    r1 = check_replays(torch, name, params0, p, led, make_opt)
+    del p, batches, pipe
+    # greedy decode through the registry
+    rows = WHISPER_ROWS
+    db = b.make_batch(fold_in(key, 99), rows, WHISPER_FRAMES, device="cuda")
+    cache_bytes = (2 * cfg.n_layers * cfg.max_seq * cfg.kv_heads * cfg.hd
+                   * 2)
+    log(f"whisper decode cache, reckoned: 2 (K, V) × {cfg.n_layers} layers × "
+        f"{cfg.max_seq} rows × {cfg.kv_heads} × {cfg.hd} bf16 = "
+        f"{cache_bytes / 2**30:.2f} GiB per row, {rows} rows "
+        f"{rows * cache_bytes / 2**30:.2f} GiB (JAX's prefill_fn allocates "
+        f"cfg.max_seq rows)")
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, (cache, cross) = b.prefill_fn()(r1, {
+            "frames": db["frames"], "tokens": db["tokens"][:, :1]})
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        ids = [lg[:, -1, :cfg.vocab_size].argmax(-1)]
+        dec = b.decode_fn()
+        for t in range(1, WHISPER_NEW):
+            lg, cache = dec(r1, {"token": ids[-1][:, None],
+                                 "cache_pos": t, "cache": cache,
+                                 "cross_kv": cross})
+            if not bool(torch.isfinite(lg).all()):
+                fail(f"whisper decode step {t}: logits not finite")
+            ids.append(lg[:, 0, :cfg.vocab_size].argmax(-1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    add_counts(counts, _build, (), "whisper prefill + greedy decode")
+    got = torch.stack(ids, 1)
+    if got.shape != (rows, WHISPER_NEW) or cache["k"].shape[2] != cfg.max_seq:
+        fail(f"whisper decode: ids {tuple(got.shape)}, cache rows "
+             f"{cache['k'].shape[2]}")
+    log(f"whisper greedy decode: {rows} rows × {WHISPER_NEW} tokens against "
+        f"{WHISPER_FRAMES} frames in {wall:.3f} s (prefill incl. the encoder "
+        f"{1e3 * ttft:.1f} ms, then {1e3 * (wall - ttft) / (WHISPER_NEW - 1):.1f}"
+        f" ms per token; allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB peak); ids {got[0].tolist()} — on {card}")
+    del cache, cross, lg, r1, db, params0
+    free_card(torch, "whisper's trees")
+    # f32 at full width, WHISPER_CHECK_LAYERS layers: prefill + incremental
+    # decode against teacher forcing of the same tokens
+    c32 = all_archs()["whisper-large-v3"].cfg.replace(
+        n_layers=WHISPER_CHECK_LAYERS, encoder_layers=WHISPER_CHECK_LAYERS,
+        dtype="float32", attention_impl="xla", max_seq=64)
+    b32 = bundle(c32)
+    w32 = b32.init(0, device="cuda")
+    fb = b32.make_batch(fold_in(key, 7), 2, 64, device="cuda")
+    toks = fb["tokens"][:, :WHISPER_NEW + 1]
+    with torch.no_grad():
+        full = encdec.forward_train(c32, w32, fb["frames"], toks)
+        _, (cache, cross) = b32.prefill_fn()(
+            w32, {"frames": fb["frames"], "tokens": toks[:, :1]})
+        for t in range(1, WHISPER_NEW + 1):
+            lg, cache = b32.decode_fn()(w32, {
+                "token": toks[:, t:t + 1], "cache_pos": t, "cache": cache,
+                "cross_kv": cross})
+    a = full[:, WHISPER_NEW, :c32.vocab_size]
+    c = lg[:, 0, :c32.vocab_size]
+    err, top = (a - c).abs().max().item(), a.abs().max().item()
+    if err > WHISPER_REL * top:
+        fail(f"whisper f32 decode vs teacher forcing: max |Δ| {err:.3e} > "
+             f"{WHISPER_REL} × {top:.3e}")
+    log(f"whisper f32 check (full width, {WHISPER_CHECK_LAYERS} + "
+        f"{WHISPER_CHECK_LAYERS} layers, cut for f32): prefill + "
+        f"{WHISPER_NEW} incremental decodes vs teacher forcing at position "
+        f"{WHISPER_NEW}: max |Δ| {err:.3e}, {err / top:.2e} of max |logits| "
+        f"(bound {WHISPER_REL}) — on {card}")
+    del w32, cache, cross
+
+
+def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
+                      which) -> None:
+    """The phases named in ``which`` (u: hymba-1.5b, t: mixtral-8x7b, w:
+    whisper-large-v3), each after the trees before it are freed, K2 held to
+    its plain version at every shape they gave it."""
+    t0 = time.perf_counter()
+    phases = {"u": ("hymba-1.5b", lambda: hymba_paths(
+                  torch, np, kf, _build, counts, step_ms, card)),
+              "t": ("mixtral-8x7b", lambda: mixtral_paths(
+                  torch, np, _build, counts, step_ms, card)),
+              "w": ("whisper-large-v3", lambda: whisper_paths(
+                  torch, np, _build, counts, step_ms, card))}
+    for ph in which:
+        arch, run = phases[ph]
+        shapes: set = set()
+        stop = record_k2_shapes(shapes)
+        t1 = time.perf_counter()
+        try:
+            run()
+        finally:
+            stop()
+        free_card(torch, f"{arch}'s trees")
+        hold_k2_shapes(torch, kf, shapes, f"the {arch} paths")
+        if ph == "u" and not any(sh[2:] == (25, 64) and kv == 5
+                                 and w == 2048
+                                 for sh, kv, _, _, w in shapes):
+            fail("K2 never ran at hymba's heads (25 × 64 over 5) with its "
+                 "window 2048")
+        if ph == "w" and any(sh[2:] != (20, 64) or sh[1] != TRAIN_SEQ
+                             for sh, *_ in shapes):
+            fail(f"K2 ran at a shape other than whisper's decoder's: "
+                 f"{sorted(shapes, key=str)}")
+        log(f"phase ({ph}) {arch} took {time.perf_counter() - t1:.1f} s — "
+            f"on {card}")
+    log(f"the family phases {', '.join(which)} took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def main() -> None:
@@ -4514,6 +5041,11 @@ def main() -> None:
                          "versions and the JAX fixtures, time K1, K3-K7, "
                          "K9-K11 (in turns with --parent) and K2 at hd "
                          "128, then stop")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated family phases to run alone after "
+                         "the build (u: hymba-1.5b, t: mixtral-8x7b, w: "
+                         "whisper-large-v3), then stop without the kernels "
+                         "line: for iterating on one phase")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit (git archive): "
                          "its K1, K3-K7, K9-K11 and X1 are built and timed "
@@ -4551,6 +5083,12 @@ def main() -> None:
     log(f"built {len(_build.SOURCES)} CUDA sources "
         f"({len(_build.launch_counts)} kernels) in {build_s:.1f} s")
     build_facts(_build)
+    if args.phases:
+        run_family_phases(torch, np, kf, _build, {}, {}, card,
+                          args.phases.split(","))
+        log(f"phases {args.phases}: passed in "
+            f"{time.perf_counter() - t_start:.1f} s on {card}")
+        return
 
     check_z_selftest(kz)
     k1_err = check_k1(torch, np, kz)
@@ -4708,6 +5246,11 @@ def main() -> None:
     hold_k2_shapes(torch, kf, moe_shapes, "the moe paths")
     log(f"the moe phases (s) and (t) took {time.perf_counter() - t_moe:.1f} "
         f"s — on {card}")
+
+    # ---- the hybrid and encdec families: (u) hymba-1.5b, (w) ----------- #
+    # ---- whisper-large-v3, each at full width and depth ---------------- #
+    run_family_phases(torch, np, kf, _build, counts, step_ms, card,
+                      ["u", "w"])
     rows.append(k2_hd128)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
@@ -4751,8 +5294,8 @@ def main() -> None:
              f"{counts.get('flash_attention', 0)}; copies {copied}")
     log(f"K2 over the counted paths: all {k2_mma} launches on the bf16 "
         f"mma.sync route, none on a +copy route: {k2_hd[64]} at hd 64 (the "
-        f"qwen2 and granite paths), {k2_hd[128]} at hd 128 (the opt-13b / "
-        f"opt-30b / mixtral paths); K2 hd 128 (OPT-13b's shape): {k2_hd128['ms']:.4f} ms, SDPA "
+        f"qwen2, granite, hymba and whisper paths), {k2_hd[128]} at hd 128 "
+        f"(the opt-13b / opt-30b / mixtral paths); K2 hd 128 (OPT-13b's shape): {k2_hd128['ms']:.4f} ms, SDPA "
         f"{k2_hd128['library_ms']:.4f} ms, bound {k2_hd128['bound_ms']:.4f}")
     log("training step ms: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in step_ms.items())

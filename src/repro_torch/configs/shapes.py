@@ -1,7 +1,5 @@
 """The assigned and the paper's arch id lists (as in
-``repro.configs.shapes``; hymba-1.5b, whisper-large-v3,
-granite-moe-3b-a800m and mixtral-8x7b are registered with the
-other-families slice)."""
+``repro.configs.shapes``); every one is registered."""
 
 ASSIGNED_ARCHS = [
     "phi-3-vision-4.2b",

@@ -6,11 +6,12 @@ MeZO scalar ledger onto the init params (a JAX- or port-written MZOL file of
 the ``xla`` stream — MZOL1 implies it — or of ``pallas+z2``), then serves
 a synthetic request workload through
 the engine: paged for dense archs and moe ones without a sliding window
-(``--arch granite-moe-3b-a800m``), the per-slot recurrent path for ssm ones
-(``--arch rwkv6-3b``); a sliding-window arch (mixtral-8x7b) needs the
-dense-slab caches, which come with the other-families slice, and is
-refused.  Multi-tenant mode (``--tenants``) arrives with the tenants
-slice.
+(``--arch granite-moe-3b-a800m``), the dense slab for the rest — per-slot
+ring caches for a sliding window (``--arch mixtral-8x7b``), with the SSM
+state beside them for hybrid (``--arch hymba-1.5b``), the recurrent state
+alone for ssm (``--arch rwkv6-3b``).  An encdec arch is not served (JAX's
+engine takes none).  Multi-tenant mode (``--tenants``) arrives with the
+tenants slice.
 """
 from __future__ import annotations
 
@@ -84,9 +85,17 @@ def main(argv=None):
         print(f"[serve] paged KV: block={args.block} tokens, "
               f"pool={engine.pool.n_blocks} blocks, prefix cache "
               f"{'off' if args.no_prefix_cache else 'on'}, device={device}")
-    else:
+    elif cfg.family == "ssm":
         print(f"[serve] recurrent state: {args.slots} slots, exact-length "
               f"prefill, scan mode {cfg.scan_mode}, device={device}")
+    else:
+        cap = engine.cache["k"].shape[2]
+        rows = (f"a ring of the window {cap}" if cap == cfg.sliding_window
+                else "per slot")
+        state = (f", SSM state, exact-length prefill, scan mode "
+                 f"{cfg.scan_mode}" if cfg.family == "hybrid" else "")
+        print(f"[serve] dense slab: {args.slots} slots × {cap} KV rows "
+              f"({rows}){state}, device={device}")
 
     rng = np.random.default_rng(args.seed)
     reqs = []

@@ -14,21 +14,23 @@ card); ``pallas`` is the counter stream.  ``--optimizer mezo-adam`` trains
 its steps replay only from a full checkpoint).  ``--select`` takes every
 selection spec of
 ``repro_torch.select`` (``auto`` → the registry's per-family default) and is
-recorded in the checkpoint meta and the MZOL5 ledger header.  The ported
-families are dense, moe and ssm: ``--model-family moe`` (mixtral-8x7b, or
-``--arch granite-moe-3b-a800m``) trains the mixture of experts,
-``--expert-groups G`` splitting its experts into G leaf groups for
-``--select moe_experts(G)`` (``auto`` picks it); ``--model-family ssm``
-(or ``--arch rwkv6-3b``) trains rwkv6, ``--scan-mode`` picks its forward
-(``chunk``, K11 on the card, or ``fused_recurrent``).  ``--arch`` takes every ported config
-(the paper's OPT-13B/30B/66B and RoBERTa-large among them), and
-``--objective`` every entry of ``OBJECTIVES``: the non-differentiable
-``accuracy`` / ``f1`` train through the ZO optimizers only.  The data is
-the ``lm`` stream, as in JAX's launcher.  The refusals are JAX's, in its
-order (``--objective`` other than ``ce``, ``--select`` other than ``full``
-and ``--exec-plan seed_parallel`` need a ZO optimizer); options of later
-slices (``--model-family hybrid|encdec``) exit with a message naming the
-slice.
+recorded in the checkpoint meta and the MZOL5 ledger header.
+``--model-family moe`` (mixtral-8x7b, or ``--arch granite-moe-3b-a800m``)
+trains the mixture of experts, ``--expert-groups G`` splitting its experts
+into G leaf groups for ``--select moe_experts(G)`` (``auto`` picks it);
+``--model-family ssm`` (or ``--arch rwkv6-3b``) trains rwkv6 and
+``--model-family hybrid`` (hymba-1.5b) the parallel attention + SSM heads;
+for both ``--scan-mode`` picks the recurrent side's forward (``chunk``,
+K11 on the card for rwkv6, or ``fused_recurrent``).  ``--arch`` takes
+every registered config (the paper's OPT-13B/30B/66B and RoBERTa-large
+among them), and ``--objective`` every entry of ``OBJECTIVES``: the
+non-differentiable ``accuracy`` / ``f1`` train through the ZO optimizers
+only.  The data is the ``lm`` stream, as in JAX's launcher, so an encdec
+arch (whisper-large-v3), whose loss reads ``frames``, exits with a message
+where JAX's launcher fails with ``KeyError: 'frames'``: whisper trains
+through the registry (``Bundle.make_batch`` / ``loss_fn``).  The refusals
+are JAX's, in its order (``--objective`` other than ``ce``, ``--select``
+other than ``full`` and ``--exec-plan seed_parallel`` need a ZO optimizer).
 """
 from __future__ import annotations
 
@@ -51,8 +53,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--model-family", default=None,
                     choices=["dense", "moe", "ssm", "hybrid", "encdec"],
-                    help="architecture family: its representative arch "
-                         "(the port has dense, moe and ssm)")
+                    help="architecture family: its representative arch")
     ap.add_argument("--optimizer", default="mezo",
                     choices=["mezo", "mezo-adam", "adam", "sgd"])
     ap.add_argument("--estimator", default="spsa",
@@ -92,9 +93,9 @@ def main(argv=None):
                          "selection can cycle one group per step")
     ap.add_argument("--scan-mode", default=None,
                     choices=["chunk", "fused_recurrent"],
-                    help="ssm forward mode: 'chunk' (chunked WKV, K11 on the "
-                         "card; the default) or 'fused_recurrent' (the exact "
-                         "per-token recurrence)")
+                    help="ssm/hybrid forward mode: 'chunk' (the chunked "
+                         "form, K11 on the card for rwkv6; the default) or "
+                         "'fused_recurrent' (the exact per-token recurrence)")
     ap.add_argument("--exec-plan", default="local",
                     choices=["local", "seed_parallel"])
     ap.add_argument("--n-groups", type=int, default=1,
@@ -121,10 +122,6 @@ def main(argv=None):
         # selections at composition time)
         sys.exit(f"--select {args.select!r} requires --optimizer mezo "
                  f"(got {args.optimizer!r})")
-    if args.model_family is not None and args.model_family not in FAMILY_ARCHS:
-        sys.exit(f"--model-family {args.model_family}: the other families "
-                 "come with the families slice (ROADMAP Queue 1, Slice D); "
-                 f"the port has {', '.join(sorted(FAMILY_ARCHS))}")
     if args.backend == "pallas-interpret":
         sys.exit("--backend pallas-interpret is JAX's CPU interpreter; the "
                  "port runs --backend pallas, on the CPU with --device cpu")
@@ -137,6 +134,12 @@ def main(argv=None):
                  f"has {', '.join(sorted(archs))}")
     arch = archs[args.arch]
     cfg = arch.smoke_cfg if args.smoke else arch.cfg
+    if cfg.family == "encdec":
+        sys.exit(f"--arch {args.arch} (encdec): this launcher feeds the lm "
+                 "stream, whose batches carry tokens only, and the encdec "
+                 "loss needs batch['frames'] (JAX's launcher stops there "
+                 "with KeyError: 'frames'); train it through the registry "
+                 "(Bundle.make_batch / loss_fn with zo.mezo)")
     if args.expert_groups is not None:
         if not cfg.n_experts:
             sys.exit(f"--expert-groups needs an MoE arch (got {args.arch!r}, "

@@ -1,4 +1,4 @@
-"""Attention: GQA / MHA, causal + sliding-window — the port of
+"""Attention: GQA / MHA, causal + sliding-window + cross — the port of
 ``repro.models.attention`` with its three impls:
 
 * ``xla``          — einsum attention (materializes the score matrix);
@@ -13,6 +13,11 @@ KV caches are dicts ``{"k": (B,cap,KV,hd), "v": …, "pos": …}`` per layer,
 stacked over layers by the model.  Unlike the JAX version, cache writes go
 IN PLACE into the tensors the caller passed (the returned cache holds the
 same tensors) — one cache-sized buffer instead of a fresh copy per layer.
+A sliding-window model's cache is a ring of ``min(max_len, window)`` rows:
+position p lives in row p % cap, and ``pos`` holds each row's absolute
+position (−1 while empty).  Cross-attention (Whisper's decoder) is
+non-causal against encoder K/V computed once per sequence
+(``precompute_cross_kv``), so it never reaches K2.
 """
 from __future__ import annotations
 
@@ -29,8 +34,10 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------- #
 # Params
 # --------------------------------------------------------------------------- #
-def attention_params(cfg, gen: torch.Generator, dtype, layers: int) -> dict:
-    """Attention leaves stacked over ``layers`` on axis 0."""
+def attention_params(cfg, gen: torch.Generator, dtype, layers: int,
+                     cross: bool = False) -> dict:
+    """Attention leaves stacked over ``layers`` on axis 0 (a ``cross``
+    attention takes no qkv bias, as in JAX)."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd
     p = {
         "wq": dense_init(gen, (layers, d, H * hd), dtype, fan_in=d),
@@ -38,7 +45,7 @@ def attention_params(cfg, gen: torch.Generator, dtype, layers: int) -> dict:
         "wv": dense_init(gen, (layers, d, KV * hd), dtype, fan_in=d),
         "wo": dense_init(gen, (layers, H * hd, d), dtype, fan_in=H * hd),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             p[name] = torch.zeros((layers, width), dtype=dtype,
                                   device=gen.device)
@@ -188,15 +195,20 @@ def attend(cfg, q, k, v, *, arange_layout=False, **kw):
 # --------------------------------------------------------------------------- #
 # Caches and the block-level entry point
 # --------------------------------------------------------------------------- #
-def init_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
-    """Stacked-over-layers KV cache with a shared slot-position array (−1
-    empty); SWA models keep a ring of ``min(max_len, sliding_window)``
-    rows.  (The paged engine assembles per-slot caches from its pool.)"""
-    L, KV, hd = cfg.n_layers, cfg.kv_heads, cfg.hd
+def init_cache(cfg, batch: int, max_len: int, dtype, device,
+               layers: Optional[int] = None, per_slot: bool = False) -> dict:
+    """Stacked-over-layers KV cache with a slot-position array (−1 empty);
+    SWA models keep a ring of ``min(max_len, sliding_window)`` rows.
+    ``pos`` is shared by the batch, (L, cap), or with ``per_slot`` one row
+    per batch slot, (L, B, cap): the serving engine's dense slab, whose
+    slots decode at their own positions.  (The paged engine assembles
+    per-slot caches from its pool.)"""
+    L = layers if layers is not None else cfg.n_layers
+    KV, hd = cfg.kv_heads, cfg.hd
     cap = max_len if cfg.sliding_window == 0 else min(max_len,
                                                       cfg.sliding_window)
     shape = (L, batch, cap, KV, hd)
-    pos_shape = (L, cap)
+    pos_shape = (L, batch, cap) if per_slot else (L, cap)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.full(pos_shape, -1, dtype=torch.int32, device=device)}
@@ -262,3 +274,29 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
     out = out.reshape(B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo"], new_cache
+
+
+def cross_attention(cfg, p: dict, x: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor) -> torch.Tensor:
+    """Decoder → encoder attention (Whisper): x (B,S,d) against the
+    precomputed enc_k / enc_v (B,Senc,KV,hd), non-causal, no window."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    S_enc = enc_k.shape[1]
+    out = attend(cfg, q, enc_k, enc_v,
+                 q_pos=torch.arange(S, dtype=torch.int32, device=x.device),
+                 k_pos=torch.arange(S_enc, dtype=torch.int32,
+                                    device=x.device),
+                 causal=False, window=0)
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+def precompute_cross_kv(cfg, p: dict, enc_out: torch.Tensor):
+    """(k, v), each (B,Senc,KV,hd), of the encoder states under one
+    layer's cross-attention projections."""
+    B, S, _ = enc_out.shape
+    KV, hd = cfg.kv_heads, cfg.hd
+    k = (enc_out @ p["wk"]).reshape(B, S, KV, hd)
+    v = (enc_out @ p["wv"]).reshape(B, S, KV, hd)
+    return k, v

@@ -7,6 +7,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -84,6 +85,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[..., None, :].to(x.dtype)
     s = sin[..., None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def sinusoidal_embedding(seq: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal positions (S, d), computed in
+    float64 numpy and cast, as JAX builds them."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)
 
 
 def sinusoidal_at(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:

@@ -96,13 +96,19 @@ class ModelConfig:
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the long_500k cell?  ssm: O(1) state; hybrid:
+        a window-bounded cache and O(1) SSM state; full attention: no."""
+        return self.family == "ssm" or (self.family == "hybrid"
+                                        and self.sliding_window > 0)
+
     def n_params(self) -> int:
         """Analytic parameter count (embedding + blocks + head), JAX's
-        formula for the families the port builds: dense, moe and ssm."""
-        if self.family not in ("dense", "moe", "ssm"):
-            raise NotImplementedError(
-                f"n_params of family {self.family!r}: hybrid and encdec "
-                "come with the other-families slice")
+        formula for every family.  It is an estimate, not the tree's
+        element count: for hybrid it counts ``d·sh/4`` for the dt
+        projection, whose leaf is (d, ssm_heads), and no norms or ``mix``
+        (hymba-1.5b: 1 330 841 600 against the tree's 1 433 039 264)."""
         d, ff, V = self.d_model, self.d_ff, self.padded_vocab
         hd, H, KV = self.hd, self.n_heads, self.kv_heads
         emb = V * d * (1 if self.tie_embeddings else 2)
@@ -117,7 +123,19 @@ class ModelConfig:
         ffn = (3 if self.gated_ffn else 2) * d * ff
         if self.n_experts:
             ffn = ffn * self.n_experts + d * self.n_experts   # + router
-        return emb + self.n_layers * (att + ffn)
+        block = att + ffn
+        if self.family == "hybrid":
+            sh = self.ssm_heads * self.hd
+            block += (d * (2 * sh) + d * sh // 4 + 2 * sh * self.ssm_state
+                      + sh)                                    # ssm projs
+        layers = self.n_layers * block
+        if self.family == "encdec":
+            enc_block = (d * (H * hd) * 2 + 2 * d * (KV * hd)
+                         + (2 if not self.gated_ffn else 3) * d * ff)
+            layers += self.encoder_layers * enc_block
+            layers += self.n_layers * (d * (H * hd) + 2 * d * (KV * hd)
+                                       + (H * hd) * d)         # cross-attn
+        return emb + layers
 
     def n_active_params(self) -> int:
         """Active (per-token) parameters — MoE counts top_k of n_experts."""
@@ -129,3 +147,32 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned input-shape cell."""
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeCell("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeCell("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeCell("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeCell("long_500k", 524288, 1, "decode")
+ALL_CELLS = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def cells_for(cfg: ModelConfig) -> list:
+    """The runnable shape cells of an architecture: long_500k only for the
+    sub-quadratic ones."""
+    cells = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.sub_quadratic:
+        cells.append(LONG_500K)
+    return cells

@@ -1,5 +1,6 @@
 """Parameter-efficient fine-tuning: LoRA and prefix tuning — the port of
-``repro.models.peft`` (paper §3 / App. E.5), dense family.
+``repro.models.peft`` (paper §3 / App. E.5), for the transformer families
+(dense, moe, hybrid).
 
 MeZO composes with PEFT by construction: the optimizer perturbs whatever
 tree it is given.  ``peft_params`` merges the frozen base and the PEFT tree
@@ -22,7 +23,9 @@ not reproduced: parity tests carry JAX's trees across with
 ``peft("lora")`` selection perturbs and updates it like A and B.
 
 The prefix forward attends with more keys than queries, so the
-``pallas_flash`` attention routes it to the chunked path, as JAX does.
+``pallas_flash`` attention routes it to the chunked path, as JAX does.  On
+the hybrid family its SSM side sees no prefix and starts from a zero
+state, as in JAX.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from repro_torch.models.common import (apply_norm, apply_rope, dense_init,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import ssm_scan
 from repro_torch.select import PEFT_MODES
 
 PREFIX_POS = -2  # sentinel k_pos: always attendable (see attention._mask)
@@ -143,7 +147,8 @@ def _forward_with_prefix(cfg: ModelConfig, params: dict, prefix: dict,
                          batch):
     """(logits, aux) of a forward pass in which each layer's attention
     sees [prefix K/V ; K/V], the prefix at the always-attendable position
-    −2; aux the moe layers' summed load-balancing loss (None for dense)."""
+    −2; aux the moe layers' summed load-balancing loss (None for dense
+    and hybrid)."""
     transformer._check_family(cfg)
     tokens, embeds = batch.get("tokens"), batch.get("embeds")
     if embeds is None:
@@ -173,7 +178,14 @@ def _forward_with_prefix(cfg: ModelConfig, params: dict, prefix: dict,
         out = attn_lib.attend(cfg, q, k_all, v_all, q_pos=positions,
                               k_pos=k_pos, causal=True,
                               window=cfg.sliding_window)
-        x = x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
+        out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
+        if cfg.family == "hybrid":
+            ssm_out, _ = ssm_scan(cfg, lp["ssm"],
+                                  apply_norm(cfg, x, lp["ln_ssm"]), None)
+            mix = lp["mix"].to(out.dtype)
+            x = x + mix[0] * out + mix[1] * ssm_out
+        else:
+            x = x + out
         h2 = apply_norm(cfg, x, lp["ln2"])
         if cfg.n_experts:
             mo, aux_l = moe_ffn(cfg, lp["moe"], h2)

@@ -1,18 +1,22 @@
-"""Decoder-only transformer, dense and moe families — the port of
+"""Decoder-only transformer, dense, moe and hybrid families — the port of
 ``repro.models.transformer``.
 
 Params keep the JAX layout, block leaves stacked over layers on axis 0:
 
     {"embed": (V, d),
-     "layers": {"ln1": …, "attn": …, ("mlp" | "moe"): …, "ln2": …},
+     "layers": {"ln1": …, "attn": …, ("mlp" | "moe"): …,
+                ["ln_ssm": …, "ssm": …, "mix": …], "ln2": …},
      "ln_f": …, ["head": (d, V)]}
 
-so the leaf order (and hence every z stream's leaf seed) is the JAX one.
-The moe family's FFN is ``models/moe.py``; its per-layer load-balancing
-losses are summed over the layers and enter ``lm_loss`` as
-``aux_coef · aux``.  The layer loop is a Python loop over the stacked
-leaves (``jax.lax.scan`` has no counterpart to need); a cache, when given,
-is written in place.
+so the leaf order (and hence every z stream's leaf seed) is the JAX one
+(sorted keys: attn, ln1, ln2, ln_ssm, mix, mlp, ssm).  The moe family's
+FFN is ``models/moe.py``; its per-layer load-balancing losses are summed
+over the layers and enter ``lm_loss`` as ``aux_coef · aux``.  The hybrid
+family (Hymba) runs SSM heads (``models/ssm.py``) beside the attention in
+every block, ``x + mix[0]·attn_out + mix[1]·ssm_out``; its stacked SSM
+state goes in and comes back through ``forward``'s ``ssm_state``.  The
+layer loop is a Python loop over the stacked leaves (``jax.lax.scan`` has
+no counterpart to need); a KV cache, when given, is written in place.
 """
 from __future__ import annotations
 
@@ -26,19 +30,19 @@ from repro_torch.models.common import (apply_norm, dense_init, embed_init,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn, ffn_params
 from repro_torch.models.moe import moe_ffn, moe_params
+from repro_torch.models.ssm import ssm_params, ssm_scan
 
 #: the load-balancing loss's weight in ``lm_loss`` (JAX's default)
 AUX_COEF = 0.01
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or (
-            cfg.family == "dense") != (not cfg.n_experts):
+    if cfg.family not in ("dense", "moe", "hybrid") or (
+            cfg.family == "moe") != bool(cfg.n_experts):
         raise NotImplementedError(
             f"family {cfg.family!r} (n_experts={cfg.n_experts}) has no "
-            "transformer forward in the port: dense and moe run here, ssm "
-            "in models/rwkv6.py, and hybrid and encdec come with the "
-            "other-families slice")
+            "transformer forward: dense, moe and hybrid run here, ssm in "
+            "models/rwkv6.py and encdec in models/encdec.py")
 
 
 # --------------------------------------------------------------------------- #
@@ -46,7 +50,8 @@ def _check_family(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------- #
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random params on ``gen.device`` (N(0, 1/fan_in) projections and
-    router, N(0, 0.02²) embedding, zero biases and norm offsets)."""
+    router, N(0, 0.02²) embedding, zero biases and norm offsets; hybrid
+    adds ``ln_ssm``, the SSM leaves and ``mix`` = 0.5, 0.5 per layer)."""
     _check_family(cfg)
     dtype, dev, L = cfg.param_dtype, gen.device, cfg.n_layers
     layers = {
@@ -58,6 +63,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
         layers["moe"] = moe_params(cfg, gen, dtype, L)
     else:
         layers["mlp"] = ffn_params(cfg, gen, dtype, L)
+    if cfg.family == "hybrid":
+        layers["ln_ssm"] = norm_params(cfg, cfg.d_model, dtype, dev, layers=L)
+        layers["ssm"] = ssm_params(cfg, gen, dtype, L)
+        layers["mix"] = torch.full((L, 2), 0.5, dtype=dtype, device=dev)
     params = {
         "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
         "layers": layers,
@@ -83,18 +92,27 @@ def layer_views(tree: dict, n_layers: int) -> list:
 # One block, full forward
 # --------------------------------------------------------------------------- #
 def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, cache,
-          cache_pos):
-    """One decoder block on layer ``p``'s leaves: (x_out, cache, aux) —
-    aux the moe layer's load-balancing loss (None for dense)."""
+          cache_pos, ssm_state=None):
+    """One decoder block on layer ``p``'s leaves: (x_out, cache, ssm
+    state, aux) — the state the hybrid SSM side's final one (None for the
+    other families), aux the moe layer's load-balancing loss (None for
+    dense and hybrid)."""
     h = apply_norm(cfg, x, p["ln1"])
     attn_out, new_cache = attn_lib.self_attention(cfg, p["attn"], h,
                                                   positions, cache, cache_pos)
-    x = x + attn_out
+    new_state = None
+    if cfg.family == "hybrid":
+        hs = apply_norm(cfg, x, p["ln_ssm"])
+        ssm_out, new_state = ssm_scan(cfg, p["ssm"], hs, ssm_state)
+        mix = p["mix"].to(attn_out.dtype)
+        x = x + mix[0] * attn_out + mix[1] * ssm_out
+    else:
+        x = x + attn_out
     h2 = apply_norm(cfg, x, p["ln2"])
     if cfg.n_experts:
         mo, aux = moe_ffn(cfg, p["moe"], h2)
-        return x + mo, new_cache, aux
-    return x + ffn(cfg, p["mlp"], h2), new_cache, None
+        return x + mo, new_cache, new_state, aux
+    return x + ffn(cfg, p["mlp"], h2), new_cache, new_state, None
 
 
 def embed_tokens(cfg: ModelConfig, params: dict,
@@ -109,7 +127,10 @@ def embed_tokens(cfg: ModelConfig, params: dict,
 class ForwardResult(NamedTuple):
     logits: torch.Tensor
     cache: Optional[dict]
-    #: the moe layers' load-balancing losses summed (f32); None for dense
+    #: the hybrid family's stacked SSM state after the sequence (None
+    #: unless an ``ssm_state`` was given)
+    ssm_state: Optional[torch.Tensor] = None
+    #: the moe layers' load-balancing losses summed (f32); None otherwise
     aux_loss: Optional[torch.Tensor] = None
 
 
@@ -117,9 +138,12 @@ def forward(cfg: ModelConfig, params: dict, *,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            cache: Optional[dict] = None, cache_pos=None) -> ForwardResult:
+            cache: Optional[dict] = None, cache_pos=None,
+            ssm_state: Optional[torch.Tensor] = None) -> ForwardResult:
     """tokens (B,S) int or embeds (B,S,d); ``cache`` stacked over layers
-    (leading L axis) and updated in place."""
+    (leading L axis) and updated in place; ``ssm_state`` (hybrid) stacked
+    over layers, (L,B,SH,hd,N) f32, and the new one returned (a hybrid
+    forward without it starts every layer from zeros and returns none)."""
     _check_family(cfg)
     if embeds is None:
         x = embed_tokens(cfg, params, tokens)
@@ -134,11 +158,16 @@ def forward(cfg: ModelConfig, params: dict, *,
     layers = layer_views(params["layers"], cfg.n_layers)
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
                  if cfg.n_experts else None)
+    use_ssm = cfg.family == "hybrid" and ssm_state is not None
+    new_states = []
     for i, p in enumerate(layers):
         cache_l = (None if cache is None else
                    {"k": cache["k"][i], "v": cache["v"][i],
                     "pos": cache["pos"][i]})
-        x, _, aux = block(cfg, p, x, positions, cache_l, cache_pos)
+        x, _, st, aux = block(cfg, p, x, positions, cache_l, cache_pos,
+                              ssm_state[i] if use_ssm else None)
+        if use_ssm:
+            new_states.append(st)
         if aux is not None:
             aux_total = aux_total + aux
 
@@ -146,7 +175,9 @@ def forward(cfg: ModelConfig, params: dict, *,
     head = params.get("head")
     if head is None:
         head = params["embed"].T
-    return ForwardResult(x @ head, cache, aux_total)
+    return ForwardResult(x @ head, cache,
+                         torch.stack(new_states) if use_ssm else None,
+                         aux_total)
 
 
 # --------------------------------------------------------------------------- #

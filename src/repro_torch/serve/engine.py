@@ -1,6 +1,7 @@
 """Continuous-batching serving engine — the port of ``repro.serve.engine``,
 single-model paths: the paged path for dense and moe models without a
-sliding window, the per-slot recurrent path for the ssm family.
+sliding window, and the dense-slab path for everything else it serves
+(hybrid, ssm, a sliding window, ``paged=False``).
 
 * ``submit`` queues a request (refusing over-long prompts and unknown
   adapters); ``step`` admits queued requests into free slots and runs one
@@ -21,18 +22,27 @@ sliding window, the per-slot recurrent path for the ssm family.
 The contract is token identity: output ids with the prefix cache on equal
 the ids with it off.
 
-The ssm family (rwkv6) keeps JAX's legacy per-slot path (``paged=False``):
-the engine holds one stacked recurrent state with a slot axis; admission
-prefills each request at its EXACT prompt length (padding after the prompt
-would run through the recurrence and corrupt the state), through the chunk
-scan (K11 on the card), and writes the request's state into its slot; the
-lockstep decode carries the state for every slot.  Adapters and
-mixed-adapter decode come with the tenants slice; the hybrid family and the
-dense-slab caches (a sliding window, as mixtral-8x7b's, or ``paged=False``
-on a dense or moe model) with the other-families slice.  A moe model's
-routing groups follow the forward's rule in every phase: a chunk prefill's
-padded rows share groups with the real tokens, and a decode step is one
-token per group (capacity 8, nothing dropped).
+The dense slab is JAX's legacy per-slot path (``paged=False``, or any
+model the paged path cannot take): the engine holds per-slot KV caches
+(``init_cache(..., per_slot=True)``: one ``pos`` row per slot, a ring of
+``min(max_len, window)`` rows under a sliding window, so hymba-1.5b and
+mixtral-8x7b decode in O(window)) and, for the recurrent families, one
+stacked state with a slot axis (rwkv6's, or hybrid's SSM state).
+Admission prefills one request at a time: at its EXACT prompt length for
+ssm and hybrid (padding after the prompt would run through the recurrence
+and corrupt the state; the ssm prefill runs the chunk scan, K11 on the
+card), bucketed to a power of two for dense and moe; a causal prefill is
+K2's under ``pallas_flash``.  Its first ``min(prompt, cap)`` KV rows and
+its state are copied into the slot.  A prompt longer than the slot's
+capacity is refused at ``submit``, as JAX refuses it.  The lockstep decode
+writes each slot's new row at ``pos % cap``.  The slab has no block pool
+(no K12) and no prefix cache.  Adapters and mixed-adapter decode come with
+the tenants slice.  encdec is not served, as in JAX (its engine asserts
+the family): whisper decodes through the registry's ``prefill_fn`` /
+``decode_fn``.  A moe model's routing groups follow the forward's rule in
+every phase: a chunk prefill's padded rows share groups with the real
+tokens, and a decode step is one token per group (capacity 8, nothing
+dropped).
 """
 from __future__ import annotations
 
@@ -47,8 +57,10 @@ import torch
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.kernels.paged.gather import paged_gather, upload_table
 from repro_torch.models import bundle as make_bundle
+from repro_torch.models import rwkv6, transformer
+from repro_torch.models.attention import init_cache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.rwkv6 import init_rwkv_state
+from repro_torch.models.ssm import init_ssm_state
 from repro_torch.serve.paged import (KVBlockPool, RadixCache, bucket_for,
                                      pow2ceil, prefill_buckets)
 
@@ -71,16 +83,13 @@ class ServeEngine:
                  seed: int = 0, block: int = 16,
                  pool_blocks: Optional[int] = None, prefix_cache: bool = True,
                  paged: Optional[bool] = None, device: DeviceSpec = None):
-        paged_ok = cfg.family in ("dense", "moe") and cfg.sliding_window == 0
-        if cfg.family != "ssm" and (not paged_ok or paged is False):
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
-                f"family={cfg.family!r} sliding_window={cfg.sliding_window} "
-                f"paged={paged}: the port serves dense and moe models "
-                "without a sliding window through the paged engine and the "
-                "ssm family through the per-slot recurrent path; a sliding "
-                "window (SWA ring caches) and paged=False need the engine's "
-                "dense-slab path, which comes with the other-families slice "
-                "(ROADMAP Queue 1 item 7), as does the hybrid family")
+                f"family {cfg.family!r}: the serving engine takes dense, moe, "
+                "hybrid and ssm models, as JAX's does (its engine asserts "
+                "the family); an encdec model decodes through the "
+                "registry's prefill_fn / decode_fn")
+        paged_ok = cfg.family in ("dense", "moe") and cfg.sliding_window == 0
         self.paged = paged_ok if paged is None else bool(paged)
         if self.paged and not paged_ok:
             raise ValueError(
@@ -97,7 +106,8 @@ class ServeEngine:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
 
-        self.cache = None                      # assembled per decode step
+        # paged: assembled per decode step; slab: the per-slot caches
+        self.cache = None
         self.pool = self.radix = self.state = None
         if self.paged:
             self.block = block
@@ -109,10 +119,15 @@ class ServeEngine:
             self.radix = RadixCache(self.pool) if prefix_cache else None
             self.tables: list = [[] for _ in range(slots)]
             self._chunk_prefill = self.bundle.chunk_prefill_fn()
-            self._buckets = prefill_buckets(self._prompt_limit())
         else:
-            self.state = init_rwkv_state(cfg, slots, self.device)
-            self._prefill = self.bundle.prefill_fn()
+            if cfg.family != "ssm":
+                self.cache = init_cache(cfg, slots, max_len, cfg.param_dtype,
+                                        self.device, per_slot=True)
+            if cfg.family == "hybrid":
+                self.state = init_ssm_state(cfg, slots, device=self.device)
+            elif cfg.family == "ssm":
+                self.state = rwkv6.init_rwkv_state(cfg, slots, self.device)
+        self._buckets = prefill_buckets(self._prompt_limit())
 
         self.queue: deque = deque()
         self.active: list = [None] * slots
@@ -133,8 +148,12 @@ class ServeEngine:
 
     def _prompt_limit(self) -> int:
         """Longest admissible prompt: one decode position must remain below
-        ``max_len``."""
-        return self.max_len - 1
+        ``max_len``, and a slab slot's capacity (``sliding_window`` rows
+        under a window) must hold the whole prompt."""
+        limit = self.max_len - 1
+        if not self.paged and self.cache is not None:
+            limit = min(limit, int(self.cache["k"].shape[2]))
+        return limit
 
     def submit(self, req: Request) -> None:
         limit = self._prompt_limit()
@@ -165,21 +184,54 @@ class ServeEngine:
             self.tables[slot] = []
 
     # ------------------------------------------------------------------ #
-    # Recurrent admission: exact-length prefill, state into the slot
+    # Dense-slab admission: one prefill per request, KV rows and state
+    # copied into the slot
     # ------------------------------------------------------------------ #
-    def _admit_recurrent(self) -> None:
+    def _prefill_slab(self, tokens: torch.Tensor):
+        """One request's prefill on its (1, plen) tokens: (logits (1, plen,
+        V), KV cache of ``plen`` rows (ring-capped) or None, state or
+        None)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            logits, st = rwkv6.forward(
+                cfg, self.params, tokens=tokens,
+                state=rwkv6.init_rwkv_state(cfg, 1, self.device))
+            return logits, None, st
+        plen = tokens.shape[1]
+        cache = init_cache(cfg, 1, plen, cfg.param_dtype, self.device)
+        state = (init_ssm_state(cfg, 1, device=self.device)
+                 if cfg.family == "hybrid" else None)
+        r = transformer.forward(cfg, self.params, tokens=tokens, cache=cache,
+                                cache_pos=None, ssm_state=state)
+        return r.logits, r.cache, r.ssm_state
+
+    def _admit_slab(self) -> None:
         for slot in range(self.slots):
             if self.active[slot] is not None or not self.queue:
                 continue
             req = self.queue.popleft()
             npr = len(req.prompt_ids)
-            toks = torch.as_tensor([req.prompt_ids],
-                                   dtype=torch.int64).to(self.device)
-            logits, state = self._prefill(self.params, {"tokens": toks})
-            for full, one in zip(self.state, state):
-                full[:, slot] = one[:, 0]
-            req.out_ids.append(self._sample(logits[0, -1, :self.cfg.vocab_size],
-                                            req.temperature))
+            # a recurrent state integrates every token it sees: exact length
+            plen = (npr if self.cfg.family in ("ssm", "hybrid")
+                    else bucket_for(npr, self._buckets))
+            toks = np.zeros((1, plen), np.int64)
+            toks[0, :npr] = req.prompt_ids
+            logits, kv, state = self._prefill_slab(
+                torch.as_tensor(toks).to(self.device))
+            if self.cache is not None and kv is not None:
+                span = min(npr, self.cache["k"].shape[2])
+                self.cache["k"][:, slot, :span] = kv["k"][:, 0, :span]
+                self.cache["v"][:, slot, :span] = kv["v"][:, 0, :span]
+                self.cache["pos"][:, slot, :span] = torch.arange(
+                    span, dtype=torch.int32, device=self.device)[None]
+                self.cache["pos"][:, slot, span:] = -1
+            if isinstance(self.state, torch.Tensor):
+                self.state[:, slot] = state[:, 0]
+            elif self.state is not None:
+                for full, one in zip(self.state, state):
+                    full[:, slot] = one[:, 0]
+            req.out_ids.append(self._sample(
+                logits[0, npr - 1, :self.cfg.vocab_size], req.temperature))
             st = self.stats
             st["requests"] += 1
             st["prefill_tokens_submitted"] += npr
@@ -213,7 +265,7 @@ class ServeEngine:
 
     def _admit(self) -> None:
         if not self.paged:
-            self._admit_recurrent()
+            self._admit_slab()
             return
         free = [s for s in range(self.slots) if self.active[s] is None]
         pending = []
@@ -376,11 +428,20 @@ class ServeEngine:
             self.cache = batch["cache"] = self._assemble_decode_cache()
             logits, self.cache = self._decode(self.params, batch)
             self._writeback_decode(live)
-        else:
+        elif self.cfg.family == "ssm":
             # every slot steps in lockstep; an inactive slot's state is junk
             # that its next admission overwrites
             batch["state"] = self.state
             logits, self.state = self._decode(self.params, batch)
+        elif self.cfg.family == "hybrid":
+            batch["cache"], batch["state"] = self.cache, self.state
+            logits, (self.cache, self.state) = self._decode(self.params,
+                                                            batch)
+        else:
+            # an inactive slot writes masked junk at its stale position,
+            # which its next admission overwrites
+            batch["cache"] = self.cache
+            logits, self.cache = self._decode(self.params, batch)
         now = time.perf_counter()
         for s in live:
             req = self.active[s]

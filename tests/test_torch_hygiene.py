@@ -135,21 +135,30 @@ def test_no_refusal_names_the_selection_slice():
 
 
 def test_no_text_says_the_port_is_dense_only():
-    """The ssm and moe families are ported: no docstring or refusal in the
-    port says it carries the dense family only, and the registry's refusal
-    of an unported family names the three ported ones."""
+    """Every family is ported: no docstring or refusal in the port says it
+    carries the dense family only or defers a family to a later slice, and
+    the registry's refusal of an unknown family names the five."""
     hits = [str(p.relative_to(ROOT)) for p in PORT_FILES
-            if "dense family only" in p.read_text()]
+            if "dense family only" in p.read_text()
+            or "other-families slice" in p.read_text()]
     assert not hits, hits
-    cfg = all_archs()["qwen2-0.5b"].smoke_cfg.replace(family="hybrid")
-    with pytest.raises(NotImplementedError, match="dense, moe, ssm"):
+    cfg = all_archs()["qwen2-0.5b"].smoke_cfg.replace(family="nope")
+    with pytest.raises(ValueError, match="dense, moe, ssm, hybrid, encdec"):
         bundle(cfg)
 
 
 @pytest.mark.parametrize("name", [
     "src/repro_torch/models/moe.py", "src/repro_torch/configs/mixtral_8x7b.py",
     "src/repro_torch/configs/granite_moe_3b_a800m.py",
-    "tests/test_torch_moe.py", "tests/test_torch_threefry_original.py"])
+    "tests/test_torch_moe.py", "tests/test_torch_threefry_original.py",
+    "src/repro_torch/models/ssm.py", "src/repro_torch/models/encdec.py",
+    "src/repro_torch/models/frontends.py",
+    "src/repro_torch/configs/hymba_1_5b.py",
+    "src/repro_torch/configs/whisper_large_v3.py",
+    "tests/test_torch_hybrid.py", "tests/test_torch_hybrid_ledger.py",
+    "tests/test_torch_serve_slab.py", "tests/test_torch_encdec.py",
+    "tests/test_torch_zoo_conformance.py",
+    "tests/test_torch_zoo_conformance_more.py"])
 def test_new_modules_are_under_the_hygiene_checks(name):
     """The moe modules and the original-layout tests are among the files
     the checks above walk, import no JAX (modules) and no unused name."""
@@ -218,7 +227,8 @@ def test_train_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
       "rows(block=1,k=4)"], "requires --optimizer mezo"),
     (["--backend", "pallas", "--objective", "accuracy", "--optimizer",
       "adam"], "non-differentiable"),
-    (["--backend", "pallas", "--model-family", "hybrid"], "Slice D"),
+    # encdec: the lm stream carries no frames (JAX's launcher: KeyError)
+    (["--backend", "pallas", "--model-family", "encdec"], "frames"),
 ], ids=["xla", "mezo-adam", "adam", "select", "objective", "family"])
 def test_train_cli_refuses_later_slices(argv, slice_name, capsys):
     from repro_torch.launch import train as train_cli

@@ -355,14 +355,25 @@ def test_paged_engine_greedy_ids_equal_jax(prefix_cache):
 
 
 def test_mixtral_engine_refuses_loudly():
+    """The paged engine refuses mixtral's window loudly, with JAX's
+    message; the default picks the dense slab for it (and ``paged=False``
+    for granite), where the engine's refusal stood before the dense-slab
+    path was ported (``tests/test_torch_serve_slab.py`` serves both)."""
     cfg = all_archs()["mixtral-8x7b"].smoke_cfg
     params = bundle(cfg).init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense-slab"):
-        ServeEngine(cfg, params, slots=2, max_len=64, device="cpu")
-    gcfg = all_archs()["granite-moe-3b-a800m"].smoke_cfg
-    with pytest.raises(NotImplementedError, match="dense-slab"):
-        ServeEngine(gcfg, bundle(gcfg).init(0, device="cpu"), paged=False,
+    jcfg = jax_archs()["mixtral-8x7b"].smoke_cfg
+    with pytest.raises(ValueError, match="dense-slab") as te:
+        ServeEngine(cfg, params, slots=2, max_len=64, paged=True,
                     device="cpu")
+    with pytest.raises(ValueError) as je:
+        JaxEngine(jcfg, None, slots=2, max_len=64, paged=True)
+    assert str(te.value) == str(je.value)
+    eng = ServeEngine(cfg, params, slots=2, max_len=64, device="cpu")
+    assert not eng.paged and eng.cache["k"].shape[2] == cfg.sliding_window
+    gcfg = all_archs()["granite-moe-3b-a800m"].smoke_cfg
+    eng = ServeEngine(gcfg, bundle(gcfg).init(0, device="cpu"), paged=False,
+                      device="cpu")
+    assert not eng.paged and eng.pool is None
 
 
 def test_train_cli_moe_family_two_steps(tmp_path, capsys):
@@ -378,8 +389,8 @@ def test_train_cli_moe_family_two_steps(tmp_path, capsys):
     assert "mixtral-8x7b-smoke" in out and "done: 2 steps" in out
     raw = (run / "ledger.mzl").read_bytes()
     assert raw[:5] == b"MZOL5"
-    with pytest.raises(SystemExit, match="hybrid"):
-        train_cli.main(["--model-family", "hybrid", "--smoke", "--device",
+    with pytest.raises(SystemExit, match="frames"):
+        train_cli.main(["--model-family", "encdec", "--smoke", "--device",
                         "cpu"])
     with pytest.raises(SystemExit, match="--expert-groups needs an MoE"):
         train_cli.main(["--smoke", "--device", "cpu", "--expert-groups",

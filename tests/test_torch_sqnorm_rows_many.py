@@ -106,18 +106,20 @@ def _walk(n: int, block_elems: int, k: int, phase: int) -> np.ndarray:
 #: every block_elems (clamped to the leaf) of the registry's leaves under
 #: rows(block=1) and rows(block=4) — 1-D leaves give 1 and 4, the stacked
 #: biases 128 and 512, the MLP leaves millions
-REGISTRY_BE = [1, 4, 128, 512, 896, 1024, 1536, 2048, 2560, 3072, 3584, 4096,
-               5120, 6144, 7168, 9216, 10240, 12288, 14336, 16384, 18432,
-               20480, 28672, 32000, 32128, 32768, 36864, 49280, 50304, 61440,
-               64000, 65536, 73728, 114688, 128000, 128512, 131072, 151936,
-               152064, 163840, 197120, 201216, 245760, 256000, 262144, 458752,
-               607744, 608256, 655360, 786432, 802816, 1048576, 1835008,
-               2097152, 2359296, 3145728, 3211264, 4194304, 4358144, 6553600,
-               7340032, 8388608, 9437184, 12845056, 16777216, 17432576,
-               22937600, 25165824, 26214400, 28311552, 31457280, 37748736,
-               45088768, 51380224, 67108864, 67895296, 91750400, 100663296,
-               104857600, 113246208, 125829120, 180355072, 205520896,
-               271581184, 419430400]
+REGISTRY_BE = [1, 2, 4, 8, 25, 100, 128, 512, 896, 1024, 1280, 1536, 1600,
+               2048, 2560, 3072, 3584, 4096, 5120, 6144, 6400, 7168, 9216,
+               10240, 12288, 14336, 16384, 18432, 20480, 28672, 32000, 32128,
+               32768, 36864, 40000, 49280, 50304, 51968, 61440, 64000, 65536,
+               73728, 114688, 128000, 128512, 131072, 151936, 152064, 160000,
+               163840, 197120, 201216, 207872, 245760, 256000, 262144, 458752,
+               512000, 607744, 608256, 640000, 655360, 786432, 802816, 1048576,
+               1638400, 1835008, 2048000, 2097152, 2359296, 2560000, 3145728,
+               3211264, 4194304, 4358144, 5120000, 6553600, 7340032, 8388608,
+               8806400, 9437184, 10240000, 12845056, 16777216, 17432576,
+               20480000, 22937600, 25165824, 26214400, 28311552, 31457280,
+               35225600, 37748736, 45088768, 51380224, 67108864, 67895296,
+               91750400, 100663296, 104857600, 113246208, 125829120, 180355072,
+               205520896, 271581184, 419430400]
 
 
 def test_registry_row_widths_are_the_archs():

@@ -164,11 +164,14 @@ def test_engine_refusals_match_jax(weights):
     with pytest.raises(ValueError) as te:
         teng.submit(Request(0, long_prompt))
     assert str(te.value) == str(je.value)
-    dense = all_archs()["qwen2-0.5b"].smoke_cfg
-    with pytest.raises(NotImplementedError, match="other-families slice"):
-        ServeEngine(dense, None, paged=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="other-families slice"):
-        ServeEngine(dense.replace(sliding_window=8), None, device="cpu")
+    # the dense slab serves dense models with paged=False or a window now
+    # (tests/test_torch_serve_slab.py); encdec is refused, as JAX's engine
+    # asserts the family
+    enc = all_archs()["whisper-large-v3"].smoke_cfg
+    with pytest.raises(NotImplementedError, match="encdec"):
+        ServeEngine(enc, None, device="cpu")
+    with pytest.raises(AssertionError):
+        JaxEngine(jax_archs()["whisper-large-v3"].smoke_cfg, None)
 
 
 # --------------------------------------------------------------------------- #
