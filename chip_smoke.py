@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
     python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
-    python3 chip_smoke.py --phases u,t,w   # build, then only the named family phases
+    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w)
 
 In order: prints the card's name and power limit; builds the eight CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -29,10 +29,14 @@ routes (a row-block of whole 16-byte vectors, or not), each launch counted
 under its route; X1 ``zo_affine_threefry`` on all three of its routes
 (``vector``, ``scalar``, ``bands``) and on launches whose counters cross
 2^32, and its route for JAX's original threefry layout
-(``zo_affine_threefry_original``: ``pairs`` and ``bands``) against its
-plain version and the JAX fixture ``x1_original_golden.npz`` (odd and even
-word counts, windows straddling the half, windows of virtual leaves past
-2^32 − 1 words), timed beside the partitionable route in turns.  X1's pipe probes read each pipe's rate (ALU, IMAD, FP32; which
+(``zo_affine_threefry_original``: ``pairs`` — on its vector and scalar
+launches — and ``bands``) against its plain version and the JAX fixture
+``x1_original_golden.npz`` (odd and even word counts at every residue of
+the half h against the vector grid, windows straddling the half, off the
+grid, meeting or not, x and y misaligned, windows of virtual leaves past
+2^32 − 1 words), timed beside the partitionable route in turns (with
+``--parent``, beside the parent's kernel too), its ``bands`` route timed
+under ``rows(block=1,k=4)``.  X1's pipe probes read each pipe's rate (ALU, IMAD, FP32; which
 opcodes share one).  It then counts the SASS instructions per z by pipe of
 K1, K3, the K4 / K5 fan-out, K6, K7, K9, K10 and X1, prints each one's
 issue floor and pipe floor (``pipe_floor``: the busiest of the issue port
@@ -66,7 +70,12 @@ just after:
   K9, K2), (g) ``fzoo(8, sphere)`` under it (K10, K8, K9, K2), (h) ``mezo``
   under ``peft("lora")`` (r 8, α 16 on wq / wv) on the merged tree (K1, K2);
 * serve the rows fine-tune: phase (f)'s MZOL5 ledger through
-  ``composition_for_ledger`` (K9) → the paged engine (K2, K12).
+  ``composition_for_ledger`` (K9) → the paged engine (K2, K12);
+* the default ``xla`` stream (X1): (j) spsa, its replays and its served
+  fine-tune, the steps of mezo-adam, trace and rescaled SPSA; (j′) spsa
+  under JAX's original threefry layout (X1's ``pairs`` route), its replay
+  ≡ the plain replay under that layout, then its step in turns with the
+  partitionable layout's (host clock, kernel ms, launches).
 
 It then frees the qwen2 trees and drives the ssm family at the full width
 and depth of rwkv6-3b (32 layers, random bf16 weights from a seeded
@@ -122,11 +131,12 @@ attention (``pallas_flash`` refuses autograd in both packages):
   the port's kernels and are held to finite losses, a finite gradient norm
   > 0, θ moved and f32 moments;
 * (q) one Adam step of the same code on the card and on the CPU at
-  qwen2-0.5b's width, 2 layers, f32, 2 × 64: the loss, the gradient norm,
-  every gradient leaf and θ within stated tolerances; then autograd
-  through ``pallas_flash`` (K2) and through rwkv6's chunk mode (K11) on the
-  card must raise before any launch, and ``fused_recurrent`` must
-  differentiate;
+  qwen2-0.5b's width, and at rwkv6-3b's full width in chunk mode (K11's
+  forward on the card, its gradient the VJP of the plain chunk form,
+  launches and backward records counted), 2 layers, f32, 2 × 64: the loss,
+  the gradient norm, every gradient leaf and θ within stated tolerances;
+  then autograd through ``pallas_flash`` (K2) on the card must raise
+  before any launch, and ``fused_recurrent`` must differentiate;
 * (r) reckoned, not measured: Adam's θ + grads + m + v against MeZO's θ
   for every registry arch, against the card's memory.
 
@@ -270,6 +280,7 @@ MLP_LEAF = (24, 896, 4864)           # the stacked MLP weight (w1 / w3)
 # step is (a)'s chain.
 ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0, "e_rows_spsa": 4.0,
                  "h_lora": 4.0, "i_ssm_spsa": 4.0, "j_xla_spsa": 12.0,
+                 "j_xla_orig": 12.0,
                  "k_roberta_acc": 12.0, "l_opt13b_spsa": 12.0,
                  "n_opt30b_spsa": 12.0, "s_granite_spsa": 12.0,
                  "s_granite_orig": 12.0, "t_mixtral_spsa": 12.0,
@@ -302,7 +313,10 @@ SSM_MODES_F32_REL = 1e-4
 SSM_MODES_NOISE = 2.0
 # the default stream (``xla``, X1): spsa steps, and the applier / rescaled
 # estimators' steps, at qwen2-0.5b's full width
-XLA_STEPS = {"j_xla_spsa": 10}
+XLA_STEPS = {"j_xla_spsa": 10, "j_xla_orig": 2}
+# the spsa step's turns, original layout against partitionable (P O O P),
+# each turn XLA_TURN_STEPS steps on the same θ and batch
+XLA_TURN_STEPS = 2
 XLA_OTHER_STEPS = {"mezo_adam": 3, "trace": 3, "rescaled": 5}
 # the paper's own models on the default stream, each at full width and
 # depth: (k) roberta-large on prompt classification under the accuracy
@@ -331,7 +345,8 @@ CHUNK = 1 << 26
 # prompt classification; (p) qwen2-0.5b, Adam, SGD and MeZO on lm batches
 BACKPROP_STEPS = {"o_roberta": 10, "p_qwen2": 5}
 # (q) one Adam step of the same port code on the card and on the CPU, at
-# qwen2-0.5b's width with BP_LAYERS layers in f32 (TF32 off): the loss and
+# qwen2-0.5b's width and at rwkv6-3b's (chunk mode) with BP_LAYERS layers
+# in f32 (TF32 off): the loss and
 # the gradients are f32 sums in cuBLAS's and the CPU BLAS's orders (loss
 # within BP_LOSS_REL of itself, each gradient leaf within BP_GRAD_REL of its
 # largest |g|); Adam's first step is η·sign(g) wherever |g| ≫ ε, so θ is
@@ -1511,6 +1526,7 @@ ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS, **PAPER_STEPS, **MOE_STEPS,
 
 REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
             "j_xla_spsa": ("zo_affine_threefry", "flash_attention"),
+            "j_xla_orig": ("zo_affine_threefry_original", "flash_attention"),
             "k_roberta_acc": ("zo_affine_threefry",),
             "l_opt13b_spsa": ("zo_affine_threefry", "flash_attention"),
             "m_opt13b_f1": ("zo_affine_threefry", "flash_attention"),
@@ -2171,7 +2187,83 @@ def xla_paths(torch, np, cfg, params0, prompts, _build, counts, step_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-# --------------------------------------------------------------------------- #
+def x1_original_step(torch, np, cfg, params0, _build, counts, step_ms,
+                     card) -> None:
+    """(j′) qwen2-0.5b spsa on ``xla`` under JAX's original threefry layout
+    (X1's ``pairs`` route) at full width: ``XLA_STEPS`` steps through the
+    training loop with a ledger; its replay through X1 ≡ the plain replay
+    under that layout, bitwise, and within the ulp bound of the trained θ;
+    then ms per step in turns with the partitionable layout's step (P O O
+    P, ``XLA_TURN_STEPS`` steps a turn on one θ and batch): the host clock
+    and the profiler's kernel ms and launches."""
+    import statistics
+    from repro_torch import zo
+    from repro_torch.core import replay
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import bundle
+    from repro_torch.perturb.stream import threefry_partitionable
+    from repro_torch.tree_utils import tree_leaves
+
+    def make_opt():
+        return zo.mezo(lr=LR, eps=EPS, backend="xla")
+
+    name = "j_xla_orig"
+    with threefry_partitionable(False):
+        p, led, _, ms = train_phase(torch, cfg, params0, name, make_opt,
+                                    None, _build, counts, with_ckpt=False)
+        step_ms[name] = ms
+        ro = replay(_clone_tree(params0), led, make_opt())
+        plain = _clone_tree(params0)
+        plain_replay_xla(plain, led, np, partitionable=False)
+        torch.cuda.synchronize()
+    for x, y in zip(tree_leaves(ro), tree_leaves(plain)):
+        if not same_bits(x, y):
+            fail(f"{name}: the X1 original replay != the plain replay")
+    text = hold_ulps(torch, name, zip(tree_leaves(ro), tree_leaves(p)))
+    del p, ro, plain
+    log(f"{name}: {len(led)} spsa steps under the original threefry "
+        "layout; the ledger's replay through X1's pairs route ≡ the plain "
+        f"replay under that layout, bitwise; vs the trained θ: {text}")
+    batch = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                              vocab=cfg.vocab_size, seed=SEED),
+                     device="cuda").batch(0)
+    loss_fn = bundle(cfg).loss_fn()
+    theta = _clone_tree(params0)
+    turns = {True: [], False: []}
+    for part in (True, False, False, True):
+        with threefry_partitionable(part):
+            opt = make_opt()
+            state = opt.init(theta, seed=SEED)
+            step = opt.step_fn(loss_fn)
+
+            def one():
+                nonlocal theta, state
+                theta, state, _ = step(theta, state, batch)
+
+            one()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(XLA_TURN_STEPS):
+                one()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / XLA_TURN_STEPS
+            kms, launches = kernel_sum_ms(torch, one, XLA_TURN_STEPS)
+        turns[part].append((wall, kms, launches))
+    del theta, state
+    for part, what in ((False, "original"), (True, "partitionable")):
+        ws, ks, ls = zip(*turns[part])
+        log(f"qwen2-0.5b spsa step on xla, {what} layout: "
+            + ", ".join(f"{w:.1f}" for w in ws) + " ms host clock, "
+            + ", ".join(f"{k:.2f}" for k in ks) + " ms of kernels, "
+            f"{statistics.mean(ls):.0f} launches a step (turns P O O P, "
+            f"{XLA_TURN_STEPS} steps a turn) — on {card}")
+    ko = statistics.mean(k for _, k, _ in turns[False])
+    kp = statistics.mean(k for _, k, _ in turns[True])
+    log(f"qwen2-0.5b spsa step on xla: kernels {ko:.2f} ms under the "
+        f"original layout against {kp:.2f} ms under the partitionable "
+        f"({ko - kp:+.2f} ms) — on {card}")
+
+
 # --------------------------------------------------------------------------- #
 # K11 and the ssm family (rwkv6-3b)
 # --------------------------------------------------------------------------- #
@@ -2483,10 +2575,10 @@ def z_turns(torch, _build, leaves, parent, card) -> dict:
 def x1_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
     """X1's bf16 gaussian axpbz pass over ``leaves`` (the replay / update
     write of the default stream) through the C entry points, in turns
-    ``order``: the parent's ``zo_threefry`` (its first design, one launch
-    per leaf) and this tree's ``zo_threefry_whole`` (the launches
-    ``kernel.whole_launches`` plans); one pass of each from the same leaves
-    held bitwise equal.  Prints the times, each side's SASS instructions
+    ``order``: the parent's ``zo_threefry_whole`` (or, where the parent
+    is the first design, its ``zo_threefry``, one launch per leaf) and this
+    tree's ``zo_threefry_whole`` (the launches ``kernel.whole_launches``
+    plans); one pass of each from the same leaves held bitwise equal.  Prints the times, each side's SASS instructions
     per z by pipe and its issue and pipe floors."""
     import ctypes
     from repro_torch.kernels.threefry import kernel as x1
@@ -2502,27 +2594,37 @@ def x1_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
     plans = [x1.whole_launches(q.numel(), 0, q.data_ptr(), q.data_ptr(),
                                q.element_size()) for q in leaves]
 
-    def change(ys):
-        for j, (q, plan) in enumerate(zip(ys, plans)):
-            for ln in plan:
-                at = q.data_ptr() + ln.start * q.element_size()
-                if new(at, at, ln.n, ln.head, ln.nvec, 1, 12345, j, ln.hi,
-                       ln.lo, 0, 1, 1.0, bval, 0.0, 1.0, 0, 0.0, stream):
-                    fail("X1 timing launch failed")
-    fns = {"change": change}
+    def whole(fn):
+        def run(ys):
+            for j, (q, plan) in enumerate(zip(ys, plans)):
+                for ln in plan:
+                    at = q.data_ptr() + ln.start * q.element_size()
+                    if fn(at, at, ln.n, ln.head, ln.nvec, 1, 12345, j, ln.hi,
+                          ln.lo, 0, 1, 1.0, bval, 0.0, 1.0, 0, 0.0, stream):
+                        fail("X1 timing launch failed")
+        return run
+    fns = {"change": whole(new)}
+    first_design = {}
     if "parent" in libs:
-        old = ctypes.CDLL(str(libs["parent"]["zo_threefry"])).zo_threefry
-        old.argtypes = [vp, vp, i64, i, u32, u32, u64, i, i, f, f, f, f, i, f,
-                        vp, vp, i, i64, vp]
-        old.restype = i
+        plib = ctypes.CDLL(str(libs["parent"]["zo_threefry"]))
+        if hasattr(plib, "zo_threefry_whole"):   # the parent's signature
+            pw = plib.zo_threefry_whole
+            pw.argtypes, pw.restype = new.argtypes, i
+            fns["parent"] = whole(pw)
+        else:                                    # X1's first design
+            old = plib.zo_threefry
+            old.argtypes = [vp, vp, i64, i, u32, u32, u64, i, i, f, f, f, f,
+                            i, f, vp, vp, i, i64, vp]
+            old.restype = i
+            first_design["parent"] = True
 
-        def parent(ys):
-            for j, q in enumerate(ys):
-                if old(q.data_ptr(), q.data_ptr(), q.numel(), 1, 12345, j, 0,
-                       0, 1, 1.0, bval, 0.0, 1.0, 0, 0.0, None, None, 0,
-                       q.numel(), stream):
-                    fail("the parent's X1 timing launch failed")
-        fns["parent"] = parent
+            def parent(ys):
+                for j, q in enumerate(ys):
+                    if old(q.data_ptr(), q.data_ptr(), q.numel(), 1, 12345,
+                           j, 0, 0, 1, 1.0, bval, 0.0, 1.0, 0, 0.0, None,
+                           None, 0, q.numel(), stream):
+                        fail("the parent's X1 timing launch failed")
+            fns["parent"] = parent
         outs = {}
         for name, fn in fns.items():
             outs[name] = [q.clone() for q in leaves]
@@ -2538,7 +2640,7 @@ def x1_turns(torch, _build, leaves, libs, order, card, mhz) -> None:
             cuda_ms(lambda fn=fns[name]: fn(leaves), 10))
     n_all = sum(q.numel() for q in leaves)
     for name in fns:
-        c = x1_sass(libs[name]["zo_threefry"], parent=name == "parent")
+        c = x1_sass(libs[name]["zo_threefry"], parent=name in first_design)
         log(f"{name} " + sass_line("X1 (bf16 gaussian axpbz)", c))
         ts = times[name]
         log(f"X1 {name}: " + ", ".join(f"{t:.3f}" for t in ts)
@@ -4088,88 +4190,132 @@ def backprop_paths(torch, np, _build, counts, step_ms, card) -> None:
                         for n, g in got.items()) + f" — on {card}")
 
 
-def backprop_card_vs_cpu(torch, np, _build) -> None:
-    """(q) the same port code on the card and on the CPU: one Adam step at
-    qwen2-0.5b's width with BP_LAYERS layers in f32 (TF32 off), batch
-    BP_BATCH × BP_SEQ — the loss, the gradient norm, every gradient leaf
-    and the updated θ within the stated tolerances; then the refusals of
-    K2 (``pallas_flash``) and K11 (rwkv6 chunk mode) under autograd on the
-    card, before any launch, and ``fused_recurrent`` differentiating."""
+def _adam_card_vs_cpu(torch, _build, cfg, what: str) -> dict:
+    """One Adam step of ``cfg`` in f32 (TF32 off) on the CPU and on the
+    card from the same θ₀ and batch (BP_BATCH × BP_SEQ): the loss, the
+    gradient norm, every gradient leaf (the step's own ``value_and_grad``,
+    recorded) and the updated θ within the stated tolerances.  Returns the
+    card run's launch and record counts."""
     from repro_torch.data.pipeline import DataSpec, Pipeline
-    from repro_torch.models import all_archs, bundle
+    from repro_torch.models import bundle
     from repro_torch.train import Adam, AdamConfig
+    from repro_torch.train import adam as adam_mod
     from repro_torch.train.adam import value_and_grad
     from repro_torch.tree_utils import flatten_with_path, tree_leaves, \
         tree_map
-    cfg = all_archs()["qwen2-0.5b"].cfg.replace(
-        n_layers=BP_LAYERS, dtype="float32", attention_impl="xla")
     loss_fn = bundle(cfg).loss_fn()
     cpu0 = bundle(cfg).init(0, device="cpu")
     batch = Pipeline(DataSpec("lm", batch=BP_BATCH, seq=BP_SEQ,
                               vocab=cfg.vocab_size, seed=SEED),
                      device="cpu").batch(0)
-    out = {}
+    out, seen = {}, {}
+    taken = {}
+
+    def recording(fn, params, b):
+        """``value_and_grad`` as the Adam step calls it, its gradients kept
+        (one forward and backward a device)"""
+        loss, grads = value_and_grad(fn, params, b)
+        taken["grads"] = [(k, g.cpu()) for k, g in flatten_with_path(grads)]
+        return loss, grads
+
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda t: t.to(dev, copy=True), cpu0)
         b = {k: v.to(dev) for k, v in batch.items()}
-        loss, grads = value_and_grad(loss_fn, p, b)
+        _build.reset_launch_counts()
         opt = Adam(AdamConfig(lr=BP_LR))
-        p, state, m = opt.step_fn(loss_fn)(p, opt.init(p), b)
-        out[dev] = (float(loss), float(m["grad_norm"]),
-                    [(k, g.cpu()) for k, g in flatten_with_path(grads)],
-                    [t.cpu() for t in tree_leaves(p)])
-        del p, state, grads
+        adam_mod.value_and_grad = recording
+        try:
+            p, state, m = opt.step_fn(loss_fn)(p, opt.init(p), b)
+        finally:
+            adam_mod.value_and_grad = value_and_grad
+        torch.cuda.synchronize()
+        seen = {**_build.launch_counts, **_build.record_counts}
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    taken.pop("grads"), [t.cpu() for t in tree_leaves(p)])
+        del p, state
+    del cpu0
     (lc, nc, gc, pc), (lg, ng, gg, pg) = out["cpu"], out["cuda"]
     if abs(lc - lg) > BP_LOSS_REL * abs(lc):
-        fail(f"(q): loss on the card {lg} vs the CPU {lc}")
+        fail(f"(q) {what}: loss on the card {lg} vs the CPU {lc}")
     if abs(nc - ng) > BP_GRAD_REL * nc:
-        fail(f"(q): grad_norm on the card {ng} vs the CPU {nc}")
+        fail(f"(q) {what}: grad_norm on the card {ng} vs the CPU {nc}")
     worst_g = 0.0
     for (path, a), (_, b) in zip(gc, gg):
         rel = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
         worst_g = max(worst_g, rel)
         if rel > BP_GRAD_REL:
-            fail(f"(q): gradient {path}: card vs CPU {rel:.3e} of its "
-                 f"largest |g| > {BP_GRAD_REL}")
+            fail(f"(q) {what}: gradient {path}: card vs CPU {rel:.3e} of "
+                 f"its largest |g| > {BP_GRAD_REL}")
     gaps = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(pc, pg)])
     far = float((gaps > BP_THETA_ATOL * BP_LR).float().mean())
     if float(gaps.max()) > 2 * BP_LR or far > BP_THETA_OUTLIERS:
-        fail(f"(q): θ after one Adam step: max gap {float(gaps.max()):.3e} "
-             f"(bound 2η = {2 * BP_LR}), {far:.2e} of the elements beyond "
-             f"{BP_THETA_ATOL}·η (bound {BP_THETA_OUTLIERS})")
-    log(f"(q) card ≡ CPU, one Adam step at qwen2-0.5b's width, "
-        f"{BP_LAYERS} layers, f32, {BP_BATCH} × {BP_SEQ}: loss {lg:.6f} vs "
-        f"{lc:.6f}, grad_norm {ng:.6f} vs {nc:.6f}, every gradient leaf "
-        f"within {worst_g:.2e} of its largest |g| (bound {BP_GRAD_REL}), θ "
-        f"max gap {float(gaps.max()):.2e} (2η = {2 * BP_LR}), {far:.2e} of "
-        f"its elements beyond {BP_THETA_ATOL}·η")
-    # the refusals, each before any launch
-    for what, rcfg, needle in (
-            ("pallas_flash", cfg.replace(attention_impl="pallas_flash"),
-             "flash_attention"),
-            ("rwkv6 chunk mode",
-             all_archs()["rwkv6-3b"].smoke_cfg.replace(scan_mode="chunk"),
-             "wkv6_chunked")):
-        params = bundle(rcfg).init(0, device="cuda")
-        b = {k: v[:, :32].to("cuda") for k, v in batch.items()}
-        b["tokens"] = b["tokens"] % rcfg.vocab_size
-        b["labels"] = b["labels"] % rcfg.vocab_size
-        _build.reset_launch_counts()
-        try:
-            value_and_grad(bundle(rcfg).loss_fn(), params, b)
-        except RuntimeError as e:
-            if needle not in str(e) or "no backward" not in str(e):
-                raise
-            if _build.launch_counts[needle]:
-                fail(f"(q): {needle} launched before it refused autograd")
-            log(f"(q) autograd through {what} on the card refused before "
-                f"any launch: {e}")
-        else:
-            fail(f"(q): autograd through {what} on the card did not raise")
-    rcfg = all_archs()["rwkv6-3b"].smoke_cfg.replace(
+        fail(f"(q) {what}: θ after one Adam step: max gap "
+             f"{float(gaps.max()):.3e} (bound 2η = {2 * BP_LR}), {far:.2e} "
+             f"of the elements beyond {BP_THETA_ATOL}·η (bound "
+             f"{BP_THETA_OUTLIERS})")
+    log(f"(q) card ≡ CPU, one Adam step of {what}, {cfg.n_layers} layers, "
+        f"f32, {BP_BATCH} × {BP_SEQ}: loss {lg:.6f} vs {lc:.6f} (bound "
+        f"{BP_LOSS_REL} relative), grad_norm {ng:.6f} vs {nc:.6f}, every "
+        f"one of {len(gg)} gradient leaves within {worst_g:.2e} of its "
+        f"largest |g| (bound {BP_GRAD_REL}), θ max gap "
+        f"{float(gaps.max()):.2e} (2η = {2 * BP_LR}), {far:.2e} of its "
+        f"elements beyond {BP_THETA_ATOL}·η")
+    return seen
+
+
+def backprop_card_vs_cpu(torch, np, _build) -> None:
+    """(q) the same port code on the card and on the CPU: one Adam step at
+    qwen2-0.5b's width with BP_LAYERS layers, and one of rwkv6-3b at full
+    width with BP_LAYERS layers in chunk mode — K11's forward on the card,
+    its gradient the VJP of the plain chunk form (``ops.ChunkedWKV``),
+    both counted — each held card ≡ CPU (``_adam_card_vs_cpu``); K2's
+    refusal of autograd on the card, before any launch; and
+    ``fused_recurrent`` differentiating on the card."""
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.train.adam import value_and_grad
+    from repro_torch.tree_utils import tree_leaves
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(
+        n_layers=BP_LAYERS, dtype="float32", attention_impl="xla")
+    _adam_card_vs_cpu(torch, _build, cfg, "qwen2-0.5b at full width")
+    rcfg = all_archs()["rwkv6-3b"].cfg.replace(
+        n_layers=BP_LAYERS, dtype="float32", scan_mode="chunk")
+    seen = _adam_card_vs_cpu(torch, _build, rcfg,
+                             "rwkv6-3b at full width in chunk mode")
+    fwd, bwd = seen["wkv6_chunked"], seen["wkv6_chunked_backward"]
+    if fwd == 0 or bwd == 0:
+        fail(f"(q): rwkv6 chunk mode under autograd on the card: K11 "
+             f"launched {fwd} times, its backward ran {bwd} times")
+    log(f"(q) rwkv6-3b chunk mode under autograd on the card: K11 forward "
+        f"launches {fwd}, backward records (the VJP of the plain chunk "
+        f"form, recomputed) {bwd}")
+    # K2 refuses autograd before any launch, as JAX's Pallas flash has no
+    # backward either
+    batch = Pipeline(DataSpec("lm", batch=BP_BATCH, seq=BP_SEQ,
+                              vocab=cfg.vocab_size, seed=SEED),
+                     device="cpu").batch(0)
+    fcfg = cfg.replace(attention_impl="pallas_flash")
+    params = bundle(fcfg).init(0, device="cuda")
+    b = {k: v[:, :32].to("cuda") for k, v in batch.items()}
+    _build.reset_launch_counts()
+    try:
+        value_and_grad(bundle(fcfg).loss_fn(), params, b)
+    except RuntimeError as e:
+        if "flash_attention" not in str(e) or "no backward" not in str(e):
+            raise
+        if _build.launch_counts["flash_attention"]:
+            fail("(q): flash_attention launched before it refused autograd")
+        log(f"(q) autograd through pallas_flash on the card refused before "
+            f"any launch: {e}")
+    else:
+        fail("(q): autograd through pallas_flash on the card did not raise")
+    del params
+    scfg = all_archs()["rwkv6-3b"].smoke_cfg.replace(
         scan_mode="fused_recurrent")
-    params = bundle(rcfg).init(0, device="cuda")
-    loss, grads = value_and_grad(bundle(rcfg).loss_fn(), params, b)
+    params = bundle(scfg).init(0, device="cuda")
+    b = {k: (v % scfg.vocab_size if k in ("tokens", "labels") else v)
+         for k, v in b.items()}
+    loss, grads = value_and_grad(bundle(scfg).loss_fn(), params, b)
     if not (np.isfinite(float(loss)) and all(
             bool(torch.isfinite(g).all()) for g in tree_leaves(grads))):
         fail("(q): rwkv6 fused_recurrent gradients on the card not finite")
@@ -4253,9 +4399,12 @@ def check_x1_original(torch, np) -> float:
                         fail(f"X1 original {dt} n={n} offset={off} "
                              f"total={total} {dist} {form}: kernel != plain")
                     cases += 1
+    cases += check_x1_original_vector(torch, x1, g)
     routes = {k: v for k, v in _build.route_counts.items()
               if k.startswith("zo_affine_threefry_original")}
-    if _build.launch_counts["zo_affine_threefry"] or len(routes) != 2:
+    want = {f"zo_affine_threefry_original/{r}"
+            for r in ("pairs", "pairs/vector", "pairs/scalar", "bands")}
+    if _build.launch_counts["zo_affine_threefry"] or set(routes) != want:
         fail(f"X1 original's checks: launches {dict(_build.launch_counts)}, "
              f"routes {routes}")
     gold = np.load(X1_ORIG_GOLDEN)
@@ -4316,26 +4465,80 @@ def check_x1_original(torch, np) -> float:
             held += 1
     log(f"X1 original layout: {cases} writes (f32/bf16/f16 × gaussian/"
         "rademacher × z/axpbz/xpbz/restore; whole leaves of odd and even "
-        "word counts, windows straddling h, bands, windows of virtual leaves "
-        "past 2^32 − 1 words) bitwise its plain version, launches by route "
-        + ", ".join(f"{k.split('/')[1]} {v}" for k, v in sorted(
+        "word counts at every residue of h mod R, windows straddling h, "
+        "meeting or not, off the vector grid, x and y misaligned, bands, "
+        "windows of virtual leaves past 2^32 − 1 words) bitwise its plain "
+        "version, launches by route "
+        + ", ".join(f"{k.split('/', 1)[1]} {v}" for k, v in sorted(
             routes.items())) + f"; {held} writes == the JAX fixture "
         "(x1_original_golden.npz: every form, odd and even m, rows bands, "
         "windows past 2^32 − 1 words)")
     return 0.0
 
 
-def x1_original_sass(lib_path, per: int):
-    """SASS per z of X1's original-layout kernel (bf16 gaussian axpbz) on
-    its executed path, as (shortest, longest) per-z counts by unit, or
-    None when the kernel is not that shape.  One iteration of its
-    grid-stride loop hashes a pair of words (the loop's head, up to its
-    first branch) and writes ``per`` elements of each word in an inner
-    loop that nvcc versions (four copies a word, unrolled: each iteration
-    writes as many elements as it has LDS); which copy runs is not known
-    statically, so the shortest and the longest are both counted: per z,
-    (head + one word's loop × per / its LDS + the other's) / (2·per).  The
-    copies' dispatch (a few branches a word) is not counted."""
+def check_x1_original_vector(torch, x1, g) -> int:
+    """The ``pairs`` route's vector design against its plain version,
+    bitwise, every form, in place: for each dtype × dist (R pairs a
+    16-byte vector) whole leaves of odd and even m at every residue of h
+    mod R (site 2's shift d = h mod R), the last word whole or partial;
+    x (or y) one element off y's (x's) 16-byte grid — the all-scalar
+    launches; and windows off the vector grid, inside one half, straddling
+    h with their pair ranges meeting, and nearly the whole leaf.  Returns
+    the writes held."""
+    cases = 0
+
+    def hold(n, off, total, dt, dist, form, xshift=0, yshift=0):
+        """y = the write of x; in place where x and y lie alike."""
+        nonlocal cases
+        x = torch.randn(n + 8, generator=g).to(dt).cuda()[xshift:xshift + n]
+        y = (x if xshift == yshift else
+             torch.empty(n + 8, dtype=dt, device="cuda")[yshift:yshift + n])
+        kw = dict(a=0.5, b=-0.25, e=0.125, dist=dist, offset=off,
+                  total=total, partitionable=False)
+        yp = x1.zo_affine_threefry_plain(
+            None if form == "z" else x.clone(), (7, 2**31 + 5), form,
+            out=torch.empty_like(x), **kw)
+        yk = x1.zo_affine_threefry(None if form == "z" else x,
+                                   (7, 2**31 + 5), form, out=y, **kw)
+        if not same_bits(yk, yp):
+            fail(f"X1 original (vector design) {dt} {dist} {form} n={n} "
+                 f"offset={off} total={total} x+{xshift} y+{yshift}: "
+                 "kernel != plain")
+        cases += 1
+
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for dist in ("gaussian", "rademacher"):
+            epw = 32 // x1.bit_width(dt, dist)
+            R = 16 // (epw * dt.itemsize)
+            for res in range(R):
+                h = 1500 * R + res          # ≈ 23 chunks of 64 runs
+                for m in (2 * h, 2 * h - 1):
+                    n = m * epw - (res % 2) * (epw - 1)
+                    for form in ("z", "axpbz", "xpbz", "restore"):
+                        hold(n, 0, n, dt, dist, form)
+            n = 40000 * epw + 3
+            H = ((-(-n // epw) + 1) // 2) * epw     # site 2's first element
+            for form in ("axpbz", "restore", "z"):
+                hold(n, 0, n, dt, dist, form, xshift=1)
+                hold(n, 0, n, dt, dist, form, yshift=1)
+                for lo, hi in ((3, H // 2), (H + 5, n - 1),
+                               (H - 700, H + 900), (H // 3, H + H // 2),
+                               (8, n - 8), (4 * epw, n - 4 * epw)):
+                    hold(hi - lo, lo, n, dt, dist, form)
+    return cases
+
+
+def x1_original_sass(lib_path, parent: bool = False):
+    """SASS per z of X1's original-layout kernel (bf16 gaussian axpbz) in
+    its hot loop, by unit; None when the kernel is not that shape.  This
+    tree's: the zone's loop over 32 runs — the backward branch's span that
+    holds the most 16-byte stores (two an iteration: site 1's vector and
+    site 2's), the shortest on a tie — over its 2 × 8 z an iteration;
+    every instruction of the span is counted, the not-taken sides of its
+    uniform branches (the rotation by d, the shuffles) included.  With
+    ``parent``, the route's first design: one hash per pair, 4 elements a
+    word written in versioned inner loops — (head + each word's shortest
+    copy × 4 / its LDS count) / 8 per z."""
     funcs = sass_of(lib_path)
     names = [n for n in funcs
              if re.search(r"orig_kernelI13__nv_bfloat16Li0ELi1EE", n)]
@@ -4349,6 +4552,34 @@ def x1_original_sass(lib_path, per: int):
             spans.append((int(m.group(1), 16), addr))
     if not spans:
         return None
+    if parent:
+        return _x1_original_sass_pairs(instrs, spans)
+    best = None
+    for lo, hi in spans:
+        body = [(op, rest) for a, op, rest in instrs if lo <= a <= hi]
+        vec = sum(1 for op, rest in body
+                  if op == "STG" and rest.startswith(".E.128"))
+        key = (vec, -len(body))
+        if vec and (best is None or key > best[0]):
+            best = (key, [op for op, _ in body])
+    if best is None:
+        return None
+    (vec, _), body = best
+    nz = vec * 8
+    counts = {g: 0.0 for g, _ in SASS_GROUPS}
+    counts.update(alu=0.0, uniform=0.0)
+    for op in body:
+        counts[sass_group(op)] += 1
+    out = {g: v / nz for g, v in counts.items()}
+    out["total"] = len(body) / nz
+    out["rsq_in_loop"] = nz
+    return out
+
+
+def _x1_original_sass_pairs(instrs, spans):
+    """The first design's per-z count (its shortest path): a grid-stride
+    loop over word pairs around versioned loops over a word's 4 elements."""
+    per = 4
     outer = max(spans, key=lambda sp: sp[1] - sp[0])
     inner = sorted(sp for sp in spans if sp != outer and outer[0] <= sp[0]
                    and sp[1] <= outer[1])
@@ -4362,34 +4593,109 @@ def x1_original_sass(lib_path, per: int):
         return None
     head = [op for a, op, _ in instrs if outer[0] <= a <= first_branch]
     half = len(bodies) // 2
-    words = (bodies[:half], bodies[half:])
-
-    def per_z(pick):
-        counts = {g: 0.0 for g, _ in SASS_GROUPS}
-        counts.update(alu=0.0, uniform=0.0)
-        total = 0.0
-        for weight, ops in ([(1, head)] + [
-                (per // b.count("LDS"), b)
-                for b in (pick(w, key=len) for w in words)]):
-            for op in ops:
-                counts[sass_group(op)] += weight
-            total += weight * len(ops)
-        out = {g: v / (2 * per) for g, v in counts.items()}
-        out["total"] = total / (2 * per)
-        out["rsq_in_loop"] = 2 * per
-        return out
-
-    return per_z(min), per_z(max)
+    counts = {g: 0.0 for g, _ in SASS_GROUPS}
+    counts.update(alu=0.0, uniform=0.0)
+    total = 0.0
+    for weight, ops in ([(1, head)] + [
+            (per // b.count("LDS"), b)
+            for b in (min(w, key=len) for w in (bodies[:half],
+                                                bodies[half:]))]):
+        for op in ops:
+            counts[sass_group(op)] += weight
+        total += weight * len(ops)
+    out = {g: v / (2 * per) for g, v in counts.items()}
+    out["total"] = total / (2 * per)
+    out["rsq_in_loop"] = 2 * per
+    return out
 
 
-def x1_original_row(torch, np, _build, params0, card, err) -> dict:
-    """X1's original route over the 15 qwen2-0.5b leaves (bf16 gaussian
-    axpbz, the replay / update write) in turns with the partitionable
-    route on the same leaves (P O O P, CUDA-event medians); its plain
-    version's time; its row of the ``kernels`` line (launches filled in
-    from the counted paths)."""
-    import statistics
+def _orig_pass_fn(lib_path, leaves, bval: float):
+    """One X1 original-layout pass over ``leaves`` (bf16 gaussian axpbz,
+    key (12345, i) for leaf i) through the C entry ``zo_threefry_original``
+    of the library at ``lib_path`` — whose signature the redesign keeps —
+    on the launches ``original_launches`` plans, the host's work done
+    once."""
+    import ctypes
+    from repro_torch.kernels import _build
     from repro_torch.kernels.threefry import kernel as x1
+    vp, i, f, u32, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_uint32, ctypes.c_uint64)
+    fn = ctypes.CDLL(str(lib_path)).zo_threefry_original
+    fn.argtypes = [vp, vp, i, u32, u32, u64, u32, u32, u32, u32, u64, u64,
+                   u64, i, i, i, f, f, f, f, i, f, vp]
+    fn.restype = i
+    calls = []
+    for j, q in enumerate(leaves):
+        n = q.numel()
+        for ln in x1.original_launches(0, n, n, 8):
+            calls.append((j, (1, 12345, j, ln.wbase, ln.m, ln.h, ln.p0,
+                              ln.np, 0, n, 0, 8, 0, 1, 1.0, bval, 0.0, 1.0,
+                              0, 0.0)))
+
+    def run(ys=None):
+        stream = _build.stream_of(leaves[0])      # a graph's, when captured
+        for j, args in calls:
+            at = leaves[j].data_ptr() if ys is None else ys[j]
+            if fn(at, at, *args, stream):
+                fail(f"X1 original timing launch failed ({lib_path})")
+    return run
+
+
+def _orig_bands_pass_fn(leaves, ranges, bval: float):
+    """One pass of X1's original ``bands`` route over ``leaves`` (bf16
+    gaussian axpbz) on the band lists ``ranges`` (a leaf's rows plan; None
+    for a leaf written whole, which the pass skips) through the C entry
+    ``zo_threefry_original_bands``, the band tensors uploaded once.
+    Returns (the pass, the elements it writes, its launches)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.threefry import kernel as x1
+    lib = x1._lib()
+    calls = []
+    for j, (q, bands) in enumerate(zip(leaves, ranges)):
+        if bands is None:
+            continue
+        m = x1.draw_words(q.numel(), 8)
+        for blk, group in x1._original_bands(bands, 0, 8):
+            bl = torch.tensor(group, dtype=torch.int64)
+            lens = bl[:, 1] - bl[:, 0]
+            cum = torch.cat([torch.zeros(1, dtype=torch.int64),
+                             torch.cumsum(lens, 0)])
+            mb = x1.block_words(m, blk)
+            calls.append((q, bl[:, 0].cuda(), cum.cuda(),
+                          (1, 12345, j, blk * x1.BLOCK_WORDS, mb,
+                           (mb + 1) // 2, 0, 8, 0, 1, 1.0, bval, 0.0, 1.0,
+                           0, 0.0), len(group), int(lens.sum())))
+
+    def run():
+        stream = _build.stream_of(leaves[0])      # a graph's, when captured
+        for q, starts, cum, args, nb, total in calls:
+            err = lib.zo_threefry_original_bands(
+                q.data_ptr(), q.data_ptr(), *args, starts.data_ptr(),
+                cum.data_ptr(), nb, total, stream)
+            if err:
+                fail(f"X1 original bands timing launch: CUDA error {err}")
+    return run, sum(c[-1] for c in calls), len(calls)
+
+
+def x1_original_row(torch, np, _build, params0, card, err,
+                    parent_lib=None) -> dict:
+    """X1's original route over the 15 qwen2-0.5b leaves (bf16 gaussian
+    axpbz, the replay / update write): in turns with the partitionable
+    route on the same leaves (``run_ms``: CUDA-graph runs of 10 passes,
+    the order reversed every round, so P O O P …; and Python-issued runs,
+    the wrappers' host work included), and with ``parent_lib`` — the
+    parent's ``zo_threefry`` library — in turns with the parent's
+    ``orig_kernel`` through the same C entry (P C C P …), one pass of each
+    from the same leaves held bitwise equal; its launches by route, its
+    plain version's time, its SASS per z and floors, registers and spills;
+    the bands route's time under ``rows(block=1,k=4)`` (one
+    ``apply_rank1`` of the xla backend, Python-issued); its row of the
+    ``kernels`` line (launches filled in from the counted paths)."""
+    from repro_torch.kernels.threefry import kernel as x1
+    from repro_torch.perturb import XLABackend
+    from repro_torch.perturb.stream import StreamRef, threefry_partitionable
+    from repro_torch.select import parse_selection
     from repro_torch.tree_utils import is_floating, tree_leaves
     leaves = [q.clone() for q in tree_leaves(params0) if is_floating(q)]
     n_all = sum(q.numel() for q in leaves)
@@ -4401,47 +4707,92 @@ def x1_original_row(torch, np, _build, params0, card, err) -> dict:
             fn(q, (12345, i), "axpbz", a=1.0, b=bval, out=q,
                partitionable=part)
 
-    times = {True: [], False: []}
+    fns = {"partitionable": lambda: record(True),
+           "original": lambda: record(False)}
     with ClockSampler() as clock:
-        for part in (True, False, False, True):
-            times[part].append(cuda_ms(lambda: record(part), 10))
+        graphed = run_ms(fns, 10, rounds=4)
+        eager = run_ms(fns, 10, rounds=2, graph=False)
+    ms_o, ms_p = graphed["original"], graphed["partitionable"]
     _build.reset_launch_counts()
     record(False)
-    routes = {k: v for k, v in _build.route_counts.items()
+    routes = {k.split("/", 1)[1]: v for k, v in _build.route_counts.items()
               if "original" in k}
     plain_ms = host_ms(lambda: record(False, x1.zo_affine_threefry_plain))
-    del leaves
-    ms_o = statistics.median(times[False])
-    ms_p = statistics.median(times[True])
     bms, by = bound(2 * leaf_bytes, 4 * n_all, F32_FLOPS)
     log(f"X1 original layout, one pass over the 15 qwen2-0.5b leaves "
-        f"({n_all} bf16 elements, gaussian axpbz; launches {routes}): "
-        f"{ms_o:.4f} ms against the partitionable route's {ms_p:.4f} ms on "
-        f"the same leaves in turns (P O O P: " + ", ".join(
-            f"{t:.4f}" for t in (times[True][0], *times[False],
-                                 times[True][1]))
-        + f"), plain version {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}) — "
-        f"on {card}")
-    per = 32 // x1.bit_width(torch.bfloat16, "gaussian")
-    both = x1_original_sass(_build.lib_path("zo_threefry"), per)
-    if both is None:
-        log("X1 original SASS per z: not counted (its loop is not a "
-            "grid-stride loop over word pairs around versioned loops over "
-            "a word's elements)")
-    else:
-        mhz = clock.mhz if clock.mhz == clock.mhz else sm_clocks()[0]
-        for what, c in zip(("shortest", "longest"), both):
-            log(sass_line(f"X1 zo_affine_threefry_original, its {what} "
-                          f"path (bf16 gaussian axpbz; {per} elements per "
-                          "32-bit word, one hash per 2 words)", c))
-            log(f"X1 original layout, {what} path: "
-                + floors_text(n_all, c, mhz, ms_o) + f" at {mhz:.0f} MHz; "
-                f"the bytes bound {bms:.4f} ms is "
-                f"{100 * bms / ms_o:.1f}% of its time — on {card}")
-    log("X1 original registers / shared memory / spills (bf16 gaussian "
-        "axpbz): " + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas_facts(
+        f"({n_all} bf16 elements, gaussian axpbz; launches by route "
+        f"{routes}): {ms_o:.4f} ms against the partitionable route's "
+        f"{ms_p:.4f} ms on the same leaves in turns (CUDA-graph runs of 10 "
+        f"passes, 4 rounds, the order reversed every round); Python-issued "
+        f"{eager['original']:.4f} / {eager['partitionable']:.4f} ms (the "
+        f"wrappers' host work included); plain version {plain_ms:.1f} ms; "
+        f"bound {bms:.4f} ms ({by}), {100 * bms / ms_o:.1f}% of it reached "
+        f"— on {card}")
+    if parent_lib is not None:
+        libs = {"parent": parent_lib,
+                "change": _build.lib_path("zo_threefry")}
+        runs = {k: _orig_pass_fn(v, leaves, bval) for k, v in libs.items()}
+        outs = {}
+        for k, run in runs.items():
+            outs[k] = [q.clone() for q in leaves]
+            run([o.data_ptr() for o in outs[k]])
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(outs["parent"],
+                                                   outs["change"])):
+            fail("X1 original: this tree's pass != the parent's pass")
+        del outs
+        turns = run_ms({"parent": runs["parent"], "change": runs["change"]},
+                       10, rounds=4)
+        for k in ("parent", "change"):
+            c = x1_original_sass(libs[k], parent=k == "parent")
+            text = ("SASS not counted (an unknown loop shape)" if c is None
+                    else floors_text(n_all, c, clock.mhz, turns[k]))
+            log(f"X1 original {k}: {turns[k]:.4f} ms per pass (CUDA-graph "
+                f"runs of 10 passes through zo_threefry_original, 4 rounds "
+                f"P C C P …); {text} — on {card}")
+        log(f"X1 original: the parent's pass / this tree's "
+            f"{turns['parent'] / turns['change']:.3f}×; one pass of each "
+            "from the same leaves bitwise equal")
+    c = x1_original_sass(_build.lib_path("zo_threefry"))
+    if c is None:
+        fail("X1 original SASS: no zone loop with 16-byte stores in "
+             "orig_kernel<bf16, gaussian, axpbz>")
+    mhz = clock.mhz if clock.mhz == clock.mhz else sm_clocks()[0]
+    log(sass_line("X1 zo_affine_threefry_original (bf16 gaussian axpbz; "
+                  "the zone's loop, 2 pairs a lane and site)", c))
+    log("X1 original layout: " + floors_text(n_all, c, mhz, ms_o)
+        + f" at {mhz:.0f} MHz; the bytes bound {bms:.4f} ms is "
+        f"{100 * bms / ms_o:.1f}% of its time — on {card}")
+    log("X1 original registers / shared memory / spills (gaussian axpbz): "
+        + "; ".join(f"{k}: {v}" for k, v in sorted(ptxas_facts(
             _build, "zo_threefry").items())
             if k.startswith("orig_kernel") and k.endswith(", 0, 1>")))
+    # the bands route (not redesigned) under rows(block=1,k=4)
+    tree = {f"l{i:02d}": q for i, q in enumerate(leaves)}
+    sel = parse_selection(ROWS)
+    ref = StreamRef((12345, 0)).with_selection(sel, 1)
+    blocks = ref.selection_blocks(tree)
+    ranges = [None if rb is None or rb.all_selected else rb.ranges()
+              for rb in blocks]
+    run_b, picked, nlaunch = _orig_bands_pass_fn(leaves, ranges, bval)
+    ms_b = run_ms({"bands": run_b}, 10, rounds=2)["bands"]
+    backend = XLABackend()
+    with threefry_partitionable(False):
+        _build.reset_launch_counts()
+        backend.apply_rank1(tree, ref, np.float32(bval), np.float32(0.0))
+        bands = dict(_build.route_counts)
+        ms_py = cuda_ms(lambda: backend.apply_rank1(
+            tree, ref, np.float32(bval), np.float32(0.0)), 3)
+    bms_b = bound(2 * picked * 2, 0, F32_FLOPS)[0]
+    log(f"X1 original bands route (not redesigned) under {ROWS}: one pass "
+        f"over the 15 leaves' selected rows ({picked} of {n_all} elements; "
+        f"{nlaunch} launches through zo_threefry_original_bands, the band "
+        f"tensors uploaded once): {ms_b:.4f} ms (CUDA-graph runs of 10 "
+        f"passes), bound {bms_b:.4f} ms by bytes ({100 * bms_b / ms_b:.1f}% "
+        f"of it reached); one apply_rank1 of the xla backend (launches "
+        f"{bands}), Python-issued, the band lists built and uploaded each "
+        f"call: {ms_py:.2f} ms — on {card}")
+    del leaves, tree
     return {"name": "zo_affine_threefry_original", "route": "cuda",
             "source": "src/repro_torch/kernels/threefry/csrc/zo_threefry.cu",
             "replaces": "src/repro/perturb/xla.py:38", "launches": 0,
@@ -4819,11 +5170,30 @@ def hymba_paths(torch, np, kf, _build, counts, step_ms, card) -> None:
                    f"{cfg.sliding_window}")
     ms_k2 = cuda_ms(lambda: kf.flash_attention(q, k, v,
                                                window=cfg.sliding_window), 20)
+    # beside one SDPA call on the same inputs: the window as a boolean mask
+    # (built once), the KV heads repeated to the query heads (once)
+    W = cfg.sliding_window
+    i = torch.arange(S_, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(H_ // cfg.kv_heads, dim=1)
+              for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    run = run_ms({"kernel": lambda: kf.flash_attention(q, k, v, window=W),
+                  "library": lambda: sdpa(qt, kt, vt, attn_mask=band)},
+                 RUN_N)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    ops = 4 * hd_ * kf.attended_pairs(S_, window=W) * B_ * H_
+    bms, by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
     log(f"K2 at {HYMBA_K2_SHAPE} over {cfg.kv_heads} KV heads (group "
-        f"{H_ // cfg.kv_heads}), window {cfg.sliding_window}, bf16: held to "
-        f"its plain version, max abs err {err:.2e}; {ms_k2:.4f} ms (median "
-        f"of 20 CUDA-event pairs) — on {card}")
-    del q, k, v
+        f"{H_ // cfg.kv_heads}), window {W}, bf16: held to its plain "
+        f"version, max abs err {err:.2e}; {ms_k2:.4f} ms (median of 20 "
+        f"CUDA-event pairs); in turns with one SDPA call (the window as a "
+        f"boolean mask, KV heads repeated, both outside the call), "
+        f"{RUN_N} launches per CUDA graph: K2 {run['kernel']:.4f} ms, SDPA "
+        f"{run['library']:.4f} ms; bound {bms:.4f} ms ({by}: {nbytes} "
+        f"bytes, {ops:.4e} operations) — on {card}")
+    del q, k, v, qt, kt, vt, band
     hymba_ring_check(torch, card)
     hymba_ssd_check(torch, card)
     # θ₀ regenerated, the ledger replayed onto it, served through the slab
@@ -4999,10 +5369,23 @@ def whisper_paths(torch, np, _build, counts, step_ms, card) -> None:
 def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
                       which) -> None:
     """The phases named in ``which`` (u: hymba-1.5b, t: mixtral-8x7b, w:
-    whisper-large-v3), each after the trees before it are freed, K2 held to
-    its plain version at every shape they gave it."""
+    whisper-large-v3; for iterating alone, j: qwen2-0.5b's spsa step under
+    the original threefry layout, q: the card ≡ CPU Adam steps), each after
+    the trees before it are freed, K2 held to its plain version at every
+    shape they gave it."""
     t0 = time.perf_counter()
-    phases = {"u": ("hymba-1.5b", lambda: hymba_paths(
+
+    def qwen2_original_step():
+        from repro_torch.models import all_archs, bundle
+        cfg = all_archs()["qwen2-0.5b"].cfg.replace(
+            attention_impl="pallas_flash")
+        x1_original_step(torch, np, cfg, bundle(cfg).init(0, device="cuda"),
+                         _build, counts, step_ms, card)
+
+    phases = {"j": ("qwen2-0.5b", qwen2_original_step),
+              "q": ("the backprop checks",
+                    lambda: backprop_card_vs_cpu(torch, np, _build)),
+              "u": ("hymba-1.5b", lambda: hymba_paths(
                   torch, np, kf, _build, counts, step_ms, card)),
               "t": ("mixtral-8x7b", lambda: mixtral_paths(
                   torch, np, _build, counts, step_ms, card)),
@@ -5042,8 +5425,10 @@ def main() -> None:
                          "K9-K11 (in turns with --parent) and K2 at hd "
                          "128, then stop")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated family phases to run alone after "
-                         "the build (u: hymba-1.5b, t: mixtral-8x7b, w: "
+                    help="comma-separated phases to run alone after the "
+                         "build (j: qwen2-0.5b's spsa step under the "
+                         "original threefry layout, q: the card ≡ CPU Adam "
+                         "steps, u: hymba-1.5b, t: mixtral-8x7b, w: "
                          "whisper-large-v3), then stop without the kernels "
                          "line: for iterating on one phase")
     ap.add_argument("--parent", type=Path, default=None,
@@ -5119,6 +5504,10 @@ def main() -> None:
                             if is_floating(p)], args.parent, card)
     del scratch
     k2_hd128 = time_k2_hd128(torch, kf, card)
+    x1o_row = x1_original_row(
+        torch, np, _build, params0, card, x1o_err,
+        None if args.parent is None
+        else ROOT / "build" / "parent_kernels" / "zo_threefry.so")
     if args.kernels_only:
         log(f"kernels only: all checks passed in "
             f"{time.perf_counter() - t_start:.1f} s on {card}")
@@ -5191,7 +5580,7 @@ def main() -> None:
     # ---- its fine-tune; mezo-adam, trace and rescaled SPSA ------------- #
     x1_row = xla_paths(torch, np, cfg, params0, prompts, _build, counts,
                        step_ms, card, x1_err)
-    x1o_row = x1_original_row(torch, np, _build, params0, card, x1o_err)
+    x1_original_step(torch, np, cfg, params0, _build, counts, step_ms, card)
 
     # ---- kernel times at the qwen2-0.5b paths' shapes ----------------- #
     rows = qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot,
@@ -5268,10 +5657,17 @@ def main() -> None:
     if x1_vec == 0 or x1_vec != counts.get("zo_affine_threefry", 0):
         fail(f"X1 on the counted paths: {x1_vec} vector-route launches of "
              f"{counts.get('zo_affine_threefry', 0)}")
+    orig = {r: counts.get(f"zo_affine_threefry_original/{r}", 0)
+            for r in ("pairs/vector", "pairs/scalar", "bands")}
+    if orig["pairs/vector"] == 0 or orig["pairs/vector"] != counts.get(
+            "zo_affine_threefry_original/pairs", 0):
+        fail(f"X1's original route on the counted paths: {orig} — every "
+             "pairs launch of a whole leaf takes the vector route")
     log(f"X1 over the counted paths: all {x1_vec} launches on the vector "
         "route; its original-layout route "
         f"{counts.get('zo_affine_threefry_original', 0)} launches (pairs "
-        f"{counts.get('zo_affine_threefry_original/pairs', 0)})")
+        f"{counts.get('zo_affine_threefry_original/pairs', 0)}: "
+        + ", ".join(f"{k} {v}" for k, v in orig.items()) + ")")
     k11_tile = counts.get("wkv6_chunked/tile", 0)
     if k11_tile == 0 or k11_tile != counts.get("wkv6_chunked", 0):
         fail(f"K11 on the counted paths: {k11_tile} tiled launches of "

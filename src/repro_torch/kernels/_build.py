@@ -64,7 +64,15 @@ launch_counts: Dict[str, int] = {k: 0 for _, _, ks in SOURCES.values()
 #: functions: "kernel/route" -> count (K2: its bf16 and f32 routes, and
 #: each launch once more under its head dim, "flash_attention/hd128")
 route_counts: Dict[str, int] = {}
+#: calls that launch no kernel but belong to one's path, counted apart from
+#: its launches: K11's backward (the VJP of its plain chunk form, recomputed
+#: under autograd — JAX differentiates its jnp chunk graph the same way)
+record_counts: Dict[str, int] = {"wkv6_chunked_backward": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def record(name: str) -> None:
+    record_counts[name] += 1
 
 
 def count(name: str, *routes: str) -> None:
@@ -78,7 +86,8 @@ def refuse_autograd(kernel: str, tensors, instead: str) -> None:
     """Raise where autograd would record through ``kernel``: a ctypes launch
     writes into fresh tensors with no ``grad_fn``, so a gradient would stop
     there without a word.  Called by a wrapper with no backward before it
-    launches; ``instead`` names what differentiates."""
+    launches (K2: JAX's Pallas flash has none either); ``instead`` names
+    what differentiates."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -90,6 +99,8 @@ def refuse_autograd(kernel: str, tensors, instead: str) -> None:
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    for k in record_counts:
+        record_counts[k] = 0
     route_counts.clear()
 
 

@@ -26,6 +26,7 @@ under it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -98,15 +99,10 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with unit stride on hd; ``u`` read at element strides ``u_strides =
     (per b, per h)``; s0 (B, H, hd, hd) with row-major hd × hd matrices.
     Returns y (B, S, H, hd) and s_final (B, H, hd, hd), f32 contiguous.
-    The launch is counted under its route (``plan``).  Forward only: the
-    card path refuses autograd (the plain version on the CPU differentiates,
-    as JAX's jnp chunk form does; K11's backward is queued work)."""
+    The launch is counted under its route (``plan``).  Forward only: its
+    outputs carry no ``grad_fn``; ``ops.wkv6`` wraps it in an autograd
+    Function whose backward differentiates the plain chunk form."""
     ts = (r, k, v, lw, u, s0)
-    _build.refuse_autograd(
-        "wkv6_chunked (K11, rwkv6 scan_mode='chunk' on the card)", ts,
-        "scan_mode='fused_recurrent', which differentiates on the card "
-        "(a K11 backward is queued in ROADMAP: 'K11 backward — rwkv6 "
-        "backprop in chunk mode on the card')")
     B, S, H, hd = r.shape
     if any(t.device.type != "cuda" or t.device != r.device for t in ts):
         raise RuntimeError("wkv6_chunked: every input must be on one CUDA "
@@ -154,6 +150,15 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_chunked_plain(r, k, v, lw, u, s0, chunk=chunk)
     if r.device.type != "cuda":
         raise RuntimeError(f"wkv6_chunked: no kernel for device {r.device}")
+    from repro_torch.kernels.rwkv6.ops import ChunkedWKV
+    return ChunkedWKV.apply(functools.partial(_launch_folded, chunk=chunk),
+                            functools.partial(wkv6_chunked_plain,
+                                              chunk=chunk),
+                            r, k, v, lw, u, s0)
+
+
+def _launch_folded(r, k, v, lw, u, s0, *, chunk: int):
+    """K11 on JAX's (BH, S, hd) layout, as (B = BH, S, H = 1, hd)."""
     y, s_out = launch(r[:, :, None], k[:, :, None], v[:, :, None],
                       lw[:, :, None], u, (u.stride(0), 0), s0[:, None], chunk)
     return y[:, :, 0], s_out[:, 0]

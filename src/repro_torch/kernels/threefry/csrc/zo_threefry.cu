@@ -65,12 +65,35 @@
 // counter); the counter is the flat index in the leaf, so a band draws the
 // bits of that slice of the whole leaf.
 //
-// The original layout (jax_threefry_partitionable off) has its own route:
-// element e of an n-element draw reads bits of word e / (32 / bw) of the
-// m = ceil(bw n / 32) words, and one hash gives the words p and p + h
-// (h = ceil(m / 2)), so a thread takes a pair and writes both words'
-// elements — half a hash per f32 element, an eighth per bf16 one.  The
-// affine write, erf_inv and the f16 FMA rule are the partitionable route's.
+// The original layout (jax_threefry_partitionable off) has its own route,
+// `pairs`: element e of an n-element draw reads bits of word e / (32 / bw)
+// of the m = ceil(bw n / 32) words, and one hash gives the words p ("site
+// 1") and p + h ("site 2", h = ceil(m / 2)) — half a hash per f32 element,
+// an eighth per bf16 one.  So the hash is cheap and the accesses set the
+// pace: its first design wrote each element alone (a 2-byte load and store,
+// a 64-bit index and a window test each) and reached 39.5 % of its byte
+// bound.  This design gives a thread R consecutive pairs whose site-1 words
+// fill one 16-byte vector of y (R = 2 for bf16 gaussian, 8 bytes a word; 4
+// for f16 gaussian and f32; 8 for half rademacher), one uint4 load of x and
+// one store of y, with 32-bit indices inside a launch (the host cuts a
+// block's pairs into launches of at most 2^31 elements a site).  Site 2's
+// words lie d = h mod R words off the 16-byte grid, a launch constant.  They
+// are funnelled across lanes: each lane rotates its R site-2 words by d and
+// writes the aligned vector that ends d words into its own span, its first
+// d words shuffled up from the lane below (lane 0: carried from lane 31 of
+// the warp's previous 32 runs, since a warp walks a chunk of 64 consecutive
+// runs).  Shuffles keep the 32-bit words in registers — the element's
+// bits, z and the affine write happen where the word lands — with no shared
+// memory, no barrier and no bank conflicts, where staging in shared memory
+// would add a store, a load at R-way conflicts and a barrier per run.  The
+// vector at each chunk's edge (a "junction", its R pairs hashed again: one
+// vector in 64 runs) is written apart, still 16 bytes at a time.  Pairs off
+// the zone (a window's ends, an odd m's last pair, x and y that lie
+// differently against 16 bytes) take a scalar loop.  kernel.original_split
+// computes the split; tests/test_torch_x1_original_vector.py walks it on the
+// CPU.  x's loads are issued before the hashes, so they fly while the pairs
+// are hashed.  The affine write, erf_inv and the f16 FMA rule are the
+// partitionable route's.
 //
 // zo_threefry_pipe_probe times chains of the instructions X1 is made of,
 // one kind per probe, for chip_smoke.py's reading of each pipe's rate.
@@ -610,16 +633,23 @@ struct BandsL {
 // The original layout (jax_threefry_partitionable off): a draw of m words
 // (bw bits per element, 32 / bw elements per word) hashes iota(m) in two
 // halves of h = ceil(m / 2) words: threefry2x32(key, (p, p + h)) gives word
-// p (output 0) and word p + h (output 1); for odd m the last pair's second
-// count is the pad 0 and its output 1 is dropped.  A draw past 2^32 - 1
-// words takes one key per block of that many words (the host splits the
-// launch at blocks and passes each block's key, word base and m).
+// p (output 0, "site 1") and word p + h (output 1, "site 2"); for odd m the
+// last pair's second count is the pad 0 and its output 1 is dropped.  A
+// draw past 2^32 - 1 words takes one key per block of that many words (the
+// host splits the launch at blocks and passes each block's key, word base
+// and m).
 // ---------------------------------------------------------------------------
-struct Orig {
+// elements a word, as log2: JAX draws 8 bits for bf16, 16 for f16, and 32
+// for f32 and for rademacher in every dtype
+template <typename T, int DIST>
+__host__ __device__ constexpr int orig_lg() {
+  return (DIST == 1 || sizeof(T) == 4) ? 0
+         : std::is_same<T, __nv_bfloat16>::value ? 2 : 1;
+}
+
+struct Orig {           // the bands route
   uint64_t wbase;       // the block's first word in the draw
   uint32_t m, h;        // the block's words and its half
-  uint32_t p0, np;      // the launch's pairs [p0, p0 + np)
-  uint64_t e_lo, e_hi;  // the elements written, as draw indices
   uint64_t off;         // the draw index of y[0] (and x[0])
   int lg;               // log2(32 / bw): elements per word
 };
@@ -634,40 +664,190 @@ __device__ __forceinline__ Pre orig_pre(uint32_t word, int j, int lg) {
   return Pre{v << key_shift<T, DIST, FORM>(), 0u};
 }
 
-// one word's elements that lie in [e_lo, e_hi)
+// runs of R pairs a warp walks in one chunk, 32 at a time; the chunks are
+// grid-strided over the warps, so the warps' concurrent accesses stay near
+// each other in memory (one long chunk a warp spreads them a chunk apart),
+// and a junction vector joins two chunks
+constexpr uint32_t ORIG_CHUNK = 64;
+
+// One launch of the pairs route (kernel.original_split computes the same
+// split).  Each site's elements are indexed in 32 bits from its base, the
+// first element of pair p0's word there (y1 / y2 in the kernel), so pair
+// p0 + q's words start at element q << lg at both sites.
+struct OrigV {
+  uint32_t p0, np, m, h;        // pairs [p0, p0 + np) of a block of m words
+  uint32_t lo1, hi1, lo2, hi2;  // each site's elements inside the window
+  uint32_t qz, nrun;            // the zone: nrun runs of R pairs from qz
+  uint32_t d;                   // site 2's words off the 16-byte grid
+  uint32_t ch, nchunks;         // runs a chunk (ORIG_CHUNK), chunks
+};
+
+// the hash of block-local pair c0: A = word c0, B = word c0 + h
+__device__ __forceinline__ Pre orig_hash(uint32_t c0, const OrigV& g,
+                                         const Key& k) {
+  const uint32_t c1 = c0 + g.h;
+  return threefry(c0 + k.k0, (c1 < g.m ? c1 : 0u) + k.k1, k);
+}
+
+// the 16-byte vector of x at element e (zeros for the z form, which reads
+// no x)
+template <typename T, int FORM>
+__device__ __forceinline__ uint4 orig_load(const T* x, uint32_t e) {
+  if constexpr (FORM == FORM_Z) return make_uint4(0u, 0u, 0u, 0u);
+  else return *reinterpret_cast<const uint4*>(x + e);
+}
+
+// the 16-byte vector of y at element e from x's vector xv there and the R
+// words w (word r's elements first at r << lg)
+template <typename T, int DIST, int FORM, int R>
+__device__ __forceinline__ void orig_vector(T* y, uint32_t e, uint4 xv,
+                                            const uint32_t (&w)[R],
+                                            const Writer<T, DIST, FORM>& wr,
+                                            const Scal& s) {
+  constexpr int LG = orig_lg<T, DIST>();
+  constexpr int EPW = 1 << LG;
+  uint32_t o[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if constexpr (sizeof(T) == 4) {
+      o[q] = __float_as_uint(write_f32<DIST, FORM>(
+          __uint_as_float(o[q]), orig_pre<T, DIST, FORM>(w[q], 0, 0), s));
+    } else {
+      o[q] = wr.pair(
+          o[q],
+          orig_pre<T, DIST, FORM>(w[(2 * q) >> LG], (2 * q) & (EPW - 1), LG),
+          orig_pre<T, DIST, FORM>(w[(2 * q + 1) >> LG],
+                                  (2 * q + 1) & (EPW - 1), LG));
+    }
+  }
+  *reinterpret_cast<uint4*>(y + e) = make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// the elements of word w (its first at element e) that lie in [lo, hi)
 template <typename T, int DIST, int FORM>
-__device__ __forceinline__ void orig_word(const T* x, T* y, const Orig& g,
-                                          uint32_t w, uint32_t word,
-                                          const Writer<T, DIST, FORM>& wr,
-                                          const Scal& s) {
-  const int per = 1 << g.lg;
-  const uint64_t e0 = (g.wbase + w) << g.lg;
-  for (int j = 0; j < per; ++j) {
-    const uint64_t e = e0 + (uint64_t)j;
-    if (e < g.e_lo || e >= g.e_hi) continue;
-    const int64_t i = (int64_t)(e - g.off);
-    wr.one(x == nullptr ? nullptr : x + i, y + i, 0u,
-           orig_pre<T, DIST, FORM>(word, j, g.lg), s);
+__device__ __forceinline__ void orig_scalar(const T* x, T* y, uint32_t e,
+                                            uint32_t w, uint32_t lo,
+                                            uint32_t hi,
+                                            const Writer<T, DIST, FORM>& wr,
+                                            const Scal& s) {
+  constexpr int LG = orig_lg<T, DIST>();
+#pragma unroll
+  for (int j = 0; j < (1 << LG); ++j) {
+    const uint32_t i = e + (uint32_t)j;
+    if (i >= lo && i < hi)
+      wr.one(x, y, i, orig_pre<T, DIST, FORM>(w, j, LG), s);
   }
 }
 
-// whole leaves and windows: one hash per pair of words, both written
+// Whole leaves and windows: one hash per pair of words, both written.
+//  1. The zone, in 16-byte vectors: a warp walks a chunk of g.ch runs, 32
+//     at a time (the chunks grid-strided over the warps), a lane taking R pairs whose site-1 words fill one vector
+//     of y.  Their site-2 words lie d words off the grid; the lane rotates
+//     them by d and writes the aligned vector that ends d words into its
+//     own, taking its first d words from the lane below (__shfl_up_sync)
+//     and, at lane 0, from lane 31 of the warp's previous 32 runs (the
+//     carry).  Lane 0 of a chunk's first 32 runs has no carry.
+//  2. The junctions: the site-2 vector at each chunk's edge (the zone's
+//     two ends in part), one thread each, its R pairs hashed again.
+//  3. The scalar loop: the pairs before and after the zone, element by
+//     element inside the window.
 template <typename T, int DIST, int FORM>
 __global__ void __launch_bounds__(THREADS)
-orig_kernel(const T* x, T* y, Orig g, Key k, Scal s) {
+orig_kernel(const T* x1, T* y1, const T* x2, T* y2, OrigV g, Key k, Scal s) {
   using TB = Table<T, DIST, FORM>;
   __shared__ __align__(16) char tab[TB::BYTES];
   build_table<T, DIST, FORM>(tab, s);
   if constexpr (TB::ENTRIES > 0) __syncthreads();
   const Writer<T, DIST, FORM> wr(tab, s);
-  const uint32_t stride = gridDim.x * THREADS;
-  for (uint32_t t = blockIdx.x * THREADS + threadIdx.x; t < g.np;
-       t += stride) {
-    const uint32_t p = g.p0 + t;
-    const bool has2 = p + g.h < g.m;
-    const Pre r = threefry(p + k.k0, (has2 ? p + g.h : 0u) + k.k1, k);
-    orig_word<T, DIST, FORM>(x, y, g, p, r.A, wr, s);
-    if (has2) orig_word<T, DIST, FORM>(x, y, g, p + g.h, r.B, wr, s);
+  constexpr int LG = orig_lg<T, DIST>();
+  constexpr int R = 16 / ((1 << LG) * (int)sizeof(T));
+  constexpr uint32_t FULL = 0xFFFFFFFFu;
+  const uint32_t tid = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t nthreads = gridDim.x * THREADS;
+  const uint32_t lane = threadIdx.x & 31u;
+  const bool has1 = g.hi1 > g.lo1, has2 = g.hi2 > g.lo2;
+  for (uint32_t c = tid >> 5; c < g.nchunks; c += nthreads >> 5) {
+    const uint32_t j0 = c * g.ch;
+    const uint32_t j1 = min(j0 + g.ch, g.nrun);
+    uint32_t carry[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) carry[r] = 0u;
+    for (uint32_t jb = j0; jb < j1; jb += 32) {
+      const uint32_t j = jb + lane;
+      const bool active = j < j1;
+      const uint32_t q = g.qz + j * R;      // this lane's first pair
+      const uint32_t e = q << LG;           // its words' first element
+      const uint32_t e2 = e - (g.d << LG);  // its site-2 vector's
+      const bool on1 = has1 && active;
+      const bool on2 = has2 && active && (g.d == 0 || lane > 0 || jb > j0);
+      // x's vectors first: their loads fly while the pairs are hashed
+      uint4 xa = make_uint4(0u, 0u, 0u, 0u), xb = xa;
+      if (on1) xa = orig_load<T, FORM>(x1, e);
+      if (on2) xb = orig_load<T, FORM>(x2, e2);
+      uint32_t w1[R], w2[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const Pre p = orig_hash(g.p0 + q + (uint32_t)r, g, k);
+        w1[r] = p.A;
+        w2[r] = p.B;
+      }
+      if (on1) orig_vector<T, DIST, FORM, R>(y1, e, xa, w1, wr, s);
+      if (has2) {
+        // rot[r] = w2[(r - d) mod R], a barrel shift by the bits of d
+#pragma unroll
+        for (int b = 1; b < R; b <<= 1) {
+          if (g.d & b) {
+            uint32_t t[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) t[r] = w2[(r + R - b) % R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) w2[r] = t[r];
+          }
+        }
+        uint32_t v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          v[r] = w2[r];
+          if ((uint32_t)r < g.d) {
+            const uint32_t below = __shfl_up_sync(FULL, w2[r], 1);
+            v[r] = lane ? below : carry[r];
+            carry[r] = __shfl_sync(FULL, w2[r], 31);
+          }
+        }
+        if (on2) orig_vector<T, DIST, FORM, R>(y2, e2, xb, v, wr, s);
+      }
+    }
+  }
+  if (has2 && g.d != 0 && g.nrun != 0) {
+    for (uint32_t t = tid; t <= g.nchunks; t += nthreads) {
+      const uint32_t b = min(t * g.ch, g.nrun);
+      const uint32_t q = g.qz + b * R - g.d;  // the vector's first pair
+      uint32_t v[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        v[r] = orig_hash(g.p0 + q + (uint32_t)r, g, k).B;
+      if (b > 0 && b < g.nrun) {
+        orig_vector<T, DIST, FORM, R>(y2, q << LG,
+                                      orig_load<T, FORM>(x2, q << LG), v, wr,
+                                      s);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const uint32_t p = q + (uint32_t)r;  // in the zone only
+          if (p - g.qz < g.nrun * R)
+            orig_scalar<T, DIST, FORM>(x2, y2, p << LG, v[r], g.lo2, g.hi2,
+                                       wr, s);
+        }
+      }
+    }
+  }
+  const uint32_t tail = g.qz + g.nrun * R;
+  const uint32_t nscal = g.qz + (g.np - tail);
+  for (uint32_t t = tid; t < nscal; t += nthreads) {
+    const uint32_t q = t < g.qz ? t : tail + (t - g.qz);
+    const Pre p = orig_hash(g.p0 + q, g, k);
+    orig_scalar<T, DIST, FORM>(x1, y1, q << LG, p.A, g.lo1, g.hi1, wr, s);
+    orig_scalar<T, DIST, FORM>(x2, y2, q << LG, p.B, g.lo2, g.hi2, wr, s);
   }
 }
 
@@ -702,13 +882,82 @@ orig_bands_kernel(const T* x, T* y, Orig g, Bands b, Key k, Scal s) {
   }
 }
 
+// The arguments of zo_threefry_original: pairs [p0, p0 + np) of a block of
+// m words (its first word wbase of the draw, half h), writing the draw's
+// elements in [e_lo, e_hi) of y, whose element 0 is draw element off.
+struct OrigCall {
+  uint64_t wbase;
+  uint32_t m, h, p0, np;
+  uint64_t e_lo, e_hi, off;
+};
+
+// the launch's split, as kernel.original_split computes it; the site
+// bases y1 / y2 (x1 / x2) are 64-bit pointers into y at the first element
+// of pair p0's word at each site (outside y where the window starts later;
+// the kernel reads and writes only inside the window)
 template <typename T, int DIST, int FORM>
 struct OrigL {
-  static void run(const void* x, void* y, const Orig& g, uint32_t k0,
+  static void run(const void* x, void* y, const OrigCall& a, uint32_t k0,
                   uint32_t k1, const Scal& s, cudaStream_t st) {
-    const int grid = resident_grid<orig_kernel<T, DIST, FORM>>(g.np);
+    constexpr int LG = orig_lg<T, DIST>();
+    constexpr int64_t EPW = 1 << LG;
+    constexpr int64_t BPW = EPW * (int64_t)sizeof(T);   // y's bytes a word
+    constexpr uint32_t R = (uint32_t)(16 / BPW);
+    const int64_t e1 = (int64_t)(a.wbase + a.p0) * EPW;
+    const int64_t e2 = e1 + (int64_t)a.h * EPW;
+    const int64_t span1 = (int64_t)a.np * EPW;
+    const int64_t end2 = (int64_t)a.p0 + a.np + a.h < (int64_t)a.m
+                             ? (int64_t)a.p0 + a.np + a.h : (int64_t)a.m;
+    const int64_t span2 =
+        end2 > (int64_t)a.p0 + a.h ? (end2 - a.p0 - a.h) * EPW : 0;
+    auto clip = [](int64_t v, int64_t span) {
+      return (uint32_t)(v < 0 ? 0 : v > span ? span : v);
+    };
+    OrigV g{};
+    g.p0 = a.p0;
+    g.np = a.np;
+    g.m = a.m;
+    g.h = a.h;
+    g.lo1 = clip((int64_t)a.e_lo - e1, span1);
+    g.hi1 = clip((int64_t)a.e_hi - e1, span1);
+    g.lo2 = clip((int64_t)a.e_lo - e2, span2);
+    g.hi2 = clip((int64_t)a.e_hi - e2, span2);
+    const int64_t d1 = e1 - (int64_t)a.off, d2 = e2 - (int64_t)a.off;
+    const T* xt = (const T*)x;
+    T* yt = (T*)y;
+    const uintptr_t ay = (uintptr_t)y;
+    const uintptr_t a1 = ay + (uintptr_t)(d1 * (int64_t)sizeof(T));
+    const bool vector = (x == nullptr || ((uintptr_t)x - ay) % 16 == 0) &&
+                        ay % sizeof(T) == 0 && a1 % BPW == 0;
+    g.qz = a.np;
+    if (vector) {
+      const uint32_t qa = (uint32_t)((16 - a1 % 16) % 16 / BPW);
+      uint32_t first = 0, end = a.np;     // whole words inside each window
+      auto take = [&](uint32_t lo, uint32_t hi) {
+        if (hi <= lo) return;
+        const uint32_t f = (uint32_t)((lo + EPW - 1) >> LG);
+        first = f > first ? f : first;
+        end = (hi >> LG) < end ? (hi >> LG) : end;
+      };
+      take(g.lo1, g.hi1);
+      take(g.lo2, g.hi2);
+      const uint32_t qz = first + (qa + R - first % R) % R;
+      if (end > qz && (end - qz) / R > 0) {
+        g.qz = qz;
+        g.nrun = (end - qz) / R;
+        g.d = g.hi2 > g.lo2 ? a.h % R : 0u;
+      }
+    }
+    g.ch = ORIG_CHUNK;
+    g.nchunks = (g.nrun + ORIG_CHUNK - 1) / ORIG_CHUNK;
+    const uint32_t nscal = g.qz + (g.np - (g.qz + g.nrun * R));
+    const uint64_t work = (uint64_t)g.nchunks * 32;       // a warp a chunk
+    const int grid = resident_grid<orig_kernel<T, DIST, FORM>>(
+        work > nscal ? work : nscal);
     orig_kernel<T, DIST, FORM><<<grid, THREADS, 0, st>>>(
-        (const T*)x, (T*)y, g, make_key(k0, k1, 0), s);
+        x == nullptr ? nullptr : xt + d1, yt + d1,
+        x == nullptr ? nullptr : xt + d2, yt + d2, g, make_key(k0, k1, 0),
+        s);
   }
 };
 template <typename T, int DIST, int FORM>
@@ -834,6 +1083,13 @@ cudaError_t launch_probe(int probe, uint32_t* out, int blocks, int iters,
   return cudaErrorInvalidValue;
 }
 
+// The bits JAX draws per element: 32 for f32 and for rademacher, 8 for
+// bf16 and 16 for f16 (kernel.bit_width); -1 for an unknown dtype
+int orig_bw(int dtype, int dist) {
+  return (dist == 1 || dtype == 0) ? 32 : dtype == 1 ? 8 : dtype == 2 ? 16
+                                                                     : -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -888,7 +1144,10 @@ int zo_threefry_bands(const void* x, void* y, int dtype, uint32_t k0,
 // zo_threefry_original: one launch of the original layout over the pairs
 // [p0, p0 + np) of a block of m words (its first word wbase of the draw,
 // its key (k0, k1), h = ceil(m / 2)), writing the draw's elements in
-// [e_lo, e_hi); y[0] (and x[0]) is draw element `off`; bw bits per element.
+// [e_lo, e_hi); y[0] (and x[0]) is draw element `off`; bw bits per element
+// (kernel.bit_width's), np at most 2^31 elements a site
+// (kernel.ORIG_LAUNCH_PAIRS).  The launch's split into the vector zone,
+// its junctions and the scalar head and tail is kernel.original_split's.
 int zo_threefry_original(const void* x, void* y, int dtype, uint32_t k0,
                          uint32_t k1, uint64_t wbase, uint32_t m, uint32_t h,
                          uint32_t p0, uint32_t np, uint64_t e_lo,
@@ -896,13 +1155,12 @@ int zo_threefry_original(const void* x, void* y, int dtype, uint32_t k0,
                          int form, float a, float b, float e, float k,
                          int zs_on, float zs, void* stream) {
   if (np == 0 || e_hi <= e_lo) return 0;
-  const int lg = bw == 32 ? 0 : bw == 16 ? 1 : bw == 8 ? 2 : -1;
-  if ((dist != 0 && dist != 1) || form < 0 || form > 3 || lg < 0 ||
-      (dist == 1 && bw != 32) || (dtype == 0 && bw != 32) ||
-      (x == nullptr && form != FORM_Z) || h != m - m / 2 ||
-      (uint64_t)p0 + np > h || e_lo < off)
+  if ((dist != 0 && dist != 1) || form < 0 || form > 3 ||
+      bw != orig_bw(dtype, dist) || (x == nullptr && form != FORM_Z) ||
+      h != m - m / 2 || (uint64_t)p0 + np > h || e_lo < off ||
+      (uint64_t)np * (32 / bw) > (1ull << 31))
     return (int)cudaErrorInvalidValue;
-  const Orig g{wbase, m, h, p0, np, e_lo, e_hi, off, lg};
+  const OrigCall g{wbase, m, h, p0, np, e_lo, e_hi, off};
   const Scal s{a, b, e, k, zs_on, zs};
   return (int)dispatch<OrigL>(dtype, dist, form, x, y, g, k0, k1, s,
                               (cudaStream_t)stream);
@@ -924,7 +1182,7 @@ int zo_threefry_original_bands(const void* x, void* y, int dtype, uint32_t k0,
       lg < 0 || (dist == 1 && bw != 32) || (dtype == 0 && bw != 32) ||
       (x == nullptr && form != FORM_Z) || h != m - m / 2)
     return (int)cudaErrorInvalidValue;
-  const Orig g{wbase, m, h, 0u, 0u, 0u, 0u, off, lg};
+  const Orig g{wbase, m, h, off, lg};
   const Bands bd{off, starts, cum, nb, total};
   const Scal s{a, b, e, k, zs_on, zs};
   return (int)dispatch<OrigBandsL>(dtype, dist, form, x, y, g, bd, k0, k1, s,

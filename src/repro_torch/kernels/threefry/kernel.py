@@ -530,6 +530,12 @@ def whole_launches(n: int, offset: int, x_addr: Optional[int], y_addr: int,
     return out
 
 
+#: pairs of one original-route launch at most: the kernel indexes a launch's
+#: elements in 32 bits from its first pair's words, below 2^31 at 4
+#: elements a word
+ORIG_LAUNCH_PAIRS = LAUNCH_SPAN // 4
+
+
 class OrigLaunch(NamedTuple):
     """One launch of the original route: pairs [p0, p0 + np) of block
     ``block`` (m words from word ``wbase`` of the draw, half h)."""
@@ -546,7 +552,8 @@ def original_launches(lo: int, hi: int, n: int, bw: int) -> List[OrigLaunch]:
     width bw under the original layout: per block of ``BLOCK_WORDS`` words
     the window's words fall in, the pairs holding them — the window's
     words in the first half and, shifted by h, those in the second; one
-    launch when the two pair ranges meet, else two."""
+    pair range when the two meet, else two; each cut into launches of at
+    most ``ORIG_LAUNCH_PAIRS`` pairs."""
     if hi <= lo:
         return []
     epw = 32 // bw
@@ -564,8 +571,93 @@ def original_launches(lo: int, hi: int, n: int, bw: int) -> List[OrigLaunch]:
         spans.sort()
         if len(spans) == 2 and spans[1][0] <= spans[0][1]:
             spans = [(spans[0][0], max(spans[0][1], spans[1][1]))]
-        out += [OrigLaunch(b, base, mb, h, p0, p1 - p0) for p0, p1 in spans]
+        out += [OrigLaunch(b, base, mb, h, p, min(p1, p + ORIG_LAUNCH_PAIRS)
+                           - p)
+                for p0, p1 in spans for p in range(p0, p1, ORIG_LAUNCH_PAIRS)]
     return out
+
+
+#: runs of R pairs a warp walks in one chunk of the zone (``ORIG_CHUNK`` in
+#: csrc/zo_threefry.cu); a junction vector joins two chunks
+ORIG_CHUNK = 64
+
+
+class OrigSplit(NamedTuple):
+    """How ``zo_threefry_original`` splits one launch (it computes the
+    same from its arguments).  Pair p of the launch (relative to p0) hashes
+    its word at site 1 (word p0 + p) and at site 2 (word p0 + p + h); each
+    site's elements are indexed from its base, the first element of pair
+    0's word there, so pair p's word starts at element p·(32/bw) at both.
+
+    * ``lo1, hi1`` / ``lo2, hi2``: each site's elements inside the window
+      [e_lo, e_hi) and inside the block (site 2 ends at word m);
+    * the ``vector`` route (x and y alike against 16 bytes and site 1's
+      words on y's 16-byte grid at R words a vector; else ``scalar``, every
+      pair in the scalar loop): the zone, ``nrun`` runs of R pairs from
+      pair ``qz``, whose site-1 words fill one 16-byte vector each and
+      whose words lie whole in the window at each site that has elements
+      in it — the kernel writes them in 16-byte vectors only;
+    * ``d`` = h mod R: site 2's words lie d words off the 16-byte grid, so
+      its vectors take their first d words from the run before (the lane
+      below, or across a chunk of runs a junction vector); 0 when site 2
+      has no element in the window;
+    * every other pair (the head before qz, the tail after the zone) takes
+      the scalar loop, element by element inside the window."""
+    route: str
+    lo1: int
+    hi1: int
+    lo2: int
+    hi2: int
+    qz: int
+    nrun: int
+    R: int
+    d: int
+
+
+def original_route(ln: OrigLaunch, off: int, bw: int, itemsize: int,
+                   x_addr: Optional[int], y_addr: int) -> str:
+    """Launch ``ln``'s route (y[0] is draw element ``off``; x at ``x_addr``,
+    None for the z form): ``vector`` when x and y lie alike against 16
+    bytes and its site-1 words lie on y's 16-byte grid, else ``scalar``."""
+    bpw = (32 // bw) * itemsize               # y's bytes a word
+    a1 = y_addr + ((ln.wbase + ln.p0) * (32 // bw) - off) * itemsize
+    vector = launch_route(x_addr, y_addr, itemsize) == "vector"
+    return "vector" if vector and a1 % bpw == 0 else "scalar"
+
+
+def original_split(ln: OrigLaunch, e_lo: int, e_hi: int, off: int, bw: int,
+                   itemsize: int, x_addr: Optional[int],
+                   y_addr: int) -> OrigSplit:
+    """The split of launch ``ln`` writing draw elements [e_lo, e_hi) of y,
+    whose element 0 is draw element ``off`` (x at ``x_addr``, None for the
+    z form; y at ``y_addr``): see ``OrigSplit``."""
+    epw = 32 // bw
+    bpw = epw * itemsize                      # y's bytes a word
+    R = 16 // bpw
+    e1 = (ln.wbase + ln.p0) * epw
+    e2 = e1 + ln.h * epw
+    span1 = ln.np * epw
+    span2 = max(0, min(ln.p0 + ln.np + ln.h, ln.m) - ln.p0 - ln.h) * epw
+
+    def clip(v: int, span: int) -> int:
+        return min(max(v, 0), span)
+
+    lo1, hi1 = clip(e_lo - e1, span1), clip(e_hi - e1, span1)
+    lo2, hi2 = clip(e_lo - e2, span2), clip(e_hi - e2, span2)
+    if original_route(ln, off, bw, itemsize, x_addr, y_addr) == "scalar":
+        return OrigSplit("scalar", lo1, hi1, lo2, hi2, ln.np, 0, R, 0)
+    a1 = y_addr + (e1 - off) * itemsize       # site 1's first word in y
+    qa = (-a1 % 16) // bpw                    # the first pair on the grid
+    first, end = 0, ln.np
+    for lo, hi in ((lo1, hi1), (lo2, hi2)):
+        if hi > lo:                           # whole words inside [lo, hi)
+            first, end = max(first, -(-lo // epw)), min(end, hi // epw)
+    qz = first + (qa - first) % R
+    nrun = max(0, (end - qz) // R)
+    if nrun == 0:
+        return OrigSplit("vector", lo1, hi1, lo2, hi2, ln.np, 0, R, 0)
+    return OrigSplit("vector", lo1, hi1, lo2, hi2, qz, nrun, R,
+                     ln.h % R if hi2 > lo2 else 0)
 
 
 def _original_bands(bands: Sequence, offset: int, bw: int):
@@ -602,7 +694,8 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
     ``vector`` or ``scalar``) or, for a rows plan's ``bands``, the
     ``bands`` route; under the original layout its own kernel,
     ``zo_affine_threefry_original`` (``original_launches``, counted as
-    ``pairs``; bands as ``bands``)."""
+    ``pairs`` and as ``pairs/vector`` or ``pairs/scalar`` by
+    ``original_route``; bands as ``bands``)."""
     if dist not in DIST_CODES:
         raise NotImplementedError(
             f"zo_affine_threefry has no generator for dist={dist!r}; sphere "
@@ -697,14 +790,18 @@ def _launch_original(lib, x, y, key, bands, offset: int, total: int,
     xp = None if x is None else _build.ptr(x)
     name = "zo_affine_threefry_original"
     if bands is None:
-        for ln in original_launches(offset, offset + y.numel(), total, bw):
+        e_hi = offset + y.numel()
+        for ln in original_launches(offset, e_hi, total, bw):
             k0, k1 = keys[ln.block]
+            route = original_route(ln, offset, bw, y.element_size(),
+                                   None if x is None else x.data_ptr(),
+                                   y.data_ptr())
             err = lib.zo_threefry_original(
                 xp, _build.ptr(y), DTYPE_CODES[y.dtype], k0, k1, ln.wbase,
-                ln.m, ln.h, ln.p0, ln.np, offset, offset + y.numel(), offset,
-                bw, *scal, stream)
+                ln.m, ln.h, ln.p0, ln.np, offset, e_hi, offset, bw, *scal,
+                stream)
             _build.check(lib, err, name)
-            _build.count(name, "pairs")
+            _build.count(name, "pairs", f"pairs/{route}")
         return y
     for blk, group in _original_bands(bands, offset, bw):
         bl = torch.tensor(group, dtype=torch.int64)

@@ -100,6 +100,9 @@ def main(argv=None):
                     choices=["local", "seed_parallel"])
     ap.add_argument("--n-groups", type=int, default=1,
                     help="seed groups per step for --exec-plan seed_parallel")
+    ap.add_argument("--seed-parallel", type=int, default=None,
+                    help="DEPRECATED alias for "
+                         "--exec-plan seed_parallel --n-groups N")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true",
                     help="use the arch's reduced smoke config")
@@ -189,6 +192,10 @@ def main(argv=None):
                                   batch_seeds=opt.batch_seeds,
                                   selection=opt.selection_spec,
                                   sel_phase=opt.selection_phase)
+    if args.seed_parallel is not None:       # deprecated alias, as JAX's
+        print("[train] --seed-parallel is deprecated; use "
+              "--exec-plan seed_parallel --n-groups N")
+        args.exec_plan, args.n_groups = "seed_parallel", args.seed_parallel
     if args.exec_plan == "seed_parallel":
         if args.optimizer != "mezo":
             sys.exit("--exec-plan seed_parallel needs a seed-replayable ZO "

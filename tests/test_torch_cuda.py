@@ -54,6 +54,9 @@ WKV6_GOLDEN = (pathlib.Path(__file__).resolve().parent / "data"
 # K11 against its plain version: the same f32 factorization summed in
 # another order — relative to the output's largest magnitude
 K11_REL = 1e-5
+# K11's gradients on the card against the CPU's: the VJP of the same plain
+# chunk graph on both, its f32 matmuls and sums in another order
+K11_GRAD_REL = 1e-4
 # K2's bf16 route against its plain version, chip_smoke.py's tolerance: one
 # bf16 rounding of each output on both sides of an f32 computation whose
 # two orders of summation differ by ~1e-6 — at most one bf16 ulp apart
@@ -773,7 +776,8 @@ def test_cuda_x1_original_layout_equals_plain(cuda, dtype, dist):
     whole leaves with odd and even word counts, windows (offset and the
     leaf's total) that straddle the half h, a band list, and windows of
     virtual leaves past 2^32 − 1 words (one key per block), each launch
-    counted under ``zo_affine_threefry_original``."""
+    counted under ``zo_affine_threefry_original``; then the cases of the
+    pairs route's vector design (``_hold_x1_original_vector_design``)."""
     g = torch.Generator().manual_seed(2)
     ints = torch.int32 if dtype == torch.float32 else torch.int16
     big = (1 << 32) + 10 if dtype == torch.float32 else 17_179_869_201
@@ -797,6 +801,54 @@ def test_cuda_x1_original_layout_equals_plain(cuda, dtype, dist):
                 n, off, form)
     assert _build.launch_counts["zo_affine_threefry_original"] > 0
     assert _build.launch_counts["zo_affine_threefry"] == 0
+    _hold_x1_original_vector_design(cuda, dtype, dist)
+
+
+def _hold_x1_original_vector_design(cuda, dtype, dist):
+    """The pairs route's 16-byte design ≡ its plain version bitwise, every
+    form, in place: whole leaves of odd and even m at every residue of h
+    mod R (site 2's shift), more than one chunk of runs (junctions); x or
+    y one element off the other's 16-byte grid (all-scalar launches); and
+    windows off the grid, inside one half, straddling h with their pair
+    ranges meeting, and nearly the whole leaf."""
+    g = torch.Generator().manual_seed(4)
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    epw = 32 // x1.bit_width(dtype, dist)
+    R = 16 // (epw * dtype.itemsize)
+
+    def hold(n, off, total, form, xshift=0, yshift=0):
+        x = torch.randn(n + 8, generator=g).to(dtype).to(cuda)
+        x = x[xshift:xshift + n]
+        y = (x if xshift == yshift else
+             torch.empty(n + 8, dtype=dtype, device=cuda)[yshift:yshift + n])
+        kw = dict(a=0.5, b=-0.25, e=0.125, dist=dist, offset=off,
+                  total=total, partitionable=False)
+        want = x1.zo_affine_threefry_plain(
+            None if form == "z" else x.clone(), (5, 9), form,
+            out=torch.empty_like(x), **kw)
+        got = x1.zo_affine_threefry(None if form == "z" else x, (5, 9),
+                                    form, out=y, **kw)
+        assert torch.equal(got.view(ints), want.view(ints)), (
+            n, off, total, form, xshift, yshift)
+
+    _build.reset_launch_counts()
+    for res in range(R):
+        h = 70 * 32 * R + res               # 70 warp-runs: two chunks
+        for m in (2 * h, 2 * h - 1):
+            for form in ("z", "axpbz", "xpbz", "restore"):
+                hold(m * epw - (res % 2) * (epw - 1), 0,
+                     m * epw - (res % 2) * (epw - 1), form)
+    n = 9000 * epw + 3
+    H = ((-(-n // epw) + 1) // 2) * epw
+    for form in ("axpbz", "z"):
+        hold(n, 0, n, form, xshift=1)
+        hold(n, 0, n, form, yshift=1)
+        for lo, hi in ((3, H // 2), (H + 5, n - 1), (H - 700, H + 900),
+                       (H // 3, H + H // 2), (8, n - 8)):
+            hold(hi - lo, lo, n, form)
+    routes = dict(_build.route_counts)
+    assert routes["zo_affine_threefry_original/pairs/vector"] > 0
+    assert routes["zo_affine_threefry_original/pairs/scalar"] > 0
 
 
 @pytest.mark.cuda
@@ -875,11 +927,16 @@ def test_cuda_init_peak_is_one_layer_over_the_parameters(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_k2_and_k11_refuse_autograd(cuda):
-    """K2 and K11 have no backward: on the card, an input that requires
-    grad under grad mode raises before any launch, where a ctypes launch
-    would return an output with no ``grad_fn``; under ``no_grad`` they
-    launch.  On the CPU K11's plain version differentiates."""
+def test_cuda_k2_refuses_autograd_and_k11_card_grads_equal_cpu(cuda):
+    """K2 has no backward (nor has JAX's Pallas flash): on the card an
+    input that requires grad under grad mode raises before any launch;
+    under ``no_grad`` it launches.  K11 differentiates on the card: its
+    forward is the kernel (one launch) and its backward the VJP of the
+    plain chunk form (one ``wkv6_chunked_backward`` record); dr, dk, dv,
+    dlw, du and ds0 for dy and ds_final within ``K11_GRAD_REL`` of each
+    gradient's largest |value| of the CPU's (the plain version's autograd
+    there) — the forward's f32 summation order differs, the backward is
+    the same graph."""
     g = torch.Generator(device=cuda).manual_seed(3)
     q = torch.randn(1, 16, 2, 8, generator=g, device=cuda).requires_grad_()
     kv = torch.randn(1, 16, 2, 8, generator=g, device=cuda)
@@ -890,21 +947,28 @@ def test_cuda_k2_and_k11_refuse_autograd(cuda):
     with torch.no_grad():
         flash_attention(q, kv, kv)
     assert _build.launch_counts["flash_attention"] == 1
-    B, S, H, hd = 1, 32, 2, 16
+    B, S, H, hd = 2, 48, 3, 16
     r, k, v = (torch.randn(B, S, H, hd, generator=g, device=cuda)
                for _ in range(3))
-    lw = -torch.rand(B, S, H, hd, generator=g, device=cuda)
+    lw = -torch.exp(torch.randn(B, S, H, hd, generator=g, device=cuda)
+                    .clamp(-8, 1))
     u = torch.randn(H, hd, generator=g, device=cuda)
-    s0 = torch.zeros(B, H, hd, hd, device=cuda)
-    with pytest.raises(RuntimeError, match="wkv6_chunked .* no backward"):
-        wkv_ops.wkv6(r.requires_grad_(), k, v, lw, u, s0, chunk=16)
-    assert _build.launch_counts["wkv6_chunked"] == 0
-    with torch.no_grad():
-        wkv_ops.wkv6(r, k, v, lw, u, s0, chunk=16)
-    assert _build.launch_counts["wkv6_chunked"] == 1
-    y, _ = wkv_ops.wkv6(*(t.detach().cpu().requires_grad_() for t in
-                          (r, k, v, lw, u, s0)), chunk=16)
-    assert y.grad_fn is not None
+    s0 = torch.randn(B, H, hd, hd, generator=g, device=cuda)
+    dy = torch.randn(B, S, H, hd, generator=g, device=cuda)
+    ds = torch.randn(B, H, hd, hd, generator=g, device=cuda)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        ins = [t.to(dev).requires_grad_() for t in (r, k, v, lw, u, s0)]
+        _build.reset_launch_counts()
+        y, s = wkv_ops.wkv6(*ins, chunk=16)
+        grads[dev] = torch.autograd.grad((y, s), ins,
+                                         (dy.to(dev), ds.to(dev)))
+        if dev == "cuda":
+            assert _build.launch_counts["wkv6_chunked"] == 1
+            assert _build.record_counts["wkv6_chunked_backward"] == 1
+    for gc, gg in zip(grads["cpu"], grads["cuda"]):
+        scale = float(gc.abs().max())
+        assert float((gg.cpu() - gc).abs().max()) <= K11_GRAD_REL * scale
 
 
 @pytest.mark.cuda
@@ -935,31 +999,28 @@ def test_cuda_adam_step_is_the_cpu_step(cuda):
         assert float((a - b).abs().max()) <= 2e-3   # ≤ 2η: Adam's sign step
 
 
-@pytest.mark.cuda
-def test_cuda_granite_smoke_spsa_step_is_the_cpu_step(cuda):
-    """One mezo spsa step on the ``xla`` stream of granite-moe-3b-a800m's
-    smoke config (f32, TF32 off, experts in 5 single leaves) under its
-    default selection, on the card and on the CPU: the losses at θ ± εz
-    within the f32 summation-order gap (1e-5), so g within 1e-5 / ε, and θ
-    within lr · |Δg| · 6 (|z| < 6) plus 1e-6 — z is X1's on the card and
-    its plain version on the CPU, bitwise."""
+def _spsa_step_card_vs_cpu(cuda, arch, make_batch, selection="full"):
+    """One mezo spsa step on the ``xla`` stream of ``arch``'s smoke config
+    (f32, TF32 off), on the card and on the CPU, from the same θ₀ and
+    batch: the losses at θ ± εz within the f32 summation-order gap (1e-5),
+    so g within 1e-5 / ε, and θ within lr · |Δg| · 6 (|z| < 6) plus 1e-6 —
+    z is X1's on the card and its plain version on the CPU, bitwise."""
     from repro_torch import zo
     from repro_torch.models import all_archs, bundle
     from repro_torch.tree_utils import tree_leaves, tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = all_archs()["granite-moe-3b-a800m"].smoke_cfg
+    cfg = all_archs()[arch].smoke_cfg
     cpu = bundle(cfg).init(0, device="cpu")
-    card = tree_map(lambda t: t.to(cuda), cpu)
-    toks = (torch.arange(64, dtype=torch.int32).reshape(2, 32) * 7) % 256
+    card = tree_map(lambda t: t.to(cuda, copy=True), cpu)
+    batch = make_batch(bundle(cfg))
     out = {}
     lr, eps = 1e-3, 1e-3
     for name, params in (("cpu", cpu), ("cuda", card)):
-        opt = zo.mezo(lr=lr, eps=eps, backend="xla",
-                      selection=bundle(cfg).default_selection())
+        opt = zo.mezo(lr=lr, eps=eps, backend="xla", selection=selection)
         dev = tree_leaves(params)[0].device
-        batch = {"tokens": toks.to(dev), "labels": toks.roll(1).to(dev)}
         p, _, m = opt.step_fn(bundle(cfg).loss_fn())(
-            params, opt.init(params, seed=0), batch)
+            params, opt.init(params, seed=0),
+            {k: t.to(dev) for k, t in batch.items()})
         out[name] = (float(m["loss"]), float(m["projected_grad"]),
                      [t.cpu() for t in tree_leaves(p)])
     assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-5
@@ -967,3 +1028,63 @@ def test_cuda_granite_smoke_spsa_step_is_the_cpu_step(cuda):
     assert dg <= 1e-5 / eps
     for a, b in zip(out["cpu"][2], out["cuda"][2]):
         assert float((a - b).abs().max()) <= lr * dg * 6 + 1e-6
+
+
+def _lm_batch(b):
+    toks = (torch.arange(64, dtype=torch.int32).reshape(2, 32) * 7) % 256
+    return {"tokens": toks, "labels": toks.roll(1)}
+
+
+@pytest.mark.cuda
+def test_cuda_granite_smoke_spsa_step_is_the_cpu_step(cuda):
+    """granite-moe-3b-a800m's smoke config (experts in 5 single leaves)
+    under its default selection: ``_spsa_step_card_vs_cpu``."""
+    from repro_torch.models import all_archs, bundle
+    _spsa_step_card_vs_cpu(cuda, "granite-moe-3b-a800m", _lm_batch,
+                           bundle(all_archs()["granite-moe-3b-a800m"]
+                                  .smoke_cfg).default_selection())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-large-v3"])
+def test_cuda_hybrid_and_encdec_smoke_spsa_step_is_the_cpu_step(cuda, arch):
+    """hymba-smoke (SSD heads beside the windowed attention) on an lm
+    batch, and whisper-smoke on ``make_batch``'s frames and tokens:
+    ``_spsa_step_card_vs_cpu``."""
+    from repro_torch.perturb.stream import prng_key
+
+    def batch(b):
+        if arch == "hymba-1.5b":
+            return _lm_batch(b)
+        return b.make_batch(prng_key(0), 2, 16, device="cpu")
+
+    _spsa_step_card_vs_cpu(cuda, arch, batch)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_slab_serving_ids_are_the_cpus(cuda):
+    """The engine's dense slab on hymba-smoke in f32 (window 16, the SSM
+    state per slot): 5 requests over 2 slots, 24 new tokens each, so every
+    ring wraps; the greedy ids on the card equal the CPU's."""
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree_utils import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = all_archs()["hymba-1.5b"].smoke_cfg
+    cpu = bundle(cfg).init(0, device="cpu")
+    tpl = [(7 * i) % 200 + 3 for i in range(13)]
+    prompts = ([tpl + [50 + i] for i in range(3)] + [[3, 5, 7, 9] * 3]
+               + [[4, 8, 15]])
+    ids = {}
+    for dev, params in (("cpu", cpu),
+                        (cuda, tree_map(lambda t: t.to(cuda), cpu))):
+        eng = ServeEngine(cfg, params, slots=2, max_len=48, device=dev)
+        reqs = [Request(i, p, max_new_tokens=24)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert not eng.paged
+        ids[str(dev)] = [r.out_ids for r in reqs]
+    assert ids[str(cuda)] == ids["cpu"]
+    assert all(len(x) == 24 for x in ids["cpu"])

@@ -216,6 +216,33 @@ def test_train_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
     assert "exec plan: seed_parallel(n_groups=2)" in capsys.readouterr().out
 
 
+SEED_PARALLEL_NOTICE = ("[train] --seed-parallel is deprecated; use "
+                        "--exec-plan seed_parallel --n-groups N")
+
+
+def test_train_cli_takes_jax_deprecated_seed_parallel_alias(capsys):
+    """``--seed-parallel N`` is JAX's deprecated alias for ``--exec-plan
+    seed_parallel --n-groups N``: its notice, then the plan."""
+    from repro_torch.launch import train as train_cli
+    train_cli.main(["--smoke", "--device", "cpu", "--seed-parallel", "2",
+                    "--batch", "4", "--seq", "8", "--steps", "2"])
+    out = capsys.readouterr().out
+    assert SEED_PARALLEL_NOTICE in out
+    assert "exec plan: seed_parallel(n_groups=2)" in out
+    assert out.index(SEED_PARALLEL_NOTICE) < out.index("exec plan:")
+    assert "done: 2 steps (resumed from 0)" in out
+
+
+def test_train_cli_seed_parallel_alias_refuses_as_jax(capsys):
+    """With a non-ZO optimizer the alias prints its notice, then JAX's
+    refusal of the plan (the alias is read where JAX reads it)."""
+    from repro_torch.launch import train as train_cli
+    with pytest.raises(SystemExit, match="seed-replayable"):
+        train_cli.main(["--smoke", "--device", "cpu", "--optimizer", "adam",
+                        "--seed-parallel", "2", "--steps", "1"])
+    assert SEED_PARALLEL_NOTICE in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv,slice_name", [
     (["--backend", "pallas-interpret"], "JAX's CPU interpreter"),
     (["--optimizer", "mezo-adam", "--exec-plan", "seed_parallel",
