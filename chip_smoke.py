@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
     python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
-    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w)
+    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x)
 
 In order: prints the card's name and power limit; builds the eight CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -186,6 +186,25 @@ the ``xla`` stream, ``pallas_flash`` attention:
   f32 check at full width, 4 layers: prefill + incremental decode against
   teacher forcing; K2 only in the decoder's causal self-attention.
 
+Then (x) multi-tenant LoRA serving (``repro_torch.serve.tenants``) on
+qwen2-0.5b at full width and depth (24 layers, bf16, ``pallas_flash``),
+random weights from seed 0: 8 LoRA tenants (r 2, α 16 on wq / wv) of 10
+steps of batch 8 on ``xla`` (X1) and one on ``pallas`` (K1); for one
+tenant of each stream the cached, compacted (tail 4) and fresh serving
+deltas bitwise equal, the replayed LoRA tree bitwise the CPU's plain
+replay, the merged wq / wv within one bf16 ulp of the product and one of
+the sum of the CPU's merge, a cache hit replaying nothing; 32 synthetic
+requests (skew 2.0, one base-model request, 16 new tokens) and a wave of
+16 template requests (4 templates of 48 tokens) through one 4-slot paged
+engine (K2 on cold prefills, K12 on prefix hits and decode, the stacked
+decode one call a step) with a 140 000 000-byte delta cache that must
+evict — tok/s, TTFT cold against warm, hit rate, ms per cold
+materialization against a warm swap; the decode step timed on the
+single-model, stacked and grouped paths; in f32 the stacked decode's
+logits within ``X_F32_LOGIT_REL`` of the grouped (per-adapter) decode's
+and its ids those of single-slot engines, a full-tree delta on the grouped
+path with the same ids; in bf16 the gap and the agreement reported.
+
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
 within a stated bound in bf16 ulps of the trained θ; the spsa steps' peak
@@ -202,7 +221,9 @@ instance, of K1, K3–K6, K10 and K12, and the HMMA count of K2's SASS; the step
 times and the profiler's kernel time of an spsa, an fzoo(8) and an fzoo(8,
 sphere) step (the port's own kernels by name); the
 ``kernels``
-JSON line (launches, error, kernel / plain / library times in ms — medians
+JSON line (launches, error, kernel / plain / library times in ms — the
+plain versions of the z kernels run on the card in 2^24-element passes,
+``plain_chunk`` — medians
 of CUDA-event pairs over ``reps`` launches, for K2 and K12 and their
 library calls of rounds of ``RUN_N`` back-to-back launches per pair, in
 turns — and the roofline bound), and as its last line
@@ -397,6 +418,25 @@ MIXTRAL_REQUESTS, MIXTRAL_NEW, MIXTRAL_MAX_LEN = 4, 16, 512
 # WHISPER_CHECK_LAYERS layers, within WHISPER_REL × max |logits|
 WHISPER_ROWS, WHISPER_FRAMES, WHISPER_NEW = 2, 1504, 16
 WHISPER_CHECK_LAYERS, WHISPER_REL = 4, 1e-4
+# (x) multi-tenant LoRA serving on qwen2-0.5b at full width and depth:
+# X_TENANTS LoRA tenants (r 2, α 16 on wq / wv, the tenants package's
+# convention) of X_TENANT_STEPS steps of X_TENANT_BATCH on xla, one more on
+# pallas; X_REQUESTS synthetic requests (skew X_SKEW, X_NEW new tokens) and
+# one template wave (X_WAVE requests on X_TEMPLATES templates of
+# X_TEMPLATE_LEN tokens) over X_SLOTS slots; a delta cache of X_CACHE_BYTES
+# holds three X_DELTA_BYTES deltas (merged wq (24, 896, 896) + wv (24, 896,
+# 128) in bf16), so the tenants force evictions
+X_TENANTS, X_TENANT_STEPS, X_TENANT_BATCH, X_SEED0 = 8, 10, 8, 100
+X_REQUESTS, X_NEW, X_SKEW = 32, 16, 2.0
+X_WAVE, X_TEMPLATES, X_TEMPLATE_LEN = 16, 4, 48
+X_SLOTS, X_MAX_LEN, X_KEEP_TAIL = 4, 128, 4
+X_CACHE_BYTES, X_DELTA_BYTES = 140_000_000, 44_040_192
+# decode steps timed per path (X_STEP_TOKENS tokens a request), and the
+# stacked-vs-per-adapter checks (X_CHECK_NEW tokens a request): in f32 the
+# stacked call's logits (batched matmuls through the vmap) within
+# X_F32_LOGIT_REL × max |logits| of the grouped calls' (f32 sums in other
+# orders through 24 layers, TF32 off)
+X_STEP_TOKENS, X_CHECK_NEW, X_F32_LOGIT_REL = 24, 8, 1e-4
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
 B8 = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
@@ -407,8 +447,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A line of the run's log, stamped with the seconds since the start."""
+    print(f"[chip_smoke {time.perf_counter() - T_START:6.1f} s] {msg}",
+          flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -5366,10 +5411,431 @@ def whisper_paths(torch, np, _build, counts, step_ms, card) -> None:
     del w32, cache, cross
 
 
+# --------------------------------------------------------------------------- #
+# (x) multi-tenant LoRA serving on qwen2-0.5b at full width and depth
+# --------------------------------------------------------------------------- #
+def _bf16_ulp(torch, x):
+    """One bf16 ulp at each |x| (0 where x is 0), in f32."""
+    m, e = torch.frexp(x.float().abs())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+def _same_delta(a, b) -> bool:
+    return a.indices == b.indices and all(
+        same_bits(x, y) for x, y in zip(a.values, b.values))
+
+
+def _decode_step_ms(torch, eng, reqs) -> tuple:
+    """(median host ms of one decode step, steps timed) for ``reqs`` in
+    ``eng``: the first step admits them all (prefills, timed out), every
+    later step is a lockstep decode with no admission."""
+    import statistics
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    times = []
+    while eng.queue or any(r is not None for r in eng.active):
+        times.append(host_ms(eng.step))
+    return statistics.median(times), len(times)
+
+
+def _single_slot_ids(cfg, params, deltas, tagged, new: int, max_len: int):
+    """One single-slot engine per request: the reference ids."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    out = []
+    for tenant, req in tagged:
+        e1 = ServeEngine(cfg, params, slots=1, max_len=max_len,
+                         device="cuda")
+        if tenant is not None:
+            e1.register_adapter(tenant, deltas[tenant])
+        r1 = Request(req.rid, list(req.prompt_ids), max_new_tokens=new,
+                     adapter=tenant)
+        e1.submit(r1)
+        e1.run()
+        out.append(r1.out_ids)
+    return out
+
+
+def _stacked_vs_grouped(torch, eng, deltas, tagged) -> tuple:
+    """Admit ``tagged`` (one request a slot) into ``eng`` and decode its
+    first step twice from the same assembled cache: the stacked call, and
+    the grouped calls (one per adapter: the per-adapter reference).
+    Returns (max |Δlogits| / max |logits| over the live slots, argmax
+    agreement, slots); the engine then runs on from the admitted state."""
+    import numpy as np
+    for tenant, req in tagged:
+        if tenant is not None:
+            eng.register_adapter(tenant, deltas[tenant])
+            req.adapter = tenant
+        eng.submit(req)
+    eng._admit()
+    live = [s for s, r in enumerate(eng.active) if r is not None]
+    toks = np.zeros((eng.slots, 1), np.int64)
+    for s in live:
+        toks[s, 0] = eng.active[s].out_ids[-1]
+    token = torch.as_tensor(toks).cuda()
+    pos = torch.as_tensor(eng.pos.astype(np.int64)).cuda()
+    eng._ensure_decode_blocks(live)
+    cache = eng._assemble_decode_cache()
+    eng.cache = {k: v.clone() for k, v in cache.items()}
+    stacked = eng._stacked_decode(token, pos)[live].float()
+    eng.cache = {k: v.clone() for k, v in cache.items()}
+    grouped = eng._grouped_decode(token, pos, live)[live].float()
+    eng.cache = None
+    V = eng.cfg.vocab_size
+    gap = float((stacked - grouped).abs().max() / grouped.abs().max())
+    agree = int((stacked[..., :V].argmax(-1)
+                 == grouped[..., :V].argmax(-1)).sum())
+    return gap, agree, len(live)
+
+
+def tenants_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """(x) Multi-tenant LoRA serving (``repro_torch.serve.tenants``) at
+    qwen2-0.5b's full width and depth (24 layers, bf16, ``pallas_flash``):
+    X_TENANTS LoRA tenants trained on ``xla`` (X1) and one on ``pallas``
+    (K1); cached ≡ compacted ≡ fresh deltas bitwise for one tenant of each
+    stream, the card's replayed LoRA tree ≡ the CPU's plain replay bitwise,
+    the merged serving leaves within their bound of the CPU's, a cache hit
+    replays nothing; then the serving load through one paged engine (K2 on
+    cold prefills, K12 on prefix hits and decode; the stacked decode), a
+    byte-budgeted cache that must evict; decode steps timed on each path;
+    in f32 the stacked decode's logits held to the grouped (per-adapter)
+    decode's and its ids to single-slot engines, a full-tree delta on the
+    grouped path likewise; in bf16 the same gap and agreement reported."""
+    import statistics
+
+    from repro_torch.core import replay
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.models.peft import merge_lora
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.tenants import (AdapterDelta, compact,
+                                           composition_for_ledger,
+                                           lora_runtime, make_lora_tenants,
+                                           materialize, serve_load,
+                                           synthetic_requests,
+                                           template_requests, tenant_name)
+    from repro_torch.serve.tenants.compact import replay_copy
+    from repro_torch.serve.tenants import synth
+    from repro_torch.serve.tenants.synth import lora_params0
+    from repro_torch.tree_utils import tree_leaves, tree_map
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
+    base = bundle(cfg).init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    x_counts: dict = {}
+
+    # ---- training: X_TENANTS on xla (X1), one on pallas (K1) ------------ #
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    store = make_lora_tenants(cfg, base, X_TENANTS, steps=X_TENANT_STEPS,
+                              batch=X_TENANT_BATCH, backend="xla",
+                              seed0=X_SEED0)
+    torch.cuda.synchronize()
+    xla_s = time.perf_counter() - t0
+    add_counts(x_counts, _build, ("zo_affine_threefry",),
+               f"(x) {X_TENANTS} LoRA tenants trained on xla")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pstore = make_lora_tenants(cfg, base, 1, steps=X_TENANT_STEPS,
+                               batch=X_TENANT_BATCH, backend="pallas",
+                               seed0=X_SEED0 + X_TENANTS)
+    torch.cuda.synchronize()
+    pallas_s = time.perf_counter() - t0
+    add_counts(x_counts, _build, ("zo_affine",),
+               "(x) one LoRA tenant trained on pallas")
+    p_tenant = tenant_name(X_TENANTS)
+    store.put(p_tenant, pstore.ledger(pstore.tenants()[0]))
+    steps = (X_TENANTS + 1) * X_TENANT_STEPS
+    step_ms["x_lora_tenants"] = 1e3 * (xla_s + pallas_s) / steps
+    log(f"(x) trained {X_TENANTS} + 1 LoRA tenants (r {synth.LORA_RANK}, α "
+        f"{synth.LORA_ALPHA:g} on {' / '.join(synth.LORA_TARGETS)})"
+        f", {X_TENANT_STEPS} steps of {X_TENANT_BATCH} each: {xla_s:.1f} s "
+        f"on xla, {pallas_s:.1f} s on pallas ({step_ms['x_lora_tenants']:.1f}"
+        f" ms a step); {len(store)} ledgers, {store.nbytes()} bytes in all")
+
+    # ---- cached ≡ compacted ≡ fresh; card ≡ CPU; hits replay nothing ---- #
+    _build.reset_launch_counts()
+    rt = lora_runtime(cfg, base, store, cache_bytes=X_CACHE_BYTES)
+    base_cpu = tree_map(lambda t: t.to("cpu"), base)
+    for t in (tenant_name(0), p_tenant):
+        led = store.ledger(t)
+        opt = composition_for_ledger(led)
+        cached = rt.delta(t)
+        n = rt.records_replayed
+        if rt.delta(t) is not cached or rt.records_replayed != n:
+            fail(f"(x) {t}: a cache hit replayed records or returned other "
+                 "buffers")
+
+        def serving(tuned):
+            return AdapterDelta.diff(base, merge_lora(tuned["base"],
+                                                      tuned["lora"]))
+        fresh_tree = replay(lora_params0(cfg, base, led), led, opt)
+        fresh = serving(fresh_tree)
+        comp = compact(lora_params0(cfg, base, led), led, opt,
+                       keep_tail=X_KEEP_TAIL)
+        compacted = serving(materialize(lora_params0(cfg, base, led), comp,
+                                        opt, ledger=led))
+        if not (_same_delta(cached, fresh) and _same_delta(compacted, fresh)):
+            fail(f"(x) {t} ({led.backend}): cached, compacted (keep_tail "
+                 f"{X_KEEP_TAIL}) and fresh deltas are not bitwise equal")
+        if cached.nbytes != X_DELTA_BYTES or len(cached.indices) != 2:
+            fail(f"(x) {t}: a delta of {cached.nbytes} bytes in "
+                 f"{len(cached.indices)} leaves, not the merged wq + wv's "
+                 f"{X_DELTA_BYTES}")
+        cpu_tree = replay(lora_params0(cfg, base_cpu, led), led, opt)
+        for a, b in zip(tree_leaves(fresh_tree["lora"]),
+                        tree_leaves(cpu_tree["lora"])):
+            if not same_bits(a.cpu(), b):
+                fail(f"(x) {t} ({led.backend}): the card's replayed LoRA "
+                     "tree differs from the CPU's plain replay")
+        cpu_delta = AdapterDelta.diff(base_cpu, merge_lora(
+            cpu_tree["base"], cpu_tree["lora"]))
+        # the merge W + (α/r)·A·B rounds twice in bf16 (the product, the
+        # sum): where cuBLAS's product and the CPU's round apart, the two
+        # merged leaves may differ by one ulp of the product and one of
+        # the sum; which side rounds the f32-exact product is reported
+        n_diff, worst, prod = 0, 0.0, []
+        for t_name, a, b in zip(("wq", "wv"), cached.values,
+                                cpu_delta.values):
+            w = base_cpu["layers"]["attn"][t_name].float()
+            a, b = a.cpu().float(), b.float()
+            d = (a - b).abs()
+            tol = (_bf16_ulp(torch, torch.maximum(a.abs(), b.abs()))
+                   + _bf16_ulp(torch, (b - w).abs()))
+            if bool((d > tol).any()):
+                fail(f"(x) {t}: merged {t_name} past its bound (one bf16 "
+                     f"ulp of the product and one of the sum) from the "
+                     f"CPU's: max |Δ| {float(d.max()):.3g}")
+            n_diff += int((d > 0).sum())
+            worst = max(worst, float(d.max()))
+            ab_card = fresh_tree["lora"][t_name]
+            ab_cpu = cpu_tree["lora"][t_name]
+            sc = fresh_tree["lora"]["_scale"]
+            exact = (torch.einsum("ldr,lro->ldo", ab_cpu["a"].float(),
+                                  ab_cpu["b"].float())
+                     * sc.cpu().float()).to(torch.bfloat16)
+            on_card = (torch.einsum("ldr,lro->ldo", ab_card["a"],
+                                    ab_card["b"]) * sc).cpu()
+            on_cpu = torch.einsum("ldr,lro->ldo", ab_cpu["a"],
+                                  ab_cpu["b"]) * sc.cpu()
+            prod.append(f"{t_name} card {int((on_card != exact).sum())}, "
+                        f"CPU {int((on_cpu != exact).sum())}")
+        log(f"(x) {t} ({led.backend}, {len(led)} records): cached ≡ "
+            f"compacted (tail {X_KEEP_TAIL}) ≡ fresh delta bitwise "
+            f"({cached.nbytes} bytes: wq + wv merged); a hit replays 0 "
+            f"records; replayed LoRA tree ≡ the CPU plain replay bitwise; "
+            f"merged leaves vs the CPU's merge: {n_diff} elements differ "
+            f"(max |Δ| {worst:.3g}; bound one bf16 ulp of the product and "
+            f"one of the sum); bf16 products off the rounded f32-exact "
+            f"product: {'; '.join(prod)}")
+        del fresh_tree, cpu_tree, comp
+    add_counts(x_counts, _build, ("zo_affine_threefry", "zo_affine"),
+               "(x) materializations and compaction")
+    del base_cpu, rt
+
+    # ---- the serving load ------------------------------------------------ #
+    _build.reset_launch_counts()
+    rt = lora_runtime(cfg, base, store, cache_bytes=X_CACHE_BYTES)
+    cold_flags = []
+    delta_fn = rt.delta
+
+    def delta(t):
+        m = rt.materializations
+        d = delta_fn(t)
+        cold_flags.append(rt.materializations > m)
+        return d
+    rt.delta = delta
+    eng = ServeEngine(cfg, base, slots=X_SLOTS, max_len=X_MAX_LEN,
+                      device="cuda")
+    tenants = store.tenants()
+    tagged = synthetic_requests(X_REQUESTS, cfg.vocab_size, tenants,
+                                seed=SEED, max_new_tokens=X_NEW, skew=X_SKEW)
+    tagged[3] = (None, tagged[3][1])          # one base-model request
+    wave = template_requests(X_WAVE, cfg.vocab_size, tenants,
+                             n_templates=X_TEMPLATES,
+                             template_len=X_TEMPLATE_LEN, seed=SEED + 1,
+                             max_new_tokens=X_NEW, rid0=1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = serve_load(eng, rt, tagged)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flags = iter(cold_flags)
+    cold = [next(flags) if t is not None else False for t, _ in tagged]
+    rows_w = serve_load(eng, rt, wave)
+    torch.cuda.synchronize()
+    add_counts(x_counts, _build, ("zo_affine_threefry", "flash_attention",
+                                  "paged_gather"), "(x) serving load")
+    for name, n in x_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    tokens = sum(r["n_out"] for r in rows)
+    if tokens != X_REQUESTS * X_NEW or sum(
+            r["n_out"] for r in rows_w) != X_WAVE * X_NEW:
+        fail("(x) a request did not produce its tokens")
+    st = rt.stats
+    if st["evictions"] == 0:
+        fail(f"(x) the {X_CACHE_BYTES}-byte cache never evicted: {st}")
+    # decode_calls counts the registry decode's own calls: one a stacked
+    # step under vmap, one per slot if the slots were looped over
+    if eng.decode_steps["stacked"] == 0 or eng.decode_calls["stacked"] != \
+            eng.decode_steps["stacked"]:
+        fail(f"(x) stacked decode: {eng.decode_calls} calls over "
+             f"{eng.decode_steps} steps")
+
+    def pct(xs, q):
+        xs = sorted(xs)
+        return 1e3 * xs[min(len(xs) - 1, int(len(xs) * q))] if xs else 0.0
+    tt_cold = [r["ttft_s"] for r, c in zip(rows, cold) if c]
+    tt_warm = [r["ttft_s"] for r, c in zip(rows, cold) if not c]
+    ps = eng.prefix_stats()
+    log(f"(x) served {len(rows)} requests over {len(tenants)} tenants (skew "
+        f"{X_SKEW}, 1 base) / {tokens} tokens in {wall:.2f} s: "
+        f"{tokens / wall:.1f} tok/s; TTFT p50 / p99 cold "
+        f"({len(tt_cold)}) {pct(tt_cold, 0.5):.1f} / {pct(tt_cold, 0.99):.1f}"
+        f" ms, warm ({len(tt_warm)}) {pct(tt_warm, 0.5):.1f} / "
+        f"{pct(tt_warm, 0.99):.1f} ms; cache hit rate {st['hit_rate']:.2f} "
+        f"({st['hits']} hits, {st['misses']} misses, {st['evictions']} "
+        f"evictions, budget {X_CACHE_BYTES} bytes), "
+        f"{st['records_replayed']} records replayed; template wave "
+        f"{len(rows_w)} requests: prefill {ps['prefill_tokens_computed']}/"
+        f"{ps['prefill_tokens_submitted']} tokens computed, prefix hit rate "
+        f"{ps['prefix_hit_rate']:.2f}; decode calls {eng.decode_calls} over "
+        f"steps {eng.decode_steps} — on {card}")
+    del eng
+
+    # ---- cold materialization against a warm swap ------------------------ #
+    rt = lora_runtime(cfg, base, store, cache_bytes=X_CACHE_BYTES)
+    eng = ServeEngine(cfg, base, slots=X_SLOTS, max_len=X_MAX_LEN,
+                      device="cuda")
+    parts = {"replay": [], "merge": [], "diff": [], "cold": [], "swap": []}
+    for i, t in enumerate(tenants[:3]):
+        led = store.ledger(t)
+        opt = composition_for_ledger(led)
+        box = {}
+        parts["replay"].append(host_ms(lambda: box.__setitem__(
+            "t", replay_copy(lora_params0(cfg, base, led), led, opt))))
+        parts["merge"].append(host_ms(lambda: box.__setitem__(
+            "m", merge_lora(box["t"]["base"], box["t"]["lora"]))))
+        parts["diff"].append(host_ms(lambda: AdapterDelta.diff(base,
+                                                               box["m"])))
+        parts["cold"].append(host_ms(lambda: rt.delta(t)))
+        parts["swap"].append(host_ms(lambda: eng.register_adapter(
+            f"{t}/swap{i}", rt.delta(t))))
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    log(f"(x) cold materialization {med['cold']:.2f} ms (replay "
+        f"{med['replay']:.2f} of {X_TENANT_STEPS} records + merge "
+        f"{med['merge']:.2f} + diff {med['diff']:.2f}) against a warm swap "
+        f"(cache hit + register) {med['swap']:.3f} ms — medians of 3, on "
+        f"{card}")
+    del eng, rt
+
+    # ---- decode-step ms: single-model, stacked, grouped (bf16) ----------- #
+    rt = lora_runtime(cfg, base, store)
+    deltas = {t: rt.delta(t) for t in tenants[:X_SLOTS]}
+    noisy = tree_map(lambda a: a + torch.tensor(0.01, dtype=a.dtype,
+                                                device=a.device)
+                     if a.dtype.is_floating_point else a, base)
+    deltas["full"] = AdapterDelta.diff(base, noisy)
+    del noisy
+    if not deltas["full"].full_tree:
+        fail("(x) the full-tree delta is not full")
+    prompts = [r.prompt_ids for _, r in tagged[:X_SLOTS]]
+    loads = {"single": [None] * X_SLOTS, "stacked": tenants[:X_SLOTS],
+             "grouped": ["full", "full", None, None]}
+    dec = {}
+    for path, names in loads.items():
+        eng = ServeEngine(cfg, base, slots=X_SLOTS, max_len=X_MAX_LEN,
+                          device="cuda")
+        reqs = []
+        for i, (name, p) in enumerate(zip(names, prompts)):
+            if name is not None:
+                eng.register_adapter(name, deltas[name])
+            reqs.append(Request(i, list(p), max_new_tokens=X_STEP_TOKENS,
+                                adapter=name))
+        dec[path] = _decode_step_ms(torch, eng, reqs)
+        want = {"single": "base"}.get(path, path)
+        if eng.decode_steps[want] == 0:
+            fail(f"(x) the {path} load took {eng.decode_steps}")
+    log("(x) decode step over 4 slots: " + ", ".join(
+        f"{k} {v[0]:.2f} ms ({v[1]} steps)" for k, v in dec.items())
+        + f" (grouped: 2 calls a step) — host clock, medians, on {card}")
+
+    # ---- bf16: stacked vs grouped logits, ids vs single-slot engines ----- #
+    eng = ServeEngine(cfg, base, slots=X_SLOTS, max_len=X_MAX_LEN,
+                      device="cuda")
+    mix = [(t, Request(i, list(p), max_new_tokens=X_CHECK_NEW))
+           for i, (t, p) in enumerate(zip(tenants[:3] + [None], prompts))]
+    gap16, agree16, n16 = _stacked_vs_grouped(torch, eng, deltas, mix)
+    eng.run()
+    ref16 = _single_slot_ids(cfg, base, deltas, mix, X_CHECK_NEW, X_MAX_LEN)
+    same16 = sum(a == b for (_, r), ids in zip(mix, ref16)
+                 for a, b in zip(r.out_ids, ids))
+    del eng, deltas, rt
+
+    # ---- f32: stacked ≡ per-adapter; a full-tree delta on grouped -------- #
+    cfg32 = cfg.replace(dtype="float32")
+    base32 = _cast_tree(base, torch.float32)
+    del base
+    free_card(torch, "(x) the bf16 base")
+    rt32 = lora_runtime(cfg32, base32, store)
+    d32 = {t: rt32.delta(t) for t in tenants[:3]}
+    noisy = tree_map(lambda a: a + torch.tensor(0.01, dtype=a.dtype,
+                                                device=a.device), base32)
+    d32["full"] = AdapterDelta.diff(base32, noisy)
+    del noisy
+    eng = ServeEngine(cfg32, base32, slots=X_SLOTS, max_len=X_MAX_LEN,
+                      device="cuda")
+    mix = [(t, Request(i, list(p), max_new_tokens=X_CHECK_NEW))
+           for i, (t, p) in enumerate(zip(tenants[:3] + [None], prompts))]
+    gap32, agree32, n32 = _stacked_vs_grouped(torch, eng, d32, mix)
+    eng.run()
+    if gap32 > X_F32_LOGIT_REL or agree32 != n32:
+        fail(f"(x) f32 stacked vs grouped logits: {gap32:.3e} of max "
+             f"|logits| (tolerance {X_F32_LOGIT_REL}), argmax {agree32}/{n32}")
+    if eng.decode_calls["stacked"] != eng.decode_steps["stacked"]:
+        fail(f"(x) f32 stacked: {eng.decode_calls} over {eng.decode_steps}")
+    ref32 = _single_slot_ids(cfg32, base32, d32, mix, X_CHECK_NEW, X_MAX_LEN)
+    if [r.out_ids for _, r in mix] != ref32:
+        fail("(x) f32 stacked-decode ids differ from single-slot engines")
+    eng = ServeEngine(cfg32, base32, slots=X_SLOTS, max_len=X_MAX_LEN,
+                      device="cuda")
+    eng.register_adapter("full", d32["full"])
+    full = [("full", Request(0, list(prompts[0]), max_new_tokens=X_CHECK_NEW,
+                             adapter="full")),
+            (None, Request(1, list(prompts[1]), max_new_tokens=X_CHECK_NEW))]
+    for _, r in full:
+        eng.submit(r)
+    eng.run()
+    if eng.decode_steps["grouped"] == 0 or eng.decode_steps["stacked"]:
+        fail(f"(x) the full-tree delta took {eng.decode_steps}")
+    if [r.out_ids for _, r in full] != _single_slot_ids(
+            cfg32, base32, d32, full, X_CHECK_NEW, X_MAX_LEN):
+        fail("(x) f32 full-tree (grouped) ids differ from single-slot "
+             "engines")
+    log(f"(x) stacked ≡ per-adapter: f32 logits {gap32:.3e} of max |logits| "
+        f"apart (tolerance {X_F32_LOGIT_REL}), argmax {agree32}/{n32}, ids "
+        f"of 3 tenants + the base ≡ single-slot engines ({X_CHECK_NEW} tokens"
+        f" each); a full-tree delta took the grouped path "
+        f"({eng.decode_calls['grouped']} calls over "
+        f"{eng.decode_steps['grouped']} steps), ids ≡ single-slot engines; "
+        f"bf16 (reported): logits {gap16:.3e} apart, argmax {agree16}/{n16}, "
+        f"ids {same16}/{4 * X_CHECK_NEW} equal to single-slot engines")
+    log("(x) launches on the phase: " + ", ".join(
+        f"{k} {x_counts.get(k, 0)}" for k in (
+            "zo_affine_threefry", "zo_affine", "flash_attention",
+            "paged_gather")) + " (X1, K1, K2, K12)")
+    for k in ("zo_affine_threefry", "zo_affine", "flash_attention",
+              "paged_gather"):
+        if x_counts.get(k, 0) == 0:
+            fail(f"(x) {k} never launched on the phase")
+    del eng, base32, d32, rt32
+
+
 def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
                       which) -> None:
     """The phases named in ``which`` (u: hymba-1.5b, t: mixtral-8x7b, w:
-    whisper-large-v3; for iterating alone, j: qwen2-0.5b's spsa step under
+    whisper-large-v3, x: multi-tenant LoRA serving on qwen2-0.5b; for
+    iterating alone, j: qwen2-0.5b's spsa step under
     the original threefry layout, q: the card ≡ CPU Adam steps), each after
     the trees before it are freed, K2 held to its plain version at every
     shape they gave it."""
@@ -5390,6 +5856,8 @@ def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
               "t": ("mixtral-8x7b", lambda: mixtral_paths(
                   torch, np, _build, counts, step_ms, card)),
               "w": ("whisper-large-v3", lambda: whisper_paths(
+                  torch, np, _build, counts, step_ms, card)),
+              "x": ("qwen2-0.5b's tenants", lambda: tenants_paths(
                   torch, np, _build, counts, step_ms, card))}
     for ph in which:
         arch, run = phases[ph]
@@ -5429,7 +5897,8 @@ def main() -> None:
                          "build (j: qwen2-0.5b's spsa step under the "
                          "original threefry layout, q: the card ≡ CPU Adam "
                          "steps, u: hymba-1.5b, t: mixtral-8x7b, w: "
-                         "whisper-large-v3), then stop without the kernels "
+                         "whisper-large-v3, x: multi-tenant LoRA serving on "
+                         "qwen2-0.5b), then stop without the kernels "
                          "line: for iterating on one phase")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit (git archive): "
@@ -5637,9 +6106,10 @@ def main() -> None:
         f"s — on {card}")
 
     # ---- the hybrid and encdec families: (u) hymba-1.5b, (w) ----------- #
-    # ---- whisper-large-v3, each at full width and depth ---------------- #
+    # ---- whisper-large-v3, each at full width and depth; (x) ----------- #
+    # ---- multi-tenant LoRA serving on qwen2-0.5b ----------------------- #
     run_family_phases(torch, np, kf, _build, counts, step_ms, card,
-                      ["u", "w"])
+                      ["u", "w", "x"])
     rows.append(k2_hd128)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)

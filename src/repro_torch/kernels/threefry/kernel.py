@@ -58,11 +58,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.zo_fused.kernel import _fma, _fma_odd, _sqrt_rn
+from repro_torch.kernels.zo_fused.kernel import (_fma, _fma_odd, _sqrt_rn,
+                                                 plain_chunk)
 
 _MASK = 0xFFFFFFFF
-_CHUNK = 1 << 20                  # plain-version elements per pass (CPU)
-_CHUNK_CUDA = 1 << 24             # the plain version run on the card
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DIST_CODES = {"gaussian": 0, "rademacher": 1}
@@ -424,7 +423,7 @@ def zo_affine_threefry_plain(x: Optional[torch.Tensor], key, form: str,
     yflat = y.view(-1)
     xflat = x.reshape(-1) if x is not None else None
     ranges = [(0, yflat.numel())] if bands is None else bands
-    chunk = _CHUNK_CUDA if y.device.type == "cuda" else _CHUNK
+    chunk = plain_chunk(y.device)
     n = offset + yflat.numel() if total is None else int(total)
     bw = bit_width(dtype, dist)
     for lo0, hi0 in ranges:

@@ -36,6 +36,7 @@ from repro_torch.kernels import _build
 
 _MASK = 0xFFFFFFFF
 _CHUNK = 1 << 20                        # plain-version elements per pass
+_CHUNK_CUDA = 1 << 24                   # ... when it runs on the card
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DIST_CODES = {"gaussian": 0, "rademacher": 1}
 #: streams per launch of the multi-seed kernels (ZO_MAX_STREAMS in
@@ -194,6 +195,15 @@ def z_for(shape, seed: int, dist: str = "gaussian",
     return z_from_counter(idx, seed, dist).reshape(shape)
 
 
+def plain_chunk(device) -> int:
+    """Elements a plain version handles per pass on ``device``: 2^20 on the
+    CPU, 2^24 on the card, where each pass's torch ops are bound by their
+    launches.  Every plain version of the z kernels (X1's in
+    ``threefry.kernel`` too) walks its leaf in these passes; each element
+    is computed alone, so the passes decide the time, never the bits."""
+    return _CHUNK_CUDA if torch.device(device).type == "cuda" else _CHUNK
+
+
 def zo_affine_plain(x: torch.Tensor, seed: int, a: float, b: float,
                     dist: str = "gaussian",
                     out: Optional[torch.Tensor] = None,
@@ -207,8 +217,9 @@ def zo_affine_plain(x: torch.Tensor, seed: int, a: float, b: float,
     yflat = y.view(-1)
     a32 = torch.tensor(_f32(a), dtype=torch.float32, device=x.device)
     b32 = _f32(b)
-    for lo in range(0, flat.numel(), _CHUNK):
-        hi = min(lo + _CHUNK, flat.numel())
+    chunk = plain_chunk(x.device)
+    for lo in range(0, flat.numel(), chunk):
+        hi = min(lo + chunk, flat.numel())
         idx = torch.arange(lo + offset, hi + offset, dtype=torch.int64,
                            device=x.device) & _MASK
         z = z_from_counter(idx, seed, dist)

@@ -37,12 +37,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.zo_fused.kernel import (_CHUNK, _MASK, DIST_CODES,
+from repro_torch.kernels.zo_fused.kernel import (_MASK, DIST_CODES,
                                                  DTYPE_CODES, MAX_STREAMS,
                                                  _check_dist, _check_leaf,
                                                  _f32, _f32_array,
                                                  _multi_lib, _u32_array,
-                                                 fanout_route,
+                                                 fanout_route, plain_chunk,
                                                  z_from_counter,
                                                  zo_affine_plain)
 
@@ -180,7 +180,7 @@ def zo_sqnorm_plain(n: int, seed: int, dist: str = "gaussian",
     if n <= 0:
         raise ValueError(f"zo_sqnorm needs n >= 1, got {n}")
     tiles = -(-n // TILE_ELEMS)
-    group = max(1, _CHUNK // TILE_ELEMS)
+    group = max(1, plain_chunk(device) // TILE_ELEMS)
     parts = []
     for t0 in range(0, tiles, group):
         t1 = min(tiles, t0 + group)

@@ -58,12 +58,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.zo_fused.kernel import (_CHUNK, _MASK, DIST_CODES,
+from repro_torch.kernels.zo_fused.kernel import (_MASK, DIST_CODES,
                                                  DTYPE_CODES, IDX_MUL,
                                                  MAX_STREAMS, SEED_MUL,
                                                  _check_dist, _check_leaf,
                                                  _f32, _f32_array, _fma,
-                                                 _u32_array, z_from_counter)
+                                                 _u32_array, plain_chunk,
+                                                 z_from_counter)
 from repro_torch.kernels.zo_fused.multi import (_PER_THREAD, _TILE_THREADS,
                                                 TILE_ELEMS, _fold_f32,
                                                 _streams)
@@ -149,8 +150,9 @@ def zo_affine_rows_plain(x: torch.Tensor, seed: int, a: float, b: float,
     yflat = y.view(-1)
     a32 = torch.tensor(_f32(a), dtype=torch.float32, device=x.device)
     b32 = _f32(b)
-    for lo in range(0, sel, _CHUNK):
-        j = torch.arange(lo, min(lo + _CHUNK, sel), dtype=torch.int64,
+    chunk = plain_chunk(x.device)
+    for lo in range(0, sel, chunk):
+        j = torch.arange(lo, min(lo + chunk, sel), dtype=torch.int64,
                          device=x.device)
         e = compact_to_flat(j, be, k, phase)
         z = z_from_counter(e & _MASK, seed, dist)
@@ -194,7 +196,7 @@ def zo_sqnorm_rows_plain(n: int, seed: int, block_elems: int, k: int,
     n, be, k, phase = _plan(n, block_elems, k, phase)
     sel = _selected_or_raise(n, be, k, phase, "zo_sqnorm_rows")
     tiles = -(-sel // TILE_ELEMS)
-    group = max(1, _CHUNK // TILE_ELEMS)
+    group = max(1, plain_chunk(device) // TILE_ELEMS)
     parts = []
     for t0 in range(0, tiles, group):
         t1 = min(tiles, t0 + group)

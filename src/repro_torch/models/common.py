@@ -108,8 +108,9 @@ def sinusoidal_at(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Initializers (torch.Generator; JAX's threefry normals are not reproduced —
-# parity tests hand both sides the same weights through repro_torch.convert)
+# Initializers (torch.Generator; JAX's threefry normals are reproduced only
+# by ``dense_init_key`` — parity tests hand both sides the same weights
+# through repro_torch.convert)
 # --------------------------------------------------------------------------- #
 def dense_init(gen: torch.Generator, shape: tuple, dtype,
                fan_in: Optional[int] = None) -> torch.Tensor:
@@ -126,6 +127,24 @@ def dense_init(gen: torch.Generator, shape: tuple, dtype,
     for part in (out if len(shape) >= 3 else out[None]):
         _fill_normal(gen, part, 1.0 / math.sqrt(fan_in))
     return out
+
+
+def dense_init_key(key, shape: tuple, dtype, device,
+                   fan_in: Optional[int] = None) -> torch.Tensor:
+    """JAX's ``dense_init(key, shape, dtype)`` bit for bit: the f32
+    ``jax.random.normal(key, shape)`` of a threefry key (``perturb.stream``'s
+    ``prng_key`` / ``fold_in``) in the layout in force, times 1/√fan_in
+    rounded to f32 (JAX's float64 scalar, canonicalized), cast to
+    ``dtype``.  Drawn whole on ``device``: for small leaves (the LoRA
+    factors a tenant's ledger seeds)."""
+    from repro_torch.kernels.threefry.kernel import normal_f32, random_bits
+    from repro_torch.perturb.stream import partitionable
+    fan_in = fan_in or shape[0]
+    n = math.prod(shape)
+    bits = random_bits(key, torch.arange(n, dtype=torch.int64, device=device),
+                       n, 32, partitionable())
+    std = float(np.float32(1.0 / np.sqrt(fan_in)))
+    return (normal_f32(bits) * std).reshape(shape).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: tuple, dtype) -> torch.Tensor:

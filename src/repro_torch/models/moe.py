@@ -142,11 +142,14 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor):
     slot = r.gate_idx * (G * C) + g_ix * C + r.pos              # (G, M, K)
     tok = (g_ix * M + torch.arange(M, device=x.device)[None, :, None]
            ).expand_as(r.pos)
-    kept_slot, kept_tok = slot[r.keep], tok[r.keep]
-    expert_in = torch.zeros(E * G * C, d, dtype=x.dtype, device=x.device)
+    # dropped choices go to a spare trash row past the buffer, thrown away
+    # after the copy: a static shape, so the serving engine's stacked decode
+    # can vmap it
+    kept_slot = torch.where(r.keep, slot, E * G * C).reshape(-1)
+    expert_in = torch.zeros(E * G * C + 1, d, dtype=x.dtype, device=x.device)
     expert_in = expert_in.index_copy(0, kept_slot,
-                                     x.reshape(G * M, d)[kept_tok])
-    expert_in = expert_in.reshape(E, G * C, d)
+                                     x.reshape(G * M, d)[tok.reshape(-1)])
+    expert_in = expert_in[:-1].reshape(E, G * C, d)
     outs, e0 = [], 0
     for w1, w2, w3 in _expert_groups(cfg, p):
         xin = expert_in[e0:e0 + w1.shape[0]]

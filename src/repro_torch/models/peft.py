@@ -18,7 +18,8 @@ Prefix (Li & Liang 2021): m virtual K/V pairs per layer, prepended at
 
 The initializers draw from a ``torch.Generator`` (JAX's threefry draws are
 not reproduced: parity tests carry JAX's trees across with
-``repro_torch.convert``).  One reference quirk is kept bit for bit:
+``repro_torch.convert``), except ``init_lora`` given a threefry key, which
+draws JAX's A bit for bit (the tenants' LoRA init, seeded by a ledger).  One reference quirk is kept bit for bit:
 ``init_lora``'s 0-d floating ``_scale`` leaf lies under ``['lora']``, so a
 ``peft("lora")`` selection perturbs and updates it like A and B.
 
@@ -33,14 +34,16 @@ from typing import Callable
 
 import torch
 
+from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer
 from repro_torch.models.common import (apply_norm, apply_rope, dense_init,
-                                       rope_cos_sin)
+                                       dense_init_key, rope_cos_sin)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import ssm_scan
+from repro_torch.perturb.stream import fold_in
 from repro_torch.select import PEFT_MODES
 
 PREFIX_POS = -2  # sentinel k_pos: always attendable (see attention._mask)
@@ -49,19 +52,29 @@ PREFIX_POS = -2  # sentinel k_pos: always attendable (see attention._mask)
 # --------------------------------------------------------------------------- #
 # LoRA
 # --------------------------------------------------------------------------- #
-def init_lora(cfg: ModelConfig, gen: torch.Generator, rank: int = 8,
-              alpha: float = 16.0, targets: tuple = ("wq", "wv")) -> dict:
+def init_lora(cfg: ModelConfig, gen, rank: int = 8, alpha: float = 16.0,
+              targets: tuple = ("wq", "wv"), device: DeviceSpec = None) -> dict:
     """LoRA trees for the stacked attention projections; B is zero, so the
     delta starts at exactly zero.  A is N(0, 1/L) (``dense_init``'s fan-in
-    is the leading axis, as in JAX)."""
-    dtype, dev = cfg.param_dtype, gen.device
+    is the leading axis, as in JAX).
+
+    ``gen`` is a ``torch.Generator`` (A drawn from it, on its device) or a
+    threefry key (``perturb.stream.prng_key``): then target i's A is JAX's
+    ``dense_init(fold_in(key, i), …)`` bit for bit (``dense_init_key``), on
+    ``device`` (the card unless the caller names one) — so a tenant ledger's
+    ``base_seed`` rebuilds the adapter JAX trained."""
+    from_key = not isinstance(gen, torch.Generator)
+    dev = resolve_device(device) if from_key else gen.device
+    dtype = cfg.param_dtype
     L, d, H, KV, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads,
                        cfg.hd)
     outs = {"wq": H * hd, "wk": KV * hd, "wv": KV * hd, "wo": d}
     tree = {}
-    for t in targets:
+    for i, t in enumerate(targets):
+        shape = (L, d if t != "wo" else H * hd, rank)
         tree[t] = {
-            "a": dense_init(gen, (L, d if t != "wo" else H * hd, rank), dtype),
+            "a": (dense_init_key(fold_in(gen, i), shape, dtype, dev)
+                  if from_key else dense_init(gen, shape, dtype)),
             "b": torch.zeros((L, rank, outs[t]), dtype=dtype, device=dev),
         }
     tree["_scale"] = torch.tensor(alpha / rank, dtype=dtype, device=dev)

@@ -22,6 +22,30 @@ sliding window, and the dense-slab path for everything else it serves
 The contract is token identity: output ids with the prefix cache on equal
 the ids with it off.
 
+Multi-tenant serving (``repro_torch.serve.tenants``): ``register_adapter``
+hands the engine a named changed-leaf delta over the frozen base, requests
+carry an ``adapter`` name, and each slot remembers the adapter it decodes
+with.  Prefills run with the request's adapter on both paths (a paged
+prefill group shares one adapter), and each adapter name roots its own
+radix subtree, so KV computed under one tenant's weights is never served to
+another.  One decode step batches heterogeneous adapters as JAX's does:
+
+* only the base live: the single-model decode above, unchanged;
+* dense or moe with no full-tree delta: the STACKED decode — the union of
+  the live adapters' changed leaves stacked along a slot axis (rebuilt only
+  when the slot assignment changes) and ``torch.func.vmap`` of the
+  registry decode over the slots, one call for every slot (the varying
+  projections become batched matmuls; base leaves are shared, never
+  copied; the cache rows are written in place through the vmap);
+* anything else (ssm, hybrid, a full-tree delta): the GROUPED decode — one
+  call per distinct live adapter on that group's slots, taken from the
+  pre-step cache and state, its rows merged back.
+
+``decode_calls`` counts the calls of the registry decode itself, booked
+under the path of the step that made them, and ``decode_steps`` the steps:
+``vmap`` runs the decode once for all the slots, so a stacked step books
+one call, where a loop over slots would book one per slot.
+
 The dense slab is JAX's legacy per-slot path (``paged=False``, or any
 model the paged path cannot take): the engine holds per-slot KV caches
 (``init_cache(..., per_slot=True)``: one ``pos`` row per slot, a ring of
@@ -36,9 +60,8 @@ K2's under ``pallas_flash``.  Its first ``min(prompt, cap)`` KV rows and
 its state are copied into the slot.  A prompt longer than the slot's
 capacity is refused at ``submit``, as JAX refuses it.  The lockstep decode
 writes each slot's new row at ``pos % cap``.  The slab has no block pool
-(no K12) and no prefix cache.  Adapters and mixed-adapter decode come with
-the tenants slice.  encdec is not served, as in JAX (its engine asserts
-the family): whisper decodes through the registry's ``prefill_fn`` /
+(no K12) and no prefix cache.  encdec is not served, as in JAX (its engine
+asserts the family): whisper decodes through the registry's ``prefill_fn`` /
 ``decode_fn``.  A moe model's routing groups follow the forward's rule in
 every phase: a chunk prefill's padded rows share groups with the real
 tokens, and a decode step is one token per group (capacity 8, nothing
@@ -53,6 +76,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.kernels.paged.gather import paged_gather, upload_table
@@ -63,6 +87,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import init_ssm_state
 from repro_torch.serve.paged import (KVBlockPool, RadixCache, bucket_for,
                                      pow2ceil, prefill_buckets)
+from repro_torch.tree_utils import tree_leaves, tree_map, tree_unflatten
+
+
+def _slot_rows(tree, idx):
+    """Copies of slots ``idx`` (axis 1 of every leaf) of a cache or state
+    tree, or None."""
+    return None if tree is None else tree_map(lambda a: a[:, idx], tree)
 
 
 @dataclasses.dataclass
@@ -132,9 +163,19 @@ class ServeEngine:
         self.queue: deque = deque()
         self.active: list = [None] * slots
         self.pos = np.zeros((slots,), np.int32)       # next position per slot
-        self.adapters: dict = {}
 
-        self._decode = self.bundle.decode_fn()
+        # adapter identity: name -> delta; per-slot assignment; derived trees
+        self.adapters: dict = {}
+        self.slot_adapter: list = [None] * slots
+        self._adapter_params: dict = {None: params}   # name -> full tree view
+        self._base_leaves = tree_leaves(params)
+        self._stack_sig = None           # slot_adapter snapshot the stack fits
+        self._stack = None               # (vidx, [stacked leaf tensors])
+        self.decode_calls = {"base": 0, "stacked": 0, "grouped": 0}
+        self.decode_steps = {"base": 0, "stacked": 0, "grouped": 0}
+
+        self._registry_decode = self.bundle.decode_fn()
+        self._decode_count = 0          # registry decode calls, every path
         self.stats = {"requests": 0, "prefill_tokens_submitted": 0,
                       "prefill_tokens_computed": 0, "prefix_hits": 0,
                       "prefix_tokens_reused": 0, "prefill_batches": 0,
@@ -142,9 +183,22 @@ class ServeEngine:
 
     # ------------------------------------------------------------------ #
     def register_adapter(self, name: str, delta) -> None:
-        raise NotImplementedError(
-            "adapters (register_adapter, mixed-adapter decode) are ported "
-            "with the tenants slice")
+        """Attach a named ``AdapterDelta`` over the frozen base.  Applying a
+        delta is pure leaf replacement, so the adapter's full tree is a view
+        sharing every unchanged buffer with the base.  Re-registering the
+        same delta object is a no-op (the cache-hit path); a different delta
+        under an existing name drops that name's radix scope (its cached
+        prefix KV was computed under the old weights)."""
+        if self.adapters.get(name) is delta:
+            return
+        if self.radix is not None and name in self.adapters:
+            self.radix.drop_scope(name)
+        self._adapter_params[name] = delta.apply(self.params)  # shape check
+        self.adapters[name] = delta
+        self._stack_sig = None          # stacked leaves may be stale
+
+    def _params_for(self, adapter: Optional[str]):
+        return self._adapter_params[adapter]
 
     def _prompt_limit(self) -> int:
         """Longest admissible prompt: one decode position must remain below
@@ -173,11 +227,17 @@ class ServeEngine:
 
     def _activate(self, slot: int, req: Request) -> None:
         self.active[slot] = req
+        if self.slot_adapter[slot] != req.adapter:
+            self.slot_adapter[slot] = req.adapter
+            self._stack_sig = None
         self.pos[slot] = len(req.prompt_ids)
         req.times.setdefault("prefill", time.perf_counter())
 
     def _release_slot(self, slot: int) -> None:
         self.active[slot] = None
+        # an idle slot holds no adapter: its last one's leaves must not stay
+        # in the stacked union
+        self.slot_adapter[slot] = None
         if self.paged:
             for b in self.tables[slot]:
                 self.pool.unref(b)
@@ -187,21 +247,21 @@ class ServeEngine:
     # Dense-slab admission: one prefill per request, KV rows and state
     # copied into the slot
     # ------------------------------------------------------------------ #
-    def _prefill_slab(self, tokens: torch.Tensor):
-        """One request's prefill on its (1, plen) tokens: (logits (1, plen,
-        V), KV cache of ``plen`` rows (ring-capped) or None, state or
-        None)."""
+    def _prefill_slab(self, params, tokens: torch.Tensor):
+        """One request's prefill on its (1, plen) tokens under ``params``:
+        (logits (1, plen, V), KV cache of ``plen`` rows (ring-capped) or
+        None, state or None)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             logits, st = rwkv6.forward(
-                cfg, self.params, tokens=tokens,
+                cfg, params, tokens=tokens,
                 state=rwkv6.init_rwkv_state(cfg, 1, self.device))
             return logits, None, st
         plen = tokens.shape[1]
         cache = init_cache(cfg, 1, plen, cfg.param_dtype, self.device)
         state = (init_ssm_state(cfg, 1, device=self.device)
                  if cfg.family == "hybrid" else None)
-        r = transformer.forward(cfg, self.params, tokens=tokens, cache=cache,
+        r = transformer.forward(cfg, params, tokens=tokens, cache=cache,
                                 cache_pos=None, ssm_state=state)
         return r.logits, r.cache, r.ssm_state
 
@@ -217,6 +277,7 @@ class ServeEngine:
             toks = np.zeros((1, plen), np.int64)
             toks[0, :npr] = req.prompt_ids
             logits, kv, state = self._prefill_slab(
+                self._params_for(req.adapter),
                 torch.as_tensor(toks).to(self.device))
             if self.cache is not None and kv is not None:
                 span = min(npr, self.cache["k"].shape[2])
@@ -298,14 +359,16 @@ class ServeEngine:
             pcap = blk * pow2ceil(nc // blk) if nc else 0
             scap = bucket_for(len(req.prompt_ids) - nc, self._buckets)
             groups.setdefault((req.adapter, pcap, scap), []).append(plan)
-        for (_, pcap, scap), grp in groups.items():
-            self._prefill_group(pcap, scap, grp)
+        for (adapter, pcap, scap), grp in groups.items():
+            self._prefill_group(adapter, pcap, scap, grp)
 
-    def _prefill_group(self, pcap: int, scap: int, grp: list) -> None:
-        """One batched chunk-prefill for every request sharing (prefix pad,
-        suffix bucket): gather cached prefix KV, run the suffix forward,
-        write the suffix KV into each request's fresh blocks, thread the
-        full chunks into the radix cache, and activate the slots."""
+    def _prefill_group(self, adapter, pcap: int, scap: int,
+                       grp: list) -> None:
+        """One batched chunk-prefill for every request sharing (adapter,
+        prefix pad, suffix bucket): gather cached prefix KV, run the suffix
+        forward under the adapter's weights, write the suffix KV into each
+        request's fresh blocks, thread the full chunks into the radix cache,
+        and activate the slots."""
         cfg, blk, dev = self.cfg, self.block, self.device
         L, _, KV, hd = self.pool.k.shape
         B = len(grp)
@@ -331,8 +394,9 @@ class ServeEngine:
                  "pos": torch.as_tensor(cpos).to(dev)[None].repeat(L, 1, 1)}
         plens_t = torch.as_tensor(plens).to(dev)
         logits, cache = self._chunk_prefill(
-            self.params, {"tokens": torch.as_tensor(toks).to(dev),
-                          "cache": cache, "cache_pos": plens_t})
+            self._params_for(adapter),
+            {"tokens": torch.as_tensor(toks).to(dev), "cache": cache,
+             "cache_pos": plens_t})
         self.stats["prefill_batches"] += 1
         # the last real prompt logit of each request
         s_last = torch.as_tensor([len(req.prompt_ids) - nc - 1
@@ -411,6 +475,92 @@ class ServeEngine:
         return int(torch.multinomial(probs, 1, generator=self.gen))
 
     # ------------------------------------------------------------------ #
+    # Decode: the single-model call, and the mixed-adapter paths
+    # ------------------------------------------------------------------ #
+    def _decode(self, params, batch):
+        """The registry decode, each call counted (``decode_calls``)."""
+        self._decode_count += 1
+        return self._registry_decode(params, batch)
+
+    def _run_decode(self, params, token, cache_pos, cache, state):
+        """One registry decode call: (logits, cache, state) — the family
+        decides which of cache and state it carries (the other is None)."""
+        batch = {"token": token, "cache_pos": cache_pos}
+        if self.cfg.family == "ssm":
+            batch["state"] = state
+            logits, state = self._decode(params, batch)
+            return logits, None, state
+        batch["cache"] = cache
+        if self.cfg.family == "hybrid":
+            batch["state"] = state
+            logits, (cache, state) = self._decode(params, batch)
+            return logits, cache, state
+        logits, cache = self._decode(params, batch)
+        return logits, cache, None
+
+    def _stacked_leaves(self):
+        """(vidx, stacked) for the current slot → adapter assignment: the
+        union of the live adapters' changed-leaf indices, each stacked
+        (slot axis 0) from the slot's adapter value or the base leaf.
+        Rebuilt only when the assignment changes (``_stack_sig``)."""
+        sig = tuple(self.slot_adapter)
+        if self._stack_sig == sig:
+            return self._stack
+        names = {a for a in sig if a is not None}
+        vidx = tuple(sorted({i for n in names
+                             for i in self.adapters[n].indices}))
+        by_name = {n: dict(zip(self.adapters[n].indices,
+                               self.adapters[n].values)) for n in names}
+        stacked = [torch.stack([by_name.get(a, {}).get(
+            i, self._base_leaves[i]) for a in sig]) for i in vidx]
+        self._stack_sig, self._stack = sig, (vidx, stacked)
+        return self._stack
+
+    def _stacked_decode(self, token, cache_pos) -> torch.Tensor:
+        """Every slot in ONE call: ``vmap`` over slots of a batch-1 registry
+        decode whose ``vidx`` leaves arrive stacked with a leading slot axis
+        (base leaves shared).  Each slot's KV row is written in place into
+        ``self.cache`` through the vmap; returns the (slots, 1, V) logits."""
+        vidx, stacked = self._stacked_leaves()
+        base, decode = self._base_leaves, self._decode
+
+        def one(varying, tok, cpos, cache):
+            leaves = list(base)
+            for i, v in zip(vidx, varying):
+                leaves[i] = v
+            batch = {"token": tok[None], "cache_pos": cpos[None],
+                     "cache": {k: a[:, None] for k, a in cache.items()}}
+            logits, _ = decode(tree_unflatten(self.params, leaves), batch)
+            return logits[0]
+
+        return vmap(one, in_dims=(0, 0, 0, 1))(stacked, token, cache_pos,
+                                                self.cache)
+
+    def _grouped_decode(self, token, cache_pos, live: list) -> torch.Tensor:
+        """One call per distinct live adapter on that group's slots: their
+        token, position, cache rows and state rows taken from the pre-step
+        cache and state (copies), decoded under the adapter's weights, and
+        only those rows merged back (cache / state axis 1, logits axis 0)."""
+        groups: dict = {}
+        for s in live:
+            groups.setdefault(self.slot_adapter[s], []).append(s)
+        logits_all = None
+        for name, slots_g in groups.items():
+            idx = torch.as_tensor(slots_g, device=self.device)
+            logits, cache_g, state_g = self._run_decode(
+                self._params_for(name), token[idx], cache_pos[idx],
+                _slot_rows(self.cache, idx), _slot_rows(self.state, idx))
+            if logits_all is None:
+                logits_all = logits.new_zeros((self.slots,)
+                                              + tuple(logits.shape[1:]))
+            logits_all[idx] = logits
+            for full, part in ((self.cache, cache_g), (self.state, state_g)):
+                if full is not None:
+                    for f, p in zip(tree_leaves(full), tree_leaves(part)):
+                        f[:, idx] = p
+        return logits_all
+
+    # ------------------------------------------------------------------ #
     def step(self) -> int:
         """One lockstep decode over all live slots; returns #live slots."""
         self._admit()
@@ -420,28 +570,30 @@ class ServeEngine:
         toks = np.zeros((self.slots, 1), np.int64)
         for s in live:
             toks[s, 0] = self.active[s].out_ids[-1]
-        batch = {"token": torch.as_tensor(toks).to(self.device),
-                 "cache_pos": torch.as_tensor(self.pos.astype(np.int64)).to(
-                     self.device)}
+        token = torch.as_tensor(toks).to(self.device)
+        cache_pos = torch.as_tensor(self.pos.astype(np.int64)).to(self.device)
         if self.paged:
             self._ensure_decode_blocks(live)
-            self.cache = batch["cache"] = self._assemble_decode_cache()
-            logits, self.cache = self._decode(self.params, batch)
-            self._writeback_decode(live)
-        elif self.cfg.family == "ssm":
-            # every slot steps in lockstep; an inactive slot's state is junk
-            # that its next admission overwrites
-            batch["state"] = self.state
-            logits, self.state = self._decode(self.params, batch)
-        elif self.cfg.family == "hybrid":
-            batch["cache"], batch["state"] = self.cache, self.state
-            logits, (self.cache, self.state) = self._decode(self.params,
-                                                            batch)
+            self.cache = self._assemble_decode_cache()
+        names = {self.slot_adapter[s] for s in live}
+        calls = self._decode_count
+        if names == {None}:
+            # every slot steps in lockstep; an inactive slot writes masked
+            # junk (cache) or junk state that its next admission overwrites
+            path = "base"
+            logits, self.cache, self.state = self._run_decode(
+                self.params, token, cache_pos, self.cache, self.state)
+        elif self.cfg.family in ("dense", "moe") and not any(
+                self.adapters[n].full_tree for n in names if n is not None):
+            path = "stacked"
+            logits = self._stacked_decode(token, cache_pos)
         else:
-            # an inactive slot writes masked junk at its stale position,
-            # which its next admission overwrites
-            batch["cache"] = self.cache
-            logits, self.cache = self._decode(self.params, batch)
+            path = "grouped"
+            logits = self._grouped_decode(token, cache_pos, live)
+        self.decode_calls[path] += self._decode_count - calls
+        self.decode_steps[path] += 1
+        if self.paged:
+            self._writeback_decode(live)
         now = time.perf_counter()
         for s in live:
             req = self.active[s]

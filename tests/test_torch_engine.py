@@ -1,6 +1,6 @@
 """Port parity of the paged serving engine: the port's ``ServeEngine``
 emits JAX's greedy ids on the same weights, its prefix cache is invisible in
-the ids, and its refusals match JAX's."""
+the ids, and its refusals match JAX's (an unregistered adapter among them)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,10 +12,13 @@ from repro.models import bundle as jax_bundle
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro.serve.paged import PoolExhaustedError as JaxPoolExhausted
+from repro.serve.tenants import AdapterDelta as JaxAdapterDelta
 from repro_torch import convert
 from repro_torch.models import all_archs
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.paged import PoolExhaustedError
+from repro_torch.serve.tenants import AdapterDelta
+from repro_torch.tree_utils import tree_leaves, tree_unflatten
 
 torch.set_num_threads(1)   # tiny tensors: no oversubscription under xdist
 
@@ -83,8 +86,23 @@ def test_refusals_match_jax(weights):
     assert str(te.value) == str(je.value)
     with pytest.raises(KeyError):
         teng.submit(Request(1, [1, 2], adapter="tenant-a"))
-    with pytest.raises(NotImplementedError, match="tenants slice"):
-        teng.register_adapter("tenant-a", None)
+    # a registered adapter is admitted; an unregistered one refuses with
+    # JAX's KeyError, naming the registered ones
+    jleaves, jdef = jax.tree_util.tree_flatten(jeng.params)
+    jeng.register_adapter("tenant-a", JaxAdapterDelta.diff(
+        jeng.params, jax.tree_util.tree_unflatten(
+            jdef, [jleaves[0] + 0.25] + jleaves[1:])))
+    tleaves = tree_leaves(teng.params)
+    teng.register_adapter("tenant-a", AdapterDelta.diff(
+        teng.params, tree_unflatten(teng.params,
+                                    [tleaves[0] + 0.25] + tleaves[1:])))
+    teng.submit(Request(1, [1, 2], adapter="tenant-a"))
+    assert len(teng.queue) == 1
+    with pytest.raises(KeyError) as je:
+        jeng.submit(JaxRequest(2, [1, 2], adapter="tenant-b"))
+    with pytest.raises(KeyError) as te:
+        teng.submit(Request(2, [1, 2], adapter="tenant-b"))
+    assert str(te.value) == str(je.value) and "tenant-a" in str(te.value)
 
     # a pool of 3 blocks (trash + 2) cannot hold a 40-token prompt
     prompt = list(range(1, 41))

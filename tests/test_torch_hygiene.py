@@ -158,10 +158,17 @@ def test_no_text_says_the_port_is_dense_only():
     "tests/test_torch_hybrid.py", "tests/test_torch_hybrid_ledger.py",
     "tests/test_torch_serve_slab.py", "tests/test_torch_encdec.py",
     "tests/test_torch_zoo_conformance.py",
-    "tests/test_torch_zoo_conformance_more.py"])
+    "tests/test_torch_zoo_conformance_more.py",
+    "src/repro_torch/serve/tenants/store.py",
+    "src/repro_torch/serve/tenants/cache.py",
+    "src/repro_torch/serve/tenants/compact.py",
+    "src/repro_torch/serve/tenants/synth.py",
+    "tests/test_torch_tenants.py", "tests/test_torch_tenants_parity.py",
+    "tests/test_torch_tenants_decode.py"])
 def test_new_modules_are_under_the_hygiene_checks(name):
-    """The moe modules and the original-layout tests are among the files
-    the checks above walk, import no JAX (modules) and no unused name."""
+    """The moe modules, the original-layout tests and the tenants modules
+    and tests are among the files the checks above walk, import no JAX
+    (modules) and no unused name."""
     path = ROOT / name
     assert path in PORT_FILES + PORT_TESTS
     if name.startswith("src/"):
@@ -180,8 +187,14 @@ def test_serve_cli_replays_a_jax_ledger_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "replayed 2 ledger steps" in out and "backend=pallas+z2" in out
     assert "3 requests / 9 tokens" in out
-    with pytest.raises(SystemExit, match="tenants slice"):
-        serve_cli.main(["--smoke", "--device", "cpu", "--tenants", "2"])
+    # multi-tenant mode serves (no longer refused): 2 tenants, each cold
+    # once (one record replayed each), every other request a cache hit
+    serve_cli.main(["--smoke", "--device", "cpu", "--tenants", "2",
+                    "--tenant-steps", "1", "--requests", "4",
+                    "--new-tokens", "2"])
+    out = capsys.readouterr().out
+    assert "trained 2 LoRA tenants" in out
+    assert "2 ledger records replayed" in out and "cache hit rate" in out
 
 
 # --------------------------------------------------------------------------- #

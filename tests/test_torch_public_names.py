@@ -16,13 +16,6 @@ SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 #: JAX names the port does not export yet, with the Queue 1 item that owes
 #: them (ROADMAP.md)
 OWED = {
-    # item 8: the multi-tenant runtime
-    "serve.tenants": ({"AdapterDelta", "AdapterStore", "CompactedAdapter",
-                       "DeltaCache", "LedgerHashMismatchError",
-                       "TenantRuntime", "compact", "lora_runtime",
-                       "make_lora_tenants", "materialize", "serve_load",
-                       "synthetic_requests", "template_requests",
-                       "tenant_name"}, 8),
     # item 9: the deprecated shims, repro.core's lazy exports, zo.from_config
     # / zo.Optimizer, and the rest of JAX's public names (the port's
     # counter-hash backend is CounterBackend, JAX's PallasBackend)
@@ -75,7 +68,7 @@ def test_the_owed_names_are_jax_names_of_real_packages():
     pkgs = _jax_packages()
     for package, (names, item) in OWED.items():
         assert package in pkgs, package
-        assert item in (8, 9, 10, 11, 12), (package, item)
+        assert item in (9, 10, 11, 12), (package, item)
         assert names <= jax_public_names(package), (
             package, names - jax_public_names(package))
 
