@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
     python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
-    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x)
+    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x, y)
 
 In order: prints the card's name and power limit; builds the eight CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -164,7 +164,7 @@ stream, ``pallas_flash`` attention:
 Then the hybrid and encdec families, random bf16 weights from seed 0 on
 the ``xla`` stream, ``pallas_flash`` attention:
 
-* (u) hymba-1.5b at full width and depth (32 layers, d 1600, 25 × 64
+* (u) hymba-1.5b at full width, 16 of its 32 layers (d 1600, 25 × 64
   heads over 5 KV heads, 25 SSM heads of state 16, window 2048): one spsa
   step's peak against one forward's, its busy share and top kernels; 10
   spsa steps through the training loop (X1, K2 at hd 64 with the window);
@@ -204,6 +204,16 @@ single-model, stacked and grouped paths; in f32 the stacked decode's
 logits within ``X_F32_LOGIT_REL`` of the grouped (per-adapter) decode's
 and its ids those of single-slot engines, a full-tree delta on the grouped
 path with the same ids; in bf16 the gap and the agreement reported.
+
+Then (y) the deprecated shims, the legacy-config interop and the
+functional primitives (``repro_torch.core``) on qwen2-0.5b at full width
+and depth (``shims_paths``): ``MeZO(MeZOConfig)`` through ``train.loop``
+with a ledger ≡ ``zo.mezo`` after every step (peak gated at 1.10 × one
+forward's), ``core.replay`` through a bare config ≡ the preset's and the
+plain replay; a config naming ``backend="pallas"`` (K1), ``MeZOAdam`` and
+``MeZOVariant`` (grad_norm_zo) ≡ their presets; the functional writes ≡
+the backend's in-place writes with θ₀ untouched; the functional spsa chain
+≡ the estimator's; the shim's step timed against the preset's in turns.
 
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
@@ -306,7 +316,7 @@ ULPS_PER_STEP = {"a_spsa": 4.0, "d_sp2": 10.0, "e_rows_spsa": 4.0,
                  "n_opt30b_spsa": 12.0, "s_granite_spsa": 12.0,
                  "s_granite_orig": 12.0, "t_mixtral_spsa": 12.0,
                  "u_hymba_spsa": 12.0, "u_hymba_pallas": 4.0,
-                 "w_whisper_spsa": 12.0}
+                 "w_whisper_spsa": 12.0, "y_shim": 12.0}
 Z_MAX = 6.0
 MEM_SLACK = 1.10
 # the ssm phases: rwkv6-3b at full width and depth (32 layers, d 2560,
@@ -390,8 +400,11 @@ MOE_STEPS = {"s_granite_spsa": 5, "s_granite_orig": 1, "t_mixtral_spsa": 3}
 GRANITE_GROUPS = 4
 MIXTRAL_LAYERS, MIXTRAL_FALLBACK_LAYERS = 24, 20
 MIXTRAL_MIN_FREE = 4 << 30
-# the hybrid and encdec families, after the moe phases: (u) hymba-1.5b and
-# (w) whisper-large-v3, each at full width and depth
+# the hybrid and encdec families, after the moe phases: (u) hymba-1.5b at
+# full width, its depth cut to HYMBA_LAYERS of 32 to keep the whole run
+# well inside its time limit, and (w) whisper-large-v3 at full width and
+# depth
+HYMBA_LAYERS = 16
 FAMILY_STEPS = {"u_hymba_spsa": 10, "u_hymba_pallas": 1,
                 "w_whisper_spsa": 5}
 # K2 at hymba's head shape over a sequence the 2048 window binds
@@ -437,6 +450,17 @@ X_CACHE_BYTES, X_DELTA_BYTES = 140_000_000, 44_040_192
 # X_F32_LOGIT_REL × max |logits| of the grouped calls' (f32 sums in other
 # orders through 24 layers, TF32 off)
 X_STEP_TOKENS, X_CHECK_NEW, X_F32_LOGIT_REL = 24, 8, 1e-4
+# (y) the deprecated shims and the functional primitives on qwen2-0.5b at
+# full width and depth: Y_STEPS shim steps through the loop (and the
+# preset's, compared after every step), Y_PALLAS_STEPS of a config naming
+# the counter backend, Y_ADAM_STEPS of MeZOAdam, Y_VARIANT_STEPS of
+# MeZOVariant (grad_norm_zo); the host-clock turns of the shim's step
+# against the preset's, Y_TURN_STEPS steps a turn; the functional chain's
+# ℓ± held to the in-place estimator's within Y_LOSS_REL (the same bits
+# through the same forward: expected equal)
+Y_STEPS, Y_PALLAS_STEPS, Y_ADAM_STEPS, Y_VARIANT_STEPS = 5, 3, 3, 2
+Y_TURN_STEPS, Y_LOSS_REL = 2, 1e-6
+QWEN2_PARAMS = 630_167_424
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
 B8 = [-0.0123, 0.01, 0.25, -1e-3, 0.0625, -0.5, 3e-4, 0.1]
@@ -1567,7 +1591,7 @@ def make_opts():
 
 SSM_STEPS = {"i_ssm_spsa": 10}
 ALL_STEPS = {**STEPS, **SSM_STEPS, **XLA_STEPS, **PAPER_STEPS, **MOE_STEPS,
-             **FAMILY_STEPS}
+             **FAMILY_STEPS, "y_shim": Y_STEPS}
 
 REQUIRED = {"i_ssm_spsa": ("zo_affine", "wkv6_chunked"),
             "j_xla_spsa": ("zo_affine_threefry", "flash_attention"),
@@ -1734,12 +1758,13 @@ def check_replays(torch, name, params0, trained, ledger, opt_factory):
 
 
 def memory_and_busy(torch, cfg, params0, selection=None, backend="pallas",
-                    loss_fn=None, batch=None):
+                    loss_fn=None, batch=None, opt=None, what=None):
     """Peak device memory of one spsa step vs one forward on the same batch
     (no_grad), on a scratch copy of θ₀; and the device-busy share of a
     step under torch.profiler.  Under a ``selection``, the first step must
     leave every unselected element at θ₀'s bits.  CE on a 16 × 256 lm
-    batch unless ``loss_fn`` / ``batch`` are given."""
+    batch unless ``loss_fn`` / ``batch`` are given; ``zo.mezo`` on
+    ``backend`` unless ``opt`` (named ``what``) is given."""
     from repro_torch import zo
     from repro_torch.data.pipeline import DataSpec, Pipeline
     from repro_torch.models import bundle
@@ -1750,10 +1775,11 @@ def memory_and_busy(torch, cfg, params0, selection=None, backend="pallas",
                                   vocab=cfg.vocab_size, seed=SEED),
                          device="cuda").batch(0)
     loss_fn = loss_fn or bundle(cfg).loss_fn()
-    opt = zo.mezo(lr=LR, eps=EPS, backend=backend, selection=selection)
-    what = "spsa" if selection is None else f"spsa {selection}"
-    if backend != "pallas":
-        what += f" on {backend}"
+    if opt is None:
+        opt = zo.mezo(lr=LR, eps=EPS, backend=backend, selection=selection)
+        what = "spsa" if selection is None else f"spsa {selection}"
+        if backend != "pallas":
+            what += f" on {backend}"
     state = opt.init(params, seed=SEED)
     step = opt.step_fn(loss_fn)
     with torch.no_grad():
@@ -5155,8 +5181,8 @@ def hymba_ssd_check(torch, card) -> None:
 
 
 def hymba_paths(torch, np, kf, _build, counts, step_ms, card) -> None:
-    """hymba-1.5b at full width and depth (32 layers, d 1600, 25 × 64
-    heads over 5 KV heads, SWA 2048, 25 SSM heads of state 16, d_ff 5504,
+    """hymba-1.5b at full width, HYMBA_LAYERS of its 32 layers (d 1600,
+    25 × 64 heads over 5 KV heads, SWA 2048, 25 SSM heads of state 16, d_ff 5504,
     bf16, ``pallas_flash``): (u) mezo spsa on ``xla`` — one step's peak
     against one forward's (the 1.10 gate), its busy share and top kernels;
     10 steps through the training loop; two replays bitwise equal, within
@@ -5170,7 +5196,7 @@ def hymba_paths(torch, np, kf, _build, counts, step_ms, card) -> None:
     from repro_torch.models import bundle
     from repro_torch.serve.tenants import composition_for_ledger
     from repro_torch.tree_utils import tree_leaves
-    cfg, params0 = init_logged(torch, "hymba-1.5b")
+    cfg, params0 = init_logged(torch, "hymba-1.5b", n_layers=HYMBA_LAYERS)
     b = bundle(cfg)
     if b.default_selection() != "full":
         fail(f"hymba's default selection is {b.default_selection()!r}")
@@ -5831,10 +5857,347 @@ def tenants_paths(torch, np, _build, counts, step_ms, card) -> None:
     del eng, base32, d32, rt32
 
 
+def shims_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """(y) The deprecated shims, the legacy-config interop and the
+    functional primitives (``repro_torch.core``) at qwen2-0.5b's full width
+    and depth (24 layers, d 896, bf16, ``pallas_flash``, random weights
+    from seed 0, 16 × 256 lm batches, lr 1e-6, ε 1e-3): ``MeZO(MeZOConfig)``
+    (legacy ``init(0)``) through ``train.loop`` with a ledger against
+    ``zo.mezo`` (θ bitwise after every step, the ledgers' bytes equal), its
+    step's peak gated at ``MEM_SLACK`` × one forward's; ``core.replay``
+    through a bare ``MeZOConfig`` ≡ the preset's replay ≡ the plain replay,
+    within the ulp bound of the trained θ; a config-like object naming
+    ``backend="pallas"`` (K1) ≡ ``zo.mezo(backend="pallas")``;
+    ``MeZOAdam`` ≡ ``zo.mezo_adam``; ``MeZOVariant`` (grad_norm_zo, its
+    legacy ``init(params, loss_fn, batch)``) ≡ ``zo.mezo_rescaled``; the
+    functional ``perturb`` / ``fused_restore_update`` / ``apply_rank1`` ≡
+    the backend's in-place writes with the caller's leaves untouched;
+    ``spsa_projected_grad``'s chain ≡ the ``spsa`` estimator's (trees, and
+    ℓ± within ``Y_LOSS_REL``); ``sample_z_tree`` ≡ X1's ``z`` form; the
+    oracle's leaf = g·z; the shim's step timed against the preset's in
+    turns."""
+    import dataclasses
+    import statistics
+    import types
+
+    from repro_torch import zo
+    from repro_torch.core import (MeZO, MeZOAdam, MeZOAdamConfig, MeZOConfig,
+                                  MeZOVariant, MeZOVariantConfig,
+                                  TrajectoryLedger, replay,
+                                  spsa_full_gradient_oracle,
+                                  spsa_projected_grad)
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.kernels.threefry.kernel import zo_affine_threefry
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.perturb import StreamRef, get_backend
+    from repro_torch.perturb import xla as fx
+    from repro_torch.perturb.stream import prng_key, step_key
+    from repro_torch.train.loop import train
+    from repro_torch.tree_utils import tree_leaves
+    from repro_torch.zo.base import host_f32
+    before = dict(counts)
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
+    params0 = bundle(cfg).init(SEED, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    if n_params != QWEN2_PARAMS or cfg.n_layers != 24 or cfg.d_model != 896:
+        fail(f"(y) qwen2-0.5b at {n_params} parameters, {cfg.n_layers} "
+             f"layers, d {cfg.d_model}: not its full width and depth")
+    loss_fn = bundle(cfg).loss_fn()
+
+    def pipe():
+        return Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                 vocab=cfg.vocab_size, seed=SEED),
+                        device="cuda")
+
+    data = pipe()
+    batch = data.batch(0)
+    conf = MeZOConfig(lr=LR, eps=EPS)
+
+    def same_trees(a, b) -> bool:
+        return all(same_bits(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    # ---- 1. the legacy shim through the loop, against the preset ------- #
+    if MeZO(conf).init(SEED) != zo.mezo(lr=LR, eps=EPS).init(params0,
+                                                             seed=SEED):
+        fail("(y) MeZO's legacy init(0) != zo.mezo's init(θ₀, seed=0)")
+    memory_and_busy(torch, cfg, params0, loss_fn=loss_fn, batch=batch,
+                    opt=MeZO(conf), what="MeZO(MeZOConfig) shim (xla)")
+    snaps: list = []
+
+    def loop(opt, what, compare: bool):
+        params = _clone_tree(params0)
+        led = TrajectoryLedger(base_seed=SEED, grad_dtype="float32",
+                               backend=opt.backend_name)
+
+        def each(step, p):
+            if not compare:
+                snaps.append(_clone_tree(p))
+            elif not same_trees(p, snaps[step - 1]):
+                fail(f"(y) {what}: θ after step {step} != the shim's")
+
+        _build.reset_launch_counts()
+        res = train(loss_fn, params, opt, pipe(), total_steps=Y_STEPS,
+                    ledger=led, eval_fn=each, eval_every=1, log_every=1,
+                    seed=SEED)
+        torch.cuda.synchronize()
+        add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+                   f"(y) {what} through train.loop")
+        losses = [v for _, v in res.losses]
+        if len(losses) != Y_STEPS or not all(v == v and abs(v) < 1e30
+                                             for v in losses):
+            fail(f"(y) {what}: losses not finite: {losses}")
+        return res.params, led, losses
+
+    p_shim, led, l_shim = loop(MeZO(conf), "MeZO(MeZOConfig)", False)
+    p_pre, led_pre, l_pre = loop(zo.mezo(lr=LR, eps=EPS), "zo.mezo", True)
+    if led.to_bytes() != led_pre.to_bytes() or l_shim != l_pre:
+        fail("(y) the shim's ledger bytes or losses != the preset's")
+    snaps.clear()
+    del p_pre
+    log(f"(y) MeZO(MeZOConfig(lr {LR}, eps {EPS})) through train.loop ≡ "
+        f"zo.mezo: θ bitwise after each of {Y_STEPS} steps, losses "
+        f"{l_shim[0]:.4f} -> {l_shim[-1]:.4f} equal, ledgers "
+        f"{led.to_bytes()[:5].decode()} {led.nbytes()} bytes identical")
+    _build.reset_launch_counts()
+    rep = replay(_clone_tree(params0), led, MeZOConfig(lr=LR, eps=EPS))
+    rep2 = replay(_clone_tree(params0), led, zo.mezo(lr=LR, eps=EPS))
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry",),
+               "(y) core.replay through a bare MeZOConfig")
+    if not same_trees(rep, rep2):
+        fail("(y) the replay through a bare MeZOConfig != through zo.mezo")
+    del rep2
+    plain = _clone_tree(params0)
+    plain_replay_xla(plain, led, np)
+    torch.cuda.synchronize()
+    if not same_trees(rep, plain):
+        fail("(y) the replay through a bare MeZOConfig != the plain replay")
+    del plain
+    log("(y) core.replay(θ₀, ledger, MeZOConfig) ≡ its replay through "
+        "zo.mezo ≡ X1's plain replay, bitwise; vs the trained θ: "
+        + hold_ulps(torch, "y_shim",
+                    list(zip(tree_leaves(rep), tree_leaves(p_shim))))
+        + " (the live chain rounds θ±εz in bf16)")
+    del rep, p_shim
+
+    # ---- 2.-3. a config naming the counter backend; the other shims ---- #
+    def lockstep(opt_a, opt_b, steps, what, required, init_a=None,
+                 init_b=None):
+        pa, pb = _clone_tree(params0), _clone_tree(params0)
+        _build.reset_launch_counts()
+        sa = init_a(pa) if init_a else opt_a.init(pa, seed=SEED)
+        sb = init_b(pb) if init_b else opt_b.init(pb, seed=SEED)
+        fa, fb = opt_a.step_fn(loss_fn), opt_b.step_fn(loss_fn)
+        losses = []
+        for k in range(steps):
+            b = data.batch(k)
+            pa, sa, ma = fa(pa, sa, b)
+            pb, sb, mb = fb(pb, sb, b)
+            if not same_trees(pa, pb):
+                fail(f"(y) {what}: θ after step {k + 1} differs")
+            if (float(ma["loss"]), float(ma["projected_grad"])) != (
+                    float(mb["loss"]), float(mb["projected_grad"])):
+                fail(f"(y) {what}: step {k + 1}'s loss or g differs")
+            losses.append(float(ma["loss"]))
+        torch.cuda.synchronize()
+        add_counts(counts, _build, required, f"(y) {what}")
+        if not all(v == v and abs(v) < 1e30 for v in losses) or \
+                same_trees(pa, params0):
+            fail(f"(y) {what}: losses {losses} not finite or θ unmoved")
+        log(f"(y) {what}: θ, loss and g bitwise after each of {steps} "
+            f"steps (loss {losses[0]:.4f} -> {losses[-1]:.4f})")
+
+    duck = types.SimpleNamespace(**dataclasses.asdict(conf), backend="pallas")
+    from_cfg = zo.from_config(duck)
+    if from_cfg.backend_name != "pallas+z2":
+        fail(f"(y) from_config(backend='pallas') runs on "
+             f"{from_cfg.backend_name}")
+    lockstep(from_cfg, zo.mezo(lr=LR, eps=EPS, backend="pallas"),
+             Y_PALLAS_STEPS, "from_config(config-like, backend='pallas') ≡ "
+             "zo.mezo(backend='pallas')", ("zo_affine", "flash_attention"))
+    adam = MeZOAdam(MeZOAdamConfig(lr=LR, eps=EPS, window=32))
+    lockstep(adam, zo.mezo_adam(lr=LR, eps=EPS, window=32), Y_ADAM_STEPS,
+             "MeZOAdam(window 32) ≡ zo.mezo_adam",
+             ("zo_affine_threefry", "flash_attention"),
+             init_a=lambda p: adam.init(p, SEED))
+    var = MeZOVariant(MeZOVariantConfig(lr=LR, eps=EPS,
+                                        d_source="grad_norm_zo"))
+    lockstep(var, zo.mezo_rescaled(lr=LR, eps=EPS, d_source="grad_norm_zo",
+                                   probe_loss_fn=loss_fn, probe_batch=batch),
+             Y_VARIANT_STEPS, "MeZOVariant(grad_norm_zo), init(θ, loss_fn, "
+             "batch) ≡ zo.mezo_rescaled(probe_loss_fn=, probe_batch=)",
+             ("zo_affine_threefry", "flash_attention"),
+             init_a=lambda p: var.init(p, loss_fn, batch, seed=SEED))
+
+    # ---- 4. the functional primitives at full width --------------------- #
+    key = step_key(prng_key(SEED), 12345)
+    ref, be = StreamRef(key), get_backend("xla")
+    kept = _clone_tree(params0)
+    coeff = np.float32(LR) * np.float32(0.37)
+    _build.reset_launch_counts()
+    for what, pure, inplace in (
+            ("perturb", lambda t: fx.perturb(t, key, EPS),
+             lambda t: be.perturb(t, ref, EPS)),
+            ("fused_restore_update",
+             lambda t: fx.fused_restore_update(t, key, EPS, coeff, 0.0),
+             lambda t: be.fused_restore_update(t, ref, EPS, coeff, 0.0)),
+            ("apply_rank1", lambda t: fx.apply_rank1(t, key, coeff, 0.0),
+             lambda t: be.apply_rank1(t, ref, coeff, 0.0))):
+        got = pure(params0)
+        want = inplace(_clone_tree(params0))
+        torch.cuda.synchronize()
+        if not same_trees(got, want):
+            fail(f"(y) the functional {what} != the backend's in-place write")
+        if not same_trees(params0, kept) or any(
+                a is b for a, b in zip(tree_leaves(got),
+                                       tree_leaves(params0))):
+            fail(f"(y) the functional {what} wrote the caller's leaves")
+        del got, want
+    z = fx.sample_z_tree(params0, key)
+    for i, (zl, p) in enumerate(zip(tree_leaves(z), tree_leaves(params0))):
+        x1z = zo_affine_threefry(None, fx.leaf_key(key, i), "z",
+                                 out=torch.empty_like(p))
+        if not same_bits(zl, x1z):
+            fail(f"(y) sample_z_tree's leaf {i} != X1's z form")
+    del z, x1z
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry",),
+               "(y) the functional writes and sample_z_tree")
+    log("(y) the functional perturb / fused_restore_update / apply_rank1 "
+        "(fresh leaves) ≡ the backend's in-place writes bitwise, the "
+        "caller's leaves bitwise unchanged; sample_z_tree ≡ X1's z form "
+        "leaf by leaf")
+    # the functional spsa chain: its peak over one forward's, then its
+    # trees and ℓ± against the in-place estimator's
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        loss_fn(params0, batch).item()
+    torch.cuda.synchronize()
+    fwd = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    spsa_projected_grad(loss_fn, params0, batch, key, EPS)
+    torch.cuda.synchronize()
+    chain = torch.cuda.max_memory_allocated() - base
+    theta = sum(p.numel() * p.element_size() for p in tree_leaves(params0))
+    log(f"(y) spsa_projected_grad(sequential=True) peaks at "
+        f"{(chain + theta) / 2**30:.3f} GiB with θ, one forward at "
+        f"{(fwd + theta) / 2**30:.3f} GiB — ratio "
+        f"{(chain + theta) / (fwd + theta):.4f} (θ, θ+εz and θ−εz live at "
+        "once; reported, not gated) — on " + card)
+    seen: dict = {"f": [], "e": []}
+
+    def recording(tag):
+        def f(p, b):
+            seen[tag].append(_clone_tree(p))
+            return loss_fn(p, b)
+        return f
+
+    r = spsa_projected_grad(recording("f"), params0, batch, key, EPS)
+    losses_e = []
+
+    def rec_e(p, b):
+        seen["e"].append(_clone_tree(p))
+        out = loss_fn(p, b)
+        losses_e.append(host_f32(out))
+        return out
+
+    with torch.no_grad():
+        zo.estimators.spsa(eps=EPS, backend="xla").estimate(
+            rec_e, _clone_tree(params0), batch, key, ())
+    torch.cuda.synchronize()
+    for a, b in zip(seen["f"], seen["e"]):
+        if not same_trees(a, b):
+            fail("(y) spsa_projected_grad's θ±εz != the spsa estimator's")
+    seen.clear()
+    bitwise = (r.l_plus, r.l_minus) == tuple(losses_e)
+    for a, b in zip((r.l_plus, r.l_minus), losses_e):
+        if abs(float(a) - float(b)) > Y_LOSS_REL * abs(float(b)):
+            fail(f"(y) spsa_projected_grad's ℓ± {r.l_plus}, {r.l_minus} "
+                 f"vs the estimator's {losses_e}")
+    gz = spsa_full_gradient_oracle(loss_fn, params0, batch, key, EPS)
+    i_leaf = len(tree_leaves(params0)) - 1
+    leaf, p_last = tree_leaves(gz)[i_leaf], tree_leaves(params0)[i_leaf]
+    zl = fx.sample_leaf_z(fx.leaf_key(key, i_leaf), p_last).float()
+    nz = zl != 0
+    # the oracle's g: the candidate (a ratio leaf / z) whose product with z
+    # is the leaf, bit for bit
+    g_star = next((float(c) for c in torch.unique(
+        (leaf[nz] / zl[nz])[:64]) if torch.equal(leaf, zl * float(c))),
+        None)
+    if g_star is None:
+        fail("(y) spsa_full_gradient_oracle's leaf != g·z for any g")
+    r0 = spsa_projected_grad(loss_fn, params0, batch, key, EPS,
+                             sequential=False)
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+               "(y) spsa_projected_grad and the oracle")
+    if abs(g_star - float(r0.projected_grad)) > 1e-3 * max(
+            1.0, abs(float(r0.projected_grad))):
+        fail(f"(y) the oracle's g {g_star} vs the centered estimate's "
+             f"{r0.projected_grad}")
+    if not same_trees(params0, kept):
+        fail("(y) the functional spsa chain wrote θ₀")
+    del gz, leaf, zl, kept
+    log(f"(y) spsa_projected_grad(sequential=True): θ+εz and θ−εz ≡ the "
+        f"spsa estimator's bitwise; ℓ± {float(r.l_plus):.6f} / "
+        f"{float(r.l_minus):.6f} — "
+        + ("bitwise the estimator's" if bitwise else
+           f"the estimator's {losses_e} (within {Y_LOSS_REL} relative)")
+        + f"; the oracle's last leaf ({p_last.numel()} elements) = g·z "
+        f"with g {g_star:.6g} (the centered estimate's "
+        f"{float(r0.projected_grad):.6g})")
+
+    # ---- 5. the shim's step against the preset's, host clock, in turns - #
+    opts = {"shim": MeZO(conf), "preset": zo.mezo(lr=LR, eps=EPS)}
+    run = {}
+    for who, opt in opts.items():
+        p = _clone_tree(params0)
+        st = opt.init(SEED) if who == "shim" else opt.init(p, seed=SEED)
+        run[who] = [p, st, opt.step_fn(loss_fn)]
+    times: dict = {"shim": [], "preset": []}
+    _build.reset_launch_counts()
+    for who in ("shim", "preset") + ("preset", "shim") * 2:
+        for _ in range(Y_TURN_STEPS):
+            p, st, fn = run[who]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, st, _ = fn(p, st, batch)
+            torch.cuda.synchronize()
+            times[who].append((time.perf_counter() - t0) * 1e3)
+            run[who][:2] = [p, st]
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+               "(y) the timed turns")
+    # the first turn of each warms up
+    ms = {k: statistics.median(v[Y_TURN_STEPS:]) for k, v in times.items()}
+    step_ms["y_shim"] = ms["shim"]
+    del run
+    log(f"(y) one spsa step on xla, host clock, turns S P P S P S of "
+        f"{Y_TURN_STEPS} steps (the first of each discarded): MeZO shim "
+        f"{ms['shim']:.2f} ms, zo.mezo {ms['preset']:.2f} ms (medians) — "
+        f"on {card}")
+    y = {k: counts.get(k, 0) - before.get(k, 0) for k in counts}
+    x1_routes = {k.split("/", 1)[1]: v for k, v in y.items()
+                 if k.startswith("zo_affine_threefry/") and v}
+    for name in ("zo_affine_threefry", "zo_affine", "flash_attention"):
+        if y.get(name, 0) <= 0:
+            fail(f"(y) {name} never launched in the phase")
+    log(f"(y) launches in the phase: X1 {y['zo_affine_threefry']} "
+        f"(routes {x1_routes}), K1 {y['zo_affine']}, K2 "
+        f"{y['flash_attention']} (hd 64: {y.get('flash_attention/hd64', 0)})")
+    del params0
+
+
 def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
                       which) -> None:
     """The phases named in ``which`` (u: hymba-1.5b, t: mixtral-8x7b, w:
-    whisper-large-v3, x: multi-tenant LoRA serving on qwen2-0.5b; for
+    whisper-large-v3, x: multi-tenant LoRA serving on qwen2-0.5b, y: the
+    deprecated shims and the functional primitives on qwen2-0.5b; for
     iterating alone, j: qwen2-0.5b's spsa step under
     the original threefry layout, q: the card ≡ CPU Adam steps), each after
     the trees before it are freed, K2 held to its plain version at every
@@ -5858,6 +6221,8 @@ def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
               "w": ("whisper-large-v3", lambda: whisper_paths(
                   torch, np, _build, counts, step_ms, card)),
               "x": ("qwen2-0.5b's tenants", lambda: tenants_paths(
+                  torch, np, _build, counts, step_ms, card)),
+              "y": ("qwen2-0.5b's shims", lambda: shims_paths(
                   torch, np, _build, counts, step_ms, card))}
     for ph in which:
         arch, run = phases[ph]
@@ -5898,7 +6263,9 @@ def main() -> None:
                          "original threefry layout, q: the card ≡ CPU Adam "
                          "steps, u: hymba-1.5b, t: mixtral-8x7b, w: "
                          "whisper-large-v3, x: multi-tenant LoRA serving on "
-                         "qwen2-0.5b), then stop without the kernels "
+                         "qwen2-0.5b, y: the deprecated shims and the "
+                         "functional primitives on qwen2-0.5b), then stop "
+                         "without the kernels "
                          "line: for iterating on one phase")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit (git archive): "
@@ -6109,7 +6476,7 @@ def main() -> None:
     # ---- whisper-large-v3, each at full width and depth; (x) ----------- #
     # ---- multi-tenant LoRA serving on qwen2-0.5b ----------------------- #
     run_family_phases(torch, np, kf, _build, counts, step_ms, card,
-                      ["u", "w", "x"])
+                      ["u", "w", "x", "y"])
     rows.append(k2_hd128)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)

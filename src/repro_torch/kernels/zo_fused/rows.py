@@ -100,6 +100,34 @@ def _plan(n: int, block_elems: int, k: int, phase: int) -> tuple:
     return n, min(be, max(n, 1)), k, phase
 
 
+def tile_plan(n: int, block_elems: int, k: int, phase: int) -> tuple:
+    """JAX's ``tile_plan``: the reference kernel's fixed tiles of
+    ``TILE_ELEMS`` elements intersected with a row-block selection (block
+    b covers flat elements [b·block_elems, (b+1)·block_elems) and is
+    selected iff b % k == phase, the phase taken mod k).  Returns
+    ``(sel_tiles, pure)``: the tiles holding at least one selected element
+    and whether every one of them is purely selected.  Validated through
+    ``_plan``, so a leaf of 2³² elements or more is refused."""
+    k = int(k)
+    n, be, k, phase = _plan(n, block_elems, k,
+                            int(phase) % k if k >= 1 else int(phase))
+    sel, pure = [], True
+    for t in range(-(-n // TILE_ELEMS)):
+        lo = t * TILE_ELEMS
+        hi = min(lo + TILE_ELEMS, n)
+        b0, b1 = lo // be, (hi - 1) // be
+        if b0 + (phase - b0) % k > b1:       # no selected block in the tile
+            continue
+        sel.append(t)
+        pure = pure and (k == 1 or b0 == b1)
+    if not sel:
+        raise ValueError(
+            f"rows plan selects no tiles of a {n}-element leaf "
+            f"(block_elems={block_elems}, k={k}, phase={phase}); the "
+            "selection layer should have excluded this leaf from the phase")
+    return tuple(sel), pure
+
+
 def selected_count(n: int, block_elems: int, k: int, phase: int) -> int:
     """Selected elements of an n-element leaf (the ragged last block counts
     its real elements only)."""

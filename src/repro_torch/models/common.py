@@ -160,3 +160,18 @@ def _fill_normal(gen: torch.Generator, part: torch.Tensor,
     w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     part.copy_(w.mul_(scale))
+
+
+class KeyGen:
+    """Deterministic named key dispenser for param init: the n-th call
+    returns ``fold_in(key, n)`` (n from 1) over the port's threefry keys
+    (``perturb.stream``'s ``prng_key`` / ``fold_in``), JAX's key words."""
+
+    def __init__(self, key):
+        self._key = key
+        self._n = 0
+
+    def __call__(self):
+        from repro_torch.perturb.stream import fold_in
+        self._n += 1
+        return fold_in(self._key, self._n)

@@ -94,6 +94,14 @@ class CounterBackend(PerturbBackend):
     dists = frozenset({"gaussian", "rademacher", "sphere"})
     stream_version = 2
 
+    def __init__(self, interpret: Optional[bool] = None):
+        # JAX's ``PallasBackend(interpret=...)``: the port has no
+        # interpreter, the plain torch versions run for CPU tensors
+        if interpret:
+            from repro_torch.perturb import INTERPRET_REFUSAL
+            raise ValueError(INTERPRET_REFUSAL)
+        self.interpret = False
+
     def _map(self, params: PyTree, ref: StreamRef, a, b, dist: str,
              b_leaves=None) -> PyTree:
         seed = ref.counter_seed()

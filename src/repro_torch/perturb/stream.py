@@ -220,3 +220,11 @@ class StreamRef(NamedTuple):
 
 def leaf_seed(seed: int, leaf_index: int) -> int:
     return _as_int32(int(seed) + _LEAF_STRIDE * int(leaf_index))
+
+
+def as_stream_ref(key_or_ref) -> StreamRef:
+    """Accept either a raw per-seed key (the protocol wire format) or an
+    already-wrapped ``StreamRef``."""
+    if isinstance(key_or_ref, StreamRef):
+        return key_or_ref
+    return StreamRef(key_or_ref)

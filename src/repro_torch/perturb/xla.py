@@ -27,11 +27,26 @@ does.  ``sphere`` is the gaussian stream times √d/‖z‖ (``_sphere_scale``:
 dtype as a z scale — in ``perturb``, ``fused_restore_update`` and
 ``perturb_many``; ``apply_rank1`` and ``leaf_z`` take the plain gaussian
 direction, as in JAX (its sphere callers pre-scale the coefficient).
-Writes go in place; unselected and non-floating leaves are left alone.
+The backend writes in place; unselected and non-floating leaves are left
+alone.
+
+The module also holds JAX's functional API, ``repro.perturb.xla``'s
+module-level functions (re-exported by ``repro_torch.core.perturb``):
+``leaf_key``, ``sample_leaf_z``, ``sample_z_tree``, ``perturb``,
+``fused_restore_update``, ``apply_rank1``, ``perturb_jit`` and
+``_sphere_scale``.  These are pure, as JAX's are: each write launches X1
+with a fresh output leaf (the same form and scalars as the backend's
+in-place write, so the same bits), and the caller's leaves keep theirs;
+unselected and non-floating leaves come back as the same objects.  X1's
+forms are the graphs XLA:CPU compiles under ``jit``; JAX called outside
+``jit`` runs its functions op by op, which rounds s·z on its own and
+contracts nothing: bf16 and rademacher ``perturb`` writes agree bitwise,
+the f32 and f16 gaussian ones within one ulp of the leaf dtype (ROADMAP
+Queue 3).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Literal, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,7 +56,10 @@ from repro_torch.perturb.base import PerturbBackend, per_stream_scales
 from repro_torch.perturb.counter import _active, _leaf_blocks
 from repro_torch.perturb.stream import StreamRef, fold_in
 from repro_torch.tree_utils import (PyTree, is_floating, tree_leaves,
-                                    tree_map_with_index)
+                                    tree_map, tree_map_with_index,
+                                    tree_size, tree_sq_norm)
+
+Distribution = Literal["gaussian", "rademacher", "sphere"]
 
 f32 = np.float32
 #: elements of z generated per pass of the sphere's ‖z‖² (bounds the
@@ -72,6 +90,152 @@ def leaf_sqnorm(p: torch.Tensor, key, bands=None) -> np.float32:
     return f32(acc)
 
 
+def _sphere_scale(params: PyTree, key, mask: Optional[tuple] = None,
+                  blocks: Optional[tuple] = None) -> np.float32:
+    """sqrt(d)/‖z(key)‖ over the selected floating leaves (d and ‖z‖
+    counting selected row bands only under a rows plan); ‖z‖² regenerated
+    leaf by leaf in chunks and summed in f32, as JAX's ``_sphere_scale``
+    does.  A host f32 (JAX returns a 0-d f32 array)."""
+    d, sq = 0, f32(0.0)
+    for i, p in enumerate(tree_leaves(params)):
+        if not _active(p, mask, i):
+            continue
+        rb = _leaf_blocks(blocks, i)
+        d += p.numel() if rb is None else rb.selected_elems()
+        sq = f32(sq + leaf_sqnorm(p, fold_in(key, i),
+                                  None if rb is None else rb.ranges()))
+    if d == 0:
+        raise ValueError(
+            "sphere perturbation needs at least one selected floating "
+            "leaf (the sqrt(d)/‖z‖ rescale is undefined on an empty "
+            "subspace)")
+    return f32(np.sqrt(f32(f32(d) / sq)))
+
+
+def _write(params: PyTree, key, form: str, a, b, e, dist: str, zs=None,
+           d_leaves=None, mask: Optional[tuple] = None,
+           blocks: Optional[tuple] = None, in_place: bool = False) -> PyTree:
+    """One X1 pass of ``form`` over every selected floating leaf, each
+    scalar cast to the leaf dtype; into the leaf itself (``in_place``) or
+    into a fresh leaf (under a rows plan a copy of the leaf, whose bands
+    are then written)."""
+    kdist = "gaussian" if dist == "sphere" else dist
+
+    def one(i, p):
+        if not _active(p, mask, i):
+            return p
+        dt = p.dtype
+        z_scale = zs if d_leaves is None else d_leaves[i]
+        rb = _leaf_blocks(blocks, i)
+        if in_place:
+            out = p
+        elif rb is None:
+            out = torch.empty(p.shape, dtype=dt, device=p.device)
+        else:
+            out = p.clone(memory_format=torch.contiguous_format)
+        return zo_affine_threefry(
+            p, fold_in(key, i), form, in_dtype(a, dt), in_dtype(b, dt),
+            in_dtype(e, dt),
+            None if z_scale is None else in_dtype(z_scale, dt), kdist,
+            out=out, bands=None if rb is None else rb.ranges())
+
+    return tree_map_with_index(one, params)
+
+
+def _check_dist(dist: str) -> None:
+    if dist not in ("gaussian", "rademacher", "sphere"):
+        raise ValueError(f"unknown distribution {dist!r}")
+
+
+# --------------------------------------------------------------------------- #
+# The functional API (JAX's module-level functions; pure)
+# --------------------------------------------------------------------------- #
+def leaf_key(key, leaf_idx: int):
+    """Stable per-leaf PRNG key: ``fold_in(key, leaf_idx)``."""
+    return fold_in(key, leaf_idx)
+
+
+def sample_leaf_z(key, leaf: torch.Tensor, dist: Distribution = "gaussian",
+                  zo_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One leaf's z (X1's ``z`` form into a fresh tensor): drawn in
+    ``zo_dtype`` (default the leaf dtype, f32 for a non-floating leaf),
+    then cast to the leaf dtype (round to nearest even, as ``astype``).
+    ``sphere`` is the gaussian direction; the caller applies √d/‖z‖."""
+    _check_dist(dist)
+    sdtype = zo_dtype or (leaf.dtype if is_floating(leaf)
+                          else torch.float32)
+    z = torch.empty(leaf.shape, dtype=sdtype, device=leaf.device)
+    zo_affine_threefry(None, key, "z",
+                       dist="gaussian" if dist == "sphere" else dist, out=z)
+    return z.to(leaf.dtype)
+
+
+def sample_z_tree(params: PyTree, key,
+                  dist: Distribution = "gaussian") -> PyTree:
+    """The whole z tree, materialized (tests and oracles only).  Under
+    ``sphere`` every leaf is scaled by sqrt(d / ‖z‖²) (an f32 0-d tensor,
+    the sum in torch's order) cast to the leaf dtype."""
+    z = tree_map_with_index(
+        lambda i, p: sample_leaf_z(leaf_key(key, i), p, dist), params)
+    if dist == "sphere":
+        scale = torch.sqrt(tree_size(params) / tree_sq_norm(z))
+        z = tree_map(lambda x: x * scale.to(x.dtype), z)
+    return z
+
+
+def perturb(params: PyTree, key, scale, dist: Distribution = "gaussian",
+            mask: Optional[tuple] = None,
+            blocks: Optional[tuple] = None) -> PyTree:
+    """θ + scale·z(key) as a new tree (form ``xpbz``).  ``mask`` is a
+    per-leaf selection (unselected leaves pass through), ``blocks`` the
+    per-leaf rows plans (only the selected bands are written)."""
+    _check_dist(dist)
+    sph = _sphere_scale(params, key, mask, blocks) if dist == "sphere" \
+        else None
+    return _write(params, key, "xpbz", 0.0, scale, 0.0, dist, sph,
+                  mask=mask, blocks=blocks)
+
+
+def fused_restore_update(params_minus: PyTree, key, eps, lr_g,
+                         weight_decay=0.0, dist: Distribution = "gaussian",
+                         mask: Optional[tuple] = None,
+                         blocks: Optional[tuple] = None) -> PyTree:
+    """From θ − εz, (1 − λ)·(θ − εz + εz) − η·g·z as a new tree in one pass
+    (form ``restore``): the paper's reset and descent loops fused."""
+    _check_dist(dist)
+    sph = (_sphere_scale(params_minus, key, mask, blocks)
+           if dist == "sphere" else None)
+    return _write(params_minus, key, "restore", f32(1.0) - f32(weight_decay),
+                  -f32(lr_g), eps, dist, sph, mask=mask, blocks=blocks)
+
+
+def apply_rank1(params: PyTree, key, coeff, decay_term=0.0,
+                dist: Distribution = "gaussian",
+                d_tree: Optional[PyTree] = None,
+                mask: Optional[tuple] = None,
+                blocks: Optional[tuple] = None) -> PyTree:
+    """(1 − decay_term)·θ − coeff·z(key) as a new tree (form ``axpbz``), z
+    times the leaf's d under ``d_tree`` (Definition 6's D·z); ``sphere``
+    takes the plain gaussian direction, as in JAX."""
+    _check_dist(dist)
+    d_leaves = (None if d_tree is None else
+                [f32(float(v)) for v in tree_leaves(d_tree)])
+    return _write(params, key, "axpbz", f32(1.0) - f32(decay_term),
+                  -f32(coeff), 0.0, dist, d_leaves=d_leaves, mask=mask,
+                  blocks=blocks)
+
+
+def perturb_jit(params: PyTree, key, scale,
+                dist: Distribution = "gaussian") -> PyTree:
+    """JAX's jitted ``perturb``.  X1's forms are the graphs XLA:CPU
+    compiles under ``jit``, so this is ``perturb``: bitwise JAX's
+    ``perturb_jit``."""
+    return perturb(params, key, scale, dist)
+
+
+# --------------------------------------------------------------------------- #
+# Backend adapter
+# --------------------------------------------------------------------------- #
 class XLABackend(PerturbBackend):
     """Threefry z streams through X1, all distributions."""
 
@@ -79,43 +243,14 @@ class XLABackend(PerturbBackend):
     dists = frozenset({"gaussian", "rademacher", "sphere"})
 
     def _sphere_scale(self, params: PyTree, ref: StreamRef) -> np.float32:
-        """sqrt(d)/‖z(ref)‖ over the selected floating leaves (d and ‖z‖
-        counting selected row bands only under a rows plan); ‖z‖² summed
-        leaf by leaf in f32, as ``_sphere_scale`` does."""
-        mask, blocks = ref.selection_mask(params), ref.selection_blocks(params)
-        d, sq = 0, f32(0.0)
-        for i, p in enumerate(tree_leaves(params)):
-            if not _active(p, mask, i):
-                continue
-            rb = _leaf_blocks(blocks, i)
-            d += p.numel() if rb is None else rb.selected_elems()
-            sq = f32(sq + leaf_sqnorm(p, fold_in(ref.key, i),
-                                      None if rb is None else rb.ranges()))
-        if d == 0:
-            raise ValueError(
-                "sphere perturbation needs at least one selected floating "
-                "leaf (the sqrt(d)/‖z‖ rescale is undefined on an empty "
-                "subspace)")
-        return f32(np.sqrt(f32(f32(d) / sq)))
+        return _sphere_scale(params, ref.key, ref.selection_mask(params),
+                             ref.selection_blocks(params))
 
     def _map(self, params: PyTree, ref: StreamRef, form: str, a, b, e, dist,
              zs=None, d_leaves=None) -> PyTree:
-        mask, blocks = ref.selection_mask(params), ref.selection_blocks(params)
-        kdist = "gaussian" if dist == "sphere" else dist
-
-        def one(i, p):
-            if not _active(p, mask, i):
-                return p
-            dt = p.dtype
-            z_scale = zs if d_leaves is None else d_leaves[i]
-            rb = _leaf_blocks(blocks, i)
-            return zo_affine_threefry(
-                p, fold_in(ref.key, i), form, in_dtype(a, dt),
-                in_dtype(b, dt), in_dtype(e, dt),
-                None if z_scale is None else in_dtype(z_scale, dt), kdist,
-                out=p, bands=None if rb is None else rb.ranges())
-
-        return tree_map_with_index(one, params)
+        return _write(params, ref.key, form, a, b, e, dist, zs, d_leaves,
+                      ref.selection_mask(params),
+                      ref.selection_blocks(params), in_place=True)
 
     def perturb(self, params: PyTree, ref: StreamRef, scale,
                 dist: str = "gaussian") -> PyTree:
@@ -148,11 +283,7 @@ class XLABackend(PerturbBackend):
                dist: str = "gaussian") -> torch.Tensor:
         # sphere: the direction only — callers apply sqrt(d)/‖z‖
         self.check_dist(dist)
-        out = torch.empty(like.shape, dtype=like.dtype if is_floating(like)
-                          else torch.float32, device=like.device)
-        return zo_affine_threefry(None, fold_in(ref.key, leaf_index), "z",
-                                  dist="gaussian" if dist == "sphere"
-                                  else dist, out=out)
+        return sample_leaf_z(fold_in(ref.key, leaf_index), like, dist)
 
     def perturb_leaf(self, p: torch.Tensor, ref: StreamRef, leaf_index: int,
                      scale, dist: str = "gaussian") -> torch.Tensor:

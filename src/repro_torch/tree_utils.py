@@ -100,3 +100,75 @@ def tree_clone(tree: PyTree) -> PyTree:
 def is_floating(x) -> bool:
     return isinstance(x, torch.Tensor) and x.dtype.is_floating_point
 
+
+
+def tree_map_with_path_str(fn: Callable[[str, Any], Any],
+                           tree: PyTree) -> PyTree:
+    """Map ``fn(path_string, leaf)``, the path as ``jax.tree_util.keystr``
+    renders it (``['layers']['wq']``, ``.field``, ``[0]``)."""
+    paths = [path for path, _ in flatten_with_path(tree)]
+    return tree_map_with_index(lambda i, x: fn(paths[i], x), tree)
+
+
+def tree_size(tree: PyTree) -> int:
+    """Total number of scalar parameters in the tree."""
+    return sum(int(x.numel()) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: PyTree) -> int:
+    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_dot(a: PyTree, b: PyTree) -> torch.Tensor:
+    """Global dot product of two same-structure trees: each leaf's
+    ``sum(x·y)`` in f32, the leaf sums added in leaf order in f32 from 0.
+    Returns a 0-d f32 tensor on the leaves' device (JAX returns a 0-d f32
+    array); the in-leaf sums run in torch's order, not XLA's."""
+    acc = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        part = torch.sum(x.to(torch.float32) * y.to(torch.float32))
+        acc = part if acc is None else acc + part
+    return torch.zeros((), dtype=torch.float32) if acc is None else acc
+
+
+def tree_sq_norm(tree: PyTree) -> torch.Tensor:
+    return tree_dot(tree, tree)
+
+
+def tree_add_scaled(a: PyTree, b: PyTree, scale) -> PyTree:
+    """a + scale * b, elementwise over matching trees (in a's dtype).  A
+    Python scalar is weakly typed, as in JAX: it is rounded to the leaf
+    dtype and the arithmetic runs there; a tensor scale is a strongly typed
+    f32, so the sum is formed in f32 and rounded once."""
+    def one(x, y):
+        y = y.to(x.dtype)
+        if isinstance(scale, torch.Tensor):
+            s = scale.to(torch.float32)
+            return (x.to(torch.float32) + s * y.to(torch.float32)).to(x.dtype)
+        s = torch.tensor(float(scale), dtype=x.dtype, device=x.device)
+        return x + s * y
+    return tree_map(one, a, b)
+
+
+def tree_cast(tree: PyTree, dtype) -> PyTree:
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_allclose(a: PyTree, b: PyTree, rtol=1e-5, atol=1e-6) -> bool:
+    def one(x, y):
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return bool(torch.allclose(x.to(dt), y.to(dt), rtol=rtol, atol=atol))
+    return all(one(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_max_abs_diff(a: PyTree, b: PyTree) -> float:
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if x.numel():
+            d = (x.to(torch.float32) - y.to(torch.float32)).abs().max()
+            worst = max(worst, float(d))
+    return worst

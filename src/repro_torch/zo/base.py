@@ -27,7 +27,8 @@ What differs from JAX, and why:
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Protocol, \
+    runtime_checkable
 
 import numpy as np
 import torch
@@ -146,8 +147,22 @@ def chain(*transforms: ZOTransform) -> ZOTransform:
 
 
 # --------------------------------------------------------------------------- #
-# Optimizer facade
+# Optimizer protocol + facade
 # --------------------------------------------------------------------------- #
+@runtime_checkable
+class Optimizer(Protocol):
+    """The uniform optimizer surface every consumer programs against — ZO
+    compositions and backprop baselines alike (``ZOOptimizer``, the
+    deprecated shims, ``train.adam.Adam``): the training loop, checkpoint
+    recovery and the execution engine only call these three methods."""
+
+    def init(self, params: Optional[PyTree], *, seed: int = 0) -> Any: ...
+
+    def step_fn(self, loss_fn: ZOLossFn) -> Callable: ...
+
+    def restore(self, state: Any, step: int) -> Any: ...
+
+
 class ZOState(NamedTuple):
     """Uniform optimizer state: a step counter, the run seed's key, and the
     estimator/transform carries — all host values, checkpointable as a

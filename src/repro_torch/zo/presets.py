@@ -1,8 +1,8 @@
 """Named compositions — the port of ``repro.zo.presets``: the paper's
 optimizers as estimator × transform chains (``mezo``, ``fzoo``,
 ``mezo_adam``, ``mezo_rescaled``).  Each returns a plain ``ZOOptimizer``.
-The legacy-config interop comes with the deprecated shims (a later
-slice)."""
+``from_config`` / ``as_zo_optimizer`` are the legacy-config interop of the
+deprecated shims (``repro_torch.core.mezo`` and friends)."""
 from __future__ import annotations
 
 from repro_torch.zo import estimators, transforms
@@ -128,12 +128,41 @@ def mezo_rescaled(lr: float = 1e-6, eps: float = 1e-3,
     return ZOOptimizer(est, tf, name="mezo_rescaled")
 
 
-def as_zo_optimizer(optimizer) -> ZOOptimizer:
-    """Accept a protocol-conforming ZO optimizer (legacy config objects are
-    ported with the deprecated shims, a later slice; a backprop baseline is
-    no ZO optimizer, and ``exec.StepProgram`` passes it through)."""
-    if callable(getattr(optimizer, "replay_update", None)):
-        return optimizer
-    raise TypeError(f"{type(optimizer).__name__} is not a ZO optimizer "
-                    "(legacy config objects are ported with the deprecated "
-                    "shims, ROADMAP Queue 1 item 9)")
+# --------------------------------------------------------------------------- #
+# Legacy-config interop
+# --------------------------------------------------------------------------- #
+def from_config(config) -> ZOOptimizer:
+    """Build the composition equivalent of a legacy ``MeZOConfig`` /
+    ``MeZOAdamConfig`` / ``MeZOVariantConfig`` (duck-typed — any object with
+    the same fields works; ``backend`` and ``selection`` are read when the
+    object has them)."""
+    common = dict(lr=config.lr, eps=config.eps, dist=config.dist,
+                  weight_decay=config.weight_decay,
+                  lr_schedule=config.lr_schedule,
+                  total_steps=config.total_steps,
+                  warmup_steps=config.warmup_steps,
+                  clip_projected_grad=config.clip_projected_grad,
+                  backend=getattr(config, "backend", None),
+                  selection=getattr(config, "selection", None))
+    if getattr(config, "d_source", None) is not None:
+        return mezo_rescaled(d_source=config.d_source,
+                             modify_expectation=config.modify_expectation,
+                             probe_eps=config.d_probe_eps, **common)
+    if getattr(config, "beta1", None) is not None:
+        return mezo_adam(beta1=config.beta1, beta2=config.beta2,
+                         adam_eps=config.adam_eps,
+                         materialized=config.materialized,
+                         window=config.window,
+                         momentum_only=config.momentum_only, **common)
+    return mezo(n=config.n, estimator=config.estimator,
+                sequential_perturb=config.sequential_perturb, **common)
+
+
+def as_zo_optimizer(optimizer_or_config) -> ZOOptimizer:
+    """Accept either a protocol-conforming ZO optimizer or a legacy config
+    object, returning something with ``replay_update`` / ``lr_at`` /
+    ``estimator`` — the seam through which the trajectory replayer,
+    checkpoint recovery and the execution engine take bare configs."""
+    if callable(getattr(optimizer_or_config, "replay_update", None)):
+        return optimizer_or_config
+    return from_config(optimizer_or_config)

@@ -1088,3 +1088,48 @@ def test_cuda_dense_slab_serving_ids_are_the_cpus(cuda):
         ids[str(dev)] = [r.out_ids for r in reqs]
     assert ids[str(cuda)] == ids["cpu"]
     assert all(len(x) == 24 for x in ids["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_functional_api_launches_x1_out_of_place(cuda, dtype):
+    """``perturb.xla``'s functional writes on the card: each launches X1
+    into a fresh leaf (counted), the caller's leaves keep their bits, and
+    the result equals the same write on the CPU (X1's plain version) and
+    the backend's in-place write, bitwise; under a rows plan the bands
+    route runs and the unselected rows are θ's."""
+    from repro_torch.perturb import StreamRef, get_backend
+    from repro_torch.perturb import xla as fx
+    from repro_torch.perturb.stream import fold_in, prng_key
+    from repro_torch.select import rows
+    g = torch.Generator().manual_seed(5)
+    cpu = {f"l{i}": torch.randn(s, generator=g).to(dtype)
+           for i, s in enumerate([(64, 96), (33, 65), (1000,)])}
+    dev = {k: v.to(cuda) for k, v in cpu.items()}
+    before = {k: v.clone() for k, v in dev.items()}
+    key = fold_in(prng_key(3), 11)
+    ref = StreamRef(key).with_selection(rows(block=2, k=3), 1)
+    kw = {"mask": ref.selection_mask(cpu), "blocks": ref.selection_blocks(cpu)}
+    for sel in ({}, kw):
+        for write in (lambda t: fx.perturb(t, key, 1e-3, **sel),
+                      lambda t: fx.fused_restore_update(
+                          t, key, 1e-3, np.float32(1.2e-3), 1e-4, **sel),
+                      lambda t: fx.apply_rank1(
+                          t, key, np.float32(1.2e-3), np.float32(1e-3),
+                          **sel)):
+            _build.reset_launch_counts()
+            got = write(dev)
+            torch.cuda.synchronize()
+            assert _build.launch_counts["zo_affine_threefry"] > 0
+            if sel:
+                assert _build.route_counts.get("zo_affine_threefry/bands")
+            want = write(cpu)
+            for k in dev:
+                assert got[k] is not dev[k]
+                assert torch.equal(dev[k], before[k])
+                assert torch.equal(got[k].cpu(), want[k])
+    inplace = {k: v.clone() for k, v in dev.items()}
+    get_backend("xla").perturb(inplace, StreamRef(key), 1e-3)
+    got = fx.perturb(dev, key, 1e-3)
+    assert all(torch.equal(got[k], inplace[k]) for k in dev)

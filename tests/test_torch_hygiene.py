@@ -164,11 +164,15 @@ def test_no_text_says_the_port_is_dense_only():
     "src/repro_torch/serve/tenants/compact.py",
     "src/repro_torch/serve/tenants/synth.py",
     "tests/test_torch_tenants.py", "tests/test_torch_tenants_parity.py",
-    "tests/test_torch_tenants_decode.py"])
+    "tests/test_torch_tenants_decode.py",
+    "src/repro_torch/core/mezo.py", "src/repro_torch/core/mezo_adam.py",
+    "src/repro_torch/core/mezo_variants.py",
+    "src/repro_torch/core/perturb.py",
+    "tests/test_torch_core_shims.py", "tests/test_torch_core_functional.py"])
 def test_new_modules_are_under_the_hygiene_checks(name):
-    """The moe modules, the original-layout tests and the tenants modules
-    and tests are among the files the checks above walk, import no JAX
-    (modules) and no unused name."""
+    """The moe modules, the original-layout tests, the tenants modules and
+    tests, and the shims' modules and tests are among the files the checks
+    above walk, import no JAX (modules) and no unused name."""
     path = ROOT / name
     assert path in PORT_FILES + PORT_TESTS
     if name.startswith("src/"):

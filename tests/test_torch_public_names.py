@@ -16,21 +16,6 @@ SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 #: JAX names the port does not export yet, with the Queue 1 item that owes
 #: them (ROADMAP.md)
 OWED = {
-    # item 9: the deprecated shims, repro.core's lazy exports, zo.from_config
-    # / zo.Optimizer, and the rest of JAX's public names (the port's
-    # counter-hash backend is CounterBackend, JAX's PallasBackend)
-    "core": ({"MeZO", "MeZOAdam", "MeZOAdamConfig", "MeZOAdamState",
-              "MeZOConfig", "MeZOState", "MeZOVariant", "MeZOVariantConfig",
-              "MeZOVariantState", "Optimizer", "SPSAResult", "ZOEstimator",
-              "ZOOptimizer", "ZOState", "ZOTransform",
-              "apply_projected_update", "apply_rank1", "as_zo_optimizer",
-              "chain", "fused_restore_update", "leaf_key",
-              "one_point_projected_grad", "perturb_params", "sample_leaf_z",
-              "sample_z_tree", "spsa_full_gradient_oracle",
-              "spsa_projected_grad", "step_key", "storage_report",
-              "zo_grad_norm"}, 9),
-    "zo": ({"Optimizer", "from_config"}, 9),
-    "perturb": ({"PallasBackend", "as_stream_ref", "register_backend"}, 9),
     # item 12: distribution
     "distributed": ({"batch_axes", "infer_batch_spec", "infer_param_spec",
                      "make_activation_resolver", "param_shardings",
