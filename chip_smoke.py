@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
     python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
-    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x, y)
+    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x, y, z)
 
 In order: prints the card's name and power limit; builds the eight CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -214,6 +214,20 @@ plain replay; a config naming ``backend="pallas"`` (K1), ``MeZOAdam`` and
 ``MeZOVariant`` (grad_norm_zo) ≡ their presets; the functional writes ≡
 the backend's in-place writes with θ₀ untouched; the functional spsa chain
 ≡ the estimator's; the shim's step timed against the preset's in turns.
+
+Then (z) distribution (``repro_torch.distributed``, ``launch.mesh``) on
+qwen2-0.5b at full width and depth (``distribution_paths``), inside a
+one-rank NCCL group on a ``FileStore`` under ``build/``: the (1, 1)
+``DeviceMesh`` of ``make_elastic_mesh()``, every leaf placed with
+``param_shardings`` and back bitwise, saved placed and loaded bitwise; the
+data-parallel step over the group ≡ the step without a mesh, its only
+collectives one all-reduce of two f32 per loss evaluation; the legacy
+seed-parallel surface ≡ the engine; 4 async workers (staleness 0 on
+``xla`` against ``seed_parallel(4)`` within a stated bf16-ulp bound, their
+ledger replayed bitwise; a round each on ``pallas``: K1, the antithetic
+pair through K4, fzoo through K5 and K3; a delayed schedule within its
+bound; a too-stale contribution dropped); the activation resolver leaves
+the logits' bits alone; produce / consume timed beside a local step.
 
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
@@ -460,6 +474,22 @@ X_STEP_TOKENS, X_CHECK_NEW, X_F32_LOGIT_REL = 24, 8, 1e-4
 # through the same forward: expected equal)
 Y_STEPS, Y_PALLAS_STEPS, Y_ADAM_STEPS, Y_VARIANT_STEPS = 5, 3, 3, 2
 Y_TURN_STEPS, Y_LOSS_REL = 2, 1e-6
+# (z) distribution on qwen2-0.5b at full width and depth: Z_WORKERS async
+# workers (each its own θ) over Z_ROUNDS staleness-0 rounds on xla, one
+# round each on pallas (spsa's in-place chain, its antithetic pair, fzoo
+# with Z_FZOO_SEEDS seeds), a delayed schedule of Z_ROUNDS rounds under
+# max_staleness Z_DELAY_WINDOW, Z_TURNS timed turns.  Bounds in bf16 ulps at
+# |θ| + ε·Z_MAX, each rounding at most half an ulp there, doubled because a
+# value may cross a binade between a rounding and the end:
+# * seed_parallel(n) against the staleness-0 workers: the seed-parallel
+#   step restores θ between its groups (θ+εz 2 roundings on xla, θ−εz 2,
+#   the restore 5) and both apply each group's update (3 roundings each):
+#   15 per group and step;
+# * the delayed schedule: every worker applies the same n·T contributions
+#   in its own order (its own at once, its peers' a round late); the exact
+#   sums agree, and each apply rounds 3 times: 2 workers × 3 per apply.
+Z_WORKERS, Z_ROUNDS, Z_FZOO_SEEDS, Z_DELAY_WINDOW, Z_TURNS = 4, 3, 4, 2, 3
+Z_SP_ULPS_PER_GROUP_STEP, Z_DELAY_ULPS_PER_APPLY = 15.0, 6.0
 QWEN2_PARAMS = 630_167_424
 SEEDS8 = [11, -5, 2**31 - 1, 977, 3, 123456789, -2**31, 42]
 A8 = [0.999, 1.0, 0.5, 1.0, 0.9990234375, 1.0, 1.0, 0.75]
@@ -6193,11 +6223,477 @@ def shims_paths(torch, np, _build, counts, step_ms, card) -> None:
     del params0
 
 
+# --------------------------------------------------------------------------- #
+# (z) distribution on qwen2-0.5b at full width and depth
+# --------------------------------------------------------------------------- #
+def distribution_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """(z) Distribution (``repro_torch.distributed``, ``launch.mesh``) at
+    qwen2-0.5b's full width and depth (24 layers, d 896, bf16,
+    ``pallas_flash``, random weights from seed 0, 16 × 256 lm batches, lr
+    1e-6, ε 1e-3, the ``xla`` stream unless named), inside a one-rank NCCL
+    group (a ``FileStore`` under the build directory) that lives for the
+    whole phase: ``make_elastic_mesh``'s (1, 1) ``DeviceMesh`` on the card;
+    the rule engine's sharded-leaf counts on the production meshes; every
+    leaf placed with ``param_shardings`` and taken back bitwise, saved
+    placed and loaded onto plain tensors bitwise; the data-parallel spsa
+    step over the group ≡ the step without a mesh (θ and metrics bitwise),
+    its collectives recorded (at most two f32 each, one per loss
+    evaluation); ``collectives.seed_parallel_step_fn`` ≡
+    ``StepProgram(seed_parallel(4))`` from the legacy state and from a
+    ``ZOState``; Z_WORKERS async workers over Z_ROUNDS staleness-0 rounds
+    (bitwise equal, held to ``seed_parallel(4)`` within the stated bound,
+    their ledger replayed bitwise), one round each on ``pallas`` (K1; the
+    antithetic pair, K4; fzoo, K5 and K3), a delayed schedule held within
+    its bound, and a contribution older than the window dropped; the
+    activation resolver over the card's mesh leaves the logits' bits alone
+    and is consulted 2 + 4·L times; produce / consume against a local step,
+    in turns."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataSpec, Pipeline
+    from repro_torch.models import all_archs, bundle
+    from repro_torch.tree_utils import tree_leaves
+    t_phase = time.perf_counter()
+    before = dict(counts)
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
+    b = bundle(cfg)
+    params0 = b.init(SEED, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params0))
+    if n_params != QWEN2_PARAMS or cfg.n_layers != 24 or cfg.d_model != 896:
+        fail(f"(z) qwen2-0.5b at {n_params} parameters, {cfg.n_layers} "
+             f"layers, d {cfg.d_model}: not its full width and depth")
+    data = Pipeline(DataSpec("lm", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             vocab=cfg.vocab_size, seed=SEED), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    store = RUN_DIR / "z_filestore"
+    store.unlink(missing_ok=True)
+    # a failed init fails the phase (no fallback)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        _distribution_on_group(torch, np, _build, counts, step_ms, card,
+                               cfg, params0, data)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    z = {k: counts.get(k, 0) - before.get(k, 0) for k in counts}
+    for name in ("zo_affine_threefry", "zo_affine", "flash_attention",
+                 "zo_affine_chain", "zo_affine_multi", "zo_affine_batched"):
+        if z.get(name, 0) <= 0:
+            fail(f"(z) {name} never launched in the phase")
+    log(f"(z) launches in the phase: X1 {z['zo_affine_threefry']}, K1 "
+        f"{z['zo_affine']}, K2 {z['flash_attention']}, K3 "
+        f"{z['zo_affine_chain']}, K4 {z['zo_affine_multi']}, K5 "
+        f"{z['zo_affine_batched']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"{time.perf_counter() - t_phase:.1f} s — on {card}")
+
+
+def _dict_leaves(tree) -> list:
+    """The leaves of a nested dict in the flatten order (sorted keys) — for
+    trees whose leaves are specs or shardings, which the tree utilities
+    would walk into."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _dict_leaves(tree[k])]
+    return [tree]
+
+
+def _distribution_on_group(torch, np, _build, counts, step_ms, card, cfg,
+                           params0, data) -> None:
+    """Phase (z)'s checks, inside its one-rank process group."""
+    import statistics
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import exec as zexec
+    from repro_torch import zo
+    from repro_torch.checkpoint.io import load_tree, save_tree
+    from repro_torch.core import TrajectoryLedger
+    from repro_torch.distributed import (make_activation_resolver,
+                                         param_shardings, param_specs)
+    from repro_torch.distributed.async_zo import (AsyncZOWorker,
+                                                  contributions_to_ledger,
+                                                  run_sync_equivalent)
+    from repro_torch.distributed.collectives import (seed_parallel_init,
+                                                     seed_parallel_step_fn)
+    from repro_torch.distributed.sharding import as_mesh
+    from repro_torch.launch.mesh import (make_elastic_mesh, make_ep_mesh,
+                                         make_production_mesh)
+    from repro_torch.models import bundle, common
+    from repro_torch.tree_utils import (flatten_with_path, tree_leaves,
+                                        tree_unflatten)
+    b = bundle(cfg)
+    loss_fn = b.loss_fn()
+    per = TRAIN_BATCH // Z_WORKERS
+    batch0 = data.batch(0)
+    theta_gib = sum(p.numel() * p.element_size()
+                    for p in tree_leaves(params0)) / 2**30
+
+    def same_trees(a, c) -> bool:
+        return all(same_bits(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(c)))
+
+    def worst_ulps(a, c) -> tuple:
+        w, mx = 0.0, 0.0
+        for x, y in zip(tree_leaves(a), tree_leaves(c)):
+            u, _, m = ulp_diff(torch, x, y)
+            w, mx = max(w, u), max(mx, m)
+        return w, mx
+
+    def shard(w, step):
+        """Worker w's rows of the step's batch."""
+        return {k: v[w * per:(w + 1) * per]
+                for k, v in data.batch(step).items()}
+
+    def workers(mk, **kw):
+        return [AsyncZOWorker(w, Z_WORKERS, params0, loss_fn, mk(),
+                              base_seed=SEED, **kw)
+                for w in range(Z_WORKERS)]
+
+    def mezo():
+        return zo.mezo(lr=LR, eps=EPS)
+
+    # ---- 1. the one-card mesh ---------------------------------------- #
+    mesh = make_elastic_mesh()
+    if (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
+            mesh.device_type) != (("data", "model"), (1, 1), "cuda"):
+        fail(f"(z) make_elastic_mesh() over the one-rank group gave {mesh}")
+    shapes = b.param_shapes()
+
+    def sharded(m) -> str:
+        sizes = as_mesh(m).shape
+        named = split = 0
+        for spec in _dict_leaves(param_specs(shapes, m)):
+            axes = [a for e in spec if e is not None
+                    for a in (e if isinstance(e, tuple) else (e,))]
+            named += bool(axes)
+            split += any(sizes[a] > 1 for a in axes)
+        return f"{named} / {split}"
+
+    meshes = {"single-pod (16, 16)": make_production_mesh(),
+              "multi-pod (2, 16, 16)": make_production_mesh(multi_pod=True),
+              "EP, make_ep_mesh(8), (16, 8, 2)": make_ep_mesh(8),
+              "the card's (1, 1)": mesh}
+    log(f"(z) qwen2-0.5b's param_specs (of {len(tree_leaves(shapes))} "
+        "leaves: with a sharded dim / split over more than one rank): "
+        + "; ".join(f"{k} {sharded(m)}" for k, m in meshes.items()))
+    placed = []
+    for (path, leaf), s in zip(flatten_with_path(params0),
+                               _dict_leaves(param_shardings(params0, mesh))):
+        dt = distribute_tensor(leaf, mesh, s.placements)
+        if not same_bits(dt.to_local(), leaf):
+            fail(f"(z) {path} placed with {s.placements}: to_local() != θ₀")
+        placed.append(dt)
+    ckpt = RUN_DIR / "z_placed.mz"
+    t0 = time.perf_counter()
+    save_tree(str(ckpt), tree_unflatten(params0, placed))
+    loaded, _ = load_tree(str(ckpt), params0)
+    io_s = time.perf_counter() - t0
+    ckpt.unlink()
+    if not same_trees(loaded, params0) or any(
+            type(x) is not torch.Tensor for x in tree_leaves(loaded)):
+        fail("(z) the placed tree saved and loaded onto plain tensors != θ₀")
+    del placed, loaded
+    log(f"(z) make_elastic_mesh() over the one-rank NCCL group: a (data 1, "
+        f"model 1) DeviceMesh on cuda; every leaf placed with "
+        f"param_shardings and taken back with to_local() bitwise; the "
+        f"placed tree saved and loaded onto plain tensors bitwise "
+        f"({io_s:.1f} s for {theta_gib:.2f} GiB, save + load)")
+
+    # ---- 2. the data-parallel step over the one-rank group ----------- #
+    calls, evals = [], [0]
+    real = dist.all_reduce
+
+    def recording(t, *a, **k):
+        calls.append((t.numel(), t.dtype))
+        return real(t, *a, **k)
+
+    def counted(p, bt):
+        return loss_fn(p, bt)
+
+    def counted_parts(p, bt):          # what the data-parallel loss runs
+        evals[0] += 1
+        return loss_fn.parts(p, bt)
+
+    counted.parts = counted_parts
+    opt = mezo()
+    runs = {}
+    _build.reset_launch_counts()
+    for name, plan, fn_loss in (("mesh", zexec.local(mesh=mesh), counted),
+                                ("plain", zexec.local(), loss_fn)):
+        p = _clone_tree(params0)
+        st = opt.init(p, seed=SEED)
+        fn = zexec.StepProgram(opt, plan).step_fn(fn_loss)
+        metrics = []
+        dist.all_reduce = recording
+        try:
+            for k in range(2):
+                p, st, m = fn(p, st, data.batch(k))
+                metrics.append((float(m["loss"]),
+                                float(m["projected_grad"])))
+        finally:
+            dist.all_reduce = real
+        runs[name] = (p, metrics)
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+               "(z) the data-parallel steps")
+    if not same_trees(runs["mesh"][0], runs["plain"][0]) or \
+            runs["mesh"][1] != runs["plain"][1]:
+        fail("(z) the data-parallel step over the one-rank group != the step "
+             "without a mesh")
+    if len(calls) != evals[0] or evals[0] != 4 or any(
+            n > 2 or dt != torch.float32 for n, dt in calls):
+        fail(f"(z) collectives of the data-parallel steps: {calls} for "
+             f"{evals[0]} loss evaluations")
+    del runs
+    log(f"(z) 2 data-parallel spsa steps (local plan, the card's mesh) ≡ "
+        f"the steps without a mesh: θ, loss and g bitwise; collectives "
+        f"{len(calls)}, each one all_reduce of {calls[0][0]} "
+        f"{str(calls[0][1]).replace('torch.', '')}, for {evals[0]} loss "
+        "evaluations, and nothing else")
+
+    # ---- 3. seed-parallel: the legacy surface ≡ the engine ----------- #
+    prog = zexec.StepProgram(opt, zexec.seed_parallel(Z_WORKERS))
+    legacy = seed_parallel_step_fn(loss_fn, opt, Z_WORKERS)
+    _build.reset_launch_counts()
+    p_eng = _clone_tree(params0)
+    p_eng, _, m_eng = prog.step_fn(loss_fn)(
+        p_eng, prog.init(p_eng, seed=SEED), batch0)
+    for what, state_of in (("legacy SeedParallelState",
+                            lambda p: seed_parallel_init(SEED)),
+                           ("ZOState", lambda p: opt.init(p, seed=SEED))):
+        p = _clone_tree(params0)
+        p, st, m = legacy(p, state_of(p), batch0)
+        if not same_trees(p, p_eng) or st.step != 1 or \
+                float(m["loss"]) != float(m_eng["loss"]) or \
+                not np.array_equal(m["projected_grads"],
+                                   m_eng["projected_grads"]):
+            fail(f"(z) seed_parallel_step_fn from a {what} != "
+                 "StepProgram(seed_parallel(4))")
+        del p
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+               "(z) seed_parallel(4)")
+    del p_eng
+    log("(z) collectives.seed_parallel_step_fn(loss, mezo, 4) ≡ "
+        "StepProgram(seed_parallel(4)): θ, loss and the 4 g bitwise, from "
+        "the legacy SeedParallelState and from a ZOState")
+
+    # ---- 4. async workers: staleness 0 on xla, the ledger ------------ #
+    _build.reset_launch_counts()
+    ws = workers(mezo)
+    contribs = []
+    for _ in range(Z_ROUNDS):
+        run_sync_equivalent(ws, shard)
+        contribs += [w.outbox[-1] for w in ws]
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+               "(z) async staleness 0 on xla")
+    for w in ws[1:]:
+        if not same_trees(w.params, ws[0].params):
+            fail(f"(z) async worker {w.w}'s θ != worker 0's after "
+                 f"{Z_ROUNDS} staleness-0 rounds")
+    _build.reset_launch_counts()
+    p_sp = _clone_tree(params0)
+    st = prog.init(p_sp, seed=SEED)
+    step_sp = prog.step_fn(loss_fn)
+    for k in range(Z_ROUNDS):
+        p_sp, st, _ = step_sp(p_sp, st, data.batch(k))
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+               f"(z) seed_parallel(4), {Z_ROUNDS} steps on the full batch")
+    sp_bound = Z_SP_ULPS_PER_GROUP_STEP * Z_WORKERS * Z_ROUNDS
+    if same_trees(p_sp, ws[0].params):
+        sp_text = "bitwise"
+    else:
+        u, mx = worst_ulps(ws[0].params, p_sp)
+        if u > sp_bound:
+            fail(f"(z) async workers vs seed_parallel(4): {u} bf16 ulps > "
+                 f"the bound {sp_bound}")
+        sp_text = (f"max {u:.2f} bf16 ulps at |θ| + ε·{Z_MAX} (bound "
+                   f"{sp_bound:.0f}), max abs {mx:.3e}")
+    del p_sp
+    led = TrajectoryLedger(base_seed=SEED, grad_dtype="float32",
+                           backend=ws[0].opt.backend_name)
+    rec_skip = contributions_to_ledger(led, contribs, n_workers=Z_WORKERS)
+    if rec_skip != (Z_ROUNDS, 0) or (led.exec_plan, led.n_groups) != (
+            "async_worker", Z_WORKERS):
+        fail(f"(z) contributions_to_ledger: {rec_skip}, {led.exec_plan} × "
+             f"{led.n_groups}")
+    _build.reset_launch_counts()
+    rep = zexec.StepProgram(mezo(), zexec.replay()).replay(
+        _clone_tree(params0), led)
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry",),
+               "(z) the async ledger's replay")
+    if not same_trees(rep, ws[0].params):
+        fail("(z) the async ledger's replay != the workers' θ")
+    del rep
+    log(f"(z) {Z_WORKERS} async workers × {Z_ROUNDS} staleness-0 rounds on "
+        f"xla (each its own θ and its {per} × {TRAIN_SEQ} rows): θ bitwise "
+        f"equal across workers; against seed_parallel(4) on the full batch "
+        f"{sp_text} (seed_parallel restores θ between its groups); "
+        f"contributions_to_ledger {rec_skip}, plan {led.exec_plan} × "
+        f"{led.n_groups}, {led.nbytes()} bytes, its replay ≡ the workers' θ "
+        "bitwise")
+
+    # ---- host clock: produce / consume against a local step, in turns #
+    times: dict = {"local": [], "produce": [], "consume": []}
+    p_loc = _clone_tree(params0)
+    st_loc = opt.init(p_loc, seed=SEED)
+    local_step = opt.step_fn(loss_fn)
+    w0 = ws[0]
+    _build.reset_launch_counts()
+    for k in range(Z_TURNS):
+        for what in (("local", "produce", "consume") if k % 2 == 0
+                     else ("consume", "produce", "local")):
+            if what == "consume":
+                c = w0.produce(shard(0, w0.step))
+            elif what == "produce":
+                bt = shard(0, w0.step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if what == "local":
+                p_loc, st_loc, _ = local_step(p_loc, st_loc, batch0)
+            elif what == "produce":
+                w0.produce(bt)
+            else:
+                w0.consume(c)
+            torch.cuda.synchronize()
+            times[what].append((time.perf_counter() - t0) * 1e3)
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+               "(z) the timed turns")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    step_ms["z_produce"], step_ms["z_consume"] = (med["produce"],
+                                                  med["consume"])
+    del ws, w0, p_loc
+    log(f"(z) host clock, {Z_TURNS} turns (L P C, C P L, …), medians: a "
+        f"worker's produce {med['produce']:.2f} ms (spsa on its {per} × "
+        f"{TRAIN_SEQ} rows), consume {med['consume']:.2f} ms (one "
+        f"contribution: X1 over θ), a local spsa step on {TRAIN_BATCH} × "
+        f"{TRAIN_SEQ} {med['local']:.2f} ms — on {card}")
+
+    # ---- one staleness-0 round each on pallas ------------------------ #
+    for what, mk, req in (
+            ("spsa", lambda: zo.mezo(lr=LR, eps=EPS, backend="pallas"),
+             ("zo_affine", "flash_attention")),
+            ("spsa with the antithetic pair",
+             lambda: zo.mezo(lr=LR, eps=EPS, backend="pallas",
+                             sequential_perturb=False),
+             ("zo_affine", "zo_affine_multi", "flash_attention")),
+            (f"fzoo({Z_FZOO_SEEDS})",
+             lambda: zo.fzoo(lr=LR, eps=EPS, batch_seeds=Z_FZOO_SEEDS,
+                             backend="pallas"),
+             ("zo_affine_batched", "zo_affine_chain", "flash_attention"))):
+        _build.reset_launch_counts()
+        ws = workers(mk)
+        run_sync_equivalent(ws, shard)
+        torch.cuda.synchronize()
+        add_counts(counts, _build, req,
+                   f"(z) one async round on pallas, {what}")
+        if any(not same_trees(w.params, ws[0].params) for w in ws[1:]) or \
+                same_trees(ws[0].params, params0):
+            fail(f"(z) one staleness-0 round on pallas, {what}: the workers "
+                 "differ, or θ did not move")
+        del ws
+        log(f"(z) one staleness-0 round of {Z_WORKERS} workers on pallas, "
+            f"{what}: θ bitwise equal across workers")
+
+    # ---- a delayed schedule ------------------------------------------ #
+    _build.reset_launch_counts()
+    ws = workers(mezo, max_staleness=Z_DELAY_WINDOW)
+    pending, every = [], []
+    for _ in range(Z_ROUNDS):
+        newly = []
+        for w in ws:
+            c = w.produce(shard(w.w, w.step))
+            w.consume(c)                   # its own at once
+            newly.append(c)
+        for c in pending:                  # its peers' a round late
+            for w in ws:
+                if c.worker != w.w and not w.consume(c):
+                    fail(f"(z) delayed: worker {w.w} refused {c}")
+        pending = newly
+        every += newly
+    for c in pending:
+        for w in ws:
+            w.consume(c)
+    late = AsyncZOWorker(0, Z_WORKERS, params0, loss_fn, mezo(),
+                         base_seed=SEED, max_staleness=Z_DELAY_WINDOW)
+    for _ in range(Z_ROUNDS):
+        late.produce(shard(0, late.step))
+    kept = _clone_tree(late.params)
+    dropped = not late.consume(every[1])
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("zo_affine_threefry", "flash_attention"),
+               "(z) the delayed schedule")
+    if not dropped or not same_trees(late.params, kept) or \
+            every[1].step + Z_DELAY_WINDOW >= late.step:
+        fail(f"(z) a step-{every[1].step} contribution at step {late.step} "
+             f"(window {Z_DELAY_WINDOW}) was applied")
+    del late, kept
+    if any(len(w.applied) != Z_WORKERS * Z_ROUNDS for w in ws):
+        fail("(z) delayed: a worker did not apply every contribution")
+    delay_bound = Z_DELAY_ULPS_PER_APPLY * Z_WORKERS * Z_ROUNDS
+    worst, worst_abs, n_equal = 0.0, 0.0, 0
+    for w in ws[1:]:
+        if same_trees(w.params, ws[0].params):
+            n_equal += 1
+            continue
+        u, mx = worst_ulps(w.params, ws[0].params)
+        worst, worst_abs = max(worst, u), max(worst_abs, mx)
+    if worst > delay_bound:
+        fail(f"(z) delayed: the workers differ by {worst} bf16 ulps > the "
+             f"bound {delay_bound}")
+    del ws
+    log(f"(z) delayed schedule, {Z_ROUNDS} rounds (a worker's own "
+        f"contribution at once, its peers' a round late, max_staleness "
+        f"{Z_DELAY_WINDOW}, then all delivered): against worker 0, "
+        f"{n_equal} of {Z_WORKERS - 1} workers bitwise, max {worst:.2f} bf16 "
+        f"ulps at |θ| + ε·{Z_MAX} (bound {delay_bound:.0f}), max abs "
+        f"{worst_abs:.3e}; a step-{every[1].step} contribution reaching a "
+        f"worker at step {Z_ROUNDS} is dropped (θ bitwise unchanged)")
+
+    # ---- 5. shard hints at full width -------------------------------- #
+    seen: list = []
+    inner = make_activation_resolver(mesh, cfg)
+
+    def resolver(logical, shape):
+        seen.append(logical)
+        return inner(logical, shape)
+
+    logits_of = b.train_logits_fn()
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        plain = logits_of(params0, batch0)
+        with common.shard_resolver(resolver):
+            hinted = logits_of(params0, batch0)
+    torch.cuda.synchronize()
+    add_counts(counts, _build, ("flash_attention",),
+               "(z) the forwards with and without the resolver")
+    want = (["act_btd"] + ["act_heads", "act_kv_heads", "act_ff",
+                           "act_btd"] * cfg.n_layers + ["act_vocab"])
+    if not same_bits(plain, hinted) or seen != want:
+        fail(f"(z) the activation resolver: logits bitwise "
+             f"{same_bits(plain, hinted)}, consulted {len(seen)} times "
+             f"(JAX's sequence: {len(want)})")
+    del plain, hinted
+    log(f"(z) make_activation_resolver over the card's mesh: the logits "
+        f"({TRAIN_BATCH} × {TRAIN_SEQ} × {cfg.padded_vocab}) bitwise those "
+        f"without it; consulted {len(seen)} times = 2 + 4 · {cfg.n_layers}, "
+        "in JAX's order (tests/test_torch_shard_hints.py)")
+
+
 def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
                       which) -> None:
     """The phases named in ``which`` (u: hymba-1.5b, t: mixtral-8x7b, w:
     whisper-large-v3, x: multi-tenant LoRA serving on qwen2-0.5b, y: the
-    deprecated shims and the functional primitives on qwen2-0.5b; for
+    deprecated shims and the functional primitives on qwen2-0.5b, z:
+    distribution on qwen2-0.5b; for
     iterating alone, j: qwen2-0.5b's spsa step under
     the original threefry layout, q: the card ≡ CPU Adam steps), each after
     the trees before it are freed, K2 held to its plain version at every
@@ -6223,6 +6719,8 @@ def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
               "x": ("qwen2-0.5b's tenants", lambda: tenants_paths(
                   torch, np, _build, counts, step_ms, card)),
               "y": ("qwen2-0.5b's shims", lambda: shims_paths(
+                  torch, np, _build, counts, step_ms, card)),
+              "z": ("qwen2-0.5b's distribution", lambda: distribution_paths(
                   torch, np, _build, counts, step_ms, card))}
     for ph in which:
         arch, run = phases[ph]
@@ -6264,7 +6762,8 @@ def main() -> None:
                          "steps, u: hymba-1.5b, t: mixtral-8x7b, w: "
                          "whisper-large-v3, x: multi-tenant LoRA serving on "
                          "qwen2-0.5b, y: the deprecated shims and the "
-                         "functional primitives on qwen2-0.5b), then stop "
+                         "functional primitives on qwen2-0.5b, z: "
+                         "distribution on qwen2-0.5b), then stop "
                          "without the kernels "
                          "line: for iterating on one phase")
     ap.add_argument("--parent", type=Path, default=None,
@@ -6476,7 +6975,7 @@ def main() -> None:
     # ---- whisper-large-v3, each at full width and depth; (x) ----------- #
     # ---- multi-tenant LoRA serving on qwen2-0.5b ----------------------- #
     run_family_phases(torch, np, kf, _build, counts, step_ms, card,
-                      ["u", "w", "x", "y"])
+                      ["u", "w", "x", "y", "z"])
     rows.append(k2_hd128)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)

@@ -3,7 +3,9 @@ file layout: an 8-byte little-endian index length, a msgpack index
 (``{"leaves": [{path, dtype, shape, offset, nbytes}], "meta": {...}}``),
 then the raw little-endian leaf buffers.  Leaves are stored unsharded with
 their jax-style tree paths, so a params checkpoint written by either
-package loads in the other.  Writes are atomic (tmp + rename).
+package loads in the other; a ``DTensor`` leaf is stored whole (its
+``full_tensor()``), so a tree placed on a mesh loads onto plain tensors.
+Writes are atomic (tmp + rename).
 
 The index is written with the package's own msgpack subset
 (``msgpack_lite``, byte-identical to ``msgpack.packb`` for it): the machine
@@ -25,6 +27,9 @@ from repro_torch.tree_utils import PyTree, flatten_with_path, tree_unflatten
 
 def _to_numpy(x) -> tuple:
     if isinstance(x, torch.Tensor):
+        if hasattr(x, "full_tensor"):
+            # a DTensor: the whole leaf, gathered (JAX's device_get)
+            x = x.full_tensor()
         t = x.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"

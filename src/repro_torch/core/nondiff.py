@@ -26,6 +26,18 @@ def negative_accuracy(logits: torch.Tensor, labels: torch.Tensor,
     return -(torch.sum(correct) * _inv(correct.numel(), correct.device))
 
 
+def negative_accuracy_parts(logits: torch.Tensor, labels: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """``[−Σ correct·mask, Σ mask]`` (f32, shape (2,)): sums over row
+    shards add, and the first over the second (at least 1) is
+    ``negative_accuracy`` of the whole batch."""
+    correct = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
+    m = (torch.ones_like(correct) if mask is None
+         else mask.to(torch.float32))
+    return torch.stack([-torch.sum(correct * m), torch.sum(m)])
+
+
 def token_f1(pred_ids: torch.Tensor, gold_ids: torch.Tensor,
              pad_id: int = 0) -> torch.Tensor:
     """Bag-of-tokens F1 between predicted and gold id sequences (the SQuAD
@@ -35,6 +47,16 @@ def token_f1(pred_ids: torch.Tensor, gold_ids: torch.Tensor,
     multiset overlap Σ_v min(c_p(v), c_g(v)) without a vocabulary: a
     prediction matches when its occurrence index among equal predictions
     is below its count in gold."""
+    f1 = _f1_rows(pred_ids, gold_ids, pad_id)
+    s = f1[0]
+    for x in f1[1:]:
+        s = s + x
+    return s * _inv(f1.numel(), f1.device)
+
+
+def _f1_rows(pred_ids: torch.Tensor, gold_ids: torch.Tensor,
+             pad_id: int) -> torch.Tensor:
+    """``token_f1`` of each row, shape (B,)."""
     p, g = pred_ids, gold_ids
     pm = p != pad_id
     gm = g != pad_id
@@ -48,13 +70,9 @@ def token_f1(pred_ids: torch.Tensor, gold_ids: torch.Tensor,
     n_g = torch.sum(gm.to(torch.float32), dim=1)
     prec = overlap / torch.clamp_min(n_p, 1.0)
     rec = overlap / torch.clamp_min(n_g, 1.0)
-    f1 = torch.where(overlap > 0,
-                     2 * prec * rec / torch.clamp_min(prec + rec, 1e-9),
-                     torch.zeros_like(overlap))
-    s = f1[0]
-    for x in f1[1:]:
-        s = s + x
-    return s * _inv(f1.numel(), f1.device)
+    return torch.where(overlap > 0,
+                       2 * prec * rec / torch.clamp_min(prec + rec, 1e-9),
+                       torch.zeros_like(overlap))
 
 
 def _inv(n: int, device) -> torch.Tensor:
@@ -68,6 +86,16 @@ def _inv(n: int, device) -> torch.Tensor:
 def negative_f1(pred_ids: torch.Tensor, gold_ids: torch.Tensor,
                 pad_id: int = 0) -> torch.Tensor:
     return -token_f1(pred_ids, gold_ids, pad_id)
+
+
+def negative_f1_parts(pred_ids: torch.Tensor, gold_ids: torch.Tensor,
+                      pad_id: int = 0) -> torch.Tensor:
+    """``[−Σ_rows token_f1, rows]`` (f32, shape (2,)): sums over row
+    shards add, and the first over the second is ``negative_f1`` of the
+    whole batch (a uniform mean over rows)."""
+    f1 = _f1_rows(pred_ids, gold_ids, pad_id)
+    return torch.stack([-torch.sum(f1), torch.tensor(
+        float(f1.numel()), dtype=torch.float32, device=f1.device)])
 
 
 def make_accuracy_objective(apply_fn: Callable,

@@ -1,5 +1,6 @@
 """``StepProgram`` — the port of ``repro.exec.engine``: one ZO step engine
-for the local and seed-parallel plans and for ledger replay.
+for every execution plan (local, seed-parallel, the async worker protocol's
+building blocks, ledger replay).
 
 The one seed schedule (``group_key``): stream g of step t is
 ``fold_in(step_key(base, t), g)`` when ``n_groups > 1``, the unfolded step
@@ -11,12 +12,17 @@ key when ``n_groups == 1`` — exactly the local facade's per-seed fold, so
 * ``apply_group_updates`` is the write path shared by the live
   seed-parallel step and ledger replay: the whole step's
   n_groups × batch_seeds streams go to ONE ``affine_many`` call (K3 on the
-  card), with the coefficients (η/n)·g formed as the same f32 operations.
+  card), with the coefficients (η/n)·g formed as the same f32 operations;
+  an async worker applies each contribution through ``apply_group_update``
+  (on ``xla``, ``affine_many`` is that fold, one stream at a time).
 
-``seed_parallel(n)`` runs on one card here: its groups are evaluated one
-after another on their batch slices, all at the step's center parameters
-(distribution across cards is a later slice).  The async plan's worker
-protocol comes with that slice too.  Every write is in place.
+``seed_parallel(n)``'s groups are evaluated one after another on their
+batch slices, all at the step's center parameters.  A plan that carries a
+materialized mesh (a ``DeviceMesh``) runs every loss evaluation data
+parallel over the mesh's batch axes (``distributed.collectives.
+data_parallel_loss``): each rank evaluates its rows of the global batch and
+the loss scalars are the step's only collectives; z is regenerated on every
+rank.  Every write is in place.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from repro_torch.exec.plan import ExecPlan, check_replay_plan
 from repro_torch.perturb import StreamRef, check_replay_backend, step_key
 from repro_torch.perturb.stream import Key, fold_in, prng_key
 from repro_torch.select import check_replay_selection
-from repro_torch.tree_utils import PyTree
+from repro_torch.tree_utils import PyTree, tree_clone, tree_map
 from repro_torch.zo.base import TransformCtx, Updates, ZOState
 from repro_torch.zo.presets import as_zo_optimizer
 from repro_torch.zo.updates import apply_rank1_batch
@@ -116,7 +122,7 @@ def slice_group(batch, group: int, n_groups: int):
         per = x.shape[0] // n_groups
         return x[group * per:(group + 1) * per]
 
-    return {k: cut(v) for k, v in batch.items()}
+    return tree_map(cut, batch)
 
 
 # --------------------------------------------------------------------------- #
@@ -229,6 +235,15 @@ class StepProgram:
         return self.opt.restore(state, step)
 
     def step_fn(self, loss_fn) -> Callable:
+        if self.plan.mesh is not None and self.plan.kind != "replay":
+            if not self.is_zo:
+                raise ValueError(
+                    f"{type(self.opt).__name__} differentiates its loss; a "
+                    "plan's mesh reduces forward-only loss scalars — run "
+                    "the backprop baselines without a mesh")
+            from repro_torch.distributed.collectives import \
+                data_parallel_loss
+            loss_fn = data_parallel_loss(loss_fn, self.plan.mesh)
         if not self.is_zo or self.plan.kind == "local":
             return self.opt.step_fn(loss_fn)
         if self.plan.kind == "seed_parallel":
@@ -238,8 +253,9 @@ class StepProgram:
             return self._seed_parallel_step_fn(loss_fn)
         if self.plan.kind == "async_worker":
             raise ValueError(
-                "the async_worker plan has no monolithic step function; its "
-                "worker protocol is ported with the distribution slice")
+                "the async_worker plan has no monolithic step function — "
+                "drive it through repro_torch.distributed.async_zo."
+                "AsyncZOWorker (contribution_eval_fn / apply_contribution)")
         raise ValueError(
             "the replay plan is ledger-driven (no forward passes): call "
             "StepProgram.replay(params0, ledger) instead of step_fn")
@@ -300,6 +316,97 @@ class StepProgram:
             return p, new_state, metrics
 
         return step
+
+    def shardings(self, params_like: PyTree, batch_like=None,
+                  state_like=None):
+        """(params, state, batch) shardings under the plan's mesh:
+        parameters through the ``sharding.py`` rule engine, optimizer state
+        replicated when ``state_like`` is given (``None`` otherwise), batch
+        leaves split on their leading axis over the mesh's batch axes —
+        MeZO's cross-device traffic stays the loss scalars.  Each is a
+        ``NamedSharding`` whose ``placements`` DTensor takes."""
+        mesh = self.plan.mesh
+        if mesh is None:
+            raise ValueError("this plan carries no mesh; construct it as "
+                             "exec.seed_parallel(n, mesh=...)")
+        from repro_torch.distributed.sharding import (P, NamedSharding,
+                                                      batch_axes,
+                                                      device_mesh_of,
+                                                      param_shardings)
+        pshard = param_shardings(params_like, mesh)
+        dm = device_mesh_of(mesh)
+        sshard = None
+        if state_like is not None:
+            sshard = tree_map(lambda _: NamedSharding(dm, P()), state_like)
+        ba = batch_axes(dm)
+        b_ax = ba if len(ba) > 1 else (ba[0] if ba else None)
+        bshard = None
+        if batch_like is not None:
+            bshard = tree_map(
+                lambda x: NamedSharding(
+                    dm, P(b_ax) if isinstance(x, torch.Tensor) and x.dim()
+                    else P()),
+                batch_like)
+        return pshard, sshard, bshard
+
+    # -- async building blocks (consumed by distributed.async_zo) ----------- #
+    def contribution_eval_fn(self, loss_fn, worker: int,
+                             est_state=None) -> Callable:
+        """``fn(params, base_key, step, batch, phase=0) -> (g, lr, loss)``:
+        evaluate this worker's seed group of one step through the estimator
+        and the scalar transform chain (what goes on the wire is the
+        post-transform g — the scalar a seed-parallel step records).  The
+        estimator runs on a copy of ``params``, whose bits stay as they were
+        (JAX's evaluation is pure; the port's perturbations are in place).
+        ``phase`` is the step's block-schedule phase, which the worker
+        derives from its step counter as every plan does."""
+        opt = self.opt
+        est, tf = opt.estimator, opt.transform
+        n = self.plan.n_groups
+
+        @torch.no_grad()
+        def fn(params, base_key, step, batch, phase: int = 0):
+            skey = group_stream_key(base_key, step, worker, n)
+            e_state = (est_state if est_state is not None
+                       else est.init(None, base_key))
+            e = est.estimate(loss_fn, tree_clone(params), batch, skey,
+                             e_state, phase=phase)
+            ctx = TransformCtx(step=step, base_key=base_key, key=skey,
+                               seed_index=worker, n_seeds=n, eps=est.eps,
+                               dist=est.dist, restore=e.restore,
+                               backend=opt.backend)
+            u, _ = tf.update(Updates(g=e.projected_grad), tf.init(None), ctx)
+            lr = u.lr if u.lr is not None else f32(1.0)
+            return u.g, lr, e.loss
+
+        return fn
+
+    def apply_contribution_fn(self) -> Callable:
+        """``fn(params, skey0, group, g, lr, decay_on, phase=0) -> params``
+        applying one group's contribution for the step whose key is
+        ``skey0``, in place — the floats a ledger replay of that group
+        performs: coefficient (η/n)·g, decay η·λ·decay_on (the step's decay
+        rides group 0), each one f32 operation in JAX's order."""
+        opt = self.opt
+        n = self.plan.n_groups
+        batch_seeds = opt.batch_seeds
+        dist = opt.estimator.dist
+        backend = opt.backend
+        wd = f32(opt.weight_decay)
+        sel = opt.selection
+
+        @torch.no_grad()
+        def fn(params, skey0, group, g, lr, decay_on, phase: int = 0):
+            lr = f32(lr)
+            coeff = (lr / f32(n)) * np.asarray(g, f32)
+            if coeff.ndim == 0:
+                coeff = f32(coeff)
+            decay = (lr * wd) * f32(decay_on)
+            return apply_group_update(params, skey0, int(group), n, coeff,
+                                      decay, batch_seeds, dist, backend,
+                                      selection=sel, phase=phase)
+
+        return fn
 
     # -- ledger replay ------------------------------------------------------ #
     @torch.no_grad()

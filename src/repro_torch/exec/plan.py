@@ -1,28 +1,35 @@
-"""Execution plans — the port of ``repro.exec.plan`` (verbatim: plain
-Python).  *Where/how* a ZO step runs, orthogonal to *what* it is.
+"""Execution plans — the port of ``repro.exec.plan`` (plain Python).
+*Where/how* a ZO step runs, orthogonal to *what* it is.
 
 A MeZO step is fully determined by a seed and a handful of scalars (paper
 §2.1), so one step definition can be lowered onto very different execution
-strategies.  An ``ExecPlan`` names the strategy; ``repro.exec.engine`` owns
-the lowering:
+strategies.  An ``ExecPlan`` names the strategy; ``repro_torch.exec.engine``
+owns the lowering:
 
-``local()``
-    Today's single-program step: the optimizer facade's jit+donate loop step,
-    unchanged (the engine delegates to ``ZOOptimizer.step_fn``).
+``local(mesh=None)``
+    The single-program step: the optimizer facade's eager step, writing θ in
+    place (the engine delegates to ``ZOOptimizer.step_fn``).
 
 ``seed_parallel(n_groups, mesh=None)``
     The global batch is split into ``n_groups`` slices; seed group g is
     evaluated only on slice g, all groups at the step's center parameters,
-    and the n rank-1 directions are averaged (η/n each).  Under jit with the
-    batch sharded over 'data' (pass ``mesh`` and use
-    ``StepProgram.shardings``), slice g's loss reductions are data-local, so
-    the only cross-device traffic is the 2n loss scalars.
+    and the n rank-1 directions are averaged (η/n each).
+
+    With ``mesh`` (a ``torch.distributed`` ``DeviceMesh``, e.g. from
+    ``repro_torch.launch.mesh``) every rank runs the same step on the same
+    global batch and evaluates each loss on its rows of it, split over the
+    mesh's batch axes; the loss scalars, one all-reduce of two f32 per
+    evaluation, are the only cross-rank traffic (z is regenerated on every
+    rank).  ``StepProgram.shardings`` gives the layouts the rule engine
+    assigns (``repro_torch.distributed.sharding``).
 
 ``async_worker(n_workers, max_staleness=4)``
-    The gossip-ring contribution protocol: worker w evaluates seed group w of
-    each step on its own shard and broadcasts the scalar; contributions apply
-    up to ``max_staleness`` steps late.  Staleness 0 is seed_parallel with
-    per-worker jits.
+    The gossip-ring contribution protocol
+    (``repro_torch.distributed.async_zo``): worker w evaluates seed group w
+    of each step on its own shard and broadcasts the scalar; contributions
+    apply up to ``max_staleness`` steps late.  Staleness 0 applies a
+    seed_parallel step's rank-1 updates, each worker evaluating at its own
+    θ (no restore chain between groups).
 
 ``replay()``
     Ledger-driven: no forward passes, no data — reconstruct parameters from
@@ -49,10 +56,10 @@ class ExecPlan:
 
     ``n_groups`` is the number of independent seed streams folded per step at
     the group level (batch slices for seed_parallel, workers for
-    async_worker).  ``mesh`` optionally names the jax device mesh the
-    seed-parallel plan shards over (metadata never records it — the stream
-    schedule is mesh-invariant, that is the point).  ``max_staleness`` only
-    applies to async_worker.
+    async_worker).  ``mesh`` optionally names the ``DeviceMesh`` the local
+    and seed-parallel plans run data parallel over (metadata never records
+    it — the stream schedule is mesh-invariant, that is the point).
+    ``max_staleness`` only applies to async_worker.
     """
     kind: str
     n_groups: int = 1
@@ -67,8 +74,8 @@ class ExecPlan:
             raise ValueError(f"n_groups must be >= 1, got {self.n_groups}")
 
 
-def local() -> ExecPlan:
-    return ExecPlan("local")
+def local(mesh=None) -> ExecPlan:
+    return ExecPlan("local", mesh=mesh)
 
 
 def seed_parallel(n_groups: int, mesh=None) -> ExecPlan:

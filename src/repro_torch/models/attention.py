@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rope_cos_sin
+from repro_torch.models.common import (apply_rope, dense_init, rope_cos_sin,
+                                       shard_hint)
 
 NEG_INF = -1e30
 
@@ -234,6 +235,8 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = shard_hint(q, "act_heads")
+    k = shard_hint(k, "act_kv_heads")
 
     new_cache = None
     if cache is not None and cache_pos is not None:

@@ -1,15 +1,57 @@
 """Shared model building blocks — the port of ``repro.models.common``:
-norms, activations, RoPE, sinusoidal positions, and initializers that draw
-from a ``torch.Generator``.  The JAX package's activation-sharding hooks
-have no counterpart here (one device)."""
+norms, activations, RoPE, sinusoidal positions, initializers that draw
+from a ``torch.Generator``, and the activation-sharding hook used by the
+distributed layer."""
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------------- #
+# Activation-sharding context: models call shard_hint(x, logical_name) at
+# JAX's points; the distributed layer installs a resolver mapping
+# (logical, shape) to a spec.  Without a resolver this is the identity, so
+# model code never imports mesh machinery.
+# --------------------------------------------------------------------------- #
+_tls = threading.local()
+
+
+def set_shard_resolver(fn: Optional[Callable[[str, tuple], object]]) -> None:
+    _tls.resolver = fn
+
+
+@contextlib.contextmanager
+def shard_resolver(fn):
+    prev = getattr(_tls, "resolver", None)
+    _tls.resolver = fn
+    try:
+        yield
+    finally:
+        _tls.resolver = prev
+
+
+def shard_hint(x: torch.Tensor, logical: str) -> torch.Tensor:
+    """Annotate an activation with a logical sharding name: the resolver
+    (``repro_torch.distributed.make_activation_resolver``) is called as
+    ``fn(logical, tuple(x.shape))``.  Where it returns a spec (a
+    ``PartitionSpec``, which gives its own ``placements(mesh)``) and ``x``
+    is a ``DTensor``, ``x`` is redistributed to those placements on its
+    mesh; a plain tensor passes through unchanged (as JAX's
+    ``with_sharding_constraint`` changes nothing on one device)."""
+    fn = getattr(_tls, "resolver", None)
+    if fn is None:
+        return x
+    spec = fn(logical, tuple(x.shape))
+    if spec is None or not hasattr(x, "redistribute"):
+        return x
+    return x.redistribute(x.device_mesh, spec.placements(x.device_mesh))
 
 
 # --------------------------------------------------------------------------- #
@@ -156,10 +198,21 @@ def embed_init(gen: torch.Generator, shape: tuple, dtype) -> torch.Tensor:
 def _fill_normal(gen: torch.Generator, part: torch.Tensor,
                  scale: float) -> None:
     """part ← N(0, scale²): an f32 draw of part's shape, scaled in place,
-    copied (cast) into ``part``."""
+    copied (cast) into ``part``.  A ``meta`` leaf holds no values: nothing
+    is drawn (``Bundle.param_shapes``)."""
+    if part.is_meta:
+        return
     w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     part.copy_(w.mul_(scale))
+
+
+class MetaGen:
+    """The stand-in for a ``torch.Generator`` that ``Bundle.param_shapes``
+    hands the init code: leaves land on the ``meta`` device and no draw is
+    made (``torch.Generator(device="meta")`` does not exist)."""
+
+    device = torch.device("meta")
 
 
 class KeyGen:

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       norm_params, sinusoidal_at,
+                                       norm_params, shard_hint, sinusoidal_at,
                                        sinusoidal_embedding)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn, ffn_params
@@ -66,6 +66,7 @@ def encode(cfg: ModelConfig, params: dict,
     B, S, d = frames.shape
     x = frames.to(cfg.param_dtype) + sinusoidal_embedding(
         S, d, cfg.param_dtype, frames.device)
+    x = shard_hint(x, "act_btd")
     positions = torch.arange(S, dtype=torch.int32, device=frames.device)
     for lp in layer_views(params["enc"]["layers"], cfg.encoder_layers):
         h = apply_norm(cfg, x, lp["ln1"])
@@ -74,6 +75,7 @@ def encode(cfg: ModelConfig, params: dict,
                               k_pos=positions, causal=False, window=0)
         x = x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
         x = x + ffn(cfg, lp["mlp"], apply_norm(cfg, x, lp["ln2"]))
+        x = shard_hint(x, "act_btd")
     return apply_norm(cfg, x, params["enc"]["ln_f"])
 
 
@@ -106,6 +108,7 @@ def decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if not cfg.use_rope:
         x = x + sinusoidal_at(positions, cfg.d_model, x.dtype)[None]
+    x = shard_hint(x, "act_btd")
     for i, lp in enumerate(layer_views(dec["layers"], cfg.n_layers)):
         cache_l = (None if cache is None else
                    {"k": cache["k"][i], "v": cache["v"][i],
@@ -118,8 +121,9 @@ def decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             cfg, lp["xattn"], apply_norm(cfg, x, lp["ln_x"]),
             cross_kv["k"][i], cross_kv["v"][i])
         x = x + ffn(cfg, lp["mlp"], apply_norm(cfg, x, lp["ln2"]))
+        x = shard_hint(x, "act_btd")
     x = apply_norm(cfg, x, dec["ln_f"])
-    return DecodeResult(x @ dec["head"], cache)
+    return DecodeResult(shard_hint(x @ dec["head"], "act_vocab"), cache)
 
 
 def forward_train(cfg: ModelConfig, params: dict, frames: torch.Tensor,

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models.common import activation, dense_init, shard_hint
 
 
 def ffn_params(cfg, gen: torch.Generator, dtype, layers: int) -> dict:
@@ -23,4 +23,5 @@ def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = activation(cfg.activation, h) * (x @ p["w3"])
     else:
         h = activation(cfg.activation, h)
+    h = shard_hint(h, "act_ff")
     return h @ p["w2"]

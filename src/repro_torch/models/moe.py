@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models.common import activation, dense_init, shard_hint
 
 
 def expert_group_count(cfg) -> int:
@@ -149,7 +149,9 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor):
     expert_in = torch.zeros(E * G * C + 1, d, dtype=x.dtype, device=x.device)
     expert_in = expert_in.index_copy(0, kept_slot,
                                      x.reshape(G * M, d)[tok.reshape(-1)])
-    expert_in = expert_in[:-1].reshape(E, G * C, d)
+    # JAX's (E, G, C, d) dispatch layout is the hint's shape
+    expert_in = shard_hint(expert_in[:-1].reshape(E, G, C, d),
+                           "act_experts").reshape(E, G * C, d)
     outs, e0 = [], 0
     for w1, w2, w3 in _expert_groups(cfg, p):
         xin = expert_in[e0:e0 + w1.shape[0]]

@@ -38,7 +38,8 @@ from repro_torch.device import DeviceSpec, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer
 from repro_torch.models.common import (apply_norm, apply_rope, dense_init,
-                                       dense_init_key, rope_cos_sin)
+                                       dense_init_key, rope_cos_sin,
+                                       shard_hint)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn
 from repro_torch.models.moe import moe_ffn
@@ -205,6 +206,7 @@ def _forward_with_prefix(cfg: ModelConfig, params: dict, prefix: dict,
             x, aux = x + mo, aux + aux_l
         else:
             x = x + ffn(cfg, lp["mlp"], h2)
+        x = shard_hint(x, "act_btd")
     x = apply_norm(cfg, x, params["ln_f"])
     head = params.get("head")
     if head is None:

@@ -36,6 +36,7 @@ from repro_torch.data.synthetic import randint, split
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import encdec, rwkv6, transformer
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.common import MetaGen
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.frontends import stub_normal
 from repro_torch.models.moe import expert_group_count
@@ -128,6 +129,16 @@ class Bundle:
         else:
             gen = torch.Generator(device=resolve_device(device))
             gen.manual_seed(int(seed))
+        return self._init_params(gen)
+
+    def param_shapes(self) -> dict:
+        """The parameter tree as tensors on the ``meta`` device — JAX's
+        ``jax.eval_shape(init)``, leaf for leaf (paths, shapes, dtypes):
+        the init code runs with every draw skipped, so nothing is allocated
+        and no generator is drawn from, at any config's full size."""
+        return self._init_params(MetaGen())
+
+    def _init_params(self, gen) -> dict:
         if self.cfg.family == "ssm":
             return rwkv6.init_params(self.cfg, gen)
         if self.cfg.family == "encdec":
@@ -168,47 +179,58 @@ class Bundle:
         * ``"f1"`` — −token F1 between the per-position argmax predictions
           and the labels; masked-out positions become −1 on both sides, so
           a real id-0 token still counts.
+
+        Each loss but the moe family's ``"ce"`` carries ``parts(params,
+        batch)``: a (2,) f32 tensor ``[s, w]`` whose sums over row shards
+        of a batch give the whole batch's loss as ``s / max(w, 1)`` (what
+        ``distributed.collectives.data_parallel_loss`` all-reduces).
         """
         cfg = self.cfg
-        if objective == "ce":
-            if cfg.family == "ssm":
-                def loss(params, batch):
-                    logits, _ = rwkv6.forward(cfg, params,
-                                              tokens=batch["tokens"])
-                    return transformer.lm_loss(cfg, logits, batch["labels"],
-                                               batch.get("loss_mask"))
-                return loss
-            if cfg.family == "encdec":
-                def loss(params, batch):
-                    logits = encdec.forward_train(cfg, params,
-                                                  batch["frames"],
-                                                  batch["tokens"])
-                    return transformer.lm_loss(cfg, logits, batch["labels"],
-                                               batch.get("loss_mask"))
-                return loss
-            return transformer.train_loss_fn(cfg)
         if objective not in OBJECTIVES:
             raise ValueError(f"unknown objective {objective!r}; "
                              f"available: {OBJECTIVES}")
+        if objective == "ce" and cfg.family not in ("ssm", "encdec"):
+            return transformer.train_loss_fn(cfg)
         logits_fn = self.train_logits_fn()
         V = cfg.vocab_size
-        if objective == "accuracy":
+        if objective == "ce":
+            def loss(params, batch):
+                return transformer.lm_loss(cfg, logits_fn(params, batch),
+                                           batch["labels"],
+                                           batch.get("loss_mask"))
+
+            def parts(params, batch):
+                return transformer.lm_loss_parts(
+                    cfg, logits_fn(params, batch), batch["labels"],
+                    batch.get("loss_mask"))
+        elif objective == "accuracy":
             def loss(params, batch):
                 logits = logits_fn(params, batch)[..., :V]
                 return nondiff.negative_accuracy(logits, batch["labels"],
                                                  batch.get("loss_mask"))
-            return loss
 
-        def loss(params, batch):      # objective == "f1"
-            logits = logits_fn(params, batch)[..., :V]
-            pred = torch.argmax(logits, dim=-1)
-            gold = batch["labels"].to(pred.dtype)
-            mask = batch.get("loss_mask")
-            if mask is not None:
-                keep = mask > 0
-                pred = torch.where(keep, pred, -1)
-                gold = torch.where(keep, gold, -1)
-            return nondiff.negative_f1(pred, gold, pad_id=-1)
+            def parts(params, batch):
+                logits = logits_fn(params, batch)[..., :V]
+                return nondiff.negative_accuracy_parts(
+                    logits, batch["labels"], batch.get("loss_mask"))
+        else:                         # objective == "f1"
+            def f1_ids(params, batch):
+                pred = torch.argmax(logits_fn(params, batch)[..., :V], dim=-1)
+                gold = batch["labels"].to(pred.dtype)
+                mask = batch.get("loss_mask")
+                if mask is not None:
+                    keep = mask > 0
+                    pred = torch.where(keep, pred, -1)
+                    gold = torch.where(keep, gold, -1)
+                return pred, gold
+
+            def loss(params, batch):
+                return nondiff.negative_f1(*f1_ids(params, batch), pad_id=-1)
+
+            def parts(params, batch):
+                return nondiff.negative_f1_parts(*f1_ids(params, batch),
+                                                 pad_id=-1)
+        loss.parts = parts
         return loss
 
     # ---- serving ---------------------------------------------------------- #

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
-from repro_torch.models.common import dense_init, embed_init, rmsnorm
+from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
+                                       shard_hint)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import layer_views
 
@@ -194,7 +195,8 @@ def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     xk = xn + (xx - xn) * p["mu_k"].to(xn.dtype)
     xr = xn + (xx - xn) * p["mu_r"].to(xn.dtype)
     k = F.relu(xk @ p["wk"])
-    kv = (k * k) @ p["wv"]                                         # relu²
+    k = shard_hint(k * k, "act_ff")                                # relu²
+    kv = k @ p["wv"]
     out = torch.sigmoid(xr @ p["wr"]) * kv
     return out.to(x.dtype), xn[:, -1, :]
 
@@ -249,6 +251,7 @@ def forward(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
     mode = _resolve_mode(cfg, mode)
     x = params["embed"][tokens.long()]
     x = rmsnorm(x, params["ln_in_scale"])
+    x = shard_hint(x, "act_btd")
     outs = []
     layers = layer_views(params["layers"], cfg.n_layers)
     for i, p in enumerate(layers):
@@ -259,4 +262,4 @@ def forward(cfg: ModelConfig, params: dict, *, tokens: torch.Tensor,
         outs.append(ns)
     new_state = RWKVLayerState(*(torch.stack(a) for a in zip(*outs)))
     x = rmsnorm(x, params["ln_f_scale"])
-    return x @ params["head"], new_state
+    return shard_hint(x @ params["head"], "act_vocab"), new_state

@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, shard_hint
 
 SCAN_MODES = ("chunk", "fused_recurrent")
 
@@ -122,10 +122,11 @@ def ssm_scan(cfg, p: dict, u: torch.Tensor,
     nc = S // C
     ldec = (-dt * a[None, None, :]).reshape(B, nc, C, SH)
     lc = torch.cumsum(ldec, dim=2)                       # inclusive in-chunk
-    xc = x.reshape(B, nc, C, SH, hd)
+    # chunk axis == sequence: 'model' under context parallelism
+    xc = shard_hint(x.reshape(B, nc, C, SH, hd), "act_ssd")
     dtc = dt.reshape(B, nc, C, SH)
-    bc = bmat.reshape(B, nc, C, SH, N)
-    cc = cmat.reshape(B, nc, C, SH, N)
+    bc = shard_hint(bmat.reshape(B, nc, C, SH, N), "act_ssd")
+    cc = shard_hint(cmat.reshape(B, nc, C, SH, N), "act_ssd")
 
     # chunk-local states: Σ_s exp(lc_C − lc_s)·Δ_s·(x_s ⊗ B_s)
     wE = torch.exp(lc[:, :, -1:, :] - lc)

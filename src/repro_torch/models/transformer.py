@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       norm_params, sinusoidal_at)
+                                       norm_params, shard_hint, sinusoidal_at)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn, ffn_params
 from repro_torch.models.moe import moe_ffn, moe_params
@@ -109,10 +109,13 @@ def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, cache,
     else:
         x = x + attn_out
     h2 = apply_norm(cfg, x, p["ln2"])
+    aux = None
     if cfg.n_experts:
         mo, aux = moe_ffn(cfg, p["moe"], h2)
-        return x + mo, new_cache, new_state, aux
-    return x + ffn(cfg, p["mlp"], h2), new_cache, new_state, None
+        x = x + mo
+    else:
+        x = x + ffn(cfg, p["mlp"], h2)
+    return shard_hint(x, "act_btd"), new_cache, new_state, aux
 
 
 def embed_tokens(cfg: ModelConfig, params: dict,
@@ -154,6 +157,7 @@ def forward(cfg: ModelConfig, params: dict, *,
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if not cfg.use_rope:
         x = x + sinusoidal_at(positions, cfg.d_model, x.dtype)[None]
+    x = shard_hint(x, "act_btd")
 
     layers = layer_views(params["layers"], cfg.n_layers)
     aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
@@ -175,7 +179,7 @@ def forward(cfg: ModelConfig, params: dict, *,
     head = params.get("head")
     if head is None:
         head = params["embed"].T
-    return ForwardResult(x @ head, cache,
+    return ForwardResult(shard_hint(x @ head, "act_vocab"), cache,
                          torch.stack(new_states) if use_ssm else None,
                          aux_total)
 
@@ -183,13 +187,9 @@ def forward(cfg: ModelConfig, params: dict, *,
 # --------------------------------------------------------------------------- #
 # Losses
 # --------------------------------------------------------------------------- #
-def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
-            loss_mask: Optional[torch.Tensor] = None,
-            aux_loss: Optional[torch.Tensor] = None,
-            aux_coef: float = AUX_COEF) -> torch.Tensor:
-    """Teacher-forcing cross entropy with padded-vocab masking, f32
-    logsumexp; plus ``aux_coef · aux_loss`` when a moe forward gives one
-    (JAX adds the term always, 0 for dense: x + 0 keeps x's bits)."""
+def _token_nll(cfg: ModelConfig, logits: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross entropy with padded-vocab masking, f32 logsumexp."""
     lg = logits.to(torch.float32)
     if cfg.padded_vocab != cfg.vocab_size:
         lg = lg.clone()
@@ -198,12 +198,43 @@ def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
         lg = cfg.logit_softcap * torch.tanh(lg / cfg.logit_softcap)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
-    nll = logz - gold
+    return logz - gold
+
+
+def lm_loss_parts(cfg: ModelConfig, logits: torch.Tensor,
+                  labels: torch.Tensor,
+                  loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token mean's sufficient statistics, ``[Σ nll·mask, Σ mask]`` as
+    one f32 (2,) tensor (every token weighs 1 without a mask).  They add
+    across row shards of a batch, and ``mean_of_parts`` of their sum is the
+    whole batch's masked mean: the data-parallel reduction all-reduces
+    them."""
+    nll = _token_nll(cfg, logits, labels)
+    if loss_mask is None:
+        return torch.stack([torch.sum(nll), torch.tensor(
+            float(nll.numel()), dtype=torch.float32, device=nll.device)])
+    m = loss_mask.to(torch.float32)
+    return torch.stack([torch.sum(nll * m), torch.sum(m)])
+
+
+def mean_of_parts(parts: torch.Tensor) -> torch.Tensor:
+    """``parts[0] / max(parts[1], 1)``: a weighted mean from its
+    sufficient statistics."""
+    return parts[0] / torch.clamp_min(parts[1], 1.0)
+
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            loss_mask: Optional[torch.Tensor] = None,
+            aux_loss: Optional[torch.Tensor] = None,
+            aux_coef: float = AUX_COEF) -> torch.Tensor:
+    """Teacher-forcing cross entropy with padded-vocab masking, f32
+    logsumexp; plus ``aux_coef · aux_loss`` when a moe forward gives one
+    (JAX adds the term always, 0 for dense: x + 0 keeps x's bits).  A
+    masked loss is ``mean_of_parts(lm_loss_parts(...))``, bit for bit."""
     if loss_mask is not None:
-        m = loss_mask.to(torch.float32)
-        loss = torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+        loss = mean_of_parts(lm_loss_parts(cfg, logits, labels, loss_mask))
     else:
-        loss = torch.mean(nll)
+        loss = torch.mean(_token_nll(cfg, logits, labels))
     if aux_loss is None:
         return loss
     return loss + torch.tensor(aux_coef, dtype=torch.float32) * aux_loss
@@ -211,11 +242,24 @@ def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
 
 def train_loss_fn(cfg: ModelConfig):
     """(params, batch) -> scalar loss — the function MeZO's two forward
-    passes evaluate."""
+    passes evaluate.  Without experts it carries ``parts(params, batch)``,
+    ``lm_loss_parts`` of the same forward, which the data-parallel
+    reduction sums across ranks.  The moe family's load-balancing term is
+    a product of batch means over the routing, which no sum of per-rank
+    scalars gives, so its loss carries none."""
     def loss_fn(params, batch):
         r = forward(cfg, params, tokens=batch.get("tokens"),
                     embeds=batch.get("embeds"))
         return lm_loss(cfg, r.logits, batch["labels"], batch.get("loss_mask"),
                        r.aux_loss)
+
+    def parts(params, batch):
+        r = forward(cfg, params, tokens=batch.get("tokens"),
+                    embeds=batch.get("embeds"))
+        return lm_loss_parts(cfg, r.logits, batch["labels"],
+                             batch.get("loss_mask"))
+
+    if not cfg.n_experts:
+        loss_fn.parts = parts
     return loss_fn
 

@@ -168,11 +168,19 @@ def test_no_text_says_the_port_is_dense_only():
     "src/repro_torch/core/mezo.py", "src/repro_torch/core/mezo_adam.py",
     "src/repro_torch/core/mezo_variants.py",
     "src/repro_torch/core/perturb.py",
-    "tests/test_torch_core_shims.py", "tests/test_torch_core_functional.py"])
+    "tests/test_torch_core_shims.py", "tests/test_torch_core_functional.py",
+    "src/repro_torch/distributed/__init__.py",
+    "src/repro_torch/distributed/sharding.py",
+    "src/repro_torch/distributed/collectives.py",
+    "src/repro_torch/distributed/async_zo.py",
+    "src/repro_torch/launch/mesh.py", "tests/test_torch_sharding.py",
+    "tests/test_torch_shard_hints.py", "tests/test_torch_async_zo.py",
+    "tests/test_torch_distributed.py"])
 def test_new_modules_are_under_the_hygiene_checks(name):
     """The moe modules, the original-layout tests, the tenants modules and
-    tests, and the shims' modules and tests are among the files the checks
-    above walk, import no JAX (modules) and no unused name."""
+    tests, the shims' modules and tests, and the distribution modules and
+    tests are among the files the checks above walk, import no JAX
+    (modules) and no unused name."""
     path = ROOT / name
     assert path in PORT_FILES + PORT_TESTS
     if name.startswith("src/"):

@@ -14,13 +14,8 @@ torch = pytest.importorskip("torch")
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 
 #: JAX names the port does not export yet, with the Queue 1 item that owes
-#: them (ROADMAP.md)
-OWED = {
-    # item 12: distribution
-    "distributed": ({"batch_axes", "infer_batch_spec", "infer_param_spec",
-                     "make_activation_resolver", "param_shardings",
-                     "param_specs", "tp_axes"}, 12),
-}
+#: them (ROADMAP.md): none since item 12 (distribution) was ported
+OWED: dict = {}
 
 
 def _jax_packages() -> list:
