@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
     python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
-    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x, y, z)
+    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x, y, z, dr)
 
 In order: prints the card's name and power limit; builds the eight CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -50,7 +50,8 @@ tree's — and times K2 at OPT-13b's head dim 128 beside one SDPA call.  Every K
 counted paths must take the tiled route, every K4 / K5 launch the vector
 route, every K7 / K9 launch on a qwen2 leaf whose row-block is a whole
 number of 16-byte vectors the vector route, and every X1 launch the vector
-route.  Then it
+route but those of phase (dr)'s ``train_100m`` example, whose sub-leaf
+``rows(...)`` selection takes the bands route.  Then it
 drives the port's paths at the full width of qwen2-0.5b (random bf16
 weights from a seeded ``torch.Generator``, all 24 layers, ``pallas_flash``
 attention), each with the launch counts set to 0 just before it and read
@@ -229,6 +230,22 @@ pair through K4, fzoo through K5 and K3; a delayed schedule within its
 bound; a too-stale contribution dropped); the activation resolver leaves
 the logits' bits alone; produce / consume timed beside a local step.
 
+Then (dr) the dry run (``repro_torch.launch.dryrun``, ``dryrun_paths``):
+qwen2-0.5b's spsa step at full width and depth, 16 × 256 on one rank, is
+traced on ``meta`` tensors and run on the card, for ``pallas`` with
+``pallas_flash`` (K1, K2) and for ``xla`` (X1): the dry run's charges per
+kernel (``analysis.costs``) equal the card's launches and the card step's
+own charges, its argument bytes equal θ's and the batch's, and the
+measured step (median of 3 after a warm-up) is not below its roofline
+``step_s`` — hard checks; model_flops / (989e12 × measured), the dry
+run's peak against ``max_memory_allocated`` and ``useful_ratio`` are
+logged.  The CLI then runs in subprocesses that see no card (opt-66b
+``train_4k`` on 1 × 2 and 1 × 1: its per-rank argument bytes against the
+card's; qwen2-7b on the single-pod mesh; every case ``ok`` — under a
+torch before 2.13, opt-66b on 1 × 2 may instead fail on the one op that
+torch lacks a rule for, ``DR_OLD_TORCH_ERRORS``), and the five examples (``repro_torch.examples``) run to their end
+on the card with X1 launched, and K12 in ``serve_batch``.
+
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
 within a stated bound in bf16 ulps of the trained θ; the spsa steps' peak
@@ -274,11 +291,14 @@ MULTI_GOLDEN = ROOT / "tests" / "data" / "zo_multi_golden.npz"
 ROWS_GOLDEN = ROOT / "tests" / "data" / "zo_rows_golden.npz"
 WKV6_GOLDEN = ROOT / "tests" / "data" / "wkv6_golden.npz"
 RUN_DIR = ROOT / "build" / "chip_smoke_runs"
+#: the counts' key for X1's launches off the vector route in phase (dr)'s
+#: train_100m example (its sub-leaf rows(...) selection), the only ones
+X1_ROWS_EXAMPLE = "zo_affine_threefry (dr) train_100m rows"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the roofline bound's rates
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12
+# each kernel's work per call (bytes, operations) and its roofline bound at
+# the H100 SXM's peaks at 700 W (``costs.bound_ms``, the dry run's own):
+# ``repro_torch.analysis.costs``, imported in main once ``SRC`` is on the path
+costs = None
 
 # the serving path's shapes
 N_RECORDS = 4
@@ -588,14 +608,6 @@ def host_ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
-
-
-def bound(nbytes, ops, rate) -> tuple:
-    """(the least ms the card could take, what bounds it): the bytes moved
-    at HBM_BYTES_PER_S against the operations at ``rate``."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def bits_of(t):
@@ -2249,7 +2261,6 @@ def xla_paths(torch, np, cfg, params0, prompts, _build, counts, step_ms,
     leaves = [q for q in tree_leaves(params0) if is_floating(q)]
     scratch = [q.clone() for q in leaves]
     n_all = sum(q.numel() for q in leaves)
-    leaf_bytes = sum(q.numel() * q.element_size() for q in leaves)
     bval = -0.0001220703125                       # a bf16 value: −η·g
 
     def record(fn=x1.zo_affine_threefry):
@@ -2267,7 +2278,9 @@ def xla_paths(torch, np, cfg, params0, prompts, _build, counts, step_ms,
     c = x1_sass(_build.lib_path("zo_threefry"))
     mhz = clock.mhz if clock.mhz == clock.mhz else sm_clocks()[0]
     floor = issue_floor_ms(n_all, c["total"], mhz)
-    bms, by = bound(2 * leaf_bytes, 4 * n_all, F32_FLOPS)
+    bms, by = costs.bound_ms([costs.zo_affine_threefry(q.numel(),
+                                                       q.element_size())
+                              for q in leaves])
     log(sass_line("X1 zo_affine_threefry (bf16 gaussian axpbz)", c))
     log(f"X1 zo_affine_threefry, one pass over the {len(leaves)} qwen2-0.5b "
         f"leaves ({n_all} bf16 elements, gaussian, the replay / update "
@@ -3179,9 +3192,8 @@ def time_k2_hd128(torch, kf, card) -> dict:
                   "library": lambda: sdpa(qt, kt, vt, is_causal=True)}, RUN_N)
     plain_ms = run_ms({"plain": lambda: kf.flash_attention_plain(q, k, v)},
                       RUN_N_PLAIN, graph=False)["plain"]
-    nbytes = 2 * 4 * q.numel()
-    ops = 4 * hd * kf.attended_pairs(S) * B * H
-    bms, by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
+    bms, by = costs.bound_ms(costs.flash_attention(B, S, H, H, hd,
+                                                   q.element_size()))
     log(f"K2 hd 128 at OPT-13b's shape ({B}, {S}, {H}, {hd}) bf16 MHA: "
         f"{run['kernel']:.4f} ms, one SDPA call {run['library']:.4f} ms "
         f"({RUN_N} launches per CUDA graph and event pair, in turns), plain "
@@ -3382,14 +3394,12 @@ def ssm_paths(torch, np, kw, ko, _build, counts, step_ms, card,
     args = k11_inputs(torch, g, B, S, H, hd)
     ms = cuda_ms(lambda: ko.wkv6(*args, chunk=C), 20)
     plain_ms = cuda_ms(lambda: ko.wkv6_plain(*args, chunk=C), 5)
-    n = B * S * H * hd
-    nbytes = 4 * (5 * n + 2 * B * H * hd * hd + H * hd)
-    ops = kw.wkv6_flops(B, S, H, hd, C)
+    work = costs.wkv6_chunked(B, S, H, hd, C)
     log(f"K11 wkv6_chunked at the training shape ({B}, {S}, {H}, {hd}) C={C}"
         f" f32: {ms:.3f} ms (median of 20 CUDA-event pairs), plain "
-        f"{plain_ms:.3f} ms (median of 5); {nbytes / 1e6:.1f} MB, "
-        f"{ops / 1e9:.2f} GFLOP — on {card}")
-    bms, by = bound(nbytes, ops, F32_FLOPS)
+        f"{plain_ms:.3f} ms (median of 5); {work.bytes / 1e6:.1f} MB, "
+        f"{work.ops / 1e9:.2f} GFLOP — on {card}")
+    bms, by = costs.bound_ms(work)
     # no single PyTorch call computes WKV6: library_ms is null
     return {"name": "wkv6_chunked", "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
@@ -3407,8 +3417,6 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
     from repro_torch.tree_utils import is_floating, tree_leaves
     leaves = [p for p in tree_leaves(params0) if is_floating(p)]
     n_all = sum(p.numel() for p in leaves)
-    leaf_bytes = sum(p.numel() * p.element_size() for p in leaves)
-    flops = kz.GAUSSIAN_FLOPS_PER_ELEMENT
     seeds = [[1000003 * i + 17 + j for j in range(B_SEEDS)]
              for i in range(len(leaves))]
     ones, tiny = [1.0] * B_SEEDS, [1e-12] * B_SEEDS
@@ -3454,8 +3462,6 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
     rsel = parse_selection(ROWS)
     plans = [rsel.block_mask(p, 0) for p in leaves]
     n_sel = sum(rb.selected_elems() for rb in plans)
-    sel_bytes = sum(rb.selected_elems() * p.element_size()
-                    for rb, p in zip(plans, leaves))
 
     def k7_record(fn=kr.zo_affine_rows):
         for i, (p, rb) in enumerate(zip(leaves, plans)):
@@ -3537,8 +3543,8 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
     k2_eager = run_ms({"kernel": k2, "library": k2_lib}, RUN_N, graph=False)
     k2_plain_ms = run_ms({"plain": lambda: kf.flash_attention_plain(q, k, v)},
                          RUN_N_PLAIN, graph=False)["plain"]
-    k2_bytes = 2 * (q.numel() * 2 + k.numel() * 2)
-    k2_ops = 4 * cfg.hd * kf.attended_pairs(S) * TRAIN_BATCH * cfg.n_heads
+    k2_work = costs.flash_attention(TRAIN_BATCH, S, cfg.n_heads,
+                                    cfg.kv_heads, cfg.hd, q.element_size())
     log(f"K2 flash_attention at the training shape ({TRAIN_BATCH}, {S}, "
         f"{cfg.n_heads}, {cfg.hd}) bf16: {k2_ms:.4f} ms, one SDPA call "
         f"{k2_lib_ms:.4f} ms ({RUN_N} launches per CUDA graph and event "
@@ -3570,7 +3576,8 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
                        RUN_N, graph=False)
     k12_plain_ms = run_ms({"plain": lambda: kp.paged_gather_plain(
         pool, tab_dev, BLOCK)}, RUN_N, graph=False)["plain"]
-    k12_bytes = 2 * L * tab.size * BLOCK * D * 2
+    k12_work = costs.paged_gather(L, tab.size, BLOCK, D,
+                                  pool.element_size())
     log(f"K12 paged_gather, one decode step ({tab.size} blocks × {L} layers)"
         f": {k12_ms:.4f} ms with the device table, index_select "
         f"{k12_lib_ms:.4f} ms on the same table ({RUN_N} launches per CUDA "
@@ -3590,49 +3597,51 @@ def qwen2_kernel_rows(torch, np, cfg, params0, pool_k, nblk_slot, k1_err,
     zf = "src/repro_torch/kernels/zo_fused/csrc/"
     zr = "src/repro/kernels/zo_fused/"
     rows = []
-    # K6: z (the gaussian stream without the affine combine's 3 flops) plus
-    # the square and the add
-    k6_ops = (flops - 3 + 2) * n_all
-    for name, src, rep, err, lib_ms, nb, ops, rate in (
+    sizes = [(p.numel(), p.element_size()) for p in leaves]
+    sel = [(rb.selected_elems(), p.numel(), p.element_size())
+           for rb, p in zip(plans, leaves)]
+    for name, src, rep, err, lib_ms, work in (
             ("zo_affine", zf + "zo_affine.cu", zr + "kernel.py:233", k1_err,
-             None, 2 * leaf_bytes, flops * n_all, F32_FLOPS),
+             None, [costs.zo_affine(n, es) for n, es in sizes]),
             ("zo_affine_chain", zf + "zo_multi.cu", zr + "multi.py:137", 0.0,
-             None, 2 * leaf_bytes, flops * B_SEEDS * n_all, F32_FLOPS),
+             None, [costs.zo_affine_chain(n, es, B_SEEDS)
+                    for n, es in sizes]),
             ("zo_affine_multi", zf + "zo_multi.cu", zr + "multi.py:80", 0.0,
-             None, (1 + B_SEEDS) * leaf_bytes, flops * B_SEEDS * n_all,
-             F32_FLOPS),
+             None, [costs.zo_affine_fanout(n, es, B_SEEDS)
+                    for n, es in sizes]),
             ("zo_affine_batched", zf + "zo_multi.cu", zr + "kernel.py:283",
-             0.0, None, (1 + B_SEEDS) * leaf_bytes, flops * B_SEEDS * n_all,
-             F32_FLOPS),
+             0.0, None, [costs.zo_affine_fanout(n, es, B_SEEDS)
+                         for n, es in sizes]),
             ("zo_sqnorm", zf + "zo_sqnorm.cu", zr + "multi.py:200", 0.0,
-             None, 0, k6_ops, F32_FLOPS),
+             None, [costs.zo_sqnorm(n) for n, _ in sizes]),
             # the rows kernels: K7 / K9 read and write the selected elements
             # once; K8 reads θ once and writes B copies of it; K10 moves
             # nothing; z on the selected elements only
             ("zo_affine_rows", zf + "zo_rows.cu", zr + "rows.py:161", 0.0,
-             None, 2 * sel_bytes, flops * n_sel, F32_FLOPS),
+             None, [costs.zo_affine_rows(ns, es) for ns, _, es in sel]),
             ("zo_affine_multi_rows", zf + "zo_rows.cu", zr + "rows.py:219",
-             0.0, None, (1 + B_SEEDS) * leaf_bytes, flops * B_SEEDS * n_sel,
-             F32_FLOPS),
+             0.0, None, [costs.zo_affine_multi_rows(n, ns, es, B_SEEDS)
+                         for ns, n, es in sel]),
             ("zo_affine_chain_rows", zf + "zo_rows.cu", zr + "rows.py:287",
-             0.0, None, 2 * sel_bytes, flops * B_SEEDS * n_sel, F32_FLOPS),
+             0.0, None, [costs.zo_affine_chain_rows(ns, es, B_SEEDS)
+                         for ns, _, es in sel]),
             ("zo_sqnorm_rows", zf + "zo_rows.cu", zr + "rows.py:355", 0.0,
-             None, 0, (flops - 3 + 2) * n_sel, F32_FLOPS)):
+             None, [costs.zo_sqnorm_rows(ns) for ns, _, _ in sel])):
         ms, pms = times[name]
-        bms, by = bound(nb, ops, rate)
+        bms, by = costs.bound_ms(work)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
-    for name, src, rep, err, ms, pms, lms, nb, ops, rate in (
+    for name, src, rep, err, ms, pms, lms, work in (
             ("flash_attention",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:89", k2_err, k2_ms,
-             k2_plain_ms, k2_lib_ms, k2_bytes, k2_ops, BF16_TENSOR_FLOPS),
+             k2_plain_ms, k2_lib_ms, k2_work),
             ("paged_gather", "src/repro_torch/kernels/paged/csrc/paged_gather.cu",
              "src/repro/kernels/paged/gather.py:54", 0.0, k12_ms,
-             k12_plain_ms, k12_lib_ms, k12_bytes, 0, BF16_TENSOR_FLOPS)):
-        bms, by = bound(nb, ops, rate)
+             k12_plain_ms, k12_lib_ms, k12_work)):
+        bms, by = costs.bound_ms(work)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
@@ -4800,7 +4809,6 @@ def x1_original_row(torch, np, _build, params0, card, err,
     from repro_torch.tree_utils import is_floating, tree_leaves
     leaves = [q.clone() for q in tree_leaves(params0) if is_floating(q)]
     n_all = sum(q.numel() for q in leaves)
-    leaf_bytes = sum(q.numel() * q.element_size() for q in leaves)
     bval = -0.0001220703125
 
     def record(part, fn=x1.zo_affine_threefry):
@@ -4819,7 +4827,9 @@ def x1_original_row(torch, np, _build, params0, card, err,
     routes = {k.split("/", 1)[1]: v for k, v in _build.route_counts.items()
               if "original" in k}
     plain_ms = host_ms(lambda: record(False, x1.zo_affine_threefry_plain))
-    bms, by = bound(2 * leaf_bytes, 4 * n_all, F32_FLOPS)
+    bms, by = costs.bound_ms([costs.zo_affine_threefry(q.numel(),
+                                                       q.element_size())
+                              for q in leaves])
     log(f"X1 original layout, one pass over the 15 qwen2-0.5b leaves "
         f"({n_all} bf16 elements, gaussian axpbz; launches by route "
         f"{routes}): {ms_o:.4f} ms against the partitionable route's "
@@ -4884,7 +4894,7 @@ def x1_original_row(torch, np, _build, params0, card, err,
         bands = dict(_build.route_counts)
         ms_py = cuda_ms(lambda: backend.apply_rank1(
             tree, ref, np.float32(bval), np.float32(0.0)), 3)
-    bms_b = bound(2 * picked * 2, 0, F32_FLOPS)[0]
+    bms_b = costs.bound_ms(costs.zo_affine_threefry(picked, 2))[0]
     log(f"X1 original bands route (not redesigned) under {ROWS}: one pass "
         f"over the 15 leaves' selected rows ({picked} of {n_all} elements; "
         f"{nlaunch} launches through zo_threefry_original_bands, the band "
@@ -5283,17 +5293,17 @@ def hymba_paths(torch, np, kf, _build, counts, step_ms, card) -> None:
     run = run_ms({"kernel": lambda: kf.flash_attention(q, k, v, window=W),
                   "library": lambda: sdpa(qt, kt, vt, attn_mask=band)},
                  RUN_N)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    ops = 4 * hd_ * kf.attended_pairs(S_, window=W) * B_ * H_
-    bms, by = bound(nbytes, ops, BF16_TENSOR_FLOPS)
+    work = costs.flash_attention(B_, S_, H_, cfg.kv_heads, hd_,
+                                 q.element_size(), window=W)
+    bms, by = costs.bound_ms(work)
     log(f"K2 at {HYMBA_K2_SHAPE} over {cfg.kv_heads} KV heads (group "
         f"{H_ // cfg.kv_heads}), window {W}, bf16: held to its plain "
         f"version, max abs err {err:.2e}; {ms_k2:.4f} ms (median of 20 "
         f"CUDA-event pairs); in turns with one SDPA call (the window as a "
         f"boolean mask, KV heads repeated, both outside the call), "
         f"{RUN_N} launches per CUDA graph: K2 {run['kernel']:.4f} ms, SDPA "
-        f"{run['library']:.4f} ms; bound {bms:.4f} ms ({by}: {nbytes} "
-        f"bytes, {ops:.4e} operations) — on {card}")
+        f"{run['library']:.4f} ms; bound {bms:.4f} ms ({by}: {work.bytes} "
+        f"bytes, {work.ops:.4e} operations) — on {card}")
     del q, k, v, qt, kt, vt, band
     hymba_ring_check(torch, card)
     hymba_ssd_check(torch, card)
@@ -6688,12 +6698,262 @@ def _distribution_on_group(torch, np, _build, counts, step_ms, card, cfg,
         "in JAX's order (tests/test_torch_shard_hints.py)")
 
 
+# --------------------------------------------------------------------------- #
+# (dr) the dry run against the card, then the five examples
+# --------------------------------------------------------------------------- #
+DR_CELL = ("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+DR_TIMED_STEPS = 3
+DR_CARD_GIB = 79.18         # an H100 80GB HBM3's memory as torch reports it
+#: the dry-run CLI's cases that record an error under a torch before 2.13
+#: (checked: 2.11) and trace ``ok`` under 2.13, each with the op its error
+#: names (ROADMAP item 13); any other error fails phase (dr)
+DR_OLD_TORCH_ERRORS = {
+    ("opt-66b", "train_4k", "single-1x2"): "aten._unsafe_view.default"}
+
+
+def _dr_against_a_step(torch, np, _build, counts, step_ms, card, backend,
+                       overrides, kernels) -> None:
+    """The dry run of qwen2-0.5b's spsa step (16 × 256, one rank) against
+    the same step on the card: hard checks on the charges, the argument
+    bytes and the roofline; the rest recorded."""
+    from repro_torch import exec as zexec
+    from repro_torch import zo
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ShapeCell, all_archs, bundle
+    from repro_torch.perturb.stream import prng_key
+    from repro_torch.tree_utils import tree_leaves
+    cell = ShapeCell(*DR_CELL)
+    rec = dryrun.run_case("qwen2-0.5b", cell, None, "single-1x1", overrides,
+                          backend=backend, verbose=False)
+    if rec["status"] != "ok":
+        fail(f"(dr) the dry run on {backend}: {rec['error']}")
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(**overrides)
+    b = bundle(cfg)
+    params = b.init(0, device="cuda")
+    batch = b.make_batch(prng_key(SEED), TRAIN_BATCH, TRAIN_SEQ,
+                         device="cuda")
+    prog = zexec.StepProgram(zo.mezo(lr=1e-6, eps=1e-3, backend=backend),
+                             zexec.local())
+    state = prog.init(seed=0)
+    step = prog.step_fn(b.loss_fn())
+    params, state, _ = step(params, state, batch)          # the warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with costs.counting() as real:
+        params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    got = dict(_build.launch_counts)
+    add_counts(counts, _build, kernels, f"(dr) one spsa step on {backend}")
+    charged = rec["kernels"]
+    if {k for k, v in got.items() if v} != set(charged):
+        fail(f"(dr) {backend}: kernels launched {got}, charged {charged}")
+    for k in kernels:
+        want = got[k]
+        if k == "zo_affine_threefry" and want != real.calls[k]:
+            log(f"(dr) X1: {want} launches over {real.calls[k]} wrapper "
+                "calls; the charges are held to the calls")
+            want = real.calls[k]
+        if charged[k]["calls"] != want:
+            fail(f"(dr) {backend}: {k} charged {charged[k]['calls']} times "
+                 f"by the dry run, {want} on the card")
+    if real.as_dict() != charged:
+        fail(f"(dr) {backend}: the card step's charges {real.as_dict()} != "
+             f"the dry run's {charged}")
+    arg = sum(t.numel() * t.element_size() for t in tree_leaves(params)) \
+        + sum(t.numel() * t.element_size() for t in batch.values())
+    dry_arg = rec["memory_analysis"]["argument_size_in_bytes"]
+    if arg != dry_arg:
+        fail(f"(dr) {backend}: the step holds {arg} argument bytes, the dry "
+             f"run reckons {dry_arg}")
+    times = []
+    for _ in range(DR_TIMED_STEPS):
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    measured = float(np.median(times))
+    if measured < rec["step_s"]:
+        fail(f"(dr) {backend}: a step took {measured:.6f} s, below the dry "
+             f"run's roofline {rec['step_s']:.6f} s")
+    step_ms[f"dr_{backend}"] = 1e3 * measured
+    dry_peak = rec["memory_analysis"]["peak_bytes"]
+    log(f"(dr) qwen2-0.5b spsa on {backend} (16 × 256, one rank): charges "
+        f"{ {k: v['calls'] for k, v in charged.items()} } = the card's "
+        f"launches {({k: got[k] for k in kernels})}; argument bytes {arg} = "
+        f"the dry run's; step {1e3 * measured:.2f} ms (median of "
+        f"{DR_TIMED_STEPS}, each {', '.join(f'{1e3 * t:.2f}' for t in times)}"
+        f") ≥ roofline {1e3 * rec['step_s']:.4f} ms ({rec['bottleneck']}: "
+        f"compute {1e3 * rec['compute_s']:.4f}, memory "
+        f"{1e3 * rec['memory_s']:.4f} ms), {rec['step_s'] / measured:.3f} of "
+        f"it reached; model_flops / (989e12 × measured) = "
+        f"{rec['model_flops'] / (989e12 * measured):.4f}; useful_ratio "
+        f"{rec['useful_ratio']:.4f}; the dry run's peak above the arguments "
+        f"{dry_peak / 2**30:.3f} GiB against max_memory_allocated over the "
+        f"step {peak / 2**30:.3f} GiB ({peak / max(dry_peak, 1):.3f}×); "
+        f"trace {rec['compile_s']:.2f} s — on {card}")
+    del params, batch, state
+
+
+def _dr_cli(torch, runs: list) -> list:
+    """Each argument list through ``python -m repro_torch.launch.dryrun``
+    in a subprocess that sees no card, all started together (each traces
+    on one host core); the records of each.  Every case must trace ``ok``
+    but those of ``DR_OLD_TORCH_ERRORS`` under a torch before 2.13, which
+    must be ``ok`` or fail on their own op."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    old_torch = tuple(int(v) for v in
+                      torch.__version__.split("+")[0].split(".")[:2]) < (2, 13)
+    procs = []
+    for i, args in enumerate(runs):
+        out = RUN_DIR / f"dryrun_{i}.jsonl"
+        out.unlink(missing_ok=True)
+        procs.append((args, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    results = []
+    for args, out, proc in procs:
+        text, _ = proc.communicate(timeout=300)
+        recs = ([json.loads(line) for line in out.read_text().splitlines()]
+                if out.exists() else [])
+        if proc.returncode not in (0, 1) or not recs or \
+                (proc.returncode == 1) == all(x["status"] == "ok"
+                                              for x in recs):
+            fail(f"(dr) dryrun {' '.join(args)} exited {proc.returncode}:"
+                 f"\n{text[-3000:]}")
+        for r in recs:
+            op = (DR_OLD_TORCH_ERRORS.get((r["arch"], r["cell"], r["mesh"]))
+                  if old_torch else None)
+            if r["status"] != "ok" and (
+                    op is None or f"the last DTensor op: {op} " not in
+                    r["error"]):
+                fail(f"(dr) dryrun {r['arch']} {r['cell']} on {r['mesh']} "
+                     f"under torch {torch.__version__}: "
+                     f"{r['error'][-1500:]}")
+        results.append(recs)
+    return results
+
+
+def _dr_status(r: dict) -> str:
+    return ("ok" if r["status"] == "ok" else
+            f"error ({r['error'][-600:]})")
+
+
+def _dr_examples(torch, _build, counts, card) -> None:
+    """The five examples on the card at small sizes, each to its end with
+    its kernels launched: X1 in each, K12 where serve_batch decodes through
+    the paged engine; train_100m's frozen-row probe under a sub-leaf
+    ``rows(...)`` selection, its X1 launches off the vector route counted
+    under ``X1_ROWS_EXAMPLE``."""
+    import contextlib
+    import io
+    from repro_torch.examples import (mezo_peft, nondiff_accuracy,
+                                      quickstart, serve_batch, train_100m)
+    ckpt = RUN_DIR / "dr_train_100m"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mezo_peft.STEPS = 20
+    nondiff_accuracy.STEPS = 20
+    runs = (
+        ("quickstart", lambda: quickstart.main(["--steps", "40"]),
+         ("zo_affine_threefry",), "FT(Adam) accuracy after 20 steps"),
+        ("mezo_peft", lambda: mezo_peft.main([]), ("zo_affine_threefry",),
+         "base tree bitwise-frozen by the selection"),
+        ("nondiff_accuracy", lambda: nondiff_accuracy.main([]),
+         ("zo_affine_threefry",), "final accuracy: "),
+        ("serve_batch", lambda: serve_batch.main([]),
+         ("zo_affine_threefry", "paged_gather"), "ledger records replayed"),
+        # its sub-leaf rows(...) selection: X1's bands route (and the
+        # scalar one) beside the vector route, tallied apart
+        ("train_100m", lambda: train_100m.main(
+            ["--smoke", "--steps", "20", "--select", "rows(block=16,k=4)",
+             "--ckpt-dir", str(ckpt)]), ("zo_affine_threefry",),
+         "frozen-row probe: 49200 unselected elements"))
+    for name, run, kernels, line in runs:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run()
+        torch.cuda.synchronize()
+        out = buf.getvalue()
+        if line not in out:
+            fail(f"(dr) example {name}: no line {line!r} in\n{out[-2000:]}")
+        if name == "train_100m":
+            x1 = {r: _build.route_counts.get(f"zo_affine_threefry/{r}", 0)
+                  for r in ("vector", "scalar", "bands")}
+            if x1["bands"] == 0 or sum(x1.values()) != \
+                    _build.launch_counts["zo_affine_threefry"]:
+                fail(f"(dr) example train_100m under rows(block=16,k=4): "
+                     f"X1 launches by route {x1} — its sub-leaf rows take "
+                     "the bands route")
+            counts[X1_ROWS_EXAMPLE] = x1["scalar"] + x1["bands"]
+        add_counts(counts, _build, kernels, f"(dr) example {name}")
+        log(f"(dr) example {name} on the card: ran to its end in "
+            f"{time.perf_counter() - t0:.1f} s; its last line: "
+            f"{out.strip().splitlines()[-1]!r} — on {card}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def dryrun_paths(torch, np, _build, counts, step_ms, card) -> None:
+    """(dr) ``launch.dryrun`` against the card: qwen2-0.5b's spsa step at
+    full width and depth, 16 × 256 on one rank, for ``pallas`` with
+    ``pallas_flash`` (K1, K2) and for ``xla`` (X1) — the charges equal the
+    card's launches, the argument bytes equal θ's and the batch's, the
+    measured step is not below the roofline; the CLI in a subprocess that
+    sees no card (opt-66b ``train_4k`` on 1 × 2 and 1 × 1, qwen2-7b on the
+    single-pod mesh); then the five examples on the card."""
+    t0 = time.perf_counter()
+    _dr_against_a_step(torch, np, _build, counts, step_ms, card, "pallas",
+                       {"attention_impl": "pallas_flash"},
+                       ("zo_affine", "flash_attention"))
+    free_card(torch, "(dr) pallas's trees")
+    _dr_against_a_step(torch, np, _build, counts, step_ms, card, "xla", {},
+                       ("zo_affine_threefry",))
+    free_card(torch, "(dr) xla's trees")
+    t1 = time.perf_counter()
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    shapes = ("1,2", "1,1")
+    *opt66b, recs = _dr_cli(torch, [
+        ["--arch", "opt-66b", "--cell", "train_4k", "--mesh-shape", shape]
+        for shape in shapes] + [["--arch", "qwen2-7b", "--mesh", "single"]])
+    for shape, (r,) in zip(shapes, opt66b):
+        mem = r["memory_analysis"]
+        args = mem["argument_bytes"]
+        text = (f"(dr) opt-66b train_4k, mesh {shape}: per-rank argument "
+                f"bytes {mem['argument_size_in_bytes'] / 2**30:.2f} GiB (θ "
+                f"{args['params'] / 2**30:.2f}, batch "
+                f"{args['batch'] / 2**20:.2f} MiB) against the card's "
+                f"{DR_CARD_GIB} GiB; trace {_dr_status(r)}")
+        if r["status"] == "ok":
+            text += (f", {r['compile_s']} s; peak above the arguments "
+                     f"{mem['peak_bytes'] / 2**30:.2f} GiB; roofline step "
+                     f"{r['step_s']:.3f} s ({r['bottleneck']}); "
+                     f"{r['collectives']['total_count']} collectives "
+                     f"({r['collectives']['total_bytes'] / 2**30:.2f} GiB)")
+        log(text)
+    log("(dr) qwen2-7b on the single-pod (16, 16) mesh: " + "; ".join(
+        f"{r['cell']} {_dr_status(r)}" + (
+            f", trace {r['compile_s']} s, roofline step {r['step_s']:.4f} s "
+            f"({r['bottleneck']}), useful {r['useful_ratio']:.3f}, "
+            f"{r['collectives']['total_count']} collectives"
+            if r["status"] == "ok" else "") for r in recs))
+    log(f"(dr) the dry-run CLI took {time.perf_counter() - t1:.1f} s (its "
+        f"three runs at once)")
+    t2 = time.perf_counter()
+    _dr_examples(torch, _build, counts, card)
+    log(f"(dr) the examples took {time.perf_counter() - t2:.1f} s; the "
+        f"phase {time.perf_counter() - t0:.1f} s — on {card}")
+
+
 def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
                       which) -> None:
     """The phases named in ``which`` (u: hymba-1.5b, t: mixtral-8x7b, w:
     whisper-large-v3, x: multi-tenant LoRA serving on qwen2-0.5b, y: the
     deprecated shims and the functional primitives on qwen2-0.5b, z:
-    distribution on qwen2-0.5b; for
+    distribution on qwen2-0.5b, dr: the dry run and the examples; for
     iterating alone, j: qwen2-0.5b's spsa step under
     the original threefry layout, q: the card ≡ CPU Adam steps), each after
     the trees before it are freed, K2 held to its plain version at every
@@ -6721,6 +6981,8 @@ def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
               "y": ("qwen2-0.5b's shims", lambda: shims_paths(
                   torch, np, _build, counts, step_ms, card)),
               "z": ("qwen2-0.5b's distribution", lambda: distribution_paths(
+                  torch, np, _build, counts, step_ms, card)),
+              "dr": ("dry run", lambda: dryrun_paths(
                   torch, np, _build, counts, step_ms, card))}
     for ph in which:
         arch, run = phases[ph]
@@ -6763,7 +7025,9 @@ def main() -> None:
                          "whisper-large-v3, x: multi-tenant LoRA serving on "
                          "qwen2-0.5b, y: the deprecated shims and the "
                          "functional primitives on qwen2-0.5b, z: "
-                         "distribution on qwen2-0.5b), then stop "
+                         "distribution on qwen2-0.5b, dr: the dry run "
+                         "against qwen2-0.5b's step and the five "
+                         "examples), then stop "
                          "without the kernels "
                          "line: for iterating on one phase")
     ap.add_argument("--parent", type=Path, default=None,
@@ -6781,6 +7045,8 @@ def main() -> None:
         fail(f"run from the root of a checkout ({SRC / 'repro_torch'} or a "
              f"fixture under {GOLDEN.parent} missing)")
     sys.path.insert(0, str(SRC))
+    global costs
+    from repro_torch.analysis import costs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6975,7 +7241,7 @@ def main() -> None:
     # ---- whisper-large-v3, each at full width and depth; (x) ----------- #
     # ---- multi-tenant LoRA serving on qwen2-0.5b ----------------------- #
     run_family_phases(torch, np, kf, _build, counts, step_ms, card,
-                      ["u", "w", "x", "y", "z"])
+                      ["u", "w", "x", "y", "z", "dr"])
     rows.append(k2_hd128)
     for row in rows:
         row["launches"] = counts.get(row["name"], 0)
@@ -6990,17 +7256,20 @@ def main() -> None:
         elif row["name"] == "flash_attention_hd128":
             row["launches"] = k2_hd[128]
     x1_vec = counts.get("zo_affine_threefry/vector", 0)
-    if x1_vec == 0 or x1_vec != counts.get("zo_affine_threefry", 0):
+    x1_rows = counts.get(X1_ROWS_EXAMPLE, 0)
+    if x1_vec == 0 or x1_vec + x1_rows != counts.get("zo_affine_threefry", 0):
         fail(f"X1 on the counted paths: {x1_vec} vector-route launches of "
-             f"{counts.get('zo_affine_threefry', 0)}")
+             f"{counts.get('zo_affine_threefry', 0)}, {x1_rows} off it in "
+             "the train_100m example's rows selection")
     orig = {r: counts.get(f"zo_affine_threefry_original/{r}", 0)
             for r in ("pairs/vector", "pairs/scalar", "bands")}
     if orig["pairs/vector"] == 0 or orig["pairs/vector"] != counts.get(
             "zo_affine_threefry_original/pairs", 0):
         fail(f"X1's original route on the counted paths: {orig} — every "
              "pairs launch of a whole leaf takes the vector route")
-    log(f"X1 over the counted paths: all {x1_vec} launches on the vector "
-        "route; its original-layout route "
+    log(f"X1 over the counted paths: {x1_vec} launches on the vector "
+        f"route, all but the {x1_rows} of the train_100m example's sub-leaf "
+        "rows selection (bands / scalar); its original-layout route "
         f"{counts.get('zo_affine_threefry_original', 0)} launches (pairs "
         f"{counts.get('zo_affine_threefry_original/pairs', 0)}: "
         + ", ".join(f"{k} {v}" for k, v in orig.items()) + ")")

@@ -82,6 +82,36 @@ def count(name: str, *routes: str) -> None:
         route_counts[key] = route_counts.get(key, 0) + 1
 
 
+def local(t):
+    """A DTensor's local shard (the rank's own tensor), else ``t``."""
+    return t.to_local() if hasattr(t, "placements") else t
+
+
+def on_meta(t) -> bool:
+    """A ``meta`` tensor, or a DTensor whose shard is one: a wrapper's
+    shape rule (a dry run's trace) — it returns the result's shape,
+    charges ``analysis.costs`` with the local shard and launches
+    nothing."""
+    return isinstance(t, torch.Tensor) and t.device.type == "meta"
+
+
+def empty_streams(x, n: int):
+    """A shape rule's result for ``n`` streams of ``x``: an empty
+    ``(n, *x.shape)`` tensor made by an allocator alone, so a dry run counts
+    no traffic for it (the card's route only allocates too).  A DTensor's
+    shard dims move one to the right, as ``torch.stack`` would place them."""
+    if not hasattr(x, "placements"):
+        return x.new_empty((n,) + tuple(x.shape))
+    from torch.distributed.tensor import DTensor, Shard
+    shard = x.to_local()
+    shape = torch.Size((n,) + tuple(x.shape))
+    return DTensor.from_local(
+        shard.new_empty((n,) + tuple(shard.shape)), x.device_mesh,
+        [Shard(p.dim + 1) if p.is_shard() else p for p in x.placements],
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def refuse_autograd(kernel: str, tensors, instead: str) -> None:
     """Raise where autograd would record through ``kernel``: a ctypes launch
     writes into fresh tensors with no ``grad_fn``, so a gradient would stop

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -143,6 +144,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(ks)} / v {tuple(v.shape)} is not "
                          "(B,S,H,hd) against (B,S,KV,hd) with KV | H")
     dev = q.device
+    if costs.active():
+        B, S, H, hd = _build.local(q).shape
+        costs.charge("flash_attention", costs.flash_attention(
+            B, S, H, _build.local(k).shape[2], hd, q.element_size(),
+            causal, window))
+    if _build.on_meta(q):
+        return torch.empty_like(q)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
@@ -170,13 +178,3 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(lib, err, "flash_attention")
     _build.count("flash_attention", p.route, f"hd{hd}")
     return o
-
-
-def attended_pairs(S: int, causal: bool = True, window: int = 0) -> int:
-    """Unmasked (q, k) pairs of one (batch, head): the work K2 must do."""
-    total = 0
-    for qi in range(S):
-        lo = max(0, qi - window + 1) if window > 0 else 0
-        hi = qi if causal else S - 1
-        total += max(0, hi - lo + 1)
-    return total

@@ -22,6 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import _build
 
 #: CTAs per SM of K12's grid-stride launch
@@ -106,12 +107,18 @@ def _grid(device: torch.device) -> int:
 def paged_gather(x: torch.Tensor, table, block: int) -> torch.Tensor:
     """Gather block rows of ``x (L, NT, D)`` by ``table (n,)`` — host ids
     (checked) or an int32 tensor on x's device; returns ``(L, n·block, D)``.
-    CPU tensors take the plain version, CUDA tensors launch K12."""
+    CPU tensors take the plain version, CUDA tensors launch K12, ``meta``
+    tensors take the shape rule."""
     if x.dim() != 3 or x.shape[1] % block:
         raise ValueError(f"paged_gather: x must be (L, n_blocks*{block}, D), "
                          f"got {tuple(x.shape)}")
     L, NT, D = x.shape
     on_device = isinstance(table, torch.Tensor) and table.device.type != "cpu"
+    if costs.active():
+        costs.charge("paged_gather", costs.paged_gather(
+            L, len(table), block, D, x.element_size()))
+    if _build.on_meta(x):
+        return x.new_empty((L, len(table) * block, D))
     if x.device.type == "cpu":
         if on_device:
             raise ValueError("paged_gather: a CPU pool takes a host table")

@@ -162,16 +162,3 @@ def _launch_folded(r, k, v, lw, u, s0, *, chunk: int):
     y, s_out = launch(r[:, :, None], k[:, :, None], v[:, :, None],
                       lw[:, :, None], u, (u.stride(0), 0), s0[:, None], chunk)
     return y[:, :, 0], s_out[:, 0]
-
-
-def wkv6_flops(B: int, S: int, H: int, hd: int, chunk: int) -> int:
-    """f32 operations of the chunked recurrence (an FMA counted as two):
-    per chunk and (b, h) the cumsum and the three factors (~9 per element,
-    an exp counted as one), the strict-lower r̃k̃ᵀ, the bonus, A·v, bonus·v,
-    r̃·S and the state update."""
-    C, n = chunk, S // chunk
-    pairs = C * (C - 1) // 2
-    per_chunk = (9 * C * hd + 2 * pairs * hd + 3 * C * hd
-                 + 2 * pairs * hd + 2 * C * hd + 2 * C * hd * hd
-                 + 2 * hd * hd + 2 * C * hd * hd)
-    return B * H * n * per_chunk

@@ -15,6 +15,7 @@ import functools
 
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6 import kernel as _k
 
@@ -88,7 +89,14 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor, *, chunk: int = 16):
     """r/k/v/lw (B,S,H,hd); u (H,hd); s0 (B,H,hd,hd)
     -> (y (B,S,H,hd), s_final (B,H,hd,hd)), f32.  On the card K11, through
-    ``ChunkedWKV`` (differentiable)."""
+    ``ChunkedWKV`` (differentiable); on ``meta`` tensors the shape rule."""
+    if costs.active():
+        costs.charge("wkv6_chunked", costs.wkv6_chunked(
+            *_build.local(r).shape, chunk))
+    if _build.on_meta(r):
+        B, S, H, hd = r.shape
+        return (r.new_empty((B, S, H, hd), dtype=torch.float32),
+                s0.new_empty((B, H, hd, hd), dtype=torch.float32))
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, lw, u, s0, chunk=chunk)
     if r.device.type != "cuda":

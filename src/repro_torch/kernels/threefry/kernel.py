@@ -57,6 +57,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.zo_fused.kernel import (_fma, _fma_odd, _sqrt_rn,
                                                  plain_chunk)
@@ -688,7 +689,8 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
     under the original layout, whose pairing spans the whole leaf);
     ``partitionable`` is the threefry layout, by default the one in force
     (``perturb.stream.threefry_partitionable``).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel: under the partitionable
+    plain version; ``meta`` tensors (and DTensors on them) take the shape
+    rule; CUDA tensors launch the kernel: under the partitionable
     layout the ``whole`` route (``whole_launches``, each launch counted as
     ``vector`` or ``scalar``) or, for a rows plan's ``bands``, the
     ``bands`` route; under the original layout its own kernel,
@@ -726,6 +728,14 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
                              "layout pairs words across the whole leaf; "
                              "give the leaf's total with an offset")
         total = offset + y.numel()
+    if costs.active():
+        n = (_build.local(y).numel() if bands is None
+             else sum(hi - lo for lo, hi in bands))
+        costs.charge("zo_affine_threefry" if partitionable
+                     else "zo_affine_threefry_original",
+                     costs.zo_affine_threefry(n, y.element_size(), form))
+    if _build.on_meta(y):
+        return y
     if y.device.type == "cpu":
         return zo_affine_threefry_plain(x, key, form, a, b, e, zs, dist, y,
                                         bands, offset, total, partitionable)

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import _build
 
 _MASK = 0xFFFFFFFF
@@ -232,7 +233,7 @@ def _check_leaf(x: torch.Tensor, what: str) -> None:
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{what} takes float32/bfloat16/float16 leaves, "
                         f"got {x.dtype}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise RuntimeError(f"{what}: no kernel for device {x.device}")
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError(f"{what}: the CUDA kernel takes contiguous leaves")
@@ -259,13 +260,19 @@ def zo_affine(x: torch.Tensor, seed: int, a: float, b: float,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = a·x + b·z(seed) over a leaf of any shape; ``out=x`` writes in
     place (the paper's in-place trick).  CPU tensors take the plain version;
-    CUDA tensors launch K1."""
+    CUDA tensors launch K1; ``meta`` tensors (and DTensors on them) take the
+    shape rule."""
     _check_dist(dist)
     _check_leaf(x, "zo_affine")
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype
                             or out.device != x.device):
         raise ValueError("zo_affine: out must match x in shape, dtype and "
                          "device")
+    if costs.active():
+        costs.charge("zo_affine", costs.zo_affine(
+            _build.local(x).numel(), x.element_size(), dist))
+    if _build.on_meta(x):
+        return torch.empty_like(x) if out is None else out
     if x.device.type == "cpu":
         return zo_affine_plain(x, seed, a, b, dist, out)
     if out is not None and not out.is_contiguous():
@@ -360,6 +367,11 @@ def zo_affine_batched(x: torch.Tensor, seeds, a: float, b: float,
     seeds = [int(s) for s in seeds]
     if not seeds:
         raise ValueError("zo_affine_batched needs at least one seed")
+    if costs.active():
+        costs.charge("zo_affine_batched", costs.zo_affine_fanout(
+            _build.local(x).numel(), x.element_size(), len(seeds), dist))
+    if _build.on_meta(x):
+        return _build.empty_streams(x, len(seeds))
     if x.device.type == "cpu":
         return zo_affine_batched_plain(x, seeds, a, b, dist)
     y = torch.empty((len(seeds),) + tuple(x.shape), dtype=x.dtype,
@@ -377,10 +389,3 @@ def zo_affine_batched(x: torch.Tensor, seeds, a: float, b: float,
         _build.check(lib, err, "zo_affine_batched")
         _build.count("zo_affine_batched", route)
     return y
-
-
-#: f32 flops per element of the gaussian stream, an FMA counted as two and
-#: the integer hashing left out — the operation side of K1's roofline bound:
-#: 2 uniforms (4) + log (20) + −2·, max, sqrt (3) + cos (33) + r·c (1)
-#: + the affine combine (3).
-GAUSSIAN_FLOPS_PER_ELEMENT = 64

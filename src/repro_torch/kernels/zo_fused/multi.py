@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.zo_fused.kernel import (_MASK, DIST_CODES,
                                                  DTYPE_CODES, MAX_STREAMS,
@@ -85,6 +86,11 @@ def zo_affine_multi(x: torch.Tensor, seeds, a, b,
     _check_dist(dist)
     _check_leaf(x, "zo_affine_multi")
     seeds, a, b = _streams(seeds, a, b)
+    if costs.active():
+        costs.charge("zo_affine_multi", costs.zo_affine_fanout(
+            _build.local(x).numel(), x.element_size(), len(seeds), dist))
+    if _build.on_meta(x):
+        return _build.empty_streams(x, len(seeds))
     if x.device.type == "cpu":
         return zo_affine_multi_plain(x, seeds, a, b, dist)
     y = torch.empty((len(seeds),) + tuple(x.shape), dtype=x.dtype,
@@ -138,6 +144,11 @@ def zo_affine_chain(x: torch.Tensor, seeds, a, b, dist: str = "gaussian",
                             or out.device != x.device):
         raise ValueError("zo_affine_chain: out must match x in shape, dtype "
                          "and device")
+    if costs.active():
+        costs.charge("zo_affine_chain", costs.zo_affine_chain(
+            _build.local(x).numel(), x.element_size(), len(seeds), dist))
+    if _build.on_meta(x):
+        return torch.empty_like(x) if out is None else out
     if x.device.type == "cpu":
         return zo_affine_chain_plain(x, seeds, a, b, dist, out)
     if out is not None and not out.is_contiguous():
@@ -242,6 +253,12 @@ def zo_sqnorm_many(ns, seeds, dist: str = "gaussian",
     bitwise what ``zo_sqnorm`` gives for its leaf alone."""
     _check_dist(dist)
     dev = torch.device(device)
+    if costs.active():
+        costs.charge("zo_sqnorm", costs.total(
+            costs.zo_sqnorm(int(n), dist) for n in ns))
+    if dev.type == "meta":
+        _leaf_list(ns, seeds)
+        return torch.empty(len(ns), dtype=torch.float32, device=dev)
     if dev.type == "cpu":
         return zo_sqnorm_many_plain(ns, seeds, dist, dev)
     if dev.type != "cuda":

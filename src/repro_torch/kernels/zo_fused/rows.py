@@ -57,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.zo_fused.kernel import (_MASK, DIST_CODES,
                                                  DTYPE_CODES, IDX_MUL,
@@ -146,6 +147,13 @@ def compact_to_flat(j: torch.Tensor, block_elems: int, k: int,
     """Flat element index of compact index ``j`` (int64 tensor)."""
     q = torch.div(j, block_elems, rounding_mode="floor")
     return (phase + q * k) * block_elems + (j - q * block_elems)
+
+
+def _n_selected(x: torch.Tensor, block_elems: int, k: int,
+                phase: int) -> int:
+    """The elements of ``x`` (its local shard) a rows plan selects."""
+    n, be, k, phase = _plan(_build.local(x).numel(), block_elems, k, phase)
+    return selected_count(n, be, k, phase)
 
 
 def _selected_or_raise(n: int, be: int, k: int, phase: int,
@@ -381,6 +389,11 @@ def zo_affine_rows(x: torch.Tensor, seed: int, a: float, b: float,
     touches only the selected elements."""
     _check_dist(dist)
     _check_leaf(x, "zo_affine_rows")
+    if costs.active():
+        costs.charge("zo_affine_rows", costs.zo_affine_rows(
+            _n_selected(x, block_elems, k, phase), x.element_size(), dist))
+    if _build.on_meta(x):
+        return x.clone() if out is None else out
     if x.device.type == "cpu":
         return zo_affine_rows_plain(x, seed, a, b, block_elems, k, phase,
                                     dist, out)
@@ -408,6 +421,12 @@ def zo_affine_multi_rows(x: torch.Tensor, seeds, a, b, block_elems: int,
     _check_dist(dist)
     _check_leaf(x, "zo_affine_multi_rows")
     seeds, a, b = _streams(seeds, a, b)
+    if costs.active():
+        costs.charge("zo_affine_multi_rows", costs.zo_affine_multi_rows(
+            _build.local(x).numel(), _n_selected(x, block_elems, k, phase),
+            x.element_size(), len(seeds), dist))
+    if _build.on_meta(x):
+        return _build.empty_streams(x, len(seeds))
     if x.device.type == "cpu":
         return zo_affine_multi_rows_plain(x, seeds, a, b, block_elems, k,
                                           phase, dist)
@@ -438,6 +457,12 @@ def zo_affine_chain_rows(x: torch.Tensor, seeds, a, b, block_elems: int,
     _check_dist(dist)
     _check_leaf(x, "zo_affine_chain_rows")
     seeds, a, b = _streams(seeds, a, b)
+    if costs.active():
+        costs.charge("zo_affine_chain_rows", costs.zo_affine_chain_rows(
+            _n_selected(x, block_elems, k, phase), x.element_size(),
+            len(seeds), dist))
+    if _build.on_meta(x):
+        return x.clone() if out is None else out
     if x.device.type == "cpu":
         return zo_affine_chain_rows_plain(x, seeds, a, b, block_elems, k,
                                           phase, dist, out)
@@ -469,6 +494,13 @@ def zo_sqnorm_rows_many(ns, seeds, plans, dist: str = "gaussian",
     bitwise what ``zo_sqnorm_rows`` gives for its leaf alone."""
     _check_dist(dist)
     dev = torch.device(device)
+    if costs.active():
+        costs.charge("zo_sqnorm_rows", costs.total(
+            costs.zo_sqnorm_rows(_rows_leaf(n, s, *p)[0], dist)
+            for n, s, p in zip(ns, seeds, plans)))
+    if dev.type == "meta":
+        ns, _, _ = _rows_leaf_list(ns, seeds, plans)
+        return torch.empty(len(ns), dtype=torch.float32, device=dev)
     if dev.type == "cpu":
         return zo_sqnorm_rows_many_plain(ns, seeds, plans, dist, dev)
     if dev.type != "cuda":

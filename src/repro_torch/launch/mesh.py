@@ -79,6 +79,14 @@ def _mesh(sizes: tuple, names: tuple, device: DeviceSpec):
                             mesh_dim_names=names)
 
 
+def make_mesh(shape: tuple, axis_names: tuple = ("data", "model"),
+              device: DeviceSpec = None):
+    """A mesh of ``shape`` over ``axis_names`` — ``jax.make_mesh``'s place
+    (the dry run's ``--mesh-shape``): a ``DeviceMesh`` over the default
+    process group when it has exactly that many ranks, else shape-only."""
+    return _mesh(tuple(int(s) for s in shape), tuple(axis_names), device)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device: DeviceSpec = None):
     shape = (2, 16, 16) if multi_pod else (16, 16)

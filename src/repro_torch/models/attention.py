@@ -26,8 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.models.common import (apply_rope, dense_init, rope_cos_sin,
-                                       shard_hint)
+from repro_torch.models.common import (apply_rope, dense_init, reshape,
+                                       rope_cos_sin, shard_hint)
 
 NEG_INF = -1e30
 
@@ -65,8 +65,8 @@ def project_qkv(cfg, p: dict, xq: torch.Tensor, xkv: torch.Tensor):
         v = v + p["bv"]
     B, Sq = xq.shape[:2]
     Skv = xkv.shape[1]
-    return (q.reshape(B, Sq, H, hd), k.reshape(B, Skv, KV, hd),
-            v.reshape(B, Skv, KV, hd))
+    return (reshape(q, B, Sq, H, hd), reshape(k, B, Skv, KV, hd),
+            reshape(v, B, Skv, KV, hd))
 
 
 # --------------------------------------------------------------------------- #
@@ -103,13 +103,13 @@ def attend_xla(q, k, v, *, q_pos, k_pos, causal=True, window=0, kv_len=None,
     KV = k.shape[2]
     G = H // KV
     scale = scale if scale is not None else hd ** -0.5
-    qg = q.reshape(B, Q, KV, G, hd)
+    qg = reshape(q, B, Q, KV, G, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).to(torch.float32) * scale
     scores = torch.where(_bcast_mask(_mask(q_pos, k_pos, causal, window,
                                            kv_len)), scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
-    return out.reshape(B, Q, H, hd)
+    return reshape(out, B, Q, H, hd)
 
 
 def attend_chunked(q, k, v, *, q_pos, k_pos, causal=True, window=0,
@@ -145,7 +145,7 @@ def attend_chunked(q, k, v, *, q_pos, k_pos, causal=True, window=0,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
-    qg = q.reshape(B, Q, KV, G, hd).to(torch.float32) * scale
+    qg = reshape(q, B, Q, KV, G, hd).to(torch.float32) * scale
 
     dev = q.device
     m_prev = torch.full((B, KV, G, Q), NEG_INF, dtype=torch.float32, device=dev)
@@ -172,7 +172,7 @@ def attend_chunked(q, k, v, *, q_pos, k_pos, causal=True, window=0,
             "bkgqs,bskh->bkgqh", p, vc.to(torch.float32))
         m_prev = m_cur
     out = acc / torch.clamp_min(l_prev, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Q, H, hd).to(q.dtype)
+    return reshape(out.permute(0, 3, 1, 2, 4), B, Q, H, hd).to(q.dtype)
 
 
 def attend(cfg, q, k, v, *, arange_layout=False, **kw):
@@ -269,14 +269,25 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
             cap = cache["k"].shape[1]
             keep = min(S, cap)
             shift = S % cap if S > cap else 0
-            cache["k"][:, :keep] = torch.roll(k[:, S - keep:], shift, dims=1)
-            cache["v"][:, :keep] = torch.roll(v[:, S - keep:], shift, dims=1)
-            cache["pos"][:keep] = torch.roll(
-                positions[S - keep:].to(torch.int32), shift)
+            cache["k"][:, :keep] = _roll(k[:, S - keep:], shift, 1)
+            cache["v"][:, :keep] = _roll(v[:, S - keep:], shift, 1)
+            cache["pos"][:keep] = _roll(
+                positions[S - keep:].to(torch.int32), shift, 0)
             new_cache = cache
 
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
+    out = reshape(out, B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo"], new_cache
+
+
+def _roll(x: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dim)`` for 0 ≤ shift < size, by two slices:
+    the same bits, and a DTensor shards it where a torch has no sharding
+    rule for ``aten.roll`` (2.11)."""
+    if shift == 0:
+        return x
+    n = x.shape[dim]
+    return torch.cat((x.narrow(dim, n - shift, shift),
+                      x.narrow(dim, 0, n - shift)), dim)
 
 
 def cross_attention(cfg, p: dict, x: torch.Tensor, enc_k: torch.Tensor,
@@ -285,14 +296,14 @@ def cross_attention(cfg, p: dict, x: torch.Tensor, enc_k: torch.Tensor,
     precomputed enc_k / enc_v (B,Senc,KV,hd), non-causal, no window."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    q = reshape(x @ p["wq"], B, S, H, hd)
     S_enc = enc_k.shape[1]
     out = attend(cfg, q, enc_k, enc_v,
                  q_pos=torch.arange(S, dtype=torch.int32, device=x.device),
                  k_pos=torch.arange(S_enc, dtype=torch.int32,
                                     device=x.device),
                  causal=False, window=0)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    return reshape(out, B, S, H * hd) @ p["wo"]
 
 
 def precompute_cross_kv(cfg, p: dict, enc_out: torch.Tensor):
@@ -300,6 +311,6 @@ def precompute_cross_kv(cfg, p: dict, enc_out: torch.Tensor):
     layer's cross-attention projections."""
     B, S, _ = enc_out.shape
     KV, hd = cfg.kv_heads, cfg.hd
-    k = (enc_out @ p["wk"]).reshape(B, S, KV, hd)
-    v = (enc_out @ p["wv"]).reshape(B, S, KV, hd)
+    k = reshape(enc_out @ p["wk"], B, S, KV, hd)
+    v = reshape(enc_out @ p["wv"], B, S, KV, hd)
     return k, v

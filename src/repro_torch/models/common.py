@@ -54,6 +54,43 @@ def shard_hint(x: torch.Tensor, logical: str) -> torch.Tensor:
     return x.redistribute(x.device_mesh, spec.placements(x.device_mesh))
 
 
+def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``.  A DTensor (a dry run's trace) whose sharding
+    the reshape cannot keep — a sharded dim split or merged unevenly, such
+    as 14 heads over a model axis of 16, or merged with a sharded dim
+    inside — is first gathered on the mesh dims that shard the reshaped
+    dims, as a compiler reshards there; a plain tensor reshapes as it
+    is."""
+    if not hasattr(x, "placements"):
+        return x.reshape(*shape)
+    try:
+        return x.reshape(*shape)
+    except RuntimeError:
+        pass                     # DTensor's view rule refused the sharding
+    from torch.distributed.tensor import Replicate
+    keep = 0
+    while keep < min(x.dim(), len(shape)) and x.shape[keep] == shape[keep]:
+        keep += 1
+    pl = [Replicate() if p.is_shard() and p.dim >= keep else p
+          for p in x.placements]
+    return x.redistribute(x.device_mesh, pl).reshape(*shape)
+
+
+def placed_like(ref: torch.Tensor, tree):
+    """``tree`` — plain tensors made inside a step, a prefill's fresh cache
+    or state — as DTensors replicated on ``ref``'s mesh when ``ref`` is a
+    DTensor (a dry run's trace: an in-place write of DTensor values needs
+    a DTensor target); else ``tree`` as it is."""
+    if not hasattr(ref, "placements"):
+        return tree
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.tree_utils import tree_map
+    mesh = ref.device_mesh
+    return tree_map(lambda t: DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False), tree)
+
+
 # --------------------------------------------------------------------------- #
 # Norms
 # --------------------------------------------------------------------------- #

@@ -36,7 +36,7 @@ from repro_torch.data.synthetic import randint, split
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import encdec, rwkv6, transformer
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import MetaGen
+from repro_torch.models.common import MetaGen, placed_like
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.frontends import stub_normal
 from repro_torch.models.moe import expert_group_count
@@ -248,24 +248,26 @@ class Bundle:
             if cfg.family == "ssm":
                 logits, state = rwkv6.forward(
                     cfg, params, tokens=tokens,
-                    state=rwkv6.init_rwkv_state(cfg, tokens.shape[0],
-                                                tokens.device))
+                    state=placed_like(tokens, rwkv6.init_rwkv_state(
+                        cfg, tokens.shape[0], tokens.device)))
                 return logits[:, -1:], state
             if cfg.family == "encdec":
                 frames = batch["frames"]
                 enc_out = encdec.encode(cfg, params, frames)
                 cross_kv = encdec.precompute_cross_kv(cfg, params, enc_out)
-                cache = attn_lib.init_cache(cfg, frames.shape[0], cfg.max_seq,
-                                            cfg.param_dtype, frames.device)
+                cache = placed_like(frames, attn_lib.init_cache(
+                    cfg, frames.shape[0], cfg.max_seq, cfg.param_dtype,
+                    frames.device))
                 r = encdec.decode(cfg, params, tokens, cross_kv, cache=cache,
                                   cache_pos=0)
                 return r.logits[:, -1:], (r.cache, cross_kv)
             embeds = batch.get("embeds")      # the vision_stub frontend
             x = tokens if tokens is not None else embeds
             B, S = x.shape[:2]
-            cache = attn_lib.init_cache(cfg, B, max(S, cfg.max_seq),
-                                        cfg.param_dtype, x.device)
-            state = (ssm_lib.init_ssm_state(cfg, B, device=x.device)
+            cache = placed_like(x, attn_lib.init_cache(
+                cfg, B, max(S, cfg.max_seq), cfg.param_dtype, x.device))
+            state = (placed_like(x, ssm_lib.init_ssm_state(cfg, B,
+                                                           device=x.device))
                      if cfg.family == "hybrid" else None)
             # cache_pos None: the prefill write (ring-rolled for a window)
             r = transformer.forward(cfg, params, tokens=tokens, embeds=embeds,

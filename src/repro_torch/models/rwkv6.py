@@ -29,8 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
-from repro_torch.models.common import (dense_init, embed_init, rmsnorm,
-                                       shard_hint)
+from repro_torch.models.common import (dense_init, embed_init, reshape,
+                                       rmsnorm, shard_hint)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import layer_views
 
@@ -106,12 +106,12 @@ def _tm_projections(cfg: ModelConfig, p: dict, x: torch.Tensor, state):
     def lerp(mu):
         return xn + (xx - xn) * mu.to(xn.dtype)
 
-    r = (lerp(p["mu_r"]) @ p["wr"]).reshape(B, S, H, hd).to(f32)
-    k = (lerp(p["mu_k"]) @ p["wk"]).reshape(B, S, H, hd).to(f32)
-    v = (lerp(p["mu_v"]) @ p["wv"]).reshape(B, S, H, hd).to(f32)
+    r = reshape(lerp(p["mu_r"]) @ p["wr"], B, S, H, hd).to(f32)
+    k = reshape(lerp(p["mu_k"]) @ p["wk"], B, S, H, hd).to(f32)
+    v = reshape(lerp(p["mu_v"]) @ p["wv"], B, S, H, hd).to(f32)
     g = F.silu(lerp(p["mu_g"]) @ p["wg"])                          # (B,S,H*hd)
     w_logit = (lerp(p["mu_w"]) @ p["w_lora_a"]) @ p["w_lora_b"]
-    w_logit = w_logit.reshape(B, S, H, hd) + p["w0"].to(w_logit.dtype)
+    w_logit = reshape(w_logit, B, S, H, hd) + p["w0"].to(w_logit.dtype)
     # log decay −exp(logit) < 0, logit clamped to [−8, 1]: the chunked
     # factorization's exponents stay ≤ 43.5 at C ≤ 16
     logw = -torch.exp(torch.clamp(w_logit.to(f32), -8.0, 1.0))
@@ -123,7 +123,7 @@ def _tm_projections(cfg: ModelConfig, p: dict, x: torch.Tensor, state):
 
 def _tm_output(cfg: ModelConfig, p: dict, x, xn, y, g):
     B, S = x.shape[:2]
-    y = y.reshape(B, S, cfg.n_heads * cfg.hd)
+    y = reshape(y, B, S, cfg.n_heads * cfg.hd)
     y = rmsnorm(y, p["ln_out_scale"])                              # f32
     out = (y * g.to(y.dtype)) @ p["wo"].to(y.dtype)                # JAX: f32
     return out.to(x.dtype), xn[:, -1, :]

@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init, shard_hint
+from repro_torch.models.common import dense_init, reshape, shard_hint
 
 SCAN_MODES = ("chunk", "fused_recurrent")
 
@@ -65,10 +65,10 @@ def _project(cfg, p: dict, u: torch.Tensor):
     SH, hd, N = cfg.ssm_heads, cfg.hd, cfg.ssm_state
     xz = u @ p["in_proj"]
     x, z = xz.split(SH * hd, dim=-1)
-    x = x.reshape(B, S, SH, hd).to(torch.float32)
+    x = reshape(x, B, S, SH, hd).to(torch.float32)
     dt = _softplus((u @ p["dt_proj"]).to(torch.float32))
-    bmat = (u @ p["b_proj"]).reshape(B, S, SH, N).to(torch.float32)
-    cmat = (u @ p["c_proj"]).reshape(B, S, SH, N).to(torch.float32)
+    bmat = reshape(u @ p["b_proj"], B, S, SH, N).to(torch.float32)
+    cmat = reshape(u @ p["c_proj"], B, S, SH, N).to(torch.float32)
     a = torch.exp(p["a_log"].to(torch.float32))
     return x, z, dt, bmat, cmat, a
 
@@ -76,7 +76,7 @@ def _project(cfg, p: dict, u: torch.Tensor):
 def _finish(cfg, p: dict, u: torch.Tensor, y, x, z) -> torch.Tensor:
     B, S = u.shape[:2]
     y = y + p["d_skip"].to(torch.float32)[None, None] * x
-    y = (y.reshape(B, S, cfg.ssm_heads * cfg.hd)
+    y = (reshape(y, B, S, cfg.ssm_heads * cfg.hd)
          * F.silu(z.to(torch.float32))).to(u.dtype)
     return y @ p["out_proj"]
 

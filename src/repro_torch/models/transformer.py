@@ -197,7 +197,11 @@ def _token_nll(cfg: ModelConfig, logits: torch.Tensor,
     if cfg.logit_softcap > 0:
         lg = cfg.logit_softcap * torch.tanh(lg / cfg.logit_softcap)
     logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
+    # the gather on (tokens, vocab) rows: the form DTensor shards when the
+    # vocab is sharded (a masked local gather, then a sum over the shards)
+    idx = labels.to(torch.int64)
+    gold = torch.gather(lg.reshape(-1, lg.shape[-1]), 1,
+                        idx.reshape(-1, 1)).reshape(idx.shape)
     return logz - gold
 
 

@@ -54,6 +54,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import host_array
 from repro_torch.kernels.zo_fused.kernel import zo_affine, zo_affine_batched
 from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
                                                 zo_affine_multi,
@@ -159,7 +160,7 @@ class CounterBackend(PerturbBackend):
                     ns, seeds, plans, "gaussian", device)):
                 parts[slot] = norm
         sq = None
-        for part in torch.stack(parts).cpu().numpy():
+        for part in host_array(torch.stack(parts)):
             sq = f32(part) if sq is None else f32(sq + f32(part))
         ratio = f32(f32(d) / sq)
         return f32(np.sqrt(ratio))

@@ -33,6 +33,7 @@ from typing import Any, Callable, NamedTuple, Optional, Protocol, \
 import numpy as np
 import torch
 
+from repro_torch.device import host_f32 as host_f32
 from repro_torch.perturb import PerturbBackend, StreamRef, get_backend
 from repro_torch.perturb.stream import Key, fold_in, prng_key, step_key
 from repro_torch.tree_utils import PyTree
@@ -41,11 +42,6 @@ f32 = np.float32
 ZOLossFn = Callable[[PyTree, Any], torch.Tensor]
 
 
-def host_f32(x) -> np.float32:
-    """A loss or scalar as a host f32 (one device sync for a tensor)."""
-    if isinstance(x, torch.Tensor):
-        x = x.detach().float().item()
-    return f32(x)
 
 
 # --------------------------------------------------------------------------- #

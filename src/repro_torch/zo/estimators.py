@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.spsa import OnePointState, one_point_init, zo_grad_norm
+from repro_torch.device import host_array
 from repro_torch.perturb import StreamRef, get_backend
 from repro_torch.perturb.stream import fold_in
 from repro_torch.select import resolve_selection
@@ -128,8 +129,9 @@ def fzoo(batch_seeds: int = 8, eps: float = 1e-3, dist: str = "gaussian",
                 [StreamRef(fold_in(key, j), sel, phase)
                  for j in range(n_batch)])
         stacked = be.perturb_many(params, refs, eps, dist)
-        losses = torch.stack([loss_fn(_view(stacked, j), batch).float()
-                              for j in range(n_batch)]).cpu().numpy()
+        losses = host_array(torch.stack([loss_fn(_view(stacked, j),
+                                                 batch).float()
+                                         for j in range(n_batch)]))
         del stacked
         l0 = host_f32(loss_fn(params, batch))
         diffs = losses - l0
@@ -199,8 +201,8 @@ def one_point(eps: float = 1e-3, dist: str = "gaussian", backend=None,
 def _leaf_norms(params):
     """RMS per leaf (size-free), floored at 1e-2 so zero-initialized leaves
     don't poison the geometric-mean normalization; one f32 scalar each."""
-    return tree_map(lambda p: max(f32(torch.sqrt(torch.mean(
-        p.float() ** 2)).item()), f32(1e-2)), params)
+    return tree_map(lambda p: max(host_f32(torch.sqrt(torch.mean(
+        p.float() ** 2))), f32(1e-2)), params)
 
 
 def _grad_norms_zo(loss_fn, params, batch, key, eps, n_probe: int = 4):

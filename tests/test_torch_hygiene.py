@@ -175,12 +175,26 @@ def test_no_text_says_the_port_is_dense_only():
     "src/repro_torch/distributed/async_zo.py",
     "src/repro_torch/launch/mesh.py", "tests/test_torch_sharding.py",
     "tests/test_torch_shard_hints.py", "tests/test_torch_async_zo.py",
-    "tests/test_torch_distributed.py"])
+    "tests/test_torch_distributed.py",
+    "src/repro_torch/analysis/__init__.py",
+    "src/repro_torch/analysis/costs.py", "src/repro_torch/analysis/flops.py",
+    "src/repro_torch/analysis/report.py",
+    "src/repro_torch/analysis/roofline.py",
+    "src/repro_torch/launch/dryrun.py",
+    "src/repro_torch/examples/__init__.py",
+    "src/repro_torch/examples/quickstart.py",
+    "src/repro_torch/examples/mezo_peft.py",
+    "src/repro_torch/examples/nondiff_accuracy.py",
+    "src/repro_torch/examples/serve_batch.py",
+    "src/repro_torch/examples/train_100m.py",
+    "tests/test_torch_analysis.py", "tests/test_torch_dryrun.py",
+    "tests/test_torch_examples.py"])
 def test_new_modules_are_under_the_hygiene_checks(name):
     """The moe modules, the original-layout tests, the tenants modules and
-    tests, the shims' modules and tests, and the distribution modules and
-    tests are among the files the checks above walk, import no JAX
-    (modules) and no unused name."""
+    tests, the shims' modules and tests, the distribution modules and
+    tests, and the analysis, dry-run and example modules and their tests
+    are among the files the checks above walk, import no JAX (modules) and
+    no unused name."""
     path = ROOT / name
     assert path in PORT_FILES + PORT_TESTS
     if name.startswith("src/"):

@@ -89,3 +89,48 @@ def test_queue3_names_import():
     assert callable(cells_for) and callable(default_selection)
     assert callable(apply_rank1_batch) and ZOLossFn is not None
     assert Request is not None
+
+
+#: JAX module → (the port's module, {JAX name: the port's name, or None
+#: where the port has none}) — the deliberate differences, each with its
+#: reason
+MODULES = {
+    "analysis.flops": ("analysis.flops", {}),
+    "analysis.report": ("analysis.report", {}),
+    # the roofline's link term is NVLink's, not a TPU's ICI; the dry run's
+    # counts come from a trace, not from a compiled executable
+    "analysis.roofline": ("analysis.roofline", {"ICI_BW": "LINK_BW",
+                                                "from_compiled": "from_trace"}),
+    # an eager trace runs every layer: no loop-trip calibration compiles
+    "launch.dryrun": ("launch.dryrun", {"calibrate_loop_costs": None}),
+}
+
+
+def jax_module_names(module: str) -> set:
+    """A JAX module's public top-level names (functions, classes and
+    assigned names not starting with ``_``), read from its source."""
+    path = SRC / "repro" / (module.replace(".", "/") + ".py")
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("module", sorted(MODULES))
+def test_port_modules_pair_jax_module_names(module):
+    """``repro_torch.<module>`` has every public name of JAX's module of the
+    same path, save the listed renames and drops."""
+    port_module, renamed = MODULES[module]
+    names = jax_module_names(module)
+    assert set(renamed) <= names, set(renamed) - names
+    mod = importlib.import_module(f"repro_torch.{port_module}")
+    missing = sorted(renamed.get(n, n) for n in names
+                     if renamed.get(n, n) is not None
+                     and not hasattr(mod, renamed.get(n, n)))
+    assert not missing, f"repro_torch.{port_module} lacks {missing}"
+    assert not [n for n, to in renamed.items()
+                if to is None and hasattr(mod, n)]
