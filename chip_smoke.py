@@ -4,7 +4,7 @@
     python3 chip_smoke.py                  # from the root of a checkout; one card
     python3 chip_smoke.py --kernels-only   # build and check the kernels, stop
     python3 chip_smoke.py --parent DIR     # also time the parent's K1, K3-K7, K9-K11, X1
-    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x, y, z, dr)
+    python3 chip_smoke.py --phases u,t,w   # build, then only the named phases (j, q, u, t, w, x, y, z, dr, tp)
 
 In order: prints the card's name and power limit; builds the eight CUDA
 sources under ``src/repro_torch/kernels/*/csrc`` (one nvcc per source, in
@@ -237,14 +237,30 @@ traced on ``meta`` tensors and run on the card, for ``pallas`` with
 kernel (``analysis.costs``) equal the card's launches and the card step's
 own charges, its argument bytes equal θ's and the batch's, and the
 measured step (median of 3 after a warm-up) is not below its roofline
-``step_s`` — hard checks; model_flops / (989e12 × measured), the dry
-run's peak against ``max_memory_allocated`` and ``useful_ratio`` are
-logged.  The CLI then runs in subprocesses that see no card (opt-66b
-``train_4k`` on 1 × 2 and 1 × 1: its per-rank argument bytes against the
-card's; qwen2-7b on the single-pod mesh; every case ``ok`` — under a
-torch before 2.13, opt-66b on 1 × 2 may instead fail on the one op that
-torch lacks a rule for, ``DR_OLD_TORCH_ERRORS``), and the five examples (``repro_torch.examples``) run to their end
+``step_s``, and ``max_memory_allocated`` over the step is at most
+``DR_MEMORY_FACTOR`` × the record's argument + output + temp bytes (JAX's
+three ``memory_analysis`` keys) — hard checks; model_flops / (989e12 ×
+measured), the card's peak above the arguments against the temp bytes and
+``useful_ratio`` are logged.  The CLI then runs in subprocesses that see
+no card (opt-66b ``train_4k`` on 1 × 2 and 1 × 1: its per-rank argument
+bytes against the card's; qwen2-7b on the single-pod mesh; every case
+``ok``), and the five examples (``repro_torch.examples``) run to their end
 on the card with X1 launched, and K12 in ``serve_batch``.
+
+Then (tp) tensor parallelism (``tensor_parallel_paths``) at qwen2-0.5b's
+full width and depth: K1, K3 (two seeds) and X1 in both threefry layouts
+on every rank's shard of the sharded leaves under the rule engine's specs
+on (1, 2) and (1, 4) meshes, bitwise their plain versions' shard writes
+and the slice of the whole-leaf launch, timed in turns against the whole
+pass; K2 on each rank's heads (7 q / 1 KV) within its tolerances of the
+plain version on those heads and bitwise the whole launch's same heads,
+timed beside SDPA on them; and two processes on the one card over gloo on
+a (1, 2) ``data × model`` mesh: the TP forward's logits at θ₀ within
+``TP_LOGIT_TOL`` of the one-process forward's, then one spsa step on
+``pallas`` and one on ``xla`` and one ``seed_parallel(2)`` step with θ as
+DTensors, each against the one-process step: θ at every loss evaluation
+gathered and the update written with the one-process g bitwise, ℓ± within
+``TP_LOSS_TOL``.
 
 Checks: finite losses; two replays of each phase's ledger from θ₀ bitwise
 equal; fzoo replays bitwise equal to the trained θ; sequential-spsa replays
@@ -6704,11 +6720,9 @@ def _distribution_on_group(torch, np, _build, counts, step_ms, card, cfg,
 DR_CELL = ("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
 DR_TIMED_STEPS = 3
 DR_CARD_GIB = 79.18         # an H100 80GB HBM3's memory as torch reports it
-#: the dry-run CLI's cases that record an error under a torch before 2.13
-#: (checked: 2.11) and trace ``ok`` under 2.13, each with the op its error
-#: names (ROADMAP item 13); any other error fails phase (dr)
-DR_OLD_TORCH_ERRORS = {
-    ("opt-66b", "train_4k", "single-1x2"): "aten._unsafe_view.default"}
+#: the card's max_memory_allocated over a step may reach this many times
+#: the dry run's argument + output + temp bytes, and no more
+DR_MEMORY_FACTOR = 1.0
 
 
 def _dr_against_a_step(torch, np, _build, counts, step_ms, card, backend,
@@ -6780,6 +6794,24 @@ def _dr_against_a_step(torch, np, _build, counts, step_ms, card, backend,
              f"run's roofline {rec['step_s']:.6f} s")
     step_ms[f"dr_{backend}"] = 1e3 * measured
     dry_peak = rec["memory_analysis"]["peak_bytes"]
+    mem = rec["memory_analysis"]
+    dry_total = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+                 + mem["temp_size_in_bytes"])
+    if peak + base > DR_MEMORY_FACTOR * dry_total:
+        fail(f"(dr) {backend}: max_memory_allocated over the step "
+             f"{(peak + base) / 2**30:.3f} GiB is past {DR_MEMORY_FACTOR} × "
+             f"the dry run's argument + output + temp bytes "
+             f"({dry_total / 2**30:.3f} GiB)")
+    log(f"(dr) {backend}: max_memory_allocated over the step "
+        f"{(peak + base) / 2**30:.3f} GiB = {(peak + base) / dry_total:.3f} × "
+        f"the dry run's argument + output + temp "
+        f"({mem['argument_size_in_bytes'] / 2**30:.3f} + "
+        f"{mem['output_size_in_bytes'] / 2**30:.3f} + "
+        f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB; limit "
+        f"{DR_MEMORY_FACTOR}); above the arguments the card "
+        f"{peak / 2**30:.3f} GiB against temp "
+        f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB "
+        f"({peak / mem['temp_size_in_bytes']:.3f}×) — on {card}")
     log(f"(dr) qwen2-0.5b spsa on {backend} (16 × 256, one rank): charges "
         f"{ {k: v['calls'] for k, v in charged.items()} } = the card's "
         f"launches {({k: got[k] for k in kernels})}; argument bytes {arg} = "
@@ -6800,12 +6832,9 @@ def _dr_against_a_step(torch, np, _build, counts, step_ms, card, backend,
 def _dr_cli(torch, runs: list) -> list:
     """Each argument list through ``python -m repro_torch.launch.dryrun``
     in a subprocess that sees no card, all started together (each traces
-    on one host core); the records of each.  Every case must trace ``ok``
-    but those of ``DR_OLD_TORCH_ERRORS`` under a torch before 2.13, which
-    must be ``ok`` or fail on their own op."""
+    on one host core); the records of each.  Every case must trace
+    ``ok``."""
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
-    old_torch = tuple(int(v) for v in
-                      torch.__version__.split("+")[0].split(".")[:2]) < (2, 13)
     procs = []
     for i, args in enumerate(runs):
         out = RUN_DIR / f"dryrun_{i}.jsonl"
@@ -6825,11 +6854,7 @@ def _dr_cli(torch, runs: list) -> list:
             fail(f"(dr) dryrun {' '.join(args)} exited {proc.returncode}:"
                  f"\n{text[-3000:]}")
         for r in recs:
-            op = (DR_OLD_TORCH_ERRORS.get((r["arch"], r["cell"], r["mesh"]))
-                  if old_torch else None)
-            if r["status"] != "ok" and (
-                    op is None or f"the last DTensor op: {op} " not in
-                    r["error"]):
+            if r["status"] != "ok":
                 fail(f"(dr) dryrun {r['arch']} {r['cell']} on {r['mesh']} "
                      f"under torch {torch.__version__}: "
                      f"{r['error'][-1500:]}")
@@ -6948,16 +6973,624 @@ def dryrun_paths(torch, np, _build, counts, step_ms, card) -> None:
         f"phase {time.perf_counter() - t0:.1f} s — on {card}")
 
 
+# --------------------------------------------------------------------------- #
+# (tp) tensor parallelism: the z kernels on shards, K2 on local heads, and
+# the step over two processes on the one card
+# --------------------------------------------------------------------------- #
+#: (1, model) meshes whose shards phase (tp) holds the z kernels on
+TP_MODEL_SIZES = (2, 4)
+#: |ℓ_TP − ℓ_one| allowed for a bf16 qwen2-0.5b forward split over two
+#: ranks: the row-parallel products sum their bf16 partial outputs across
+#: ranks in another order than one matmul accumulates them.  About 5× the
+#: largest reading on the card (0.00061, PERF.md PR 31), below the ℓ+ − ℓ−
+#: difference (≈ 0.0035) that g is made of
+TP_LOSS_TOL = 0.003
+#: max |Δ logit| allowed between the TP forward at θ₀ (gathered) and the
+#: one-process forward, for the same reason: about 4× the reading on the
+#: card (0.133 of logits up to 6.1, PERF.md PR 31), which a row-parallel
+#: sum dropped in one layer exceeds (a mutation check, PERF.md PR 31)
+TP_LOGIT_TOL = 0.5
+TP_RANKS = 2
+
+_TP_RANK = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+rank, store, seed, rows, seq = (int(sys.argv[1]), sys.argv[2],
+                                int(sys.argv[3]), int(sys.argv[4]),
+                                int(sys.argv[5]))
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2)
+
+
+def synchronous_collectives(key="CUDA"):
+    # NCCL takes one rank a card, so the two ranks talk over gloo; gloo's
+    # CUDA work crashes (SIGSEGV, measured on this card's machine) when the
+    # functional collectives that DTensor issues wait on it, while the same
+    # collectives called through torch.distributed run.  So the functional
+    # ops get kernels for `key` that call those, each complete on return
+    # (its wait a no-op).
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+    def all_reduce(x, op, name):
+        y = x.clone()
+        dist.all_reduce(y, ops[op], group=_resolve_process_group(name))
+        return y
+
+    def all_gather(x, n, name):
+        y = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(y, x.contiguous(),
+                                    group=_resolve_process_group(name))
+        return y
+
+    def reduce_scatter(x, op, n, name):
+        y = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(y, x.contiguous(), ops[op],
+                                   group=_resolve_process_group(name))
+        return y
+
+    def broadcast(x, src, name):
+        y = x.clone()
+        dist.broadcast(y, group_src=src, group=_resolve_process_group(name))
+        return y
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for op, fn in (("all_reduce", all_reduce),
+                   ("all_gather_into_tensor", all_gather),
+                   ("reduce_scatter_tensor", reduce_scatter),
+                   ("broadcast", broadcast), ("wait_tensor", lambda t: t)):
+        lib.impl(op, fn, key)
+    return lib
+
+
+_funcol_lib = synchronous_collectives()
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from repro_torch import exec as zexec
+from repro_torch import zo
+from repro_torch.device import host_f32
+from repro_torch.distributed.collectives import mesh_loss
+from repro_torch.distributed.sharding import place
+from repro_torch.kernels import _build
+from repro_torch.models import all_archs, bundle
+from repro_torch.perturb.stream import prng_key
+from repro_torch.tree_utils import tree_clone, tree_leaves
+
+cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
+b = bundle(cfg)
+params0 = b.init(seed, device="cuda")
+batch = b.make_batch(prng_key(seed), rows, seq, device="cuda")
+loss_fn = b.loss_fn()
+mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+cases = {"spsa_pallas": ("pallas", zexec.local),
+         "spsa_xla": ("xla", zexec.local),
+         "sp2_pallas": ("pallas", lambda mesh=None: zexec.seed_parallel(
+             2, mesh=mesh))}
+
+
+def opt_of(backend):
+    return zo.mezo(lr=1e-6, eps=1e-3, backend=backend)
+
+
+def same(a, c):
+    w = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.shape == c.shape and torch.equal(a.view(w), c.view(w))
+
+
+def window(x):
+    # the slices of the whole leaf that DTensor x's local shard holds
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return tuple(slice(o, o + n) for o, n in zip(off, shape))
+
+
+def same_shards(tree, whole):
+    # every leaf's local shard bitwise its slice of the one-process leaf
+    return all(same(x.to_local(), w[window(x)])
+               for x, w in zip(tree_leaves(tree), whole))
+
+
+# the one-process steps, on every rank: θ at each loss evaluation, ℓ, θ
+# after, g
+refs = {}
+for name, (backend, plan) in cases.items():
+    snaps, losses = [], []
+
+    def rec(p, bt):
+        loss = loss_fn(p, bt)
+        snaps.append([x.clone() for x in tree_leaves(p)])
+        losses.append(float(host_f32(loss)))
+        return loss
+
+    prog = zexec.StepProgram(opt_of(backend), plan())
+    p, _, m = prog.step_fn(rec)(tree_clone(params0),
+                                prog.init(params0, seed=0), batch)
+    refs[name] = (snaps, losses, tree_leaves(p), float(m["projected_grad"]))
+torch.cuda.synchronize()
+
+# the TP forward's logits at θ₀, gathered, against the one-process forward's
+logits_fn = b.train_logits_fn()
+with torch.no_grad():
+    one = logits_fn(params0, batch).float()
+    prog = zexec.StepProgram(opt_of("pallas"), zexec.local(mesh))
+    placed = place(tree_clone(params0), prog.shardings(params0)[0])
+    tp = mesh_loss(logits_fn, mesh)(placed, batch).full_tensor().float()
+class Bytes(TorchDispatchMode):
+    # the local collectives beneath DTensor: kind -> [count, bytes]
+    def __init__(self):
+        super().__init__()
+        self.seen = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        flat = torch.utils._pytree.tree_flatten((args, kwargs))[0]
+        if any(hasattr(t, "placements") for t in flat):
+            return NotImplemented
+        res = func(*args, **kwargs)
+        name = func.__name__.split(".")[0]
+        if func.namespace in ("_c10d_functional", "c10d_functional") and \
+                name not in ("wait_tensor", "_wrap_tensor_autograd"):
+            outs = [t for t in torch.utils._pytree.tree_flatten(res)[0]
+                    if isinstance(t, torch.Tensor)]
+            c = self.seen.setdefault(name, [0, 0])
+            c[0] += 1
+            c[1] += sum(t.numel() * t.element_size() for t in outs)
+        return res
+
+
+out = {"cases": {}, "logits_err": float((tp - one).abs().max()),
+       "logits_scale": float(one.abs().max())}
+del one, tp, placed
+torch.cuda.synchronize()
+
+_build.reset_launch_counts()
+torch.cuda.reset_peak_memory_stats()
+t_path = time.perf_counter()
+for name, (backend, plan) in cases.items():
+    snaps, losses, after_one, g_one = refs[name]
+    prog = zexec.StepProgram(opt_of(backend), plan(mesh))
+    psh, _, _ = prog.shardings(params0)
+    placed = place(tree_clone(params0), psh)
+    seen, tp_losses = [], []
+
+    def rec(p, bt):
+        # the TP forward runs; the step goes on with the one-process ℓ, so
+        # its update is written with the one-process g
+        tp_losses.append(float(host_f32(loss_fn(p, bt))))
+        j = len(seen)
+        seen.append(same_shards(p, snaps[j]))
+        return torch.tensor(losses[j])
+
+    state = prog.init(params0, seed=0)
+    if name != "spsa_pallas":
+        p, _, m = prog.step_fn(rec)(placed, state, batch)
+    else:
+        # this step timed, its collectives counted (the two counting
+        # modes' dispatch and the θ checks in ``rec`` inside the time)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CommDebugMode() as comm, Bytes() as nbytes:
+            p, _, m = prog.step_fn(rec)(placed, state, batch)
+        torch.cuda.synchronize()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["comm_counts"] = {str(k): int(v)
+                              for k, v in comm.get_comm_counts().items()}
+        out["comm_bytes"] = nbytes.seen
+    g_tp = float((tp_losses[0] - tp_losses[1]) / 2e-3) if len(
+        tp_losses) == 2 else None
+    out["cases"][name] = {
+        "theta_pm_bitwise": all(seen), "evaluations": len(seen),
+        "update_bitwise": same_shards(p, after_one),
+        "loss_tp": tp_losses, "loss_one": losses,
+        "dg": None if g_tp is None else abs(g_tp - g_one), "g_one": g_one,
+        "sharded_leaves": sum(any(pl.is_shard() for pl in x.placements)
+                              for x in tree_leaves(placed))}
+    del p, placed
+    refs[name] = None
+torch.cuda.synchronize()
+out["path_s"] = time.perf_counter() - t_path
+out["launches"] = {k: v for k, v in _build.launch_counts.items() if v}
+out["routes"] = dict(_build.route_counts)
+out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+
+dist.barrier()
+dist.destroy_process_group()
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def _tp_windows(params, n: int, _build):
+    """Every rank's shard window of each floating leaf under the rule
+    engine's specs on a (1, n) mesh: [(leaf, [(slices, ShardMap)])], the
+    replicated leaves left out."""
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.tree_utils import is_floating, tree_leaves
+
+    class Mesh:
+        shape = {"data": 1, "model": n}
+        axis_names = ("data", "model")
+
+    out = []
+    for p, spec in zip(tree_leaves(params),
+                       _dict_leaves(param_specs(params, Mesh()))):
+        dims = [d for d, e in enumerate(spec) if e is not None]
+        if not is_floating(p) or not dims:
+            continue
+        out.append((p, [_build.shard_window(p.shape, dims[0], n, r)
+                        for r in range(n)]))
+    return out
+
+
+def tp_kernel_rows(torch, np, _build, params0, card) -> list:
+    """(tp) (a) K1, K3 (2 seeds) and X1 (both layouts) on every rank's
+    shard of qwen2-0.5b's leaves under the rule engine's specs on (1, 2)
+    and (1, 4) meshes, bitwise their plain versions' shard writes and the
+    slice of the whole-leaf launch, timed in turns (all shards' passes
+    against the whole pass); (b) K2 on each rank's heads against its plain
+    version on them and the same heads of the whole launch.  The rows of
+    the kernels line for the shard routes and the local-head launch, their
+    ``max_abs_err`` against the plain versions."""
+    from repro_torch.kernels.flash_attention import kernel as kf
+    from repro_torch.kernels.threefry import kernel as x1
+    from repro_torch.kernels.zo_fused import kernel as kz
+    from repro_torch.kernels.zo_fused import multi as km
+    from repro_torch.perturb.xla import in_dtype
+    t0 = time.perf_counter()
+    seeds = [7, 2**31 + 5]
+    a2, b2 = [1.0, 0.5], [1e-3, -2e-3]
+    bf = torch.bfloat16
+    sc = [in_dtype(v, bf) for v in (0.5, 1e-3, 2e-3)]
+    key = (3, 2**32 - 7)
+
+    def k1(x, out, shard=None):
+        return kz.zo_affine(x, 11, 0.5, 1e-3, out=out, shard=shard)
+
+    def k3(x, out, shard=None):
+        return km.zo_affine_chain(x, seeds, a2, b2, out=out, shard=shard)
+
+    def x1p(x, out, shard=None, total=None):
+        return x1.zo_affine_threefry(x, key, "restore", *sc, out=out,
+                                     shard=shard, total=total,
+                                     partitionable=True)
+
+    def x1o(x, out, shard=None, total=None):
+        return x1.zo_affine_threefry(x, key, "restore", *sc, out=out,
+                                     shard=shard, total=total,
+                                     partitionable=False)
+
+    def k1_plain(y, shard, total):
+        return kz.zo_affine_plain(y, 11, 0.5, 1e-3, out=y, shard=shard)
+
+    def k3_plain(y, shard, total):
+        return km.zo_affine_chain_plain(y, seeds, a2, b2, out=y, shard=shard)
+
+    def x1_plain(partitionable):
+        return lambda y, shard, total: x1.zo_affine_threefry_plain(
+            y, key, "restore", *sc, out=y, shard=shard, total=total,
+            partitionable=partitionable)
+
+    kernels = {"zo_affine": (k1, k1_plain), "zo_affine_chain": (k3, k3_plain),
+               "zo_affine_threefry": (x1p, x1_plain(True)),
+               "zo_affine_threefry_original": (x1o, x1_plain(False))}
+    checked = {k: 0 for k in kernels}
+    err = {k: 0.0 for k in kernels}
+    # the plain versions' pass over both ranks' shards of qwen2's sharded
+    # leaves on the (1, 2) mesh, timed on the host while they are checked
+    plain_ms = {k: 0.0 for k in kernels}
+    # beside qwen2's leaves, f32 and bf16 leaves of (6, 13, 20) cut on each
+    # dim: shard rows of 7 × 20 or 5 elements, no whole 16-byte vectors of
+    # bf16, take the shard routes' element-a-step walks
+    g0 = torch.Generator(device="cuda").manual_seed(31)
+    odd = [torch.randn(6, 13, 20, generator=g0, device="cuda").to(dt)
+           for dt in (torch.float32, bf)]
+    for n in TP_MODEL_SIZES:
+        for timed, leaf, wins in [
+                (n == TP_RANKS, *w) for w in _tp_windows(params0, n, _build)
+        ] + [(False, x, [_build.shard_window(x.shape, d, n, r)
+                         for r in range(n)]) for x in odd for d in range(3)]:
+            for name, (fn, plain) in kernels.items():
+                whole = fn(leaf, torch.empty_like(leaf))
+                for sl, smap in wins:
+                    loc = leaf[sl].contiguous()
+                    extra = {} if name in ("zo_affine", "zo_affine_chain") \
+                        else {"total": leaf.numel()}
+                    got = fn(loc, torch.empty_like(loc), shard=smap, **extra)
+                    box = []
+                    ms = host_ms(lambda: box.append(
+                        plain(loc.clone(), smap, leaf.numel())))
+                    want = box[0]
+                    plain_ms[name] += ms if timed else 0.0
+                    if got.numel():          # a short leaf's last shards
+                        err[name] = max(err[name], float(
+                            (got.float() - want.float()).abs().max()))
+                    if not same_bits(got, want):
+                        fail(f"(tp) {name} on shard {sl} of a "
+                             f"{tuple(leaf.shape)} leaf (model {n}) is not "
+                             "its plain version's shard write bitwise (max "
+                             f"abs err {err[name]})")
+                    if not same_bits(got, whole[sl].contiguous()):
+                        fail(f"(tp) {name} on shard {sl} of a "
+                             f"{tuple(leaf.shape)} leaf (model {n}) is not "
+                             "the slice of the whole-leaf launch")
+                    checked[name] += 1
+                    del got, want
+                del whole
+    log(f"(tp) (a) K1, K3 (2 seeds), X1 and X1 original on every rank's "
+        f"shard of qwen2-0.5b's sharded leaves and of (6, 13, 20) f32 / bf16 "
+        f"leaves cut on each dim, on (1, 2) and (1, 4) meshes: "
+        f"bitwise their plain versions' shard writes and the whole-leaf "
+        f"launch's slices ({checked} shards)")
+
+    # timed in turns on the (1, 2) mesh: both ranks' shards of every
+    # sharded leaf (the whole leaf once) against the whole-leaf pass
+    wins = _tp_windows(params0, TP_RANKS, _build)
+    n_el = sum(leaf.numel() for leaf, _ in wins)
+    locs = [[(leaf[sl].contiguous(), smap) for sl, smap in ws]
+            for leaf, ws in wins]
+    leaves = [leaf.clone() for leaf, _ in wins]
+    rows = []
+    zf = "src/repro_torch/kernels/zo_fused/csrc/"
+    tf = "src/repro_torch/kernels/threefry/csrc/zo_threefry.cu"
+    for name, src, rep, work in (
+            ("zo_affine", zf + "zo_affine.cu",
+             "src/repro/kernels/zo_fused/kernel.py:233",
+             costs.zo_affine(n_el, 2)),
+            ("zo_affine_chain", zf + "zo_multi.cu",
+             "src/repro/kernels/zo_fused/multi.py:137",
+             costs.zo_affine_chain(n_el, 2, len(seeds))),
+            ("zo_affine_threefry", tf, "src/repro/perturb/xla.py:38-325",
+             costs.zo_affine_threefry(n_el, 2, "restore")),
+            ("zo_affine_threefry_original", tf,
+             "src/repro/perturb/xla.py:38-325",
+             costs.zo_affine_threefry(n_el, 2, "restore"))):
+        fn = kernels[name][0]
+        extra = name.startswith("zo_affine_threefry")
+
+        def shards(fn=fn, extra=extra):
+            for (leaf, _), ls in zip(wins, locs):
+                for loc, smap in ls:
+                    fn(loc, loc, shard=smap,
+                       **({"total": leaf.numel()} if extra else {}))
+
+        def whole(fn=fn):
+            for p in leaves:
+                fn(p, p)
+
+        t = run_ms({"shards": shards, "whole": whole}, 1, rounds=6,
+                   graph=False)
+        pms = plain_ms[name]
+        bms, by = costs.bound_ms([work])
+        rows.append({"name": f"{name}/shard", "route": "cuda", "source": src,
+                     "replaces": rep, "launches": 0, "max_abs_err": err[name],
+                     "ms": t["shards"], "plain_ms": pms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None})
+        log(f"(tp) {name} shard route, both ranks' shards of the {len(wins)}"
+            f" sharded leaves ({n_el} elements, bf16) on a (1, 2) mesh: "
+            f"{t['shards']:.3f} ms against the whole-leaf route's "
+            f"{t['whole']:.3f} ms over the same leaves, in turns (6 rounds);"
+            f" plain {pms:.1f} ms; bound {bms:.3f} ms ({by}) — on {card}")
+    del locs, leaves
+
+    # (b) K2 on each rank's heads at the training shape
+    cfg_h, cfg_kv, hd = 14, 2, 64
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg_h, hd, generator=g,
+                    device="cuda").to(bf)
+    k = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg_kv, hd, generator=g,
+                    device="cuda").to(bf)
+    v = torch.randn_like(k)
+    whole = kf.flash_attention(q, k, v)
+    per_q, per_kv = cfg_h // TP_RANKS, cfg_kv // TP_RANKS
+    parts = [tuple(t[:, :, r * w:(r + 1) * w].contiguous()
+                   for t, w in ((q, per_q), (k, per_kv), (v, per_kv)))
+             for r in range(TP_RANKS)]
+    k2_err = 0.0
+    for r, (ql, kl, vl) in enumerate(parts):
+        # against the plain version on the same local heads, at K2's
+        # tolerances (the kernel's bf16 P and exp2 are not the plain
+        # version's), and bitwise against the whole launch's same heads
+        k2_err = max(k2_err, _hold_k2(torch, kf, ql, kl, vl, 0,
+                                      f"(tp) on rank {r}'s heads"))
+        got = kf.flash_attention(ql, kl, vl)
+        ref = whole[:, :, r * per_q:(r + 1) * per_q]
+        if not same_bits(got, ref.contiguous()):
+            fail(f"(tp) (b) K2 on rank {r}'s {per_q} q / {per_kv} KV heads "
+                 f"differs from the whole launch's same heads by "
+                 f"{float((got.float() - ref.float()).abs().max())}: each "
+                 "(b, h) tile is computed alone, so the heads must agree "
+                 "bitwise")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tparts = [tuple(t.transpose(1, 2) for t in pr) for pr in parts]
+
+    def local():
+        for ql, kl, vl in parts:
+            kf.flash_attention(ql, kl, vl)
+
+    def library():
+        for ql, kl, vl in tparts:
+            sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+
+    t = run_ms({"kernel": local, "library": library}, RUN_N // 10)
+    pms = run_ms({"plain": lambda: [kf.flash_attention_plain(*pr)
+                                    for pr in parts]}, 2,
+                 graph=False)["plain"]
+    bms, by = costs.bound_ms([costs.flash_attention(
+        TRAIN_BATCH, TRAIN_SEQ, per_q, per_kv, hd, 2)] * TP_RANKS)
+    rows.append({"name": "flash_attention/local_heads", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+                 "launches": 0, "max_abs_err": k2_err, "ms": t["kernel"],
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": t["library"]})
+    log(f"(tp) (b) K2 on each rank's heads ({TRAIN_BATCH}, {TRAIN_SEQ}, "
+        f"{per_q} / {per_kv}, {hd}) bf16: within K2's tolerances of the "
+        f"plain version on the same heads (max abs err {k2_err:.2e}), "
+        f"bitwise the whole launch's same heads; both ranks' launches "
+        f"{t['kernel']:.4f} ms, SDPA on the same local heads {t['library']:.4f} ms (in turns, CUDA graphs), plain "
+        f"{pms:.2f} ms, bound {bms:.4f} ms ({by}); (a)+(b) "
+        f"{time.perf_counter() - t0:.1f} s — on {card}")
+    return rows
+
+
+def hold_grouped_products(torch, card) -> None:
+    """(tp) attention's grouped products (``models.attention``'s bmm form,
+    which a DTensor's (b, k) batch needs) bitwise the einsums they replace,
+    on plain tensors at every registry arch's heads: training (16, 256),
+    decode (Q 1 over 512 keys) and (2, 64 over 1 024), f32 / bf16 / f16."""
+    from repro_torch.models import all_archs
+    from repro_torch.models.attention import (_grouped_scores,
+                                              _grouped_values)
+    g = torch.Generator(device="cuda").manual_seed(32)
+    heads = sorted({(a.cfg.n_heads, a.cfg.kv_heads, a.cfg.hd)
+                    for a in all_archs().values() if a.cfg.n_heads})
+    n = 0
+    for H, KV, hd in heads:
+        for B, Q, S in ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), (8, 1, 512),
+                        (2, 64, 1024)):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                q = torch.randn(B, Q, KV, H // KV, hd, generator=g,
+                                device="cuda").to(dt)
+                k, v = (torch.randn(B, S, KV, hd, generator=g,
+                                    device="cuda").to(dt) for _ in range(2))
+                s = torch.einsum("bqkgh,bskh->bkgqs", q, k)
+                w = torch.softmax(s.float(), -1).to(dt)
+                o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+                if not (same_bits(_grouped_scores(q, k), s)
+                        and same_bits(_grouped_values(w, v), o)):
+                    fail(f"(tp) attention's bmm form differs from the einsum "
+                         f"at ({B}, {Q}, {S}) heads {H} / {KV} × {hd} {dt}")
+                n += 1
+    log(f"(tp) attention's grouped products bitwise the einsums in {n} cases "
+        f"({len(heads)} head configs of the registry) — on {card}")
+
+
+def tensor_parallel_paths(torch, np, _build, counts, step_ms, card) -> list:
+    """(tp) Tensor parallelism at qwen2-0.5b's full width and depth (bf16,
+    random weights from seed 0, ``pallas_flash``): (a) and (b) of
+    ``tp_kernel_rows``; (c) two processes on the one card over gloo on a
+    (1, 2) ``data × model`` mesh, θ as DTensors under ``param_shardings``,
+    one spsa step on ``pallas`` (K1 on shards, K2 on local heads), one on
+    ``xla`` (X1 on shards) and one ``seed_parallel(2)`` step on ``pallas``
+    (K3 on shards), each against the one-process step from the same θ₀:
+    θ at every loss evaluation gathered and held bitwise, the update
+    written with the one-process ℓ (so its g) held bitwise, ℓ± within
+    ``TP_LOSS_TOL``, |Δg| recorded, the logits at θ₀ within
+    ``TP_LOGIT_TOL``; the ``pallas`` spsa step timed and its collectives
+    counted by kind and bytes; each rank's peak.
+    Returns the kernels line's rows for the shard routes and K2's local
+    heads, their launches the main path's (both ranks')."""
+    from repro_torch.models import all_archs, bundle
+    t_phase = time.perf_counter()
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
+    params0 = bundle(cfg).init(SEED, device="cuda")
+    rows = tp_kernel_rows(torch, np, _build, params0, card)
+    hold_grouped_products(torch, card)
+    del params0
+    free_card(torch, "(tp) the kernel checks' trees")
+
+    RUN_DIR.mkdir(parents=True, exist_ok=True)
+    store = RUN_DIR / "tp_filestore"
+    store.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-X", "faulthandler", "-c", _TP_RANK, str(r),
+         str(store), str(SEED), str(TRAIN_BATCH), str(TRAIN_SEQ)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(TP_RANKS)]
+    outs, texts = [], []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=600)
+            texts.append((p.returncode, text))
+        for r, (code, text) in enumerate(texts):
+            if code != 0 or "RESULT " not in text:
+                fail(f"(tp) rank {r} exited {code}:\n" + "\n".join(
+                    f"--- rank {i} (exit {c}):\n{t[-3000:]}"
+                    for i, (c, t) in enumerate(texts)))
+            outs.append(json.loads(text.split("RESULT ", 1)[1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        store.unlink(missing_ok=True)
+    for r, res in enumerate(outs):
+        for name, c in res["cases"].items():
+            if not (c["theta_pm_bitwise"] and c["update_bitwise"]):
+                fail(f"(tp) rank {r} {name}: θ at the loss evaluations "
+                     f"bitwise {c['theta_pm_bitwise']}, the update written "
+                     f"with the one-process g bitwise {c['update_bitwise']}")
+            dl = max(abs(a - b) for a, b in zip(c["loss_tp"], c["loss_one"]))
+            if dl > TP_LOSS_TOL or c["sharded_leaves"] == 0:
+                fail(f"(tp) rank {r} {name}: |Δℓ| {dl} past {TP_LOSS_TOL} "
+                     f"({c['sharded_leaves']} sharded leaves)")
+        if not res["logits_err"] <= TP_LOGIT_TOL:
+            fail(f"(tp) rank {r}: the TP forward's logits at θ₀ differ from "
+                 f"the one-process forward's by {res['logits_err']}, past "
+                 f"{TP_LOGIT_TOL} (their scale {res['logits_scale']})")
+    launches: dict = {}
+    for res in outs:
+        for k, v in list(res["launches"].items()) + list(
+                res["routes"].items()):
+            launches[k] = launches.get(k, 0) + v
+    need = {"zo_affine/shard": "K1", "zo_affine_chain/shard": "K3",
+            "zo_affine_threefry/shard": "X1",
+            "flash_attention/local_heads": "K2"}
+    for k, what in need.items():
+        if launches.get(k, 0) <= 0:
+            fail(f"(tp) {what} ({k}) never launched on the TP path")
+    for k, v in launches.items():
+        counts[k] = counts.get(k, 0) + v
+    for row in rows:
+        row["launches"] = launches.get(row["name"], 0)
+    step_ms["tp_pallas"] = outs[0]["step_ms"]
+    c0 = outs[0]["cases"]
+    log("(tp) (c) two ranks over gloo on the one card, (1, 2) mesh, "
+        f"qwen2-0.5b bf16 {TRAIN_BATCH} × {TRAIN_SEQ}: " + "; ".join(
+            f"{name}: θ± and the update bitwise, ℓ TP {c['loss_tp']} vs one "
+            f"process {c['loss_one']}, |Δg| "
+            + ("n/a" if c["dg"] is None else f"{c['dg']:.4g}")
+            + f" (g {c['g_one']:.4g}), {c['sharded_leaves']} sharded leaves"
+            for name, c in c0.items()))
+    log("(tp) (c) the TP forward's logits at θ₀ (gathered) against the "
+        "one-process forward's: max |Δ| "
+        f"{[o['logits_err'] for o in outs]} by rank, bound {TP_LOGIT_TOL}; "
+        f"their scale {outs[0]['logits_scale']}")
+    log(f"(tp) (c) the TP spsa step on pallas: "
+        f"{[round(o['step_ms'], 2) for o in outs]} ms by rank (its "
+        "collectives counted and its θ checked meanwhile; two processes "
+        "share the card's SMs, gloo moves every collective through the "
+        "host); collectives of the step: "
+        f"{outs[0]['comm_counts']}, bytes by kind {outs[0]['comm_bytes']}; "
+        f"peaks {[round(o['peak_gib'], 3) for o in outs]} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if '/' in k} }; the ranks "
+        f"took {time.perf_counter() - t1:.1f} s — on {card}")
+    log(f"(tp) the phase took {time.perf_counter() - t_phase:.1f} s — on "
+        f"{card}")
+    return rows
+
+
 def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
-                      which) -> None:
+                      which, rows: list) -> None:
     """The phases named in ``which`` (u: hymba-1.5b, t: mixtral-8x7b, w:
     whisper-large-v3, x: multi-tenant LoRA serving on qwen2-0.5b, y: the
     deprecated shims and the functional primitives on qwen2-0.5b, z:
-    distribution on qwen2-0.5b, dr: the dry run and the examples; for
-    iterating alone, j: qwen2-0.5b's spsa step under
-    the original threefry layout, q: the card ≡ CPU Adam steps), each after
-    the trees before it are freed, K2 held to its plain version at every
-    shape they gave it."""
+    distribution on qwen2-0.5b, dr: the dry run and the examples, tp:
+    tensor parallelism on qwen2-0.5b, its kernel rows added to ``rows``;
+    for iterating alone, j: qwen2-0.5b's spsa step under the original
+    threefry layout, q: the card ≡ CPU Adam steps), each after the trees
+    before it are freed, K2 held to its plain version at every shape they
+    gave it."""
     t0 = time.perf_counter()
 
     def qwen2_original_step():
@@ -6983,7 +7616,10 @@ def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
               "z": ("qwen2-0.5b's distribution", lambda: distribution_paths(
                   torch, np, _build, counts, step_ms, card)),
               "dr": ("dry run", lambda: dryrun_paths(
-                  torch, np, _build, counts, step_ms, card))}
+                  torch, np, _build, counts, step_ms, card)),
+              "tp": ("tensor parallelism", lambda: rows.extend(
+                  tensor_parallel_paths(torch, np, _build, counts, step_ms,
+                                        card)))}
     for ph in which:
         arch, run = phases[ph]
         shapes: set = set()
@@ -6994,7 +7630,10 @@ def run_family_phases(torch, np, kf, _build, counts, step_ms, card,
         finally:
             stop()
         free_card(torch, f"{arch}'s trees")
-        hold_k2_shapes(torch, kf, shapes, f"the {arch} paths")
+        if ph != "tp":
+            # (tp)'s K2 calls run in its ranks: its (b) holds K2 on the
+            # local heads bitwise against the whole launch's
+            hold_k2_shapes(torch, kf, shapes, f"the {arch} paths")
         if ph == "u" and not any(sh[2:] == (25, 64) and kv == 5
                                  and w == 2048
                                  for sh, kv, _, _, w in shapes):
@@ -7027,7 +7666,8 @@ def main() -> None:
                          "functional primitives on qwen2-0.5b, z: "
                          "distribution on qwen2-0.5b, dr: the dry run "
                          "against qwen2-0.5b's step and the five "
-                         "examples), then stop "
+                         "examples, tp: tensor parallelism on qwen2-0.5b "
+                         "over two processes), then stop "
                          "without the kernels "
                          "line: for iterating on one phase")
     ap.add_argument("--parent", type=Path, default=None,
@@ -7070,8 +7710,11 @@ def main() -> None:
         f"({len(_build.launch_counts)} kernels) in {build_s:.1f} s")
     build_facts(_build)
     if args.phases:
+        rows = []
         run_family_phases(torch, np, kf, _build, {}, {}, card,
-                          args.phases.split(","))
+                          args.phases.split(","), rows)
+        for row in rows:
+            log("kernels line row: " + json.dumps(row))
         log(f"phases {args.phases}: passed in "
             f"{time.perf_counter() - t_start:.1f} s on {card}")
         return
@@ -7241,10 +7884,11 @@ def main() -> None:
     # ---- whisper-large-v3, each at full width and depth; (x) ----------- #
     # ---- multi-tenant LoRA serving on qwen2-0.5b ----------------------- #
     run_family_phases(torch, np, kf, _build, counts, step_ms, card,
-                      ["u", "w", "x", "y", "z", "dr"])
+                      ["u", "w", "x", "y", "z", "dr", "tp"], rows)
     rows.append(k2_hd128)
     for row in rows:
-        row["launches"] = counts.get(row["name"], 0)
+        if not row["name"].endswith(("/shard", "/local_heads")):
+            row["launches"] = counts.get(row["name"], 0)
     # K2's two rows: its launches at hd 64 (qwen2) and at hd 128 (opt)
     k2_hd = {hd: counts.get(f"flash_attention/hd{hd}", 0) for hd in (64, 128)}
     if sum(k2_hd.values()) != counts.get("flash_attention", 0):
@@ -7257,10 +7901,13 @@ def main() -> None:
             row["launches"] = k2_hd[128]
     x1_vec = counts.get("zo_affine_threefry/vector", 0)
     x1_rows = counts.get(X1_ROWS_EXAMPLE, 0)
-    if x1_vec == 0 or x1_vec + x1_rows != counts.get("zo_affine_threefry", 0):
+    x1_shard = counts.get("zo_affine_threefry/shard", 0)
+    if x1_vec == 0 or x1_vec + x1_rows + x1_shard != counts.get(
+            "zo_affine_threefry", 0):
         fail(f"X1 on the counted paths: {x1_vec} vector-route launches of "
              f"{counts.get('zo_affine_threefry', 0)}, {x1_rows} off it in "
-             "the train_100m example's rows selection")
+             "the train_100m example's rows selection, "
+             f"{x1_shard} on shards in (tp)")
     orig = {r: counts.get(f"zo_affine_threefry_original/{r}", 0)
             for r in ("pairs/vector", "pairs/scalar", "bands")}
     if orig["pairs/vector"] == 0 or orig["pairs/vector"] != counts.get(
@@ -7269,7 +7916,8 @@ def main() -> None:
              "pairs launch of a whole leaf takes the vector route")
     log(f"X1 over the counted paths: {x1_vec} launches on the vector "
         f"route, all but the {x1_rows} of the train_100m example's sub-leaf "
-        "rows selection (bands / scalar); its original-layout route "
+        f"rows selection (bands / scalar) and the {x1_shard} on (tp)'s "
+        "shards; its original-layout route "
         f"{counts.get('zo_affine_threefry_original', 0)} launches (pairs "
         f"{counts.get('zo_affine_threefry_original/pairs', 0)}: "
         + ", ".join(f"{k} {v}" for k, v in orig.items()) + ")")

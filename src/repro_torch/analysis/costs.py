@@ -214,6 +214,17 @@ class CostCounter:
                     "ops": self.ops[k]} for k in sorted(self.calls)}
 
 
+def aten_workspace(op: str, args) -> int:
+    """Bytes an aten op allocates inside its own kernel, which a trace of
+    aten ops sees neither allocate nor free (the dry run's temp memory
+    adds them at the op): ``logsumexp`` forms ``exp(x − max)`` as a
+    temporary of its input's size and dtype before it sums (ATen's
+    ``logsumexp_out_impl``).  0 for every other op."""
+    if op == "logsumexp" and args and hasattr(args[0], "element_size"):
+        return args[0].numel() * args[0].element_size()
+    return 0
+
+
 _COUNTERS: list = []
 
 

@@ -54,12 +54,20 @@ def _placeholder_for(x: torch.Tensor) -> bool:
     return True
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A live DTensor's value as one plain tensor (a replicated loss: its
+    local copy; a partial sum or a shard: reduced or gathered first)."""
+    if hasattr(x, "placements"):
+        return x.full_tensor()
+    return x
+
+
 def host_f32(x) -> np.float32:
     """A loss or scalar as a host f32 (one device sync for a tensor)."""
     if isinstance(x, torch.Tensor):
         if _placeholder_for(x):
             return PLACEHOLDER
-        x = x.detach().float().item()
+        x = _whole(x.detach()).float().item()
     return np.float32(x)
 
 
@@ -67,4 +75,4 @@ def host_array(x: torch.Tensor) -> np.ndarray:
     """A tensor's values as a host f32 array (one device sync)."""
     if _placeholder_for(x):
         return np.full(tuple(x.shape), PLACEHOLDER, np.float32)
-    return x.detach().float().cpu().numpy()
+    return _whole(x.detach()).float().cpu().numpy()

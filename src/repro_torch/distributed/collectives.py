@@ -102,21 +102,25 @@ def data_parallel_loss(loss_fn: Callable, mesh) -> Callable:
     The wrapped function takes the GLOBAL batch, as a JAX step does: this
     rank evaluates ``loss_fn.parts`` on its rows (the leading axis split
     over the batch axes, ``infer_batch_spec``'s layout) and all-reduces
-    that one 2-element f32 tensor ``[s, w]``, the loss's sufficient
-    statistics; the loss is ``s / max(w, 1)`` of the sums.  That is the
-    whole batch's loss, as GSPMD's reduction gives it, for every loss
-    whose ``parts`` add over row shards: the registry's masked token means
-    (unequal ``loss_mask``s weigh as in the full batch) and its row-mean
-    F1 (``models.registry.Bundle.loss_fn``).  A loss without ``parts``,
-    such as the moe family's cross entropy with its load-balancing term
-    (a product of batch means), has no such reduction and is refused over
-    more than one rank; over one rank every loss is its own reduction and
-    passes through unchanged.  Over a one-rank group the result is the
-    local loss bit for bit where the loss is ``s / max(w, 1)`` of its own
-    parts (the masked cross entropy and accuracy every registry batch
-    takes)."""
+    its first two entries, the loss's sufficient statistics ``[s, w]``
+    (one 2-element f32 tensor); the loss is ``s / max(w, 1)`` of the sums.
+    That is the whole batch's loss, as GSPMD's reduction gives it, for
+    every loss whose ``parts`` add over row shards: the registry's masked
+    token means (unequal ``loss_mask``s weigh as in the full batch), its
+    row-mean F1 (``models.registry.Bundle.loss_fn``) and the PEFT losses.
+    The moe family's cross entropy adds a third entry, its load-balancing
+    term: a product of batch means, whose routing sums (2E + 1 floats a
+    layer) are all-reduced inside the forward through the
+    ``models.common.batch_reducer`` installed here, so every rank holds
+    the whole batch's term, added after the division.  A loss without
+    ``parts`` is refused over more than one rank; over one rank every loss
+    is its own reduction and passes through unchanged.  Over a one-rank
+    group the result is the local loss bit for bit where the loss is
+    ``s / max(w, 1)`` of its own parts (the masked cross entropy and
+    accuracy every registry batch takes)."""
     from repro_torch.distributed.sharding import batch_axes, device_mesh_of
     from repro_torch.exec.engine import slice_group
+    from repro_torch.models.common import batch_reducer
     dm = device_mesh_of(mesh)
     axes = batch_axes(dm)
     if not axes:
@@ -133,26 +137,82 @@ def data_parallel_loss(loss_fn: Callable, mesh) -> Callable:
             f"batch axes {axes} reduces each rank's loss statistics, and "
             f"{getattr(loss_fn, '__qualname__', loss_fn)!r} carries no "
             "`parts(params, batch)` ([s, w] that add over row shards, the "
-            "loss being s / max(w, 1)). The moe family's cross entropy has "
-            "none: its load-balancing term is a product of batch means. "
-            "Give the loss its parts, or run it without a mesh")
+            "loss being s / max(w, 1), and optionally a third entry every "
+            "rank holds alike, added after). Give the loss its parts, or "
+            "run it without a mesh")
     coord = dm.get_coordinate()
     shard = 0
     for a, s in zip(axes, sizes):
         shard = shard * s + int(coord[names.index(a)])
     group = axes_group(dm, axes)
 
-    def loss(params, batch):
+    def all_sum(t):
         import torch.distributed as dist
+        t = t.to(torch.float32).clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    def loss(params, batch):
         rows = _rows(batch)
         if rows % n_shards:
             raise ValueError(
                 f"the global batch's {rows} rows do not split over the "
                 f"{n_shards} ranks of the batch axes {axes}")
-        sw = parts(params, slice_group(batch, shard, n_shards))
-        sw = torch.as_tensor(sw, dtype=torch.float32).reshape(2).clone()
-        dist.all_reduce(sw, group=group)
-        return sw[0] / torch.clamp_min(sw[1], 1.0)
+        with batch_reducer(all_sum):
+            out = torch.as_tensor(parts(params, slice_group(
+                batch, shard, n_shards)), dtype=torch.float32).reshape(-1)
+        sw = all_sum(out[:2])
+        mean = sw[0] / torch.clamp_min(sw[1], 1.0)
+        return mean if out.numel() == 2 else mean + out[2]
+
+    return loss
+
+
+def mesh_loss(loss_fn: Callable, mesh) -> Callable:
+    """``loss_fn`` over a plan's mesh, taking the GLOBAL batch.
+
+    * θ as DTensors (tensor parallelism, leaves placed under
+      ``param_shardings``): the batch is placed on the mesh — each rank's
+      rows over the batch axes, as ``StepProgram.shardings`` gives them
+      (``sharding.place``: cut from the rank's copy, nothing sent) — and
+      the loss runs as one DTensor program under the activation resolver
+      and ``implicit_replication`` (the model's plain constants mix in as
+      replicated): DTensor inserts the reductions, as XLA does for JAX.
+      The loss comes back a DTensor, read on the host as one value.
+    * plain θ: ``data_parallel_loss`` — the rank's rows, scalars only on
+      the wire (a loss it refuses is refused at the first call)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import (P, NamedSharding,
+                                                  batch_axes, device_mesh_of,
+                                                  make_activation_resolver,
+                                                  place)
+    from repro_torch.kernels._build import live_dtensor
+    from repro_torch.models.common import shard_resolver
+    dm = device_mesh_of(mesh)
+    resolver = make_activation_resolver(dm)
+    ba = batch_axes(dm)
+    b_ax = ba if len(ba) > 1 else (ba[0] if ba else None)
+    rows = math.prod(int(dm.mesh.shape[tuple(dm.mesh_dim_names).index(a)])
+                     for a in ba)
+    try:
+        dp, refusal = data_parallel_loss(loss_fn, dm), None
+    except ValueError as e:
+        dp, refusal = None, e
+
+    def sharding(x):
+        split = (isinstance(x, torch.Tensor) and x.dim() >= 1
+                 and x.shape[0] % rows == 0)
+        return NamedSharding(dm, P(b_ax) if split else P())
+
+    def loss(params, batch):
+        if any(live_dtensor(t) for t in tree_leaves(params)):
+            placed = place(batch, tree_map(sharding, batch))
+            with shard_resolver(resolver), implicit_replication():
+                return loss_fn(params, placed)
+        if dp is None:
+            raise refusal
+        return dp(params, batch)
 
     return loss
 

@@ -100,9 +100,35 @@ def device_mesh_of(mesh):
 # --------------------------------------------------------------------------- #
 # Mesh-axis helpers
 # --------------------------------------------------------------------------- #
+#: the one mesh dim a batch over ('pod', 'data') is placed on
+#: (``flatten_batch_axes``)
+BATCH_FLAT = "pod_data"
+
+
 def batch_axes(mesh) -> tuple:
     mesh = as_mesh(mesh)
+    if BATCH_FLAT in mesh.axis_names:
+        return (BATCH_FLAT,)
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def flatten_batch_axes(device_mesh):
+    """``device_mesh`` with its 'pod' and 'data' dims flattened into the
+    one dim ``BATCH_FLAT`` (``DeviceMesh._flatten``), the others after it
+    in order: a batch over both axes is then one ``Shard(0)`` where two
+    would make DTensor carry ``_StridedShard`` placements through every
+    op (and search its strategies over them).  The ranks and each one's
+    place are unchanged; a mesh without both dims is itself."""
+    import warnings
+    names = tuple(device_mesh.mesh_dim_names)
+    if "pod" not in names or "data" not in names:
+        return device_mesh
+    device_mesh["pod", "data"]._flatten(BATCH_FLAT)
+    rest = tuple(n for n in names if n not in ("pod", "data"))
+    with warnings.catch_warnings():
+        # torch names slicing by a flattened dim as to be deprecated
+        warnings.simplefilter("ignore", UserWarning)
+        return device_mesh[(BATCH_FLAT,) + rest]
 
 
 def tp_axes(mesh) -> tuple:
@@ -250,6 +276,30 @@ def param_shardings(params: PyTree, mesh) -> PyTree:
     return tree_unflatten(params, [
         NamedSharding(dm, infer_param_spec(path, tuple(leaf.shape), dm))
         for path, leaf in flatten_with_path(params)])
+
+
+def place(tree: PyTree, shardings: PyTree) -> PyTree:
+    """``tree`` — held whole by every rank, as a JAX step's arguments are —
+    as DTensors under ``shardings`` (``NamedSharding`` leaves of the same
+    structure): each rank keeps its own shard, cut from its copy
+    (``compute_local_shape_and_global_offset``), so nothing is sent.  A
+    leaf that is not a tensor, or a 0-d one, rides along unplaced."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    def one(x, sh):
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        shape, offset = compute_local_shape_and_global_offset(
+            x.shape, sh.mesh, sh.placements)
+        local = x[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        return DTensor.from_local(local.contiguous(), sh.mesh,
+                                  sh.placements, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    return tree_map(one, tree, shardings)
 
 
 # --------------------------------------------------------------------------- #

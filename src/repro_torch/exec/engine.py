@@ -18,10 +18,14 @@ key when ``n_groups == 1`` — exactly the local facade's per-seed fold, so
 
 ``seed_parallel(n)``'s groups are evaluated one after another on their
 batch slices, all at the step's center parameters.  A plan that carries a
-materialized mesh (a ``DeviceMesh``) runs every loss evaluation data
-parallel over the mesh's batch axes (``distributed.collectives.
-data_parallel_loss``): each rank evaluates its rows of the global batch and
-the loss scalars are the step's only collectives; z is regenerated on every
+materialized mesh (a ``DeviceMesh``) runs every loss evaluation over it
+(``distributed.collectives.mesh_loss``).  With θ as DTensors placed under
+``shardings()`` (tensor parallelism), each group's rows are placed over
+the mesh's batch axes and the loss is one DTensor program; every z write
+goes to the rank's shard of each leaf at the shard's global indices, so
+θ± and the update are bitwise the one-device step's.  With plain θ each
+rank evaluates its rows of the global batch and the loss scalars are the
+step's only collectives (``data_parallel_loss``); z is regenerated on every
 rank.  Every write is in place.
 """
 from __future__ import annotations
@@ -241,9 +245,8 @@ class StepProgram:
                     f"{type(self.opt).__name__} differentiates its loss; a "
                     "plan's mesh reduces forward-only loss scalars — run "
                     "the backprop baselines without a mesh")
-            from repro_torch.distributed.collectives import \
-                data_parallel_loss
-            loss_fn = data_parallel_loss(loss_fn, self.plan.mesh)
+            from repro_torch.distributed.collectives import mesh_loss
+            loss_fn = mesh_loss(loss_fn, self.plan.mesh)
         if not self.is_zo or self.plan.kind == "local":
             return self.opt.step_fn(loss_fn)
         if self.plan.kind == "seed_parallel":

@@ -20,12 +20,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional
 
 import torch
 
@@ -93,6 +94,107 @@ def on_meta(t) -> bool:
     charges ``analysis.costs`` with the local shard and launches
     nothing."""
     return isinstance(t, torch.Tensor) and t.device.type == "meta"
+
+
+def live_dtensor(t) -> bool:
+    """A DTensor whose shard holds values (not a dry run's ``meta``)."""
+    return hasattr(t, "placements") and t.device.type != "meta"
+
+
+def refuse_dtensor(t, what: str) -> None:
+    """A kernel launches on plain tensors only: a live DTensor's pointer
+    is its own object's, not its shard's, so the caller passes the shard
+    (``to_local()``) and, for the z kernels, its ``ShardMap``."""
+    if live_dtensor(t):
+        raise TypeError(
+            f"{what}: given a DTensor; pass its local shard (to_local()) "
+            "and, for a z write, the shard's ShardMap (shard_map)")
+
+
+#: elements a launch of a shard route indexes at most (32-bit local index)
+SHARD_SPAN = 1 << 31
+
+
+class ShardMap(NamedTuple):
+    """Where a rank's shard of a leaf lies in the whole leaf: the shard
+    viewed as (O, Dl, I) inside the global (O, D, I) at row s0, so local
+    flat element l = (o, s, i) takes global flat index o·D·I + (s0 + s)·I
+    + i.  ``rows`` = Dl·I local elements a row, ``stride`` = D·I global
+    elements between rows, ``start`` = s0·I.  The z kernels draw element
+    l's z at that index (K1 and K3 its counter mod 2³², X1 its threefry
+    counter), so a shard's write is bitwise the slice of the whole leaf's
+    (``shard_map`` builds it from a DTensor's placements)."""
+    rows: int
+    stride: int
+    start: int
+
+    def index(self, lo: int, hi: int, device) -> torch.Tensor:
+        """Global flat indices (int64) of local elements [lo, hi)."""
+        loc = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        row = torch.div(loc, self.rows, rounding_mode="floor")
+        return self.start + row * self.stride + (loc - row * self.rows)
+
+    def segments(self, n: int, span: int = SHARD_SPAN) -> List[tuple]:
+        """The launches over a shard of ``n`` local elements:
+        ``(lo, length, rows, stride, start)`` each, ``length`` below
+        ``span`` and local element ``lo + j`` at global index
+        ``start + (j // rows)·stride + j % rows``: whole rows a launch,
+        or pieces of one row where a row is longer than ``span``."""
+        R, G = self.rows, self.stride
+        out = []
+        if n == 0:
+            return out
+        if R <= span:
+            per = span // R * R
+            for lo in range(0, n, per):
+                out.append((lo, min(per, n - lo), R, G,
+                            self.start + lo // R * G))
+            return out
+        for o in range(n // R):
+            for c in range(0, R, span):
+                ln = min(span, R - c)
+                out.append((o * R + c, ln, ln, ln, self.start + o * G + c))
+        return out
+
+
+def shard_window(shape, dim: int, parts: int, index: int) -> tuple:
+    """Shard ``index`` of ``parts`` of a tensor of ``shape`` cut on ``dim``
+    by DTensor's ``Shard`` rule (``torch.chunk``'s: ⌈D/parts⌉ rows a shard,
+    the last ones short or empty): ``(slices, ShardMap)``, the slices
+    selecting the shard in the whole tensor."""
+    shape = tuple(shape)
+    D = shape[dim]
+    per = -(-D // parts)
+    lo, hi = min(index * per, D), min((index + 1) * per, D)
+    inner = math.prod(shape[dim + 1:])
+    sl = tuple(slice(lo, hi) if d == dim else slice(None)
+               for d in range(len(shape)))
+    return sl, ShardMap((hi - lo) * inner, D * inner, lo * inner)
+
+
+def shard_map(t) -> Optional[ShardMap]:
+    """The ``ShardMap`` of a DTensor's local shard within its global
+    tensor (torch's ``compute_local_shape_and_global_offset``), or
+    ``None`` where the shard is the whole tensor (replicated).  The
+    sharding rules shard one dim a leaf; a shard cut on two dims is not
+    one (O, Dl, I) box and raises."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape = tuple(t.shape)
+    local, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    cut = [d for d in range(len(shape))
+           if local[d] != shape[d] or offset[d] != 0]
+    if not cut:
+        return None
+    if len(cut) > 1:
+        raise NotImplementedError(
+            f"a shard of {shape} cut on dims {cut} ({t.placements}): the z "
+            "kernels' shard map takes one sharded dim a leaf, as the "
+            "sharding rules give (ROADMAP Queue 2)")
+    k = cut[0]
+    inner = math.prod(shape[k + 1:])
+    return ShardMap(local[k] * inner, shape[k] * inner, offset[k] * inner)
 
 
 def empty_streams(x, n: int):
@@ -223,4 +325,7 @@ def stream_of(t) -> int:
 
 
 def ptr(t) -> ctypes.c_void_p:
+    """``t``'s device pointer for a launch; a live DTensor raises (its
+    pointer is not its shard's)."""
+    refuse_dtensor(t, "a kernel launch")
     return ctypes.c_void_p(t.data_ptr())

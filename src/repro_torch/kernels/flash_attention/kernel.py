@@ -128,11 +128,71 @@ def _lib():
     return lib
 
 
+def _local_heads(q, k, v, causal: bool, window: int):
+    """K2 on the rank's heads of DTensor q, k, v (tensor parallelism):
+    each rank launches on its local tensors — K2 on the card, the plain
+    version on the CPU — and the result takes q's placements.  Attention
+    is separable by head and by batch row, so this holds where the three
+    are placed alike on one mesh, on the batch (dim 0) or the head dim
+    (2) only, and each rank's q heads are the groups of its KV heads
+    (H_local / KV_local = H / KV, q's first head g times k's)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    def refuse(why: str):
+        raise ValueError(
+            "flash_attention on DTensors launches on each rank's heads; "
+            f"{why} (q {tuple(q.shape)} {getattr(q, 'placements', None)}, "
+            f"k {tuple(k.shape)} {getattr(k, 'placements', None)}, "
+            f"v {getattr(v, 'placements', None)})")
+
+    if not all(isinstance(t, DTensor) for t in (q, k, v)):
+        refuse("q, k and v must all be DTensors")
+    mesh = q.device_mesh
+    if k.device_mesh != mesh or v.device_mesh != mesh:
+        refuse("q, k and v lie on different meshes")
+    if not (tuple(q.placements) == tuple(k.placements)
+            == tuple(v.placements)):
+        refuse("q, k and v are placed differently")
+    if any(not (p.is_replicate() or (p.is_shard() and p.dim in (0, 2)))
+           for p in q.placements):
+        refuse("only the batch and head dims may be sharded, and nothing "
+               "may be a partial sum")
+    ql, qo = compute_local_shape_and_global_offset(q.shape, mesh,
+                                                   q.placements)
+    kl, ko = compute_local_shape_and_global_offset(k.shape, mesh,
+                                                   k.placements)
+    g = q.shape[2] // k.shape[2]
+    if ql[2] != g * kl[2] or qo[2] != g * ko[2] or ql[0] != kl[0] \
+            or qo[0] != ko[0]:
+        refuse(f"a rank's q heads are not the groups of its KV heads "
+               f"(q heads {qo[2]}+{ql[2]}, KV heads {ko[2]}+{kl[2]}, "
+               f"group {g})")
+    o = _attend(q.to_local(), k.to_local(), v.to_local(), causal, window,
+                ("local_heads",))
+    return DTensor.from_local(o, mesh, q.placements, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd).  Forward only, on
     every device: JAX's Pallas kernel has no backward either, so
-    ``attention_impl="pallas_flash"`` refuses autograd in both packages."""
+    ``attention_impl="pallas_flash"`` refuses autograd in both packages.
+    Live DTensors (tensor parallelism) launch on each rank's heads
+    (``_local_heads``), or raise naming their placements; a DTensor's
+    pointer never reaches the kernel."""
+    if any(_build.live_dtensor(t) for t in (q, k, v)):
+        return _local_heads(q, k, v, causal, window)
+    return _attend(q, k, v, causal, window, ())
+
+
+def _attend(q, k, v, causal: bool, window: int, routes: tuple):
+    """``flash_attention`` on plain (or ``meta``) tensors; a launch is
+    counted under its route, its head dim and ``routes``."""
     _build.refuse_autograd(
         "flash_attention (K2, attention_impl='pallas_flash')", (q, k, v),
         "attention_impl='xla' or 'chunked', which differentiate in both "
@@ -176,5 +236,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         vst[2], hd ** -0.5, int(bool(causal)), int(window),
         _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
-    _build.count("flash_attention", p.route, f"hd{hd}")
+    _build.count("flash_attention", p.route, f"hd{hd}", *routes)
     return o

@@ -456,6 +456,23 @@ struct Writer {
     }
   }
 
+  // one 16-byte vector of x's bits xv (zero for FORM_Z) written at its
+  // N = 16 / sizeof(T) elements' bits p
+  template <int N>
+  __device__ __forceinline__ uint4 vec(const uint4& xv, const Pre (&p)[N],
+                                       const Scal& s) const {
+    uint32_t w[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (sizeof(T) == 4)
+        w[q] = __float_as_uint(
+            write_f32<DIST, FORM>(__uint_as_float(w[q]), p[q], s));
+      else
+        w[q] = pair(w[q], p[2 * q], p[2 * q + 1]);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+
   // one element at index i of x / y
   __device__ __forceinline__ void one(const T* x, T* y, uint32_t i,
                                       const Pre& p, const Scal& s) const {
@@ -499,16 +516,7 @@ whole_kernel(const T* x, T* y, Whole g, Key k, Scal s) {
     Pre p[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) p[j] = threefry(g.x0c, c + (uint32_t)j, k);
-    uint32_t w[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if constexpr (sizeof(T) == 4)
-        w[q] = __float_as_uint(
-            write_f32<DIST, FORM>(__uint_as_float(w[q]), p[q], s));
-      else
-        w[q] = wr.pair(w[q], p[2 * q], p[2 * q + 1]);
-    }
-    *reinterpret_cast<uint4*>(y + i0) = make_uint4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<uint4*>(y + i0) = wr.vec(xv, p, s);
   }
   const uint32_t body_end = g.head + g.nvec * N;
   for (uint32_t r = tid; r < g.n - g.nvec * N; r += nthreads) {
@@ -971,6 +979,110 @@ struct OrigBandsL {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The shard route: a rank's shard of a leaf under tensor parallelism.
+// Local element j of a launch is draw element e = base + (j / R) * G + j % R
+// (kernels/_build.py ShardMap) and takes e's bits in either layout: the
+// partitionable hash of e, or (ORIG) its own word of its pair under the
+// draw's one key (m words, half h) — a shard need not hold the pair's other
+// site — so the write is bitwise the slice of the whole leaf's.  The
+// partitionable layout walks 16-byte vectors where R and n are multiples
+// of a vector's elements and x, y lie on 16 bytes (shard_vec_kernel: no
+// vector crosses a row, one 32-bit divide a vector); the original layout
+// and any other shard walk one element a thread step (shard_kernel).
+// ---------------------------------------------------------------------------
+struct ShardV {
+  uint32_t n, R;        // local elements in the launch; a row's
+  uint64_t G, base;     // draw elements between rows; the first row's start
+  uint32_t m, h;        // ORIG: the draw's words and their half
+  int lg;               // ORIG: log2(elements a word)
+};
+
+template <typename T, int DIST, int FORM, bool ORIG>
+__global__ void __launch_bounds__(THREADS)
+shard_kernel(const T* x, T* y, ShardV g, Key k, Scal s) {
+  using TB = Table<T, DIST, FORM>;
+  __shared__ __align__(16) char tab[TB::BYTES];
+  build_table<T, DIST, FORM>(tab, s);
+  if constexpr (TB::ENTRIES > 0) __syncthreads();
+  const Writer<T, DIST, FORM> wr(tab, s);
+  const uint32_t tid = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t nthreads = gridDim.x * THREADS;
+  for (uint32_t j = tid; j < g.n; j += nthreads) {
+    const uint32_t row = j / g.R;
+    const uint64_t e = g.base + (uint64_t)row * g.G + (j - row * g.R);
+    Pre p;
+    if constexpr (ORIG) {
+      const uint32_t w = (uint32_t)(e >> g.lg);
+      const bool first = w < g.h;
+      const uint32_t c0 = first ? w : w - g.h;
+      const uint32_t c1 = first ? (w + g.h < g.m ? w + g.h : 0u) : w;
+      const Pre r = threefry(c0 + k.k0, c1 + k.k1, k);
+      p = orig_pre<T, DIST, FORM>(first ? r.A : r.B,
+                                  (int)(e & ((1u << g.lg) - 1u)), g.lg);
+    } else {
+      p = threefry((uint32_t)(e >> 32) + k.k0, (uint32_t)e + k.k1, k);
+    }
+    wr.one(x, y, j, p, s);
+  }
+}
+
+template <typename T, int DIST, int FORM>
+__global__ void __launch_bounds__(THREADS)
+shard_vec_kernel(const T* x, T* y, ShardV g, Key k, Scal s) {
+  using TB = Table<T, DIST, FORM>;
+  __shared__ __align__(16) char tab[TB::BYTES];
+  build_table<T, DIST, FORM>(tab, s);
+  if constexpr (TB::ENTRIES > 0) __syncthreads();
+  const Writer<T, DIST, FORM> wr(tab, s);
+  constexpr int N = 16 / sizeof(T);
+  const uint32_t tid = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t nthreads = gridDim.x * THREADS;
+  for (uint32_t v = tid; v < g.n / N; v += nthreads) {
+    const uint32_t j0 = v * N;
+    const uint32_t row = j0 / g.R;
+    const uint64_t e0 = g.base + (uint64_t)row * g.G + (j0 - row * g.R);
+    uint4 xv = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (FORM != FORM_Z)
+      xv = *reinterpret_cast<const uint4*>(x + j0);
+    Pre p[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const uint64_t e = e0 + (uint64_t)j;
+      p[j] = threefry((uint32_t)(e >> 32) + k.k0, (uint32_t)e + k.k1, k);
+    }
+    *reinterpret_cast<uint4*>(y + j0) = wr.vec(xv, p, s);
+  }
+}
+
+template <typename T, int DIST, int FORM>
+struct ShardL {
+  static void run(const void* x, void* y, const ShardV& g, int orig,
+                  uint32_t k0, uint32_t k1, const Scal& s, cudaStream_t st) {
+    constexpr uint32_t N = 16 / sizeof(T);
+    const bool vec = !orig && g.R % N == 0 && g.n % N == 0 &&
+                     (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;
+    if (vec) {
+      const int grid =
+          resident_grid<shard_vec_kernel<T, DIST, FORM>>((uint64_t)g.n / N);
+      shard_vec_kernel<T, DIST, FORM><<<grid, THREADS, 0, st>>>(
+          (const T*)x, (T*)y, g,
+          make_key(k0, k1, key_shift<T, DIST, FORM>()), s);
+    } else if (orig) {
+      const int grid =
+          resident_grid<shard_kernel<T, DIST, FORM, true>>((uint64_t)g.n);
+      shard_kernel<T, DIST, FORM, true><<<grid, THREADS, 0, st>>>(
+          (const T*)x, (T*)y, g, make_key(k0, k1, 0), s);
+    } else {
+      const int grid =
+          resident_grid<shard_kernel<T, DIST, FORM, false>>((uint64_t)g.n);
+      shard_kernel<T, DIST, FORM, false><<<grid, THREADS, 0, st>>>(
+          (const T*)x, (T*)y, g,
+          make_key(k0, k1, key_shift<T, DIST, FORM>()), s);
+    }
+  }
+};
+
 __global__ void normal_f32_kernel(float* out, int64_t m0, int64_t n) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
@@ -1187,6 +1299,30 @@ int zo_threefry_original_bands(const void* x, void* y, int dtype, uint32_t k0,
   const Scal s{a, b, e, k, zs_on, zs};
   return (int)dispatch<OrigBandsL>(dtype, dist, form, x, y, g, bd, k0, k1, s,
                                    (cudaStream_t)stream);
+}
+
+// zo_threefry_shard: one launch of the shard route over n < 2^31 local
+// elements of a rank's shard of a draw of `total` elements: local element j
+// at draw element base + (j / R) * G + j % R; orig selects the original
+// layout (bw bits an element, the draw below 2^32 - 1 words: one key).
+int zo_threefry_shard(const void* x, void* y, uint32_t n, int dtype,
+                      uint32_t k0, uint32_t k1, uint32_t R, uint64_t G,
+                      uint64_t base, uint64_t total, int orig, int bw,
+                      int dist, int form, float a, float b, float e, float k,
+                      int zs_on, float zs, void* stream) {
+  if (n == 0) return 0;
+  const int lg = bw == 32 ? 0 : bw == 16 ? 1 : bw == 8 ? 2 : -1;
+  const uint64_t m = (total * (uint64_t)bw + 31) / 32;
+  if ((dist != 0 && dist != 1) || form < 0 || form > 3 || R == 0 ||
+      n > (1u << 31) || (x == nullptr && form != FORM_Z) ||
+      (orig && (lg < 0 || bw != orig_bw(dtype, dist) ||
+                m >= 0xFFFFFFFFull)))
+    return (int)cudaErrorInvalidValue;
+  const ShardV g{n, R, G, base, (uint32_t)m, (uint32_t)(m - m / 2),
+                 lg < 0 ? 0 : lg};
+  const Scal s{a, b, e, k, zs_on, zs};
+  return (int)dispatch<ShardL>(dtype, dist, form, x, y, g, orig, k0, k1, s,
+                               (cudaStream_t)stream);
 }
 
 // out[j] = the f32 gaussian z of bits (m0 + j) << 9, j < n: every uniform

@@ -407,13 +407,16 @@ def zo_affine_threefry_plain(x: Optional[torch.Tensor], key, form: str,
                              out: Optional[torch.Tensor] = None,
                              bands: Optional[Sequence] = None,
                              offset: int = 0, total: Optional[int] = None,
-                             partitionable: bool = True) -> torch.Tensor:
+                             partitionable: bool = True,
+                             shard: Optional[_build.ShardMap] = None
+                             ) -> torch.Tensor:
     """Plain X1 on any device.  ``x=None`` (form ``z``) writes z into
     ``out``; ``bands`` is a list of flat ``(lo, hi)`` ranges, the only
     elements written (a rows plan); ``offset`` is added to every flat
-    index (a chunk of a longer leaf) and ``total`` is that leaf's element
-    count (default offset + numel), which the original layout's pairing
-    reads."""
+    index (a chunk of a longer leaf), ``shard`` maps y's elements to their
+    indices in the whole leaf (y is a rank's shard), and ``total`` is that
+    leaf's element count (default offset + numel), which the original
+    layout's pairing reads."""
     fcode = FORMS[form]
     y = out if out is not None else torch.empty_like(x)
     dtype = y.dtype
@@ -430,9 +433,10 @@ def zo_affine_threefry_plain(x: Optional[torch.Tensor], key, form: str,
     for lo0, hi0 in ranges:
         for lo in range(lo0, hi0, chunk):
             hi = min(lo + chunk, hi0)
-            idx = torch.arange(lo + offset, hi + offset, dtype=torch.int64,
-                               device=y.device)
-            zu = _z_unit(random_bits(key, idx, n, bw, partitionable), dtype,
+            idx = (torch.arange(lo, hi, dtype=torch.int64, device=y.device)
+                   if shard is None else shard.index(lo, hi, y.device))
+            zu = _z_unit(random_bits(key, idx + offset, n, bw,
+                                     partitionable), dtype,
                          dist)
             if zs is not None:
                 zu = _rt(zu * zs, dtype)
@@ -467,6 +471,10 @@ def _lib():
                                                    f, f, f, i, f, vp, vp, i,
                                                    i64, vp]
         lib.zo_threefry_original_bands.restype = i
+        lib.zo_threefry_shard.argtypes = [vp, vp, u32, i, u32, u32, u32, u64,
+                                          u64, u64, i, i, i, i, f, f, f, f,
+                                          i, f, vp]
+        lib.zo_threefry_shard.restype = i
         lib.zo_threefry_normal_f32.argtypes = [vp, i64, i64, vp]
         lib.zo_threefry_normal_f32.restype = i
         lib.zo_threefry_table.argtypes = [vp, i, vp]
@@ -681,7 +689,9 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
                        out: Optional[torch.Tensor] = None,
                        bands: Optional[Sequence] = None,
                        offset: int = 0, total: Optional[int] = None,
-                       partitionable: Optional[bool] = None) -> torch.Tensor:
+                       partitionable: Optional[bool] = None,
+                       shard: Optional[_build.ShardMap] = None
+                       ) -> torch.Tensor:
     """X1: the affine write ``form`` of z(key) over one leaf (see ``FORMS``),
     in place when ``out`` is ``x``.  Scalars are f32 values (half dtypes:
     values of the leaf dtype).  ``offset`` is the leaf index of y's first
@@ -696,7 +706,13 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
     ``bands`` route; under the original layout its own kernel,
     ``zo_affine_threefry_original`` (``original_launches``, counted as
     ``pairs`` and as ``pairs/vector`` or ``pairs/scalar`` by
-    ``original_route``; bands as ``bands``)."""
+    ``original_route``; bands as ``bands``).  ``shard`` makes y (and x) a
+    rank's shard of a leaf of ``total`` elements (``_build.shard_map``):
+    its z is the whole leaf's at the shard's global indices, in either
+    layout (the original one computes each element's own word of its
+    pair), on the ``shard`` route (16-byte vectors under the
+    partitionable layout where the shard's rows allow, else one element a
+    thread step); a live DTensor raises (pass its shard)."""
     if dist not in DIST_CODES:
         raise NotImplementedError(
             f"zo_affine_threefry has no generator for dist={dist!r}; sphere "
@@ -717,16 +733,22 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
                           or x.device != y.device):
         raise ValueError("zo_affine_threefry: out must match x in shape, "
                          "dtype and device")
+    _build.refuse_dtensor(y, "zo_affine_threefry")
+    _build.refuse_dtensor(x, "zo_affine_threefry")
+    if shard is not None and bands is not None:
+        raise ValueError("zo_affine_threefry: a shard map and a rows plan's "
+                         "bands together have no route")
     if y.dtype != torch.float32:
         check_scalars(y.dtype, a, b, e, zs)
     if partitionable is None:
         from repro_torch.perturb.stream import partitionable as _layout
         partitionable = _layout()
     if total is None:
-        if offset and not partitionable:
+        if (offset or shard is not None) and not partitionable:
             raise ValueError("zo_affine_threefry: the original threefry "
                              "layout pairs words across the whole leaf; "
-                             "give the leaf's total with an offset")
+                             "give the leaf's total with an offset or a "
+                             "shard")
         total = offset + y.numel()
     if costs.active():
         n = (_build.local(y).numel() if bands is None
@@ -738,7 +760,8 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
         return y
     if y.device.type == "cpu":
         return zo_affine_threefry_plain(x, key, form, a, b, e, zs, dist, y,
-                                        bands, offset, total, partitionable)
+                                        bands, offset, total, partitionable,
+                                        shard)
     if y.device.type != "cuda":
         raise RuntimeError(f"zo_affine_threefry: no kernel for {y.device}")
     if not y.is_contiguous() or (x is not None and not x.is_contiguous()):
@@ -756,6 +779,10 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
             float(np.float32(b)), float(np.float32(e)), float(np.float32(k)),
             int(zs is not None), float(np.float32(0.0 if zs is None else zs)))
     stream = _build.stream_of(y)
+    if shard is not None:
+        return _launch_shard(lib, x, y, shard, int(offset), int(total),
+                             partitionable, bit_width(y.dtype, dist), k0, k1,
+                             scal, stream)
     if not partitionable:
         return _launch_original(lib, x, y, key, bands, int(offset),
                                 int(total), bit_width(y.dtype, dist), scal,
@@ -787,6 +814,29 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
             DTYPE_CODES[y.dtype], k0, k1, ln.hi, ln.lo, *scal, stream)
         _build.check(lib, err, "zo_affine_threefry")
         _build.count("zo_affine_threefry", route)
+    return y
+
+
+def _launch_shard(lib, x, y, shard: _build.ShardMap, offset: int,
+                  total: int, partitionable: bool, bw: int, k0: int, k1: int,
+                  scal, stream) -> torch.Tensor:
+    """X1's ``shard`` route for a CUDA shard (see ``zo_affine_threefry``):
+    one launch a ``ShardMap`` segment, counted once a call."""
+    if not partitionable and draw_words(total, bw) >= BLOCK_WORDS:
+        raise NotImplementedError(
+            "X1's shard route under the original threefry layout takes a "
+            f"draw of fewer than {BLOCK_WORDS} words (one key); a leaf of "
+            f"{total} elements splits its key (ROADMAP Queue 2)")
+    size = y.element_size()
+    xp = None if x is None else x.data_ptr()
+    for lo, n, R, G, base in shard.segments(y.numel()):
+        err = lib.zo_threefry_shard(
+            None if xp is None else xp + lo * size, y.data_ptr() + lo * size,
+            n, DTYPE_CODES[y.dtype], k0, k1, R, G, base + offset, total,
+            int(not partitionable), bw, *scal, stream)
+        _build.check(lib, err, "zo_affine_threefry")
+    _build.count("zo_affine_threefry" if partitionable
+                 else "zo_affine_threefry_original", "shard")
     return y
 
 

@@ -24,6 +24,11 @@
 // leaf as uint32, so the write may go in place (x == y).  A leaf of 2^31
 // elements or more runs as consecutive launches whose counters continue.
 //
+// The shard route (zo_affine_shard) writes a rank's shard of a leaf under
+// tensor parallelism: each element's counter is its index in the whole leaf
+// (zo::ShardMap), one 32-bit divide a 16-byte vector, so the shard's write
+// is bitwise the slice of the whole leaf's.
+//
 // zo_selftest holds z_of's pieces against zo::ref over their whole domains.
 #include "zo_stream.cuh"
 
@@ -69,6 +74,44 @@ cudaError_t launch_t(const void* x, void* y, int64_t n, uint32_t seed,
     zo_affine_kernel<T, DIST><<<grid, THREADS, 0, stream>>>(
         xc, yc, len, base, sp, key, a, b);
   });
+}
+
+// The shard route: a rank's shard of a leaf, each element's counter its
+// index in the whole leaf (zo::ShardMap), so the write is bitwise that
+// slice of the whole leaf's.
+template <typename T, int DIST, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+zo_affine_shard_kernel(const T* x, T* y, uint32_t n, zo::ShardMap m,
+                       uint32_t key, float a, float b) {
+  zo::shard_walk<T, VEC>(x, y, n, m, [&](float v, uint32_t im) {
+    return zo::affine(a, v, b, zo::z_of<DIST>(im, key));
+  });
+}
+
+template <typename T, int DIST, bool VEC>
+void launch_shard_t(const void* x, void* y, uint32_t n, zo::ShardMap m,
+                    uint32_t key, float a, float b, cudaStream_t stream) {
+  const uint32_t work = VEC ? n / zo::Vec<T>::N : n;
+  const int grid =
+      zo::resident_grid<zo_affine_shard_kernel<T, DIST, VEC>>(THREADS, work);
+  zo_affine_shard_kernel<T, DIST, VEC><<<grid, THREADS, 0, stream>>>(
+      (const T*)x, (T*)y, n, m, key, a, b);
+}
+
+template <typename T>
+cudaError_t launch_shard(const void* x, void* y, uint32_t n, uint32_t seed,
+                         float a, float b, int dist, zo::ShardMap m,
+                         cudaStream_t stream) {
+  const uint32_t key = zo::seed_key(seed);
+  const bool vec = zo::shard_vec<T>(x, y, m);
+  if (dist == 0) {
+    if (vec) launch_shard_t<T, 0, true>(x, y, n, m, key, a, b, stream);
+    else launch_shard_t<T, 0, false>(x, y, n, m, key, a, b, stream);
+  } else {
+    if (vec) launch_shard_t<T, 1, true>(x, y, n, m, key, a, b, stream);
+    else launch_shard_t<T, 1, false>(x, y, n, m, key, a, b, stream);
+  }
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -165,6 +208,26 @@ int zo_affine(const void* x, void* y, int64_t n, int dtype, uint32_t seed,
     case 0: return (int)launch<float>(x, y, n, seed, a, b, dist, s);
     case 1: return (int)launch<__nv_bfloat16>(x, y, n, seed, a, b, dist, s);
     case 2: return (int)launch<__half>(x, y, n, seed, a, b, dist, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One launch of the shard route over n < 2^31 local elements of a rank's
+// shard: local element l at global index base + (l / R) * G + l % R (mod
+// 2^32; kernels/_build.py ShardMap.segments cuts a shard into launches).
+int zo_affine_shard(const void* x, void* y, uint32_t n, int dtype,
+                    uint32_t seed, float a, float b, int dist, uint32_t R,
+                    uint32_t G, uint32_t base, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n == 0) return 0;
+  if ((dist != 0 && dist != 1) || R == 0 || n > (1u << 31))
+    return (int)cudaErrorInvalidValue;
+  const zo::ShardMap m{R, G, base};
+  switch (dtype) {
+    case 0: return (int)launch_shard<float>(x, y, n, seed, a, b, dist, m, s);
+    case 1:
+      return (int)launch_shard<__nv_bfloat16>(x, y, n, seed, a, b, dist, m, s);
+    case 2: return (int)launch_shard<__half>(x, y, n, seed, a, b, dist, m, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -36,6 +36,10 @@
 // streams (round_to) is the write/read boundary of one launch
 // (multi.py:101-117).
 //
+// zo_affine_chain_shard runs the chain on a rank's shard of a leaf under
+// tensor parallelism, each element's counters its index in the whole leaf
+// (zo::ShardMap in zo_stream.cuh), bitwise the slice of the whole chain.
+//
 // Seeds and coefficients travel by value in the kernel's parameters, at
 // most ZO_MAX_STREAMS per launch; the wrapper splits a longer list into
 // consecutive launches (a chain of chains is the same fold).  Nothing is
@@ -148,6 +152,46 @@ cudaError_t launch_chain(const void* x, void* y, int64_t n, int nb,
   });
 }
 
+// The chain on a rank's shard of a leaf (zo::ShardMap): the same fold, each
+// element's counters its index in the whole leaf.
+template <typename T, int DIST, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+chain_shard_kernel(const T* x, T* y, uint32_t n, zo::ShardMap m, int nb,
+                   const Streams s) {
+  zo::shard_walk<T, VEC>(x, y, n, m, [&](float v, uint32_t im) {
+    for (int j = 0; j < nb; ++j)
+      v = zo::round_to(x, zo::affine(s.a[j], v, s.b[j],
+                                     zo::z_of<DIST>(im,
+                                                    zo::seed_key(s.seed[j]))));
+    return v;
+  });
+}
+
+template <typename T, int DIST, bool VEC>
+void launch_chain_shard_t(const void* x, void* y, uint32_t n, zo::ShardMap m,
+                          int nb, const Streams& s, cudaStream_t stream) {
+  const uint32_t work = VEC ? n / zo::Vec<T>::N : n;
+  const int grid =
+      zo::resident_grid<chain_shard_kernel<T, DIST, VEC>>(THREADS, work);
+  chain_shard_kernel<T, DIST, VEC><<<grid, THREADS, 0, stream>>>(
+      (const T*)x, (T*)y, n, m, nb, s);
+}
+
+template <typename T>
+cudaError_t launch_chain_shard(const void* x, void* y, uint32_t n, int nb,
+                               const Streams& s, int dist, zo::ShardMap m,
+                               cudaStream_t st) {
+  const bool vec = zo::shard_vec<T>(x, y, m);
+  if (dist == 0) {
+    if (vec) launch_chain_shard_t<T, 0, true>(x, y, n, m, nb, s, st);
+    else launch_chain_shard_t<T, 0, false>(x, y, n, m, nb, s, st);
+  } else {
+    if (vec) launch_chain_shard_t<T, 1, true>(x, y, n, m, nb, s, st);
+    else launch_chain_shard_t<T, 1, false>(x, y, n, m, nb, s, st);
+  }
+  return cudaGetLastError();
+}
+
 // The fan-out's route: vector when every slice lies against 16 bytes as x
 // does (n * sizeof(T) a multiple of 16; split_of checks x against y),
 // scalar otherwise.
@@ -238,6 +282,29 @@ int zo_affine_chain(const void* x, void* y, int64_t n, int dtype,
   if (nb < 1 || nb > ZO_MAX_STREAMS) return (int)cudaErrorInvalidValue;
   return dispatch(true, x, y, n, dtype, pack(seeds, a, b, nb, 0.f, 0.f), nb,
                   dist, stream);
+}
+
+// The chain on one launch of a rank's shard (zo_affine_shard's map);
+// y may be x (in place).
+int zo_affine_chain_shard(const void* x, void* y, uint32_t n, int dtype,
+                          const uint32_t* seeds, const float* a,
+                          const float* b, int nb, int dist, uint32_t R,
+                          uint32_t G, uint32_t base, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n == 0) return 0;
+  if (nb < 1 || nb > ZO_MAX_STREAMS || (dist != 0 && dist != 1) || R == 0 ||
+      n > (1u << 31))
+    return (int)cudaErrorInvalidValue;
+  const Streams s = pack(seeds, a, b, nb, 0.f, 0.f);
+  const zo::ShardMap m{R, G, base};
+  switch (dtype) {
+    case 0: return (int)launch_chain_shard<float>(x, y, n, nb, s, dist, m, st);
+    case 1:
+      return (int)launch_chain_shard<__nv_bfloat16>(x, y, n, nb, s, dist, m,
+                                                    st);
+    case 2: return (int)launch_chain_shard<__half>(x, y, n, nb, s, dist, m, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -208,11 +208,13 @@ def plain_chunk(device) -> int:
 def zo_affine_plain(x: torch.Tensor, seed: int, a: float, b: float,
                     dist: str = "gaussian",
                     out: Optional[torch.Tensor] = None,
-                    offset: int = 0) -> torch.Tensor:
+                    offset: int = 0,
+                    shard: Optional[_build.ShardMap] = None) -> torch.Tensor:
     """Plain torch K1 on any device: y = fma(a, x, round(b·z)) in f32, cast
     to x's dtype.  ``out`` may be ``x`` (in place); ``offset`` is added to
-    every flat index (x is a window of a longer leaf), and the counter is
-    that index mod 2³², as JAX's uint32 counter wraps."""
+    every flat index (x is a window of a longer leaf), ``shard`` maps x's
+    elements to their indices in the whole leaf (x is a rank's shard), and
+    the counter is that index mod 2³², as JAX's uint32 counter wraps."""
     flat = x.reshape(-1)
     y = torch.empty_like(x) if out is None else out
     yflat = y.view(-1)
@@ -221,9 +223,9 @@ def zo_affine_plain(x: torch.Tensor, seed: int, a: float, b: float,
     chunk = plain_chunk(x.device)
     for lo in range(0, flat.numel(), chunk):
         hi = min(lo + chunk, flat.numel())
-        idx = torch.arange(lo + offset, hi + offset, dtype=torch.int64,
-                           device=x.device) & _MASK
-        z = z_from_counter(idx, seed, dist)
+        idx = (torch.arange(lo, hi, dtype=torch.int64, device=x.device)
+               if shard is None else shard.index(lo, hi, x.device))
+        z = z_from_counter((idx + offset) & _MASK, seed, dist)
         yflat[lo:hi] = _fma(a32, flat[lo:hi].to(torch.float32),
                             z * b32).to(x.dtype)
     return y
@@ -251,19 +253,30 @@ def _lib():
                                   ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p]
         lib.zo_affine.restype = ctypes.c_int
+        lib.zo_affine_shard.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int,
+            ctypes.c_uint32, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+            ctypes.c_void_p]
+        lib.zo_affine_shard.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
 def zo_affine(x: torch.Tensor, seed: int, a: float, b: float,
               dist: str = "gaussian",
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None,
+              shard: Optional[_build.ShardMap] = None) -> torch.Tensor:
     """y = a·x + b·z(seed) over a leaf of any shape; ``out=x`` writes in
-    place (the paper's in-place trick).  CPU tensors take the plain version;
-    CUDA tensors launch K1; ``meta`` tensors (and DTensors on them) take the
-    shape rule."""
+    place (the paper's in-place trick).  ``shard`` makes x a rank's shard
+    of a leaf (``_build.shard_map``): its z is the whole leaf's at the
+    shard's global indices, so the write is bitwise that slice of the
+    whole leaf's.  CPU tensors take the plain version; CUDA tensors launch
+    K1 (its ``shard`` route with a map); ``meta`` tensors (and DTensors on
+    them) take the shape rule; a live DTensor raises (pass its shard)."""
     _check_dist(dist)
     _check_leaf(x, "zo_affine")
+    _build.refuse_dtensor(x, "zo_affine")
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype
                             or out.device != x.device):
         raise ValueError("zo_affine: out must match x in shape, dtype and "
@@ -274,13 +287,24 @@ def zo_affine(x: torch.Tensor, seed: int, a: float, b: float,
     if _build.on_meta(x):
         return torch.empty_like(x) if out is None else out
     if x.device.type == "cpu":
-        return zo_affine_plain(x, seed, a, b, dist, out)
+        return zo_affine_plain(x, seed, a, b, dist, out, shard=shard)
     if out is not None and not out.is_contiguous():
         raise ValueError("zo_affine: the CUDA kernel takes contiguous leaves")
     y = torch.empty_like(x) if out is None else out
     if x.numel() == 0:
         return y
     lib = _lib()
+    if shard is not None:
+        size = x.element_size()
+        for lo, n, R, G, base in shard.segments(x.numel()):
+            err = lib.zo_affine_shard(
+                x.data_ptr() + lo * size, y.data_ptr() + lo * size, n,
+                DTYPE_CODES[x.dtype], int(seed) & _MASK, _f32(a), _f32(b),
+                DIST_CODES[dist], R, G & _MASK, base & _MASK,
+                _build.stream_of(x))
+            _build.check(lib, err, "zo_affine")
+        _build.count("zo_affine", "shard")
+        return y
     err = lib.zo_affine(_build.ptr(x), _build.ptr(y), x.numel(),
                         DTYPE_CODES[x.dtype], int(seed) & _MASK, _f32(a),
                         _f32(b), DIST_CODES[dist], _build.stream_of(x))
@@ -333,6 +357,10 @@ def _multi_lib():
             fn.restype = i
         lib.zo_affine_batched.argtypes = [vp, vp, i64, i, vp, i, f, f, i, vp]
         lib.zo_affine_batched.restype = i
+        u32 = ctypes.c_uint32
+        lib.zo_affine_chain_shard.argtypes = [vp, vp, u32, i, vp, vp, vp, i,
+                                              i, u32, u32, u32, vp]
+        lib.zo_affine_chain_shard.restype = i
         lib._typed = True
     return lib
 

@@ -116,9 +116,12 @@ def zo_affine_multi(x: torch.Tensor, seeds, a, b,
 # --------------------------------------------------------------------------- #
 def zo_affine_chain_plain(x: torch.Tensor, seeds, a, b,
                           dist: str = "gaussian",
-                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          out: Optional[torch.Tensor] = None,
+                          shard: Optional[_build.ShardMap] = None
+                          ) -> torch.Tensor:
     """Plain K3: the sequential K1 fold ``for j: y = zo_affine(y, seeds[j],
-    a[j], b[j])``, each step written in x's dtype.  ``out`` may be x."""
+    a[j], b[j])``, each step written in x's dtype.  ``out`` may be x;
+    ``shard`` makes x a rank's shard (K1's map)."""
     seeds, a, b = _streams(seeds, a, b)
     if out is None:
         y = x.clone()
@@ -127,18 +130,22 @@ def zo_affine_chain_plain(x: torch.Tensor, seeds, a, b,
         if y.data_ptr() != x.data_ptr():
             y.copy_(x)
     for s, aj, bj in zip(seeds, a, b):
-        zo_affine_plain(y, s, aj, bj, dist, out=y)
+        zo_affine_plain(y, s, aj, bj, dist, out=y, shard=shard)
     return y
 
 
 def zo_affine_chain(x: torch.Tensor, seeds, a, b, dist: str = "gaussian",
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    shard: Optional[_build.ShardMap] = None) -> torch.Tensor:
     """K3 (port of ``zo_affine_chain_2d``): the B-stream fold in one read and
     one write of x; ``out=x`` writes in place.  Bitwise the sequential K1
     fold; more than ``MAX_STREAMS`` streams run as consecutive launches (a
-    chain of chains is the same fold)."""
+    chain of chains is the same fold).  ``shard`` makes x a rank's shard
+    of a leaf (``_build.shard_map``; the ``shard`` route on the card),
+    bitwise the slice of the whole leaf's chain; a live DTensor raises."""
     _check_dist(dist)
     _check_leaf(x, "zo_affine_chain")
+    _build.refuse_dtensor(x, "zo_affine_chain")
     seeds, a, b = _streams(seeds, a, b)
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype
                             or out.device != x.device):
@@ -150,7 +157,7 @@ def zo_affine_chain(x: torch.Tensor, seeds, a, b, dist: str = "gaussian",
     if _build.on_meta(x):
         return torch.empty_like(x) if out is None else out
     if x.device.type == "cpu":
-        return zo_affine_chain_plain(x, seeds, a, b, dist, out)
+        return zo_affine_chain_plain(x, seeds, a, b, dist, out, shard)
     if out is not None and not out.is_contiguous():
         raise ValueError("zo_affine_chain: the CUDA kernel takes contiguous "
                          "leaves")
@@ -159,6 +166,21 @@ def zo_affine_chain(x: torch.Tensor, seeds, a, b, dist: str = "gaussian",
         return y
     lib = _multi_lib()
     src = x
+    if shard is not None:
+        size = x.element_size()
+        for j0 in range(0, len(seeds), MAX_STREAMS):
+            j1 = min(j0 + MAX_STREAMS, len(seeds))
+            for lo, n, R, G, base in shard.segments(x.numel()):
+                err = lib.zo_affine_chain_shard(
+                    src.data_ptr() + lo * size, y.data_ptr() + lo * size, n,
+                    DTYPE_CODES[x.dtype], _u32_array(seeds[j0:j1]),
+                    _f32_array(a[j0:j1]), _f32_array(b[j0:j1]), j1 - j0,
+                    DIST_CODES[dist], R, G & _MASK, base & _MASK,
+                    _build.stream_of(x))
+                _build.check(lib, err, "zo_affine_chain")
+            _build.count("zo_affine_chain", "shard")
+            src = y
+        return y
     for j0 in range(0, len(seeds), MAX_STREAMS):
         j1 = min(j0 + MAX_STREAMS, len(seeds))
         err = lib.zo_affine_chain(

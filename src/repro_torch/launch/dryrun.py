@@ -40,8 +40,17 @@ What is counted, per rank, from the local ops beneath DTensor's dispatch:
   and not by their plain versions;
 * collectives by kind with their local result bytes (and DTensor's own
   ``CommDebugMode`` counts beside them);
-* memory: the argument bytes (the local shards of θ, the optimizer state
-  and the batch) and the peak of live bytes above them during the trace.
+* memory, under JAX's keys: ``argument_size_in_bytes`` (the local shards
+  of θ, the optimizer state and the batch), ``output_size_in_bytes`` (the
+  tensors the step returns, θ written in place among them) and
+  ``temp_size_in_bytes`` — the peak of live bytes above the arguments
+  during the trace (kept as ``peak_bytes``), with the workspace an aten
+  op allocates inside its kernel live at that op
+  (``analysis.costs.aten_workspace``: logsumexp's ``exp(x − max)``).
+
+A batch over the multi-pod mesh's ('pod', 'data') axes is placed on one
+flattened mesh dim (``sharding.flatten_batch_axes``), so DTensor carries
+no ``_StridedShard`` placements through the step.
 
 ``compile_s`` holds the trace's seconds (JAX's key: its compile time).
 There is no ``calibrate_loop_costs``: XLA's cost analysis counts a scanned
@@ -70,6 +79,7 @@ from repro_torch.analysis import flops as flops_lib
 from repro_torch.analysis import roofline as roofline_lib
 from repro_torch.device import placeholder_reads
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
+                                              flatten_batch_axes,
                                               infer_batch_spec,
                                               make_activation_resolver,
                                               param_shardings)
@@ -282,6 +292,9 @@ class _RankOps:
         self.flops = self.bytes = self.ops = 0
         self.collectives: list = []
         self.live = self.peak = 0
+        #: the peak with each op's own workspace (``costs.aten_workspace``)
+        #: live beside what the trace holds at the op
+        self.peak_ws = 0
         #: id of a live tensor -> its storage's [bytes, live tensors on it]
         self._storage: dict = {}
         self.suspended = 0
@@ -326,6 +339,9 @@ class _RankOps:
                                          sum(_nbytes(t) for t in outs)))
             return
         self.ops += 1
+        ws = costs.aten_workspace(name, args)
+        if ws:
+            self.peak_ws = max(self.peak_ws, self.live + ws)
         packet = func.overloadpacket
         if packet in self.flop_registry:
             self.flops += int(self.flop_registry[packet](
@@ -414,7 +430,9 @@ def tracing(placed: bool):
     trace.kernel_alu_ops = counter.ops_at("f32")
     trace.hbm_bytes = rank_ops.bytes + counter.total_bytes
     trace.collectives = list(rank_ops.collectives)
-    trace.memory = {"peak_bytes": int(rank_ops.peak)}
+    trace.memory = {"peak_bytes": int(rank_ops.peak),
+                    "temp_size_in_bytes": int(max(rank_ops.peak,
+                                                  rank_ops.peak_ws))}
     if placed:
         trace.comm_counts = {str(k): int(v) for k, v in
                              comm.get_comm_counts().items()}
@@ -474,17 +492,18 @@ def trace_case(cfg, b, cell, mesh, backend: str = "xla",
             arg_bytes["state"] = _local_bytes(state)
             step = prog.step_fn(b.loss_fn())
             with tracing(placed) as trace:
-                step(params, state, batch)
+                out = step(params, state, batch)
         elif cell.kind == "prefill":
             with tracing(placed) as trace:
-                b.prefill_fn()(params, batch)
+                out = b.prefill_fn()(params, batch)
         else:
             batch = _host_positions(batch, cell)
             with tracing(placed) as trace:
-                b.decode_fn()(params, batch)
+                out = b.decode_fn()(params, batch)
     trace.memory.update(
         argument_size_in_bytes=sum(arg_bytes.values()),
-        argument_bytes=arg_bytes)
+        argument_bytes=arg_bytes,
+        output_size_in_bytes=_local_bytes(_tensors(out)))
     return trace
 
 
@@ -503,6 +522,8 @@ def run_case(arch_id: str, cell, mesh, mesh_name: str, overrides: dict,
         cfg = cfg.replace(**overrides)
     b = bundle(cfg)
     chips = 1 if mesh is None else int(mesh.size())
+    if mesh is not None:
+        mesh = flatten_batch_axes(mesh)
     rec = {"arch": arch_id, "cell": cell.name, "mesh": mesh_name,
            "chips": chips, "optimizer": optimizer,
            "perturb_backend": backend, "estimator": estimator,

@@ -96,6 +96,30 @@ def _bcast_mask(m: torch.Tensor) -> torch.Tensor:
     return m[None, None, None] if m.dim() == 2 else m[:, None, None]
 
 
+def _grouped_scores(qg, k):
+    """einsum("bqkgh,bskh->bkgqs") as a bmm whose (b, k) batch is merged by
+    ``common.reshape``: einsum merges it by a view that a DTensor sharded
+    on both dims may refuse (torch 2.11's ``aten._unsafe_view``).  On plain
+    tensors it is the einsum bit for bit (einsum lowers to the same bmm;
+    checked at every registry arch's heads in f32 and bf16, on the CPU and
+    on an H100)."""
+    B, Q, KV, G, hd = qg.shape
+    S = k.shape[1]
+    q2 = reshape(qg.permute(0, 2, 3, 1, 4), B * KV, G * Q, hd)
+    k2 = reshape(k.permute(0, 2, 3, 1), B * KV, hd, S)
+    return reshape(torch.bmm(q2, k2), B, KV, G, Q, S)
+
+
+def _grouped_values(w, v):
+    """einsum("bkgqs,bskh->bqkgh"), formed as ``_grouped_scores`` forms
+    its product."""
+    B, KV, G, Q, S = w.shape
+    hd = v.shape[-1]
+    w2 = reshape(w, B * KV, G * Q, S)
+    v2 = reshape(v.permute(0, 2, 1, 3), B * KV, S, hd)
+    return reshape(torch.bmm(w2, v2), B, KV, G, Q, hd).permute(0, 3, 1, 2, 4)
+
+
 def attend_xla(q, k, v, *, q_pos, k_pos, causal=True, window=0, kv_len=None,
                scale=None):
     """q (B,Q,H,hd), k/v (B,K,KV,hd) -> (B,Q,H,hd).  GQA via head grouping."""
@@ -104,11 +128,11 @@ def attend_xla(q, k, v, *, q_pos, k_pos, causal=True, window=0, kv_len=None,
     G = H // KV
     scale = scale if scale is not None else hd ** -0.5
     qg = reshape(q, B, Q, KV, G, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).to(torch.float32) * scale
+    scores = _grouped_scores(qg, k).to(torch.float32) * scale
     scores = torch.where(_bcast_mask(_mask(q_pos, k_pos, causal, window,
                                            kv_len)), scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    out = _grouped_values(w, v)
     return reshape(out, B, Q, H, hd)
 
 

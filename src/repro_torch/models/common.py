@@ -54,6 +54,28 @@ def shard_hint(x: torch.Tensor, logical: str) -> torch.Tensor:
     return x.redistribute(x.device_mesh, spec.placements(x.device_mesh))
 
 
+@contextlib.contextmanager
+def batch_reducer(fn: Optional[Callable[[torch.Tensor], torch.Tensor]]):
+    """Install ``fn`` — the sum of an f32 tensor over the ranks that hold
+    the other rows of the batch — for the block.  A term that is a
+    product of batch means (the moe family's load-balancing loss) sums
+    its statistics through it, so each rank's loss on its rows is the
+    whole batch's; the data-parallel loss installs it.  Without one the
+    statistics stay local, as on one device."""
+    prev = getattr(_tls, "reducer", None)
+    _tls.reducer = fn
+    try:
+        yield
+    finally:
+        _tls.reducer = prev
+
+
+def batch_reduction() -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """The installed ``batch_reducer`` function, or ``None`` (the caller
+    keeps its local form, bit for bit)."""
+    return getattr(_tls, "reducer", None)
+
+
 def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
     """``x.reshape(*shape)``.  A DTensor (a dry run's trace) whose sharding
     the reshape cannot keep — a sharded dim split or merged unevenly, such
@@ -74,6 +96,20 @@ def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
     pl = [Replicate() if p.is_shard() and p.dim >= keep else p
           for p in x.placements]
     return x.redistribute(x.device_mesh, pl).reshape(*shape)
+
+
+def settle(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its partial sums reduced: a DTensor that is ``Partial``
+    on a mesh dim (a gather over a sharded vocab, a product over a
+    sharded contraction) is reduced to ``Replicate`` there before a view
+    that DTensor cannot carry a partial value through; a plain tensor is
+    itself."""
+    if not hasattr(x, "placements") or not any(
+            p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
 
 
 def placed_like(ref: torch.Tensor, tree):

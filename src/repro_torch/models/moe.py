@@ -23,7 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.common import activation, dense_init, shard_hint
+from repro_torch.models.common import (activation, batch_reduction,
+                                       dense_init, shard_hint)
 
 
 def expert_group_count(cfg) -> int:
@@ -116,12 +117,24 @@ def route(cfg, router: torch.Tensor, xg: torch.Tensor) -> Routing:
 
 def aux_loss(cfg, r: Routing) -> torch.Tensor:
     """Switch load-balancing loss: E · Σ_e mean router prob · fraction of
-    choices routed to e (dropped choices counted, as in JAX)."""
+    choices routed to e (dropped choices counted, as in JAX), the means
+    over the whole batch when a ``common.batch_reducer`` is installed."""
     E = cfg.n_experts
-    me = r.probs.mean(dim=(0, 1))
     routed = torch.nn.functional.one_hot(r.gate_idx, E).to(
         torch.float32).sum(dim=2)
-    ce = routed.mean(dim=(0, 1))
+    reduce = batch_reduction()
+    if reduce is None:
+        me = r.probs.mean(dim=(0, 1))
+        ce = routed.mean(dim=(0, 1))
+    else:
+        # over the batch's ranks: the E router-prob sums, the E routed
+        # counts and the token count, all-reduced, then the means
+        G, M = r.probs.shape[:2]
+        sums = reduce(torch.cat([
+            r.probs.sum(dim=(0, 1)), routed.sum(dim=(0, 1)),
+            torch.full((1,), float(G * M), dtype=torch.float32,
+                       device=routed.device)]))
+        me, ce = sums[:E] / sums[2 * E], sums[E:2 * E] / sums[2 * E]
     return E * torch.sum(me * ce)
 
 

@@ -110,6 +110,12 @@ def lora_loss_fn(cfg: ModelConfig, base_params: dict) -> Callable:
 
     def loss(lora_params, batch):
         return unified({"base": base_params, "lora": lora_params}, batch)
+
+    def parts(lora_params, batch):
+        return unified.parts({"base": base_params, "lora": lora_params},
+                             batch)
+
+    loss.parts = parts
     return loss
 
 
@@ -222,6 +228,12 @@ def prefix_loss_fn(cfg: ModelConfig, base_params: dict) -> Callable:
 
     def loss(prefix_params, batch):
         return unified({"base": base_params, "prefix": prefix_params}, batch)
+
+    def parts(prefix_params, batch):
+        return unified.parts({"base": base_params, "prefix": prefix_params},
+                             batch)
+
+    loss.parts = parts
     return loss
 
 
@@ -238,21 +250,34 @@ def peft_params(base_params: dict, peft_tree: dict, mode: str) -> dict:
 
 
 def peft_loss_fn(cfg: ModelConfig, mode: str) -> Callable:
-    """``loss(merged, batch)`` over a ``peft_params`` merged tree."""
+    """``loss(merged, batch)`` over a ``peft_params`` merged tree, with the
+    ``parts(merged, batch)`` of the loss it wraps (``transformer.
+    loss_parts``: what the data-parallel reduction sums across ranks)."""
     if mode == "lora":
         base_loss = transformer.train_loss_fn(cfg)
 
         def loss(merged, batch):
             return base_loss(merge_lora(merged["base"], merged["lora"]),
                              batch)
+
+        def parts(merged, batch):
+            return base_loss.parts(merge_lora(merged["base"],
+                                              merged["lora"]), batch)
     elif mode == "prefix":
         def loss(merged, batch):
             logits, aux = _forward_with_prefix(cfg, merged["base"],
                                                merged["prefix"], batch)
             return transformer.lm_loss(cfg, logits, batch["labels"],
                                        batch.get("loss_mask"), aux)
+
+        def parts(merged, batch):
+            logits, aux = _forward_with_prefix(cfg, merged["base"],
+                                               merged["prefix"], batch)
+            return transformer.loss_parts(cfg, logits, batch["labels"],
+                                          batch.get("loss_mask"), aux)
     else:
         raise ValueError(f"unknown peft mode {mode!r}; available: {PEFT_MODES}")
+    loss.parts = parts
     return loss
 
 

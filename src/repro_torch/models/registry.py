@@ -180,10 +180,12 @@ class Bundle:
           and the labels; masked-out positions become −1 on both sides, so
           a real id-0 token still counts.
 
-        Each loss but the moe family's ``"ce"`` carries ``parts(params,
-        batch)``: a (2,) f32 tensor ``[s, w]`` whose sums over row shards
-        of a batch give the whole batch's loss as ``s / max(w, 1)`` (what
-        ``distributed.collectives.data_parallel_loss`` all-reduces).
+        Each loss carries ``parts(params, batch)``: a (2,) f32 tensor
+        ``[s, w]`` whose sums over row shards of a batch give the whole
+        batch's loss as ``s / max(w, 1)`` (what ``distributed.collectives.
+        data_parallel_loss`` all-reduces); the moe family's ``"ce"`` adds
+        its load-balancing term as a third entry
+        (``transformer.loss_parts``).
         """
         cfg = self.cfg
         if objective not in OBJECTIVES:

@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
-                                       norm_params, shard_hint, sinusoidal_at)
+                                       norm_params, settle, shard_hint,
+                                       sinusoidal_at)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn, ffn_params
 from repro_torch.models.moe import moe_ffn, moe_params
@@ -200,8 +201,8 @@ def _token_nll(cfg: ModelConfig, logits: torch.Tensor,
     # the gather on (tokens, vocab) rows: the form DTensor shards when the
     # vocab is sharded (a masked local gather, then a sum over the shards)
     idx = labels.to(torch.int64)
-    gold = torch.gather(lg.reshape(-1, lg.shape[-1]), 1,
-                        idx.reshape(-1, 1)).reshape(idx.shape)
+    gold = settle(torch.gather(lg.reshape(-1, lg.shape[-1]), 1,
+                               idx.reshape(-1, 1))).reshape(idx.shape)
     return logz - gold
 
 
@@ -244,13 +245,28 @@ def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
     return loss + torch.tensor(aux_coef, dtype=torch.float32) * aux_loss
 
 
+def loss_parts(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+               loss_mask: Optional[torch.Tensor] = None,
+               aux_loss: Optional[torch.Tensor] = None,
+               aux_coef: float = AUX_COEF) -> torch.Tensor:
+    """``lm_loss``'s statistics for the data-parallel reduction:
+    ``lm_loss_parts`` ``[s, w]``, and with a moe forward's ``aux_loss`` a
+    third entry ``aux_coef · aux_loss`` — a term each rank holds alike once
+    the load-balancing sums are reduced across ranks
+    (``common.batch_reducer``), added to ``s / max(w, 1)`` of the summed
+    pair."""
+    parts = lm_loss_parts(cfg, logits, labels, loss_mask)
+    if aux_loss is None:
+        return parts
+    return torch.cat([parts, (torch.tensor(aux_coef, dtype=torch.float32)
+                              * aux_loss).reshape(1)])
+
+
 def train_loss_fn(cfg: ModelConfig):
     """(params, batch) -> scalar loss — the function MeZO's two forward
-    passes evaluate.  Without experts it carries ``parts(params, batch)``,
-    ``lm_loss_parts`` of the same forward, which the data-parallel
-    reduction sums across ranks.  The moe family's load-balancing term is
-    a product of batch means over the routing, which no sum of per-rank
-    scalars gives, so its loss carries none."""
+    passes evaluate.  It carries ``parts(params, batch)``, ``loss_parts``
+    of the same forward, which the data-parallel reduction sums across
+    ranks (the moe family's with its load-balancing term)."""
     def loss_fn(params, batch):
         r = forward(cfg, params, tokens=batch.get("tokens"),
                     embeds=batch.get("embeds"))
@@ -260,10 +276,8 @@ def train_loss_fn(cfg: ModelConfig):
     def parts(params, batch):
         r = forward(cfg, params, tokens=batch.get("tokens"),
                     embeds=batch.get("embeds"))
-        return lm_loss_parts(cfg, r.logits, batch["labels"],
-                             batch.get("loss_mask"))
+        return loss_parts(cfg, r.logits, batch["labels"],
+                          batch.get("loss_mask"), r.aux_loss)
 
-    if not cfg.n_experts:
-        loss_fn.parts = parts
+    loss_fn.parts = parts
     return loss_fn
-

@@ -62,6 +62,49 @@ def per_stream_scales(scale, n_refs: int):
     return per
 
 
+def shard_view(p) -> tuple:
+    """What a z kernel writes for leaf ``p``: a live DTensor's local shard
+    and its ``ShardMap`` (``None`` when the leaf is replicated: the shard
+    is the whole leaf), else ``p`` itself and ``None`` — a plain tensor,
+    or a dry run's DTensor on ``meta``, whose shape rule charges its local
+    shard."""
+    from repro_torch.kernels import _build
+    if not _build.live_dtensor(p):
+        return p, None
+    return p.to_local(), _build.shard_map(p)
+
+
+def unsharded(p, what: str):
+    """``p`` as a z kernel with no shard map yet may write it: a live
+    DTensor's local tensor when the leaf is replicated (else ``p``); a
+    sharded one raises, naming the queue that holds the work."""
+    local, smap = shard_view(p)
+    if smap is not None:
+        raise NotImplementedError(
+            f"{what} has no shard map yet, and this leaf is sharded "
+            f"({tuple(p.shape)}, {p.placements}): the z kernels written on a "
+            "rank's shard are K1, K3 and X1's single-stream forms; K4/K5 "
+            "(fan-out), K6 (sphere's ‖z‖², a sum across ranks) and K7–K10 "
+            "(rows plans) wait in ROADMAP Queue 2")
+    return local
+
+
+def rewrap(p, local):
+    """``local`` — a fresh shard written for leaf ``p`` — as ``p``'s kind:
+    a DTensor with ``p``'s placements when ``p`` is a live DTensor, else
+    ``local`` itself."""
+    from repro_torch.kernels import _build
+    if not _build.live_dtensor(p):
+        return local
+    from torch.distributed.tensor import DTensor
+    if all(pl.is_replicate() for pl in p.placements):
+        return DTensor.from_local(local, p.device_mesh, p.placements,
+                                  run_check=False)
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
 class PerturbBackend:
     """Interface: the contract of ``repro.perturb`` — single-stream writes
     (``perturb``, ``fused_restore_update``, ``apply_rank1``), ``leaf_z``,

@@ -46,6 +46,14 @@ each single-stream method and ``affine_many`` return the same tree they were
 given, updated; ``perturb_many`` returns new stacked leaves and leaves θ
 alone.  Non-floating and unselected leaves are left alone (in
 ``perturb_many`` they ride along as broadcast views).
+
+Under tensor parallelism a leaf is a DTensor, and each write goes to the
+rank's local shard (``base.shard_view``) with its ``ShardMap``: K1 and K3
+draw the whole leaf's z at the shard's global indices, so every rank's
+write is bitwise its slice of the one-device write.  A replicated leaf is
+written whole on every rank.  The kernels with no shard map yet — the
+fan-out K4 / K5, the sphere's ‖z‖² (K6, which needs a sum across ranks)
+and the rows plans' K7–K10 — raise on a sharded leaf (``base.unsharded``).
 """
 from __future__ import annotations
 
@@ -64,7 +72,8 @@ from repro_torch.kernels.zo_fused.rows import (zo_affine_chain_rows,
                                                zo_affine_rows,
                                                zo_sqnorm_rows_many)
 from repro_torch.perturb.base import (PerturbBackend, _check_many,
-                                      per_stream_scales)
+                                      per_stream_scales, rewrap, shard_view,
+                                      unsharded)
 from repro_torch.perturb.stream import StreamRef, leaf_seed
 from repro_torch.tree_utils import (PyTree, is_floating, tree_leaves,
                                     tree_map_with_index)
@@ -115,9 +124,14 @@ class CounterBackend(PerturbBackend):
             b = float(b_leaves[i]) if b_leaves is not None else b_shared
             rb = _leaf_blocks(blocks, i)
             if rb is None:
-                return zo_affine(p, leaf_seed(seed, i), a, b, dist, out=p)
-            return zo_affine_rows(p, leaf_seed(seed, i), a, b,
-                                  rb.block_elems, rb.k, rb.phase, dist, out=p)
+                x, smap = shard_view(p)
+                zo_affine(x, leaf_seed(seed, i), a, b, dist, out=x,
+                          shard=smap)
+                return p
+            x = unsharded(p, "a rows plan's write (K7)")
+            zo_affine_rows(x, leaf_seed(seed, i), a, b, rb.block_elems, rb.k,
+                           rb.phase, dist, out=x)
+            return p
 
         return tree_map_with_index(one, params)
 
@@ -134,6 +148,7 @@ class CounterBackend(PerturbBackend):
         for i, p in enumerate(tree_leaves(params)):
             if not _active(p, mask, i):
                 continue
+            p = unsharded(p, "the sphere's ‖z‖² (K6, K10)")
             rb = _leaf_blocks(blocks, i)
             leaf = (len(whole) + len(rows), p.numel(), leaf_seed(seed, i))
             device = p.device
@@ -206,17 +221,21 @@ class CounterBackend(PerturbBackend):
     def perturb_leaf(self, p: torch.Tensor, ref: StreamRef, leaf_index: int,
                      scale, dist: str = "gaussian") -> torch.Tensor:
         self.check_dist(dist)
-        return zo_affine(p, ref.leaf_seed(leaf_index), 1.0, float(f32(scale)),
-                         "gaussian" if dist == "sphere" else dist, out=p)
+        x, smap = shard_view(p)
+        zo_affine(x, ref.leaf_seed(leaf_index), 1.0, float(f32(scale)),
+                  "gaussian" if dist == "sphere" else dist, out=x, shard=smap)
+        return p
 
     def leaf_z(self, ref: StreamRef, leaf_index: int, like: torch.Tensor,
                dist: str = "gaussian") -> torch.Tensor:
         # sphere: the direction only, as in JAX — callers apply sqrt(d)/‖z‖
         self.check_dist(dist)
-        zeros = torch.zeros(like.shape, dtype=like.dtype if is_floating(like)
-                            else torch.float32, device=like.device)
-        return zo_affine(zeros, ref.leaf_seed(leaf_index), 0.0, 1.0,
-                         "gaussian" if dist == "sphere" else dist, out=zeros)
+        x, smap = shard_view(like)
+        zeros = torch.zeros(x.shape, dtype=like.dtype if is_floating(like)
+                            else torch.float32, device=x.device)
+        return rewrap(like, zo_affine(
+            zeros, ref.leaf_seed(leaf_index), 0.0, 1.0,
+            "gaussian" if dist == "sphere" else dist, out=zeros, shard=smap))
 
     def perturb_many(self, params: PyTree, refs: Sequence[StreamRef], scale,
                      dist: str = "gaussian") -> PyTree:
@@ -243,16 +262,18 @@ class CounterBackend(PerturbBackend):
         def one(i, p):
             if not _active(p, mask, i):
                 return p.expand((n,) + tuple(p.shape))
+            x = unsharded(p, "perturb_many's fan-out (K4, K5, K8)")
             seeds = [leaf_seed(s, i) for s in seeds0]
             rb = _leaf_blocks(blocks, i)
             if rb is not None:
-                return zo_affine_multi_rows(p, seeds, [1.0] * n, b_list,
-                                            rb.block_elems, rb.k, rb.phase,
-                                            kdist)
+                return rewrap(p, zo_affine_multi_rows(
+                    x, seeds, [1.0] * n, b_list, rb.block_elems, rb.k,
+                    rb.phase, kdist))
             if per is None:
-                return zo_affine_batched(p, seeds, 1.0, float(f32(scale)),
-                                         kdist)
-            return zo_affine_multi(p, seeds, [1.0] * n, b_list, kdist)
+                return rewrap(p, zo_affine_batched(x, seeds, 1.0,
+                                                   float(f32(scale)), kdist))
+            return rewrap(p, zo_affine_multi(x, seeds, [1.0] * n, b_list,
+                                             kdist))
 
         return tree_map_with_index(one, params)
 
@@ -286,9 +307,13 @@ class CounterBackend(PerturbBackend):
             seeds = [leaf_seed(s, i) for s in seeds0]
             rb = _leaf_blocks(blocks, i)
             if rb is None:
-                return zo_affine_chain(p, seeds, a_list, b_list, kdist, out=p)
-            return zo_affine_chain_rows(p, seeds, a_list, b_list,
-                                        rb.block_elems, rb.k, rb.phase,
-                                        kdist, out=p)
+                x, smap = shard_view(p)
+                zo_affine_chain(x, seeds, a_list, b_list, kdist, out=x,
+                                shard=smap)
+                return p
+            x = unsharded(p, "a rows plan's chain (K9)")
+            zo_affine_chain_rows(x, seeds, a_list, b_list, rb.block_elems,
+                                 rb.k, rb.phase, kdist, out=x)
+            return p
 
         return tree_map_with_index(one, params)

@@ -28,7 +28,10 @@ dtype as a z scale — in ``perturb``, ``fused_restore_update`` and
 ``perturb_many``; ``apply_rank1`` and ``leaf_z`` take the plain gaussian
 direction, as in JAX (its sphere callers pre-scale the coefficient).
 The backend writes in place; unselected and non-floating leaves are left
-alone.
+alone.  A DTensor leaf (tensor parallelism) is written as the rank's
+shard, X1 drawing the whole leaf's z at the shard's global indices in
+either layout (``base.shard_view``); the sphere's ‖z‖², ``perturb_many``
+and rows plans raise on a sharded leaf (``base.unsharded``).
 
 The module also holds JAX's functional API, ``repro.perturb.xla``'s
 module-level functions (re-exported by ``repro_torch.core.perturb``):
@@ -52,7 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.threefry.kernel import zo_affine_threefry
-from repro_torch.perturb.base import PerturbBackend, per_stream_scales
+from repro_torch.perturb.base import (PerturbBackend, per_stream_scales,
+                                      rewrap, shard_view, unsharded)
 from repro_torch.perturb.counter import _active, _leaf_blocks
 from repro_torch.perturb.stream import StreamRef, fold_in
 from repro_torch.tree_utils import (PyTree, is_floating, tree_leaves,
@@ -100,6 +104,7 @@ def _sphere_scale(params: PyTree, key, mask: Optional[tuple] = None,
     for i, p in enumerate(tree_leaves(params)):
         if not _active(p, mask, i):
             continue
+        p = unsharded(p, "the sphere's ‖z‖²")
         rb = _leaf_blocks(blocks, i)
         d += p.numel() if rb is None else rb.selected_elems()
         sq = f32(sq + leaf_sqnorm(p, fold_in(key, i),
@@ -127,17 +132,23 @@ def _write(params: PyTree, key, form: str, a, b, e, dist: str, zs=None,
         dt = p.dtype
         z_scale = zs if d_leaves is None else d_leaves[i]
         rb = _leaf_blocks(blocks, i)
-        if in_place:
-            out = p
-        elif rb is None:
-            out = torch.empty(p.shape, dtype=dt, device=p.device)
+        if rb is None:
+            x, smap = shard_view(p)
         else:
-            out = p.clone(memory_format=torch.contiguous_format)
-        return zo_affine_threefry(
-            p, fold_in(key, i), form, in_dtype(a, dt), in_dtype(b, dt),
+            x, smap = unsharded(p, "a rows plan's bands"), None
+        if in_place:
+            out = x
+        elif rb is None:
+            out = torch.empty(x.shape, dtype=dt, device=x.device)
+        else:
+            out = x.clone(memory_format=torch.contiguous_format)
+        y = zo_affine_threefry(
+            x, fold_in(key, i), form, in_dtype(a, dt), in_dtype(b, dt),
             in_dtype(e, dt),
             None if z_scale is None else in_dtype(z_scale, dt), kdist,
-            out=out, bands=None if rb is None else rb.ranges())
+            out=out, bands=None if rb is None else rb.ranges(),
+            total=p.numel() if smap is not None else None, shard=smap)
+        return p if in_place else rewrap(p, y)
 
     return tree_map_with_index(one, params)
 
@@ -164,10 +175,12 @@ def sample_leaf_z(key, leaf: torch.Tensor, dist: Distribution = "gaussian",
     _check_dist(dist)
     sdtype = zo_dtype or (leaf.dtype if is_floating(leaf)
                           else torch.float32)
-    z = torch.empty(leaf.shape, dtype=sdtype, device=leaf.device)
+    x, smap = shard_view(leaf)
+    z = torch.empty(x.shape, dtype=sdtype, device=x.device)
     zo_affine_threefry(None, key, "z",
-                       dist="gaussian" if dist == "sphere" else dist, out=z)
-    return z.to(leaf.dtype)
+                       dist="gaussian" if dist == "sphere" else dist, out=z,
+                       total=leaf.numel() if smap else None, shard=smap)
+    return rewrap(leaf, z.to(leaf.dtype))
 
 
 def sample_z_tree(params: PyTree, key,
@@ -288,10 +301,13 @@ class XLABackend(PerturbBackend):
     def perturb_leaf(self, p: torch.Tensor, ref: StreamRef, leaf_index: int,
                      scale, dist: str = "gaussian") -> torch.Tensor:
         self.check_dist(dist)
-        return zo_affine_threefry(p, fold_in(ref.key, leaf_index), "xpbz",
-                                  b=in_dtype(scale, p.dtype),
-                                  dist="gaussian" if dist == "sphere"
-                                  else dist, out=p)
+        x, smap = shard_view(p)
+        zo_affine_threefry(x, fold_in(ref.key, leaf_index), "xpbz",
+                           b=in_dtype(scale, p.dtype),
+                           dist="gaussian" if dist == "sphere" else dist,
+                           out=x, total=p.numel() if smap else None,
+                           shard=smap)
+        return p
 
     def perturb_many(self, params: PyTree, refs: Sequence[StreamRef], scale,
                      dist: str = "gaussian") -> PyTree:
@@ -314,6 +330,7 @@ class XLABackend(PerturbBackend):
         def one(i, p):
             if not _active(p, mask, i):
                 return p.expand((n,) + tuple(p.shape))
+            leaf, p = p, unsharded(p, "perturb_many's stacked streams")
             dt = p.dtype
             rb = _leaf_blocks(blocks, i)
             # a rows plan writes its bands only: the rest of each slice is θ
@@ -327,6 +344,6 @@ class XLABackend(PerturbBackend):
                     None if sphs[j] is None else in_dtype(sphs[j], dt),
                     kdist, out=out[j],
                     bands=None if rb is None else rb.ranges())
-            return out
+            return rewrap(leaf, out)
 
         return tree_map_with_index(one, params)

@@ -10,9 +10,11 @@ in f32:
 * every collective of that step is an ``all_reduce`` of at most two f32
   elements, one per loss evaluation (JAX's scalar-sync property);
 * the data-parallel loss of the accuracy and F1 objectives (a masked token
-  mean and a uniform row mean) and of the moe family's accuracy within
-  1e-6 of the single-process loss; the moe family's cross entropy, whose
-  load-balancing term no sum of per-rank scalars gives, refused;
+  mean and a uniform row mean), of the moe family's accuracy and cross
+  entropy (its load-balancing term from the routing sums all-reduced inside
+  the forward) and of the three PEFT losses (LoRA and prefix tuning through
+  their deprecated entry points, and the merged-tree ``peft_loss_fn``)
+  within 1e-6 of the single-process loss;
 * ``psum_scalar`` over 'data';
 * the seed-parallel step run the same way (``collectives.
   seed_parallel_step_fn`` with the mesh);
@@ -26,8 +28,7 @@ Four ranks hold ``axes_group``'s subgroups over several axes: ``psum_scalar``
 over ('pod', 'data') and over 'model' on (pod, data, model) meshes of
 (2, 1, 2) and (2, 2, 1), and the data-parallel loss over ('pod', 'data').
 
-JAX's tensor-parallel forward check has no counterpart: the port's forwards
-run on local tensors (ROADMAP Queue 1, tensor-parallel execution).
+JAX's tensor-parallel checks are held in ``tests/test_torch_tensor_parallel.py``.
 """
 import os
 import pathlib
@@ -140,11 +141,23 @@ _SCRIPT = textwrap.dedent(r"""
     acc = bm.loss_fn("accuracy")
     out["moe_accuracy"] = abs(float(data_parallel_loss(acc, dp)(pm, bt_m))
                               - float(acc(pm, bt_m)))
-    try:
-        data_parallel_loss(bm.loss_fn(), dp)
-        out["moe_ce"] = "accepted"
-    except ValueError as e:
-        out["moe_ce"] = str(e)
+    ce = bm.loss_fn()
+    out["moe_ce"] = abs(float(data_parallel_loss(ce, dp)(pm, bt_m))
+                        - float(ce(pm, bt_m)))
+    from repro_torch.models.peft import (init_lora, init_prefix, lora_loss_fn,
+                                         peft_loss_fn, peft_params,
+                                         prefix_loss_fn)
+    g = torch.Generator().manual_seed(1)
+    lora = init_lora(cfg, g)
+    for t in ("wq", "wv"):             # B is zero at init: give it values
+        lora[t]["b"] = 0.05 * torch.randn(lora[t]["b"].shape, generator=g)
+    prefix = init_prefix(cfg, g)
+    bt_p = masked_batch(b)
+    out["peft"] = [abs(float(data_parallel_loss(f, dp)(tree, bt_p))
+                       - float(f(tree, bt_p))) for f, tree in (
+        (lora_loss_fn(cfg, params), lora),
+        (prefix_loss_fn(cfg, params), prefix),
+        (peft_loss_fn(cfg, "lora"), peft_params(params, lora, "lora")))]
     out["psum"] = float(psum_scalar(rank + 1.0, "data", dp))
     torch.save(p_dp, f"{tmp}/dp{rank}.pt")
 
@@ -253,7 +266,7 @@ def test_two_rank_gloo_data_parallel(tmp_path):
         assert r["calls"] == [[2, "torch.float32"]] * 2
         assert max(r["objectives"]) < 1e-6 and r["moe_accuracy"] < 1e-6, r
         assert r["f1"] < -0.01
-        assert "load-balancing" in r["moe_ce"], r["moe_ce"]
+        assert r["moe_ce"] < 1e-6 and max(r["peft"]) < 1e-6, r
         assert r["psum"] == 3.0
         assert r["sp"] < 1e-5 and r["sp_step"] == 1
         assert r["tp_mesh"] == [["data", "model"], [1, 2]]

@@ -188,12 +188,13 @@ def test_no_text_says_the_port_is_dense_only():
     "src/repro_torch/examples/serve_batch.py",
     "src/repro_torch/examples/train_100m.py",
     "tests/test_torch_analysis.py", "tests/test_torch_dryrun.py",
-    "tests/test_torch_examples.py"])
+    "tests/test_torch_examples.py", "tests/test_torch_tp_shards.py",
+    "tests/test_torch_tensor_parallel.py"])
 def test_new_modules_are_under_the_hygiene_checks(name):
     """The moe modules, the original-layout tests, the tenants modules and
     tests, the shims' modules and tests, the distribution modules and
-    tests, and the analysis, dry-run and example modules and their tests
-    are among the files the checks above walk, import no JAX (modules) and
+    tests, the analysis, dry-run and example modules and their tests, and
+    the tensor-parallel tests are among the files the checks above walk, import no JAX (modules) and
     no unused name."""
     path = ROOT / name
     assert path in PORT_FILES + PORT_TESTS

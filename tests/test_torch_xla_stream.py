@@ -72,7 +72,11 @@ def _tree(dtype, seed=0):
     arrs = [rng.standard_normal(s).astype(np.float32) for s in SHAPES]
     jt = {f"l{i}": jnp.asarray(a).astype(JT[dtype])
           for i, a in enumerate(arrs)}
-    tt = {f"l{i}": torch.from_numpy(a).to(dtype) for i, a in enumerate(arrs)}
+    # torch's leaves own their memory: the backend writes them in place,
+    # and JAX may still be reading ``a`` (jnp.asarray of a host array on
+    # the CPU need not copy it before it returns)
+    tt = {f"l{i}": torch.from_numpy(a).to(dtype, copy=True)
+          for i, a in enumerate(arrs)}
     return jt, tt
 
 
