@@ -188,7 +188,7 @@ the ``xla`` stream, ``pallas_flash`` attention:
   teacher forcing; K2 only in the decoder's causal self-attention.
 
 Then (x) multi-tenant LoRA serving (``repro_torch.serve.tenants``) on
-qwen2-0.5b at full width and depth (24 layers, bf16, ``pallas_flash``),
+qwen2-0.5b at full width, 4 of its 24 layers (bf16, ``pallas_flash``),
 random weights from seed 0: 8 LoRA tenants (r 2, α 16 on wq / wv) of 10
 steps of batch 8 on ``xla`` (X1) and one on ``pallas`` (K1); for one
 tenant of each stream the cached, compacted (tail 4) and fresh serving
@@ -198,8 +198,8 @@ the sum of the CPU's merge, a cache hit replaying nothing; 32 synthetic
 requests (skew 2.0, one base-model request, 16 new tokens) and a wave of
 16 template requests (4 templates of 48 tokens) through one 4-slot paged
 engine (K2 on cold prefills, K12 on prefix hits and decode, the stacked
-decode one call a step) with a 140 000 000-byte delta cache that must
-evict — tok/s, TTFT cold against warm, hit rate, ms per cold
+decode one call a step) with a delta cache of 3.18 deltas
+(``X_CACHE_BYTES``) that must evict — tok/s, TTFT cold against warm, hit rate, ms per cold
 materialization against a warm swap; the decode step timed on the
 single-model, stacked and grouped paths; in f32 the stacked decode's
 logits within ``X_F32_LOGIT_REL`` of the grouped (per-adapter) decode's
@@ -481,19 +481,23 @@ MIXTRAL_REQUESTS, MIXTRAL_NEW, MIXTRAL_MAX_LEN = 4, 16, 512
 # WHISPER_CHECK_LAYERS layers, within WHISPER_REL × max |logits|
 WHISPER_ROWS, WHISPER_FRAMES, WHISPER_NEW = 2, 1504, 16
 WHISPER_CHECK_LAYERS, WHISPER_REL = 4, 1e-4
-# (x) multi-tenant LoRA serving on qwen2-0.5b at full width and depth:
+# (x) multi-tenant LoRA serving on qwen2-0.5b at full width, X_LAYERS of its
+# 24 layers (cut from 24 to pay for (tp)'s fan-out and sphere cases: every
+# per-layer shape and every kernel of the phase stay):
 # X_TENANTS LoRA tenants (r 2, α 16 on wq / wv, the tenants package's
 # convention) of X_TENANT_STEPS steps of X_TENANT_BATCH on xla, one more on
 # pallas; X_REQUESTS synthetic requests (skew X_SKEW, X_NEW new tokens) and
 # one template wave (X_WAVE requests on X_TEMPLATES templates of
 # X_TEMPLATE_LEN tokens) over X_SLOTS slots; a delta cache of X_CACHE_BYTES
-# holds three X_DELTA_BYTES deltas (merged wq (24, 896, 896) + wv (24, 896,
-# 128) in bf16), so the tenants force evictions
+# holds three X_DELTA_BYTES deltas (merged wq (X_LAYERS, 896, 896) + wv
+# (X_LAYERS, 896, 128) in bf16), so the tenants force evictions
+X_LAYERS = 4
 X_TENANTS, X_TENANT_STEPS, X_TENANT_BATCH, X_SEED0 = 8, 10, 8, 100
 X_REQUESTS, X_NEW, X_SKEW = 32, 16, 2.0
 X_WAVE, X_TEMPLATES, X_TEMPLATE_LEN = 16, 4, 48
 X_SLOTS, X_MAX_LEN, X_KEEP_TAIL = 4, 128, 4
-X_CACHE_BYTES, X_DELTA_BYTES = 140_000_000, 44_040_192
+X_DELTA_BYTES = X_LAYERS * (896 * 896 + 896 * 128) * 2
+X_CACHE_BYTES = X_DELTA_BYTES * 35 // 11       # 3.18 deltas
 # decode steps timed per path (X_STEP_TOKENS tokens a request), and the
 # stacked-vs-per-adapter checks (X_CHECK_NEW tokens a request): in f32 the
 # stacked call's logits (batched matmuls through the vmap) within
@@ -5494,7 +5498,7 @@ def whisper_paths(torch, np, _build, counts, step_ms, card) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# (x) multi-tenant LoRA serving on qwen2-0.5b at full width and depth
+# (x) multi-tenant LoRA serving on qwen2-0.5b at full width, X_LAYERS layers
 # --------------------------------------------------------------------------- #
 def _bf16_ulp(torch, x):
     """One bf16 ulp at each |x| (0 where x is 0), in f32."""
@@ -5574,7 +5578,8 @@ def _stacked_vs_grouped(torch, eng, deltas, tagged) -> tuple:
 
 def tenants_paths(torch, np, _build, counts, step_ms, card) -> None:
     """(x) Multi-tenant LoRA serving (``repro_torch.serve.tenants``) at
-    qwen2-0.5b's full width and depth (24 layers, bf16, ``pallas_flash``):
+    qwen2-0.5b's full width, ``X_LAYERS`` of its 24 layers (bf16,
+    ``pallas_flash``):
     X_TENANTS LoRA tenants trained on ``xla`` (X1) and one on ``pallas``
     (K1); cached ≡ compacted ≡ fresh deltas bitwise for one tenant of each
     stream, the card's replayed LoRA tree ≡ the CPU's plain replay bitwise,
@@ -5601,7 +5606,8 @@ def tenants_paths(torch, np, _build, counts, step_ms, card) -> None:
     from repro_torch.serve.tenants import synth
     from repro_torch.serve.tenants.synth import lora_params0
     from repro_torch.tree_utils import tree_leaves, tree_map
-    cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
+    cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash",
+                                                n_layers=X_LAYERS)
     base = bundle(cfg).init(SEED, device="cuda")
     torch.cuda.synchronize()
     x_counts: dict = {}
@@ -6991,6 +6997,10 @@ TP_LOSS_TOL = 0.003
 #: sum dropped in one layer exceeds (a mutation check, PERF.md PR 31)
 TP_LOGIT_TOL = 0.5
 TP_RANKS = 2
+#: the (tp) rows of the kernels line (their launches the TP path's): the
+#: routes' suffixes of the launch counts
+TP_ROUTES = ("/shard", "/local_heads", "/share", "/shard/stacked",
+             "/norm_share")
 
 _TP_RANK = r"""
 import json, sys, time
@@ -7067,14 +7077,34 @@ params0 = b.init(seed, device="cuda")
 batch = b.make_batch(prng_key(seed), rows, seq, device="cuda")
 loss_fn = b.loss_fn()
 mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
-cases = {"spsa_pallas": ("pallas", zexec.local),
-         "spsa_xla": ("xla", zexec.local),
-         "sp2_pallas": ("pallas", lambda mesh=None: zexec.seed_parallel(
-             2, mesh=mesh))}
 
 
 def opt_of(backend):
     return zo.mezo(lr=1e-6, eps=1e-3, backend=backend)
+
+
+def fzoo_of(backend, dist):
+    return zo.fzoo(lr=1e-6, eps=1e-3, batch_seeds=4, dist=dist,
+                   backend=backend)
+
+
+def sp2(mesh=None):
+    return zexec.seed_parallel(2, mesh=mesh)
+
+
+# name -> (optimizer, plan, batch rows): the fzoo(4) steps (five forwards
+# each) on the batch's first FZOO_ROWS rows, so their gathered logits stay
+# a quarter of the spsa steps'
+FZOO_ROWS = 4
+cases = {"spsa_pallas": (lambda: opt_of("pallas"), zexec.local, rows),
+         "spsa_xla": (lambda: opt_of("xla"), zexec.local, rows),
+         "sp2_pallas": (lambda: opt_of("pallas"), sp2, rows),
+         "fzoo4_pallas": (lambda: fzoo_of("pallas", "gaussian"), zexec.local,
+                          FZOO_ROWS),
+         "fzoo4_sphere_pallas": (lambda: fzoo_of("pallas", "sphere"),
+                                 zexec.local, FZOO_ROWS),
+         "fzoo4_sphere_xla": (lambda: fzoo_of("xla", "sphere"), zexec.local,
+                              FZOO_ROWS)}
 
 
 def same(a, c):
@@ -7091,29 +7121,34 @@ def window(x):
     return tuple(slice(o, o + n) for o, n in zip(off, shape))
 
 
-def same_shards(tree, whole):
-    # every leaf's local shard bitwise its slice of the one-process leaf
-    return all(same(x.to_local(), w[window(x)])
-               for x, w in zip(tree_leaves(tree), whole))
+def same_shards(tree, mine):
+    # every leaf's local shard bitwise this rank's slice of the one-process
+    # leaf (``mine``: those slices)
+    return all(same(x.to_local(), w) for x, w in zip(tree_leaves(tree), mine))
 
 
-# the one-process steps, on every rank: θ at each loss evaluation, ℓ, θ
-# after, g
-refs = {}
-for name, (backend, plan) in cases.items():
+def one_process(name):
+    # the case's one-process step, on every rank: this rank's slices of θ
+    # at each loss evaluation, ℓ, of θ after, and g
+    make, plan, n = cases[name]
     snaps, losses = [], []
 
     def rec(p, bt):
         loss = loss_fn(p, bt)
-        snaps.append([x.clone() for x in tree_leaves(p)])
+        snaps.append([x[w].clone() for x, w in zip(tree_leaves(p), wins)])
         losses.append(float(host_f32(loss)))
         return loss
 
-    prog = zexec.StepProgram(opt_of(backend), plan())
+    prog = zexec.StepProgram(make(), plan())
     p, _, m = prog.step_fn(rec)(tree_clone(params0),
-                                prog.init(params0, seed=0), batch)
-    refs[name] = (snaps, losses, tree_leaves(p), float(m["projected_grad"]))
-torch.cuda.synchronize()
+                                prog.init(params0, seed=0), rows_of(n))
+    return (snaps, losses, [x[w].clone() for x, w in zip(tree_leaves(p),
+                                                         wins)],
+            float(torch.as_tensor(m["projected_grad"]).reshape(-1)[0]))
+
+
+def rows_of(n):
+    return {k: v[:n] for k, v in batch.items()}
 
 # the TP forward's logits at θ₀, gathered, against the one-process forward's
 logits_fn = b.train_logits_fn()
@@ -7121,6 +7156,9 @@ with torch.no_grad():
     one = logits_fn(params0, batch).float()
     prog = zexec.StepProgram(opt_of("pallas"), zexec.local(mesh))
     placed = place(tree_clone(params0), prog.shardings(params0)[0])
+    # this rank's window of each leaf (the placements every case's plan
+    # gives θ)
+    wins = [window(x) for x in tree_leaves(placed)]
     tp = mesh_loss(logits_fn, mesh)(placed, batch).full_tensor().float()
 class Bytes(TorchDispatchMode):
     # the local collectives beneath DTensor: kind -> [count, bytes]
@@ -7153,9 +7191,10 @@ torch.cuda.synchronize()
 _build.reset_launch_counts()
 torch.cuda.reset_peak_memory_stats()
 t_path = time.perf_counter()
-for name, (backend, plan) in cases.items():
-    snaps, losses, after_one, g_one = refs[name]
-    prog = zexec.StepProgram(opt_of(backend), plan(mesh))
+for name, (make, plan, n) in cases.items():
+    t_case = time.perf_counter()
+    snaps, losses, after_one, g_one = one_process(name)
+    prog = zexec.StepProgram(make(), plan(mesh))
     psh, _, _ = prog.shardings(params0)
     placed = place(tree_clone(params0), psh)
     seen, tp_losses = [], []
@@ -7170,7 +7209,7 @@ for name, (backend, plan) in cases.items():
 
     state = prog.init(params0, seed=0)
     if name != "spsa_pallas":
-        p, _, m = prog.step_fn(rec)(placed, state, batch)
+        p, _, m = prog.step_fn(rec)(placed, state, rows_of(n))
     else:
         # this step timed, its collectives counted (the two counting
         # modes' dispatch and the θ checks in ``rec`` inside the time)
@@ -7193,9 +7232,9 @@ for name, (backend, plan) in cases.items():
         "dg": None if g_tp is None else abs(g_tp - g_one), "g_one": g_one,
         "sharded_leaves": sum(any(pl.is_shard() for pl in x.placements)
                               for x in tree_leaves(placed))}
-    del p, placed
-    refs[name] = None
-torch.cuda.synchronize()
+    del p, placed, snaps, after_one
+    torch.cuda.synchronize()
+    out["cases"][name]["seconds"] = time.perf_counter() - t_case
 out["path_s"] = time.perf_counter() - t_path
 out["launches"] = {k: v for k, v in _build.launch_counts.items() if v}
 out["routes"] = dict(_build.route_counts)
@@ -7442,6 +7481,253 @@ def tp_kernel_rows(torch, np, _build, params0, card) -> list:
     return rows
 
 
+def tp_fanout_norm_rows(torch, np, _build, params0, card) -> list:
+    """(tp) (a) continued: the fan-out K5 and K4 (2 streams) and X1's
+    stacked streams (``perturb_many``'s writes) on every rank's shard of
+    qwen2-0.5b's sharded leaves and of the (6, 13, 20) leaves on (1, 2)
+    and (1, 4) meshes, bitwise their plain versions' ``shard=`` writes and
+    the whole fan-out's slices, timed in turns against the whole pass on
+    (1, 2); then the sphere's ‖z‖² over qwen2-0.5b's leaves split over
+    P = 2 and 4 ranks — K6's ``share`` route and X1's chunk shares — every
+    rank's fold bitwise the whole norm, K6's shares bitwise their plain
+    version's, timed (rank 0's share on P = 2) in turns against the whole
+    pass.  The kernels line's rows for the five routes."""
+    from repro_torch.kernels.threefry import kernel as x1
+    from repro_torch.kernels.zo_fused import kernel as kz
+    from repro_torch.kernels.zo_fused import multi as km
+    from repro_torch.perturb import xla as pxla
+    from repro_torch.perturb.base import NormShare
+    from repro_torch.perturb.stream import fold_in, leaf_seed
+    from repro_torch.perturb.xla import in_dtype
+    from repro_torch.tree_utils import is_floating, tree_leaves
+    t0 = time.perf_counter()
+    seeds = [7, 2**31 + 5]
+    a2, b2 = [1.0, 0.5], [1e-3, -2e-3]
+    keys = [(3, 2**32 - 7), (11, 5)]
+
+    def x1s_into(x, out, shard, total, plain):
+        for j, key in enumerate(keys):
+            (x1.zo_affine_threefry_plain if plain else x1.zo_affine_threefry)(
+                x, key, "xpbz", 0.0, in_dtype(b2[j], x.dtype), 0.0, None,
+                "gaussian", out=out[j], shard=shard, total=total)
+        return out
+
+    kernels = {
+        "zo_affine_batched/shard": (
+            lambda x, shard=None, total=None: kz.zo_affine_batched(
+                x, seeds, 1.0, 1e-3, shard=shard),
+            lambda x, shard, total: kz.zo_affine_batched_plain(
+                x, seeds, 1.0, 1e-3, shard=shard),
+            "src/repro_torch/kernels/zo_fused/csrc/zo_multi.cu",
+            "src/repro/kernels/zo_fused/kernel.py:283"),
+        "zo_affine_multi/shard": (
+            lambda x, shard=None, total=None: km.zo_affine_multi(
+                x, seeds, a2, b2, shard=shard),
+            lambda x, shard, total: km.zo_affine_multi_plain(
+                x, seeds, a2, b2, shard=shard),
+            "src/repro_torch/kernels/zo_fused/csrc/zo_multi.cu",
+            "src/repro/kernels/zo_fused/multi.py:80"),
+        "zo_affine_threefry/shard/stacked": (
+            lambda x, shard=None, total=None: x1s_into(
+                x, _build.empty_streams(x, 2), shard, total, False),
+            lambda x, shard, total: x1s_into(
+                x, _build.empty_streams(x, 2), shard, total, True),
+            "src/repro_torch/kernels/threefry/csrc/zo_threefry.cu",
+            "src/repro/perturb/xla.py:38-325")}
+    checked = {k: 0 for k in kernels}
+    err = {k: 0.0 for k in kernels}
+    plain_ms = {k: 0.0 for k in kernels}
+    g0 = torch.Generator(device="cuda").manual_seed(33)
+    odd = [torch.randn(6, 13, 20, generator=g0, device="cuda").to(dt)
+           for dt in (torch.float32, torch.bfloat16)]
+    for n in TP_MODEL_SIZES:
+        for timed, leaf, wins in [
+                (n == TP_RANKS, *w) for w in _tp_windows(params0, n, _build)
+        ] + [(False, x, [_build.shard_window(x.shape, d, n, r)
+                         for r in range(n)]) for x in odd for d in range(3)]:
+            for name, (fn, plain, _, _) in kernels.items():
+                whole = fn(leaf)
+                for sl, smap in wins:
+                    loc = leaf[sl].contiguous()
+                    got = fn(loc, shard=smap, total=leaf.numel())
+                    box = []
+                    ms = host_ms(lambda: box.append(
+                        plain(loc, smap, leaf.numel())))
+                    want = box[0]
+                    plain_ms[name] += ms if timed else 0.0
+                    if got.numel():
+                        err[name] = max(err[name], float(
+                            (got.float() - want.float()).abs().max()))
+                    if not same_bits(got, want):
+                        fail(f"(tp) {name} on shard {sl} of a "
+                             f"{tuple(leaf.shape)} leaf (model {n}) is not "
+                             "its plain version's shard write bitwise (max "
+                             f"abs err {err[name]})")
+                    if not same_bits(got, whole[(slice(None),) + sl]
+                                     .contiguous()):
+                        fail(f"(tp) {name} on shard {sl} of a "
+                             f"{tuple(leaf.shape)} leaf (model {n}) is not "
+                             "the slice of the whole fan-out")
+                    checked[name] += 1
+                    del got, want
+                del whole
+    log(f"(tp) (a) K5, K4 (2 streams) and X1's stacked streams on every "
+        f"rank's shard of qwen2-0.5b's sharded leaves and of (6, 13, 20) "
+        f"f32 / bf16 leaves cut on each dim, on (1, 2) and (1, 4) meshes: "
+        f"bitwise their plain versions' shard writes and the whole "
+        f"fan-out's slices ({checked} shards)")
+
+    wins = _tp_windows(params0, TP_RANKS, _build)
+    n_el = sum(leaf.numel() for leaf, _ in wins)
+    locs = [[(leaf[sl].contiguous(), smap) for sl, smap in ws]
+            for leaf, ws in wins]
+    rows = []
+    for name, (fn, _, src, rep) in kernels.items():
+        def shards(fn=fn):
+            for (leaf, _), ls in zip(wins, locs):
+                for loc, smap in ls:
+                    fn(loc, shard=smap, total=leaf.numel())
+
+        def whole(fn=fn):
+            for leaf, _ in wins:
+                fn(leaf)
+
+        t = run_ms({"shards": shards, "whole": whole}, 1, rounds=6,
+                   graph=False)
+        work = (costs.zo_affine_threefry(n_el, 2, "xpbz") if "threefry" in
+                name else costs.zo_affine_fanout(n_el, 2, len(seeds)))
+        bms, by = costs.bound_ms([work] * (len(keys) if "threefry" in name
+                                           else 1))
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": 0, "max_abs_err": err[name],
+                     "ms": t["shards"], "plain_ms": plain_ms[name],
+                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+        log(f"(tp) {name}, both ranks' shards of the {len(wins)} sharded "
+            f"leaves ({n_el} elements, bf16, 2 streams) on a (1, 2) mesh: "
+            f"{t['shards']:.3f} ms against the whole fan-out's "
+            f"{t['whole']:.3f} ms over the same leaves, in turns (6 rounds); "
+            f"plain {plain_ms[name]:.1f} ms; bound {bms:.3f} ms ({by}) — on "
+            f"{card}")
+    del locs
+
+    # the sphere's ‖z‖² split over P ranks: every rank's fold bitwise the
+    # whole norm, on both streams
+    leaves = [p for p in tree_leaves(params0) if is_floating(p)]
+    ns = [p.numel() for p in leaves]
+    kseeds = [leaf_seed(12345, i) for i in range(len(leaves))]
+    xl = [(p, fold_in((9, 2**32 - 9), i), None) for i, p in enumerate(leaves)]
+    whole_k6 = km.zo_sqnorm_many(ns, kseeds, "gaussian", "cuda")
+    whole_x1 = [pxla.leaf_sqnorm(*leaf) for leaf in xl]
+    tiles = sum(-(-n // km.TILE_ELEMS) for n in ns)
+    chunks = [(k, c0, c1) for k, p in enumerate(leaves)
+              for c0, c1 in pxla._chunks([(0, p.numel())])]
+
+    def x1_plain_sums(c_lo, c_hi):
+        # X1's plain z over chunks [c_lo, c_hi), each summed as the share
+        # route sums it: the plain version of that rank's share
+        sums = torch.zeros(c_hi - c_lo, dtype=torch.float64, device="cuda")
+        for slot, (k, c0, c1) in enumerate(chunks[c_lo:c_hi]):
+            p, key, _ = xl[k]
+            sums[slot] = pxla._chunk_sum(x1.zo_affine_threefry_plain(
+                None, key, "z", out=torch.empty(c1 - c0, dtype=p.dtype,
+                                                device="cuda"),
+                offset=c0, total=p.numel()))
+        return sums
+
+    k6_err, k6_plain_ms, shared = 0.0, 0.0, {}
+    x1_err, x1_plain_ms = 0.0, 0.0
+    for parts in TP_MODEL_SIZES:
+        mine_k6, mine_x1 = [], []
+        for r in range(parts):
+            # first pass: keep each rank's share; the stand-in gather's
+            # fold is thrown away
+            km.zo_sqnorm_many(ns, kseeds, "gaussian", "cuda", (
+                r, parts, lambda t: mine_k6.append(t.clone()) or t.repeat(
+                    parts)))
+            pxla._shared_sqnorms(xl, NormShare(r, parts, lambda t: (
+                mine_x1.append(t.clone()) or t.repeat(parts))))
+            lo, hi = _build.share_range(tiles, r, parts)
+            box = []
+            ms = host_ms(lambda: box.append(km.share_sums_plain(
+                ns, kseeds, "gaussian", "cuda", lo, hi)))
+            k6_plain_ms += ms if (parts == TP_RANKS and r == 0) else 0.0
+            k6_err = max(k6_err, float((mine_k6[r][:hi - lo] - box[0])
+                                       .abs().max()) if hi > lo else 0.0)
+            if not same_bits(mine_k6[r][:hi - lo], box[0]):
+                fail(f"(tp) K6's share {r} of {parts} is not its plain "
+                     f"version's tile sums bitwise (max abs err {k6_err})")
+            c_lo, c_hi = _build.share_range(len(chunks), r, parts)
+            box = []
+            ms = host_ms(lambda: box.append(x1_plain_sums(c_lo, c_hi)))
+            x1_plain_ms += ms if (parts == TP_RANKS and r == 0) else 0.0
+            x1_err = max(x1_err, float((mine_x1[r][:c_hi - c_lo] - box[0])
+                                       .abs().max()) if c_hi > c_lo else 0.0)
+            if not same_bits(mine_x1[r][:c_hi - c_lo], box[0]):
+                fail(f"(tp) X1's chunk share {r} of {parts} is not its plain "
+                     f"version's chunk sums bitwise (max abs err {x1_err})")
+        every_k6, every_x1 = torch.cat(mine_k6), torch.cat(mine_x1)
+        shared[parts] = (every_k6, every_x1)
+        for r in range(parts):
+            got = km.zo_sqnorm_many(ns, kseeds, "gaussian", "cuda",
+                                    (r, parts, lambda t: every_k6))
+            if not same_bits(got, whole_k6):
+                fail(f"(tp) K6's shares folded on rank {r} of {parts} differ "
+                     f"from the whole norm: {got.tolist()} against "
+                     f"{whole_k6.tolist()}")
+            got_x1 = pxla._shared_sqnorms(xl, NormShare(r, parts,
+                                                        lambda t: every_x1))
+            if [v.tobytes() for v in got_x1] != [v.tobytes()
+                                                 for v in whole_x1]:
+                fail(f"(tp) X1's chunk shares folded on rank {r} of {parts} "
+                     f"differ from the whole norm: {got_x1} against "
+                     f"{whole_x1}")
+    log(f"(tp) (a) the sphere's ‖z‖² over qwen2-0.5b's {len(leaves)} leaves "
+        f"({tiles} K6 tiles) split over P = {TP_MODEL_SIZES} ranks: every "
+        "rank's fold bitwise the whole norm on both streams, K6's shares "
+        "bitwise their plain version's tile sums, X1's bitwise their plain "
+        "version's chunk sums")
+
+    # rank 0's share on P = 2 against the whole pass, in turns
+    every_k6, every_x1 = shared[TP_RANKS]
+    lo, hi = _build.share_range(tiles, 0, TP_RANKS)
+    n_share = km._share_elems(ns, lo, hi)
+    c_lo, c_hi = _build.share_range(len(chunks), 0, TP_RANKS)
+    x1_share = sum(c1 - c0 for _, c0, c1 in chunks[c_lo:c_hi])
+    t = run_ms({
+        "k6_share": lambda: km.zo_sqnorm_many(
+            ns, kseeds, "gaussian", "cuda", (0, TP_RANKS, lambda t: every_k6)),
+        "k6_whole": lambda: km.zo_sqnorm_many(ns, kseeds, "gaussian",
+                                              "cuda"),
+        "x1_share": lambda: pxla._shared_sqnorms(xl, NormShare(
+            0, TP_RANKS, lambda t: every_x1)),
+        "x1_whole": lambda: [pxla.leaf_sqnorm(*leaf) for leaf in xl]},
+        1, rounds=6, graph=False)
+    for name, ms, pms, err, work, src, rep in (
+            ("zo_sqnorm/share", t["k6_share"], k6_plain_ms, k6_err,
+             costs.zo_sqnorm(n_share),
+             "src/repro_torch/kernels/zo_fused/csrc/zo_sqnorm.cu",
+             "src/repro/kernels/zo_fused/multi.py:200"),
+            ("zo_affine_threefry/norm_share", t["x1_share"], x1_plain_ms,
+             x1_err, costs.zo_affine_threefry(x1_share, 2, "z"),
+             "src/repro_torch/kernels/threefry/csrc/zo_threefry.cu",
+             "src/repro/perturb/xla.py:38-325")):
+        bms, by = costs.bound_ms(work)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": 0,
+                     "max_abs_err": err,
+                     "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None})
+    log(f"(tp) K6 share route, rank 0's share ({hi - lo} of {tiles} tiles, "
+        f"{n_share} elements) of qwen2-0.5b's norm on P = {TP_RANKS}: "
+        f"{t['k6_share']:.3f} ms against the whole norm's "
+        f"{t['k6_whole']:.3f} ms, in turns; plain {k6_plain_ms:.1f} ms; X1's "
+        f"chunk share ({c_hi - c_lo} of {len(chunks)} chunks, {x1_share} "
+        f"elements) {t['x1_share']:.3f} ms against the whole "
+        f"{t['x1_whole']:.3f} ms, plain {x1_plain_ms:.1f} ms; (a) fan-outs "
+        f"and norms {time.perf_counter() - t0:.1f} s — on {card}")
+    return rows
+
+
 def hold_grouped_products(torch, card) -> None:
     """(tp) attention's grouped products (``models.attention``'s bmm form,
     which a DTensor's (b, k) batch needs) bitwise the einsums they replace,
@@ -7494,6 +7780,7 @@ def tensor_parallel_paths(torch, np, _build, counts, step_ms, card) -> list:
     cfg = all_archs()["qwen2-0.5b"].cfg.replace(attention_impl="pallas_flash")
     params0 = bundle(cfg).init(SEED, device="cuda")
     rows = tp_kernel_rows(torch, np, _build, params0, card)
+    rows += tp_fanout_norm_rows(torch, np, _build, params0, card)
     hold_grouped_products(torch, card)
     del params0
     free_card(torch, "(tp) the kernel checks' trees")
@@ -7530,6 +7817,11 @@ def tensor_parallel_paths(torch, np, _build, counts, step_ms, card) -> list:
                 fail(f"(tp) rank {r} {name}: θ at the loss evaluations "
                      f"bitwise {c['theta_pm_bitwise']}, the update written "
                      f"with the one-process g bitwise {c['update_bitwise']}")
+            if not c["evaluations"] == len(c["loss_one"]) == len(
+                    c["loss_tp"]) > 0:
+                fail(f"(tp) rank {r} {name}: {c['evaluations']} θ checks and "
+                     f"{len(c['loss_tp'])} TP losses against the one-process "
+                     f"step's {len(c['loss_one'])} loss evaluations")
             dl = max(abs(a - b) for a, b in zip(c["loss_tp"], c["loss_one"]))
             if dl > TP_LOSS_TOL or c["sharded_leaves"] == 0:
                 fail(f"(tp) rank {r} {name}: |Δℓ| {dl} past {TP_LOSS_TOL} "
@@ -7545,7 +7837,11 @@ def tensor_parallel_paths(torch, np, _build, counts, step_ms, card) -> list:
             launches[k] = launches.get(k, 0) + v
     need = {"zo_affine/shard": "K1", "zo_affine_chain/shard": "K3",
             "zo_affine_threefry/shard": "X1",
-            "flash_attention/local_heads": "K2"}
+            "flash_attention/local_heads": "K2",
+            "zo_affine_batched/shard": "K5", "zo_affine_multi/shard": "K4",
+            "zo_sqnorm/share": "K6's share",
+            "zo_affine_threefry/shard/stacked": "X1's stacked streams",
+            "zo_affine_threefry/norm_share": "X1's norm share"}
     for k, what in need.items():
         if launches.get(k, 0) <= 0:
             fail(f"(tp) {what} ({k}) never launched on the TP path")
@@ -7560,7 +7856,8 @@ def tensor_parallel_paths(torch, np, _build, counts, step_ms, card) -> list:
             f"{name}: θ± and the update bitwise, ℓ TP {c['loss_tp']} vs one "
             f"process {c['loss_one']}, |Δg| "
             + ("n/a" if c["dg"] is None else f"{c['dg']:.4g}")
-            + f" (g {c['g_one']:.4g}), {c['sharded_leaves']} sharded leaves"
+            + f" (g {c['g_one']:.4g}), {c['sharded_leaves']} sharded leaves, "
+            f"{c['seconds']:.1f} s with its one-process step"
             for name, c in c0.items()))
     log("(tp) (c) the TP forward's logits at θ₀ (gathered) against the "
         "one-process forward's: max |Δ| "
@@ -7887,7 +8184,7 @@ def main() -> None:
                       ["u", "w", "x", "y", "z", "dr", "tp"], rows)
     rows.append(k2_hd128)
     for row in rows:
-        if not row["name"].endswith(("/shard", "/local_heads")):
+        if not row["name"].endswith(TP_ROUTES):
             row["launches"] = counts.get(row["name"], 0)
     # K2's two rows: its launches at hd 64 (qwen2) and at hd 128 (opt)
     k2_hd = {hd: counts.get(f"flash_attention/hd{hd}", 0) for hd in (64, 128)}
@@ -7929,12 +8226,16 @@ def main() -> None:
         "route (training and the served prefills)")
     fan = {k: counts.get(f"{k}/vector", 0)
            for k in ("zo_affine_multi", "zo_affine_batched")}
+    fan_shard = {k: counts.get(f"{k}/shard", 0) for k in fan}
     fan_all = {k: counts.get(k, 0) for k in fan}
-    if min(fan.values()) == 0 or fan != fan_all:
-        fail(f"K4/K5 on the counted paths: vector-route launches {fan} of "
-             f"{fan_all}")
+    if min(fan.values()) == 0 or any(fan[k] + fan_shard[k] != fan_all[k]
+                                     for k in fan):
+        fail(f"K4/K5 on the counted paths: vector-route launches {fan} and "
+             f"shard-route launches {fan_shard} of {fan_all}")
     log("K4/K5 over the counted paths: all " + " and ".join(
-        f"{v} {k}" for k, v in fan.items()) + " launches on the vector route")
+        f"{v} {k}" for k, v in fan.items()) + " launches of whole leaves on "
+        "the vector route, " + " and ".join(
+            f"{v} {k}" for k, v in fan_shard.items()) + " on (tp)'s shards")
     check_rows_routes_on_paths(counts, rows_split)
     k2_mma = counts.get("flash_attention/bf16_mma", 0)
     copied = {k: v for k, v in counts.items() if k.endswith("+copy")}

@@ -71,8 +71,11 @@ def host_f32(x) -> np.float32:
     return np.float32(x)
 
 
-def host_array(x: torch.Tensor) -> np.ndarray:
-    """A tensor's values as a host f32 array (one device sync)."""
+def host_array(x: torch.Tensor, dtype=np.float32) -> np.ndarray:
+    """A tensor's values as a host array of ``dtype`` (f32, or f64 for
+    sums kept in f64; one device sync)."""
     if _placeholder_for(x):
-        return np.full(tuple(x.shape), PLACEHOLDER, np.float32)
-    return _whole(x.detach()).float().cpu().numpy()
+        return np.full(tuple(x.shape), PLACEHOLDER, dtype)
+    x = _whole(x.detach())
+    x = x.double() if np.dtype(dtype) == np.float64 else x.float()
+    return x.cpu().numpy()

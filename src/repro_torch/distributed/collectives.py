@@ -88,6 +88,19 @@ def psum_scalar(x, axis_name, mesh) -> torch.Tensor:
     return t
 
 
+def gather_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The all-gather of 1-D ``t`` over ``mesh``'s ``axes`` (this rank's
+    line), concatenated in the line's rank order: ``torch.distributed``'s
+    own collective over ``axes_group``, the path ``psum_scalar`` and the
+    loss's reductions take.  Every rank of the line gives a ``t`` of the
+    same size; the sphere's ‖z‖² gathers its shares' partial sums so."""
+    import torch.distributed as dist
+    group = axes_group(mesh, axes)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
 def _rows(batch) -> int:
     for x in tree_leaves(batch):
         if isinstance(x, torch.Tensor) and x.dim() >= 1:

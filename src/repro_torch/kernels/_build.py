@@ -172,6 +172,17 @@ def shard_window(shape, dim: int, parts: int, index: int) -> tuple:
     return sl, ShardMap((hi - lo) * inner, D * inner, lo * inner)
 
 
+def share_range(total: int, rank: int, parts: int) -> tuple:
+    """Share ``rank`` of ``parts`` of a work list of ``total`` items, cut as
+    DTensor's ``Shard`` rule cuts a dim (⌈total/parts⌉ items a share, the
+    last ones short or empty): ``(lo, hi)``.  Each share starts at
+    ``rank · ⌈total/parts⌉``, so shares padded to that length and gathered
+    in rank order hold the list in order in their first ``total`` items."""
+    per = -(-total // parts)
+    lo = min(rank * per, total)
+    return lo, min(lo + per, total)
+
+
 def shard_map(t) -> Optional[ShardMap]:
     """The ``ShardMap`` of a DTensor's local shard within its global
     tensor (torch's ``compute_local_shape_and_global_offset``), or
@@ -197,21 +208,30 @@ def shard_map(t) -> Optional[ShardMap]:
     return ShardMap(local[k] * inner, shape[k] * inner, offset[k] * inner)
 
 
+def stacked_dtensor(x, local):
+    """``local`` — ``n`` streams of DTensor ``x``'s shard stacked on a new
+    leading axis, ``(n, *shard.shape)`` — as the DTensor of the global
+    ``(n, *x.shape)`` stack: each ``Shard(d)`` of ``x`` moves to
+    ``Shard(d + 1)`` (as ``torch.stack`` would place it), ``Replicate``
+    stays, and the stride is the stacked tensor's (contiguous)."""
+    from torch.distributed.tensor import DTensor, Shard
+    shape = torch.Size((local.shape[0],) + tuple(x.shape))
+    return DTensor.from_local(
+        local, x.device_mesh,
+        [Shard(p.dim + 1) if p.is_shard() else p for p in x.placements],
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def empty_streams(x, n: int):
     """A shape rule's result for ``n`` streams of ``x``: an empty
     ``(n, *x.shape)`` tensor made by an allocator alone, so a dry run counts
     no traffic for it (the card's route only allocates too).  A DTensor's
-    shard dims move one to the right, as ``torch.stack`` would place them."""
+    shard dims move one to the right (``stacked_dtensor``)."""
     if not hasattr(x, "placements"):
         return x.new_empty((n,) + tuple(x.shape))
-    from torch.distributed.tensor import DTensor, Shard
     shard = x.to_local()
-    shape = torch.Size((n,) + tuple(x.shape))
-    return DTensor.from_local(
-        shard.new_empty((n,) + tuple(shard.shape)), x.device_mesh,
-        [Shard(p.dim + 1) if p.is_shard() else p for p in x.placements],
-        run_check=False, shape=shape,
-        stride=torch.empty(shape, device="meta").stride())
+    return stacked_dtensor(x, shard.new_empty((n,) + tuple(shard.shape)))
 
 
 def refuse_autograd(kernel: str, tensors, instead: str) -> None:

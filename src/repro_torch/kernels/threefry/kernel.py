@@ -690,8 +690,8 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
                        bands: Optional[Sequence] = None,
                        offset: int = 0, total: Optional[int] = None,
                        partitionable: Optional[bool] = None,
-                       shard: Optional[_build.ShardMap] = None
-                       ) -> torch.Tensor:
+                       shard: Optional[_build.ShardMap] = None,
+                       tag: Optional[str] = None) -> torch.Tensor:
     """X1: the affine write ``form`` of z(key) over one leaf (see ``FORMS``),
     in place when ``out`` is ``x``.  Scalars are f32 values (half dtypes:
     values of the leaf dtype).  ``offset`` is the leaf index of y's first
@@ -712,7 +712,9 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
     layout (the original one computes each element's own word of its
     pair), on the ``shard`` route (16-byte vectors under the
     partitionable layout where the shard's rows allow, else one element a
-    thread step); a live DTensor raises (pass its shard)."""
+    thread step); a live DTensor raises (pass its shard).  ``tag`` counts
+    each launch once more under ``zo_affine_threefry/<tag>`` (the stacked
+    streams' and the sphere norm's launches, told apart from the rest)."""
     if dist not in DIST_CODES:
         raise NotImplementedError(
             f"zo_affine_threefry has no generator for dist={dist!r}; sphere "
@@ -779,14 +781,15 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
             float(np.float32(b)), float(np.float32(e)), float(np.float32(k)),
             int(zs is not None), float(np.float32(0.0 if zs is None else zs)))
     stream = _build.stream_of(y)
+    tags = () if tag is None else (tag,)
     if shard is not None:
         return _launch_shard(lib, x, y, shard, int(offset), int(total),
                              partitionable, bit_width(y.dtype, dist), k0, k1,
-                             scal, stream)
+                             scal, stream, tags)
     if not partitionable:
         return _launch_original(lib, x, y, key, bands, int(offset),
                                 int(total), bit_width(y.dtype, dist), scal,
-                                stream)
+                                stream, tags)
     if bands is not None:
         bl = torch.tensor([[lo, hi] for lo, hi in bands], dtype=torch.int64)
         lens = bl[:, 1] - bl[:, 0]
@@ -801,7 +804,7 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
             DTYPE_CODES[y.dtype], k0, k1, int(offset), *scal,
             _build.ptr(starts), _build.ptr(cum), len(bands), total, stream)
         _build.check(lib, err, "zo_affine_threefry")
-        _build.count("zo_affine_threefry", "bands")
+        _build.count("zo_affine_threefry", "bands", *tags)
         return y
     size = y.element_size()
     x_addr = None if x is None else x.data_ptr()
@@ -813,13 +816,13 @@ def zo_affine_threefry(x: Optional[torch.Tensor], key, form: str,
             y.data_ptr() + ln.start * size, ln.n, ln.head, ln.nvec,
             DTYPE_CODES[y.dtype], k0, k1, ln.hi, ln.lo, *scal, stream)
         _build.check(lib, err, "zo_affine_threefry")
-        _build.count("zo_affine_threefry", route)
+        _build.count("zo_affine_threefry", route, *tags)
     return y
 
 
 def _launch_shard(lib, x, y, shard: _build.ShardMap, offset: int,
                   total: int, partitionable: bool, bw: int, k0: int, k1: int,
-                  scal, stream) -> torch.Tensor:
+                  scal, stream, tags=()) -> torch.Tensor:
     """X1's ``shard`` route for a CUDA shard (see ``zo_affine_threefry``):
     one launch a ``ShardMap`` segment, counted once a call."""
     if not partitionable and draw_words(total, bw) >= BLOCK_WORDS:
@@ -836,12 +839,12 @@ def _launch_shard(lib, x, y, shard: _build.ShardMap, offset: int,
             int(not partitionable), bw, *scal, stream)
         _build.check(lib, err, "zo_affine_threefry")
     _build.count("zo_affine_threefry" if partitionable
-                 else "zo_affine_threefry_original", "shard")
+                 else "zo_affine_threefry_original", "shard", *tags)
     return y
 
 
 def _launch_original(lib, x, y, key, bands, offset: int, total: int,
-                     bw: int, scal, stream) -> torch.Tensor:
+                     bw: int, scal, stream, tags=()) -> torch.Tensor:
     """X1's original-layout launches for a CUDA leaf (see
     ``zo_affine_threefry``)."""
     m = draw_words(total, bw)
@@ -860,7 +863,7 @@ def _launch_original(lib, x, y, key, bands, offset: int, total: int,
                 ln.m, ln.h, ln.p0, ln.np, offset, e_hi, offset, bw, *scal,
                 stream)
             _build.check(lib, err, name)
-            _build.count(name, "pairs", f"pairs/{route}")
+            _build.count(name, "pairs", f"pairs/{route}", *tags)
         return y
     for blk, group in _original_bands(bands, offset, bw):
         bl = torch.tensor(group, dtype=torch.int64)
@@ -876,7 +879,7 @@ def _launch_original(lib, x, y, key, bands, offset: int, total: int,
             _build.ptr(starts), _build.ptr(cum), len(group), int(lens.sum()),
             stream)
         _build.check(lib, err, name)
-        _build.count(name, "bands")
+        _build.count(name, "bands", *tags)
     return y
 
 

@@ -38,7 +38,10 @@
 //
 // zo_affine_chain_shard runs the chain on a rank's shard of a leaf under
 // tensor parallelism, each element's counters its index in the whole leaf
-// (zo::ShardMap in zo_stream.cuh), bitwise the slice of the whole chain.
+// (zo::ShardMap in zo_stream.cuh), bitwise the slice of the whole chain;
+// zo_affine_fanout_shard runs the fan-out (K4 and K5 alike) on such a
+// shard, storing stream j's slice at y + j * stride, bitwise the slices of
+// the whole fan-out.
 //
 // Seeds and coefficients travel by value in the kernel's parameters, at
 // most ZO_MAX_STREAMS per launch; the wrapper splits a longer list into
@@ -192,6 +195,67 @@ cudaError_t launch_chain_shard(const void* x, void* y, uint32_t n, int nb,
   return cudaGetLastError();
 }
 
+// The fan-out on a rank's shard (zo::ShardMap): local element l draws
+// z at its index in the whole leaf, as shard_walk's; x is read once per
+// vector and stream j's output goes to y + j * stride.  16-byte vectors
+// when VEC (shard_vec, and every slice on 16 bytes: stride * sizeof(T) a
+// multiple of 16), else one element a step.
+template <typename T, int DIST, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+fanout_shard_kernel(const T* x, T* y, uint32_t n, zo::ShardMap m,
+                    int64_t stride, int nb, const Streams s) {
+  constexpr int N = VEC ? zo::Vec<T>::N : 1;
+  const uint32_t tid = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t nthreads = gridDim.x * THREADS;
+  for (uint32_t v = tid; v < n / N; v += nthreads) {
+    const uint32_t l0 = v * N;
+    const uint32_t im = zo::shard_index(l0, m) * zo::IDX_MUL;
+    float xs[N];
+    if constexpr (VEC) zo::load_vec<T, N>(x + l0, xs);
+    else xs[0] = zo::load(x, l0);
+    T* yj = y + l0;
+    for (int j = 0; j < nb; ++j, yj += stride) {
+      const uint32_t key = zo::seed_key(s.seed[j]);
+      const float a = s.a[j], b = s.b[j];
+      float out[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        out[k] = zo::affine(a, xs[k], b,
+                            zo::z_of<DIST>(im + (uint32_t)k * zo::IDX_MUL,
+                                           key));
+      if constexpr (VEC) zo::store_vec<T, N>(yj, out);
+      else zo::store(yj, 0, out[0]);
+    }
+  }
+}
+
+template <typename T, int DIST, bool VEC>
+void launch_fanout_shard_t(const void* x, void* y, uint32_t n,
+                           zo::ShardMap m, int64_t stride, int nb,
+                           const Streams& s, cudaStream_t stream) {
+  const uint32_t work = VEC ? n / zo::Vec<T>::N : n;
+  const int grid =
+      zo::resident_grid<fanout_shard_kernel<T, DIST, VEC>>(THREADS, work);
+  fanout_shard_kernel<T, DIST, VEC><<<grid, THREADS, 0, stream>>>(
+      (const T*)x, (T*)y, n, m, stride, nb, s);
+}
+
+template <typename T>
+cudaError_t launch_fanout_shard(const void* x, void* y, uint32_t n,
+                                int64_t stride, int nb, const Streams& s,
+                                int dist, zo::ShardMap m, cudaStream_t st) {
+  const bool vec = zo::shard_vec<T>(x, y, m) &&
+                   (stride * (int64_t)sizeof(T)) % 16 == 0;
+  if (dist == 0) {
+    if (vec) launch_fanout_shard_t<T, 0, true>(x, y, n, m, stride, nb, s, st);
+    else launch_fanout_shard_t<T, 0, false>(x, y, n, m, stride, nb, s, st);
+  } else {
+    if (vec) launch_fanout_shard_t<T, 1, true>(x, y, n, m, stride, nb, s, st);
+    else launch_fanout_shard_t<T, 1, false>(x, y, n, m, stride, nb, s, st);
+  }
+  return cudaGetLastError();
+}
+
 // The fan-out's route: vector when every slice lies against 16 bytes as x
 // does (n * sizeof(T) a multiple of 16; split_of checks x against y),
 // scalar otherwise.
@@ -303,6 +367,34 @@ int zo_affine_chain_shard(const void* x, void* y, uint32_t n, int dtype,
       return (int)launch_chain_shard<__nv_bfloat16>(x, y, n, nb, s, dist, m,
                                                     st);
     case 2: return (int)launch_chain_shard<__half>(x, y, n, nb, s, dist, m, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fan-out (K4 / K5) on one launch of a rank's shard (zo_affine_shard's
+// map): stream j's n outputs at y + j * stride, stride >= n elements.
+int zo_affine_fanout_shard(const void* x, void* y, uint32_t n, int dtype,
+                           const uint32_t* seeds, const float* a,
+                           const float* b, int nb, int dist, uint32_t R,
+                           uint32_t G, uint32_t base, int64_t stride,
+                           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n == 0) return 0;
+  if (nb < 1 || nb > ZO_MAX_STREAMS || (dist != 0 && dist != 1) || R == 0 ||
+      n > (1u << 31) || stride < (int64_t)n)
+    return (int)cudaErrorInvalidValue;
+  const Streams s = pack(seeds, a, b, nb, 0.f, 0.f);
+  const zo::ShardMap m{R, G, base};
+  switch (dtype) {
+    case 0:
+      return (int)launch_fanout_shard<float>(x, y, n, stride, nb, s, dist, m,
+                                             st);
+    case 1:
+      return (int)launch_fanout_shard<__nv_bfloat16>(x, y, n, stride, nb, s,
+                                                     dist, m, st);
+    case 2:
+      return (int)launch_fanout_shard<__half>(x, y, n, stride, nb, s, dist, m,
+                                              st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -40,6 +40,14 @@
 //     partials in shared memory, coalesced, and lane 0 folds them in order.
 // The order of every sum is the one above, so no bit of a norm depends on
 // how the leaves are grouped into calls.
+//
+// Under tensor parallelism the P ranks of the model axis split the norm's
+// work (z depends on the seed and the global index only, never on theta):
+// zo_sqnorm_share runs tile_sums over rank r's contiguous share of the flat
+// tile list, the caller all-gathers the shares' partials (4 bytes a tile),
+// and zo_sqnorm_fold folds every leaf's partials in tile order - the same
+// partials and the same fold as one process's, so every rank's norms are
+// bitwise the one-process norms.
 #include "zo_stream.cuh"
 
 #define TILE_ELEMS 131072
@@ -70,14 +78,15 @@ __device__ __forceinline__ int leaf_of(const Leaves& lv, int64_t tile) {
   return lo;
 }
 
+// the sums of the table's tiles [t0, t1), tile t into partials[t - t0]
 template <int DIST>
 __global__ void __launch_bounds__(TILE_THREADS)
-tile_sums(float* __restrict__ partials, const __grid_constant__ Leaves lv) {
+tile_sums(float* __restrict__ partials, const __grid_constant__ Leaves lv,
+          int64_t t0, int64_t t1) {
   __shared__ float s[TILE_THREADS];
   const int t = threadIdx.x;
-  const int64_t tiles = lv.first[lv.count];
   constexpr uint32_t STEP = (uint32_t)TILE_THREADS * zo::IDX_MUL;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int64_t tile = t0 + blockIdx.x; tile < t1; tile += gridDim.x) {
     const int l = leaf_of(lv, tile);
     const uint32_t key = lv.key[l];
     const int64_t start = (tile - lv.first[l]) * TILE_ELEMS;
@@ -107,7 +116,7 @@ tile_sums(float* __restrict__ partials, const __grid_constant__ Leaves lv) {
       if (t < h) s[t] = __fadd_rn(s[t], s[t + h]);
       __syncthreads();
     }
-    if (t == 0) partials[tile] = s[0];
+    if (t == 0) partials[tile - t0] = s[0];
   }
 }
 
@@ -136,19 +145,47 @@ fold_leaves(const float* __restrict__ partials, float* __restrict__ out,
 }
 
 template <int DIST>
-cudaError_t launch(float* partials, float* out, const Leaves& lv,
-                   cudaStream_t s) {
-  const int64_t tiles = lv.first[lv.count];
+cudaError_t launch_sums(float* partials, const Leaves& lv, int64_t t0,
+                        int64_t t1, cudaStream_t s) {
+  if (t1 <= t0) return cudaSuccess;
+  const int64_t tiles = t1 - t0;
   const uint32_t work =
       tiles * TILE_THREADS > 0xFFFFFFFFll ? 0xFFFFFFFFu
                                           : (uint32_t)(tiles * TILE_THREADS);
   const int grid = zo::resident_grid<tile_sums<DIST>>(TILE_THREADS, work);
-  tile_sums<DIST><<<grid, TILE_THREADS, 0, s>>>(partials, lv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  tile_sums<DIST><<<grid, TILE_THREADS, 0, s>>>(partials, lv, t0, t1);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fold(const float* partials, float* out, const Leaves& lv,
+                        cudaStream_t s) {
   fold_leaves<<<(lv.count + FOLD_WARPS - 1) / FOLD_WARPS, 32 * FOLD_WARPS, 0,
                 s>>>(partials, out, lv);
   return cudaGetLastError();
+}
+
+// leaves [l0, l0 + MAX_LEAVES) of the list as one launch's table, their
+// tiles counted from 0
+Leaves table(const int64_t* ns, const uint32_t* seeds, int n_leaves, int l0) {
+  Leaves lv;
+  lv.count = n_leaves - l0 < MAX_LEAVES ? n_leaves - l0 : MAX_LEAVES;
+  int64_t tiles = 0;
+  for (int l = 0; l < lv.count; ++l) {
+    lv.n[l] = ns[l0 + l];
+    lv.key[l] = seeds ? zo::seed_key(seeds[l0 + l]) : 0u;
+    lv.first[l] = tiles;
+    tiles += (lv.n[l] + TILE_ELEMS - 1) / TILE_ELEMS;
+  }
+  lv.first[lv.count] = tiles;
+  return lv;
+}
+
+int check_list(const int64_t* ns, int n_leaves, int dist) {
+  if (n_leaves < 1 || (dist != 0 && dist != 1))
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < n_leaves; ++l)
+    if (ns[l] <= 0) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -168,27 +205,59 @@ int zo_sqnorm_many(float* partials, float* out, const int64_t* ns,
                    const uint32_t* seeds, int n_leaves, int dist,
                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_leaves < 1 || (dist != 0 && dist != 1))
-    return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < n_leaves; ++l)
-    if (ns[l] <= 0) return (int)cudaErrorInvalidValue;
+  if (const int bad = check_list(ns, n_leaves, dist)) return bad;
   int64_t tile0 = 0;
   for (int l0 = 0; l0 < n_leaves; l0 += MAX_LEAVES) {
-    Leaves lv;
-    lv.count = n_leaves - l0 < MAX_LEAVES ? n_leaves - l0 : MAX_LEAVES;
-    int64_t tiles = 0;
-    for (int l = 0; l < lv.count; ++l) {
-      lv.n[l] = ns[l0 + l];
-      lv.key[l] = zo::seed_key(seeds[l0 + l]);
-      lv.first[l] = tiles;
-      tiles += (lv.n[l] + TILE_ELEMS - 1) / TILE_ELEMS;
-    }
-    lv.first[lv.count] = tiles;
-    const cudaError_t err =
-        dist == 0 ? launch<0>(partials + tile0, out + l0, lv, s)
-                  : launch<1>(partials + tile0, out + l0, lv, s);
+    const Leaves lv = table(ns, seeds, n_leaves, l0);
+    const int64_t tiles = lv.first[lv.count];
+    cudaError_t err =
+        dist == 0 ? launch_sums<0>(partials + tile0, lv, 0, tiles, s)
+                  : launch_sums<1>(partials + tile0, lv, 0, tiles, s);
+    if (err == cudaSuccess) err = launch_fold(partials + tile0, out + l0, lv, s);
     if (err != cudaSuccess) return (int)err;
     tile0 += tiles;
+  }
+  return 0;
+}
+
+// partials[t - lo] = the sum of flat tile t of the list, for t in [lo, hi)
+// (tiles numbered over all leaves in order, as zo_sqnorm_many lays them
+// out): one rank's share of the norm's work.
+int zo_sqnorm_share(float* partials, const int64_t* ns, const uint32_t* seeds,
+                    int n_leaves, int64_t lo, int64_t hi, int dist,
+                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (const int bad = check_list(ns, n_leaves, dist)) return bad;
+  if (lo < 0 || hi < lo) return (int)cudaErrorInvalidValue;
+  int64_t tile0 = 0;
+  for (int l0 = 0; l0 < n_leaves && tile0 < hi; l0 += MAX_LEAVES) {
+    const Leaves lv = table(ns, seeds, n_leaves, l0);
+    const int64_t tiles = lv.first[lv.count];
+    const int64_t a = lo > tile0 ? lo - tile0 : 0;
+    const int64_t b = hi - tile0 < tiles ? hi - tile0 : tiles;
+    if (a < b) {
+      const cudaError_t err =
+          dist == 0 ? launch_sums<0>(partials + (tile0 + a - lo), lv, a, b, s)
+                    : launch_sums<1>(partials + (tile0 + a - lo), lv, a, b, s);
+      if (err != cudaSuccess) return (int)err;
+    }
+    tile0 += tiles;
+  }
+  return 0;
+}
+
+// out[l] = leaf l's tile partials (the whole flat list, zo_sqnorm_share's
+// shares gathered in order) folded in tile order.
+int zo_sqnorm_fold(const float* partials, float* out, const int64_t* ns,
+                   int n_leaves, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (const int bad = check_list(ns, n_leaves, 0)) return bad;
+  int64_t tile0 = 0;
+  for (int l0 = 0; l0 < n_leaves; l0 += MAX_LEAVES) {
+    const Leaves lv = table(ns, nullptr, n_leaves, l0);
+    const cudaError_t err = launch_fold(partials + tile0, out + l0, lv, s);
+    if (err != cudaSuccess) return (int)err;
+    tile0 += lv.first[lv.count];
   }
   return 0;
 }

@@ -16,7 +16,8 @@ specified to the bit, and this module reproduces JAX's bits exactly:
   not just on most.
 
 ``zo_affine`` (K1) and ``zo_affine_batched`` (K5, the B-stream fan-out
-with one shared (a, b)) are the entry points: a CPU tensor takes the plain
+with one shared (a, b)) are the entry points, each taking ``shard=`` for a
+rank's shard of a leaf under tensor parallelism: a CPU tensor takes the plain
 version (chunked so temporaries stay small), a CUDA tensor launches the
 hand-written kernel (``csrc/zo_affine.cu``, ``csrc/zo_multi.cu``) or raises.
 The counter is the flat index of the unpadded leaf as uint32, so no
@@ -361,6 +362,9 @@ def _multi_lib():
         lib.zo_affine_chain_shard.argtypes = [vp, vp, u32, i, vp, vp, vp, i,
                                               i, u32, u32, u32, vp]
         lib.zo_affine_chain_shard.restype = i
+        lib.zo_affine_fanout_shard.argtypes = [vp, vp, u32, i, vp, vp, vp, i,
+                                               i, u32, u32, u32, i64, vp]
+        lib.zo_affine_fanout_shard.restype = i
         lib._typed = True
     return lib
 
@@ -379,19 +383,50 @@ def fanout_route(x: torch.Tensor, y: torch.Tensor) -> str:
     return "vector" if whole and ax == ay and ax % size == 0 else "scalar"
 
 
+def launch_fanout_shard(name: str, x: torch.Tensor, y: torch.Tensor, seeds,
+                        a, b, dist: str, shard: _build.ShardMap) -> None:
+    """The fan-out's ``shard`` route (K4 and K5 alike) for CUDA shard ``x``
+    of a leaf into the stacked ``y``: one launch per ``ShardMap`` segment
+    and ``MAX_STREAMS`` streams, stream j's slice at ``y[j]``; counted once
+    a call as ``name/shard``."""
+    lib = _multi_lib()
+    size, n = x.element_size(), x.numel()
+    for j0 in range(0, len(seeds), MAX_STREAMS):
+        j1 = min(j0 + MAX_STREAMS, len(seeds))
+        for lo, ln, R, G, base in shard.segments(n):
+            err = lib.zo_affine_fanout_shard(
+                x.data_ptr() + lo * size, y[j0].data_ptr() + lo * size, ln,
+                DTYPE_CODES[x.dtype], _u32_array(seeds[j0:j1]),
+                _f32_array(a[j0:j1]), _f32_array(b[j0:j1]), j1 - j0,
+                DIST_CODES[dist], R, G & _MASK, base & _MASK, n,
+                _build.stream_of(x))
+            _build.check(lib, err, name)
+    _build.count(name, "shard")
+
+
 def zo_affine_batched_plain(x: torch.Tensor, seeds, a: float, b: float,
-                            dist: str = "gaussian") -> torch.Tensor:
-    """Plain K5: the stacked K1 singles y[j] = zo_affine(x, seeds[j], a, b)."""
-    return torch.stack([zo_affine_plain(x, s, a, b, dist) for s in seeds])
+                            dist: str = "gaussian",
+                            shard: Optional[_build.ShardMap] = None
+                            ) -> torch.Tensor:
+    """Plain K5: the stacked K1 singles y[j] = zo_affine(x, seeds[j], a, b)
+    (on a rank's shard with ``shard``)."""
+    return torch.stack([zo_affine_plain(x, s, a, b, dist, shard=shard)
+                        for s in seeds])
 
 
 def zo_affine_batched(x: torch.Tensor, seeds, a: float, b: float,
-                      dist: str = "gaussian") -> torch.Tensor:
+                      dist: str = "gaussian",
+                      shard: Optional[_build.ShardMap] = None
+                      ) -> torch.Tensor:
     """K5 (port of ``zo_affine_2d_batched``): y[j] = a·x + b·z(seeds[j]) with
     one shared (a, b), shape ``(len(seeds), *x.shape)``; each slice is
-    bitwise the K1 single.  x is read once for all streams."""
+    bitwise the K1 single.  x is read once for all streams.  ``shard``
+    makes x a rank's shard of a leaf (``_build.shard_map``): each slice is
+    then bitwise that slice of the whole leaf's fan-out (the ``shard``
+    route on the card); a live DTensor raises (pass its shard)."""
     _check_dist(dist)
     _check_leaf(x, "zo_affine_batched")
+    _build.refuse_dtensor(x, "zo_affine_batched")
     seeds = [int(s) for s in seeds]
     if not seeds:
         raise ValueError("zo_affine_batched needs at least one seed")
@@ -401,10 +436,14 @@ def zo_affine_batched(x: torch.Tensor, seeds, a: float, b: float,
     if _build.on_meta(x):
         return _build.empty_streams(x, len(seeds))
     if x.device.type == "cpu":
-        return zo_affine_batched_plain(x, seeds, a, b, dist)
+        return zo_affine_batched_plain(x, seeds, a, b, dist, shard)
     y = torch.empty((len(seeds),) + tuple(x.shape), dtype=x.dtype,
                     device=x.device)
     if x.numel() == 0:
+        return y
+    if shard is not None:
+        launch_fanout_shard("zo_affine_batched", x, y, seeds,
+                            [a] * len(seeds), [b] * len(seeds), dist, shard)
         return y
     lib = _multi_lib()
     route = fanout_route(x, y)

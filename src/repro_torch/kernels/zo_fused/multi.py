@@ -8,7 +8,9 @@
   of fzoo, the seed-group updates and batched replay;
 * K6 ``zo_sqnorm_many``: ‖z(seed_l)[0:n_l]‖² as one f32 per leaf, every
   leaf of a sphere pass in one call — pass 1 of the sphere rescale, z never
-  materialized (``zo_sqnorm``: one leaf).
+  materialized (``zo_sqnorm``: one leaf); under tensor parallelism each
+  rank sums its share of the tiles and the shares are gathered and folded
+  (``share=``).
 
 (K5, the fan-out with one shared (a, b), lives beside K1 in ``kernel.py``,
 as ``zo_affine_2d_batched`` does in JAX.)
@@ -43,8 +45,9 @@ from repro_torch.kernels.zo_fused.kernel import (_MASK, DIST_CODES,
                                                  _check_dist, _check_leaf,
                                                  _f32, _f32_array,
                                                  _multi_lib, _u32_array,
-                                                 fanout_route, plain_chunk,
-                                                 z_from_counter,
+                                                 fanout_route,
+                                                 launch_fanout_shard,
+                                                 plain_chunk, z_from_counter,
                                                  zo_affine_plain)
 
 TILE_ELEMS = 256 * 512               # TILE_ELEMS in csrc/zo_sqnorm.cu
@@ -70,21 +73,27 @@ def _streams(seeds, a, b) -> tuple:
 # K4 fan-out
 # --------------------------------------------------------------------------- #
 def zo_affine_multi_plain(x: torch.Tensor, seeds, a, b,
-                          dist: str = "gaussian") -> torch.Tensor:
+                          dist: str = "gaussian",
+                          shard: Optional[_build.ShardMap] = None
+                          ) -> torch.Tensor:
     """Plain K4: the stacked K1 singles y[j] = zo_affine(x, seeds[j], a[j],
-    b[j])."""
+    b[j]) (on a rank's shard with ``shard``)."""
     seeds, a, b = _streams(seeds, a, b)
-    return torch.stack([zo_affine_plain(x, s, aj, bj, dist)
+    return torch.stack([zo_affine_plain(x, s, aj, bj, dist, shard=shard)
                         for s, aj, bj in zip(seeds, a, b)])
 
 
 def zo_affine_multi(x: torch.Tensor, seeds, a, b,
-                    dist: str = "gaussian") -> torch.Tensor:
+                    dist: str = "gaussian",
+                    shard: Optional[_build.ShardMap] = None) -> torch.Tensor:
     """K4 (port of ``zo_affine_multi_2d``): y[j] = a_j·x + b_j·z(seeds[j]),
     shape ``(len(seeds), *x.shape)``, x read once; each launch is counted
-    under its route (``fanout_route``)."""
+    under its route (``fanout_route``).  ``shard`` makes x a rank's shard
+    of a leaf (``_build.shard_map``), each slice bitwise that slice of the
+    whole leaf's fan-out (the ``shard`` route); a live DTensor raises."""
     _check_dist(dist)
     _check_leaf(x, "zo_affine_multi")
+    _build.refuse_dtensor(x, "zo_affine_multi")
     seeds, a, b = _streams(seeds, a, b)
     if costs.active():
         costs.charge("zo_affine_multi", costs.zo_affine_fanout(
@@ -92,10 +101,13 @@ def zo_affine_multi(x: torch.Tensor, seeds, a, b,
     if _build.on_meta(x):
         return _build.empty_streams(x, len(seeds))
     if x.device.type == "cpu":
-        return zo_affine_multi_plain(x, seeds, a, b, dist)
+        return zo_affine_multi_plain(x, seeds, a, b, dist, shard)
     y = torch.empty((len(seeds),) + tuple(x.shape), dtype=x.dtype,
                     device=x.device)
     if x.numel() == 0:
+        return y
+    if shard is not None:
+        launch_fanout_shard("zo_affine_multi", x, y, seeds, a, b, dist, shard)
         return y
     lib = _multi_lib()
     route = fanout_route(x, y)
@@ -204,6 +216,43 @@ def _fold_f32(values: np.ndarray) -> np.float32:
     return acc
 
 
+def _tile_sums_plain(n: int, seed: int, dist: str, device, t0: int,
+                     t1: int) -> torch.Tensor:
+    """Plain K6's sums of a leaf's tiles [t0, t1) in the kernel's order
+    (module docstring): a (t1 − t0,) f32 tensor on ``device``.  In the
+    leaf's last tile the rows of the (128, 1024) view at or past n only
+    add +0 to a non-negative sum, so they are not generated."""
+    group = max(1, plain_chunk(device) // TILE_ELEMS)
+    parts = [torch.zeros(0, dtype=torch.float32, device=device)]
+    for g0 in range(t0, t1, group):
+        g1 = min(t1, g0 + group)
+        # a group of one tile (the leaf's last may be partial): only the
+        # rows of its view that hold elements below n
+        rows = min(_PER_THREAD, -(-(n - g0 * TILE_ELEMS) // _TILE_THREADS)) \
+            if g1 - g0 == 1 else _PER_THREAD
+        idx = (torch.arange(0, rows * _TILE_THREADS, dtype=torch.int64,
+                            device=device)
+               + torch.arange(g0, g1, dtype=torch.int64,
+                              device=device)[:, None] * TILE_ELEMS)
+        z = z_from_counter(idx & _MASK, seed, dist)
+        sq = torch.where(idx < n, z * z, torch.zeros_like(z))
+        sq = sq.view(g1 - g0, rows, _TILE_THREADS)
+        acc = torch.zeros(g1 - g0, _TILE_THREADS, dtype=torch.float32,
+                          device=device)
+        for k in range(rows):
+            acc = acc + sq[:, k]
+        h = _TILE_THREADS // 2
+        while h:
+            acc = acc[:, :h] + acc[:, h:2 * h]
+            h //= 2
+        parts.append(acc[:, 0])
+    return torch.cat(parts)
+
+
+def _tiles(n: int) -> int:
+    return -(-int(n) // TILE_ELEMS)
+
+
 def zo_sqnorm_plain(n: int, seed: int, dist: str = "gaussian",
                     device="cpu") -> torch.Tensor:
     """Plain K6 in the kernel's order (module docstring); a 0-d f32 tensor
@@ -212,26 +261,8 @@ def zo_sqnorm_plain(n: int, seed: int, dist: str = "gaussian",
     n = int(n)
     if n <= 0:
         raise ValueError(f"zo_sqnorm needs n >= 1, got {n}")
-    tiles = -(-n // TILE_ELEMS)
-    group = max(1, plain_chunk(device) // TILE_ELEMS)
-    parts = []
-    for t0 in range(0, tiles, group):
-        t1 = min(tiles, t0 + group)
-        idx = torch.arange(t0 * TILE_ELEMS, t1 * TILE_ELEMS,
-                           dtype=torch.int64, device=device)
-        z = z_from_counter(idx & _MASK, seed, dist)
-        sq = torch.where(idx < n, z * z, torch.zeros_like(z))
-        sq = sq.view(t1 - t0, _PER_THREAD, _TILE_THREADS)
-        acc = torch.zeros(t1 - t0, _TILE_THREADS, dtype=torch.float32,
-                          device=device)
-        for k in range(_PER_THREAD):
-            acc = acc + sq[:, k]
-        h = _TILE_THREADS // 2
-        while h:
-            acc = acc[:, :h] + acc[:, h:2 * h]
-            h //= 2
-        parts.append(acc[:, 0])
-    total = _fold_f32(torch.cat(parts).cpu().numpy())
+    total = _fold_f32(_tile_sums_plain(n, seed, dist, device, 0,
+                                       _tiles(n)).cpu().numpy())
     return torch.tensor(total, dtype=torch.float32, device=device)
 
 
@@ -262,19 +293,34 @@ def _sqnorm_lib():
         lib.zo_sqnorm_many.argtypes = [vp, vp, vp, vp, ctypes.c_int,
                                        ctypes.c_int, vp]
         lib.zo_sqnorm_many.restype = ctypes.c_int
+        lib.zo_sqnorm_share.argtypes = [vp, vp, vp, ctypes.c_int,
+                                        ctypes.c_int64, ctypes.c_int64,
+                                        ctypes.c_int, vp]
+        lib.zo_sqnorm_share.restype = ctypes.c_int
+        lib.zo_sqnorm_fold.argtypes = [vp, vp, vp, ctypes.c_int, vp]
+        lib.zo_sqnorm_fold.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def zo_sqnorm_many(ns, seeds, dist: str = "gaussian",
-                   device="cpu") -> torch.Tensor:
+def zo_sqnorm_many(ns, seeds, dist: str = "gaussian", device="cpu",
+                   share=None) -> torch.Tensor:
     """K6 over leaves of ``ns[l]`` elements with streams ``seeds[l]``: the
     (L,) f32 tensor of ‖z(seeds[l])[0:ns[l]]‖² on ``device`` — the plain
     version on the CPU, one launch of the CUDA kernel (the tiles of every
     leaf in one grid, then one fold per leaf) on the card.  Each norm is
-    bitwise what ``zo_sqnorm`` gives for its leaf alone."""
+    bitwise what ``zo_sqnorm`` gives for its leaf alone.
+
+    ``share`` = ``(rank, parts, gather)`` splits the work over ``parts``
+    ranks (tensor parallelism, ``perturb.base.norm_share``): this rank sums
+    its share of the flat tile list (``_build.share_range``; the ``share``
+    route on the card), ``gather`` all-gathers the shares' partials in
+    rank order, and every leaf's partials are folded in tile order — the
+    one-process norms bit for bit, with 1/parts of the z work a rank."""
     _check_dist(dist)
     dev = torch.device(device)
+    if share is not None:
+        return _sqnorm_shared(ns, seeds, dist, dev, *share)
     if costs.active():
         costs.charge("zo_sqnorm", costs.total(
             costs.zo_sqnorm(int(n), dist) for n in ns))
@@ -286,7 +332,7 @@ def zo_sqnorm_many(ns, seeds, dist: str = "gaussian",
     if dev.type != "cuda":
         raise RuntimeError(f"zo_sqnorm: no kernel for device {dev}")
     ns, seeds = _leaf_list(ns, seeds)
-    tiles = sum(-(-n // TILE_ELEMS) for n in ns)
+    tiles = sum(_tiles(n) for n in ns)
     partials = torch.empty(tiles, dtype=torch.float32, device=dev)
     out = torch.empty(len(ns), dtype=torch.float32, device=dev)
     lib = _sqnorm_lib()
@@ -296,6 +342,74 @@ def zo_sqnorm_many(ns, seeds, dist: str = "gaussian",
         DIST_CODES[dist], _build.stream_of(out))
     _build.check(lib, err, "zo_sqnorm")
     _build.count("zo_sqnorm")
+    return out
+
+
+def _share_elems(ns, lo: int, hi: int) -> int:
+    """Elements (below each leaf's n) in flat tiles [lo, hi) of ``ns``."""
+    total, first = 0, 0
+    for n in ns:
+        a, b = max(lo, first), min(hi, first + _tiles(n))
+        if a < b:
+            total += min(n, (b - first) * TILE_ELEMS) - (a - first) * TILE_ELEMS
+        first += _tiles(n)
+    return total
+
+
+def share_sums_plain(ns, seeds, dist: str, device, lo: int,
+                     hi: int) -> torch.Tensor:
+    """Plain K6's sums of flat tiles [lo, hi) of the leaves' list (each
+    leaf's tiles in order, leaf after leaf): a (hi − lo,) f32 tensor."""
+    parts, first = [torch.zeros(0, dtype=torch.float32, device=device)], 0
+    for n, seed in zip(ns, seeds):
+        a, b = max(lo, first), min(hi, first + _tiles(n))
+        if a < b:
+            parts.append(_tile_sums_plain(n, seed, dist, device, a - first,
+                                          b - first))
+        first += _tiles(n)
+    return torch.cat(parts)
+
+
+def fold_plain(ns, partials: torch.Tensor, device) -> torch.Tensor:
+    """Plain K6's fold: each leaf's tile partials (the flat list's first
+    Σ tiles entries) folded in tile order in f32, an (L,) tensor."""
+    host, out, first = partials.cpu().numpy(), [], 0
+    for n in ns:
+        out.append(_fold_f32(host[first:first + _tiles(n)]))
+        first += _tiles(n)
+    return torch.tensor(np.array(out, np.float32), device=device)
+
+
+def _sqnorm_shared(ns, seeds, dist: str, dev, rank: int, parts: int,
+                   gather) -> torch.Tensor:
+    ns, seeds = _leaf_list(ns, seeds)
+    tiles = sum(_tiles(n) for n in ns)
+    lo, hi = _build.share_range(tiles, rank, parts)
+    if costs.active():
+        costs.charge("zo_sqnorm", costs.zo_sqnorm(_share_elems(ns, lo, hi),
+                                                  dist))
+    mine = torch.zeros(-(-tiles // parts), dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        mine[:hi - lo] = share_sums_plain(ns, seeds, dist, dev, lo, hi)
+    elif dev.type == "cuda":
+        lib = _sqnorm_lib()
+        _build.check(lib, lib.zo_sqnorm_share(
+            _build.ptr(mine), (ctypes.c_int64 * len(ns))(*ns),
+            _u32_array(seeds), len(ns), lo, hi, DIST_CODES[dist],
+            _build.stream_of(mine)), "zo_sqnorm")
+    elif dev.type != "meta":
+        raise RuntimeError(f"zo_sqnorm: no kernel for device {dev}")
+    every = gather(mine)
+    if dev.type == "meta":
+        return torch.empty(len(ns), dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        return fold_plain(ns, every, dev)
+    out = torch.empty(len(ns), dtype=torch.float32, device=dev)
+    lib = _sqnorm_lib()
+    _build.check(lib, lib.zo_sqnorm_fold(
+        _build.ptr(every), _build.ptr(out), (ctypes.c_int64 * len(ns))(*ns),
+        len(ns), _build.stream_of(out)), "zo_sqnorm")
+    _build.count("zo_sqnorm", "share")
     return out
 
 

@@ -441,12 +441,13 @@ def tracing(placed: bool):
 # --------------------------------------------------------------------------- #
 # One case
 # --------------------------------------------------------------------------- #
-def _make_opt(estimator, backend, batch_seeds, selection):
+def _make_opt(estimator, backend, batch_seeds, selection,
+              dist="gaussian"):
     if estimator == "fzoo":
         return zo.fzoo(lr=1e-6, eps=1e-3, batch_seeds=batch_seeds,
-                       backend=backend, selection=selection)
-    return zo.mezo(lr=1e-6, eps=1e-3, estimator=estimator, backend=backend,
-                   selection=selection)
+                       dist=dist, backend=backend, selection=selection)
+    return zo.mezo(lr=1e-6, eps=1e-3, estimator=estimator, dist=dist,
+                   backend=backend, selection=selection)
 
 
 def _host_positions(batch: dict, cell) -> dict:
@@ -473,10 +474,13 @@ def place_case(cfg, b, cell, mesh) -> tuple:
 def trace_case(cfg, b, cell, mesh, backend: str = "xla",
                estimator: str = "spsa", batch_seeds: int = 8,
                exec_plan: str = "local", n_groups: int = 1,
-               selection: str = "full", placed_args=None) -> Trace:
+               selection: str = "full", placed_args=None,
+               dist: str = "gaussian") -> Trace:
     """Trace the cell's step on rank 0 of ``mesh`` (None: one rank, plain
     meta tensors), its arguments ``place_case``'s (made here unless
-    given); returns its ``Trace`` with the argument bytes."""
+    given); returns its ``Trace`` with the argument bytes.  ``dist`` is
+    the estimator's z distribution (``sphere`` splits its ‖z‖² over the
+    tensor-parallel ranks, as the live step does)."""
     params, batch, arg_bytes = (placed_args if placed_args is not None
                                 else place_case(cfg, b, cell, mesh))
     arg_bytes = dict(arg_bytes)
@@ -484,7 +488,8 @@ def trace_case(cfg, b, cell, mesh, backend: str = "xla",
     resolver_p = make_activation_resolver(mesh, cfg) if placed else None
     with shard_resolver(resolver_p):
         if cell.kind == "train":
-            opt = _make_opt(estimator, backend, batch_seeds, selection)
+            opt = _make_opt(estimator, backend, batch_seeds, selection,
+                            dist)
             plan = (zexec.seed_parallel(n_groups)
                     if exec_plan == "seed_parallel" else zexec.local())
             prog = zexec.StepProgram(opt, plan)

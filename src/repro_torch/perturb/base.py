@@ -9,7 +9,7 @@ different id refuses (``BackendMismatchError``) instead of silently
 reconstructing different parameters."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,10 +82,9 @@ def unsharded(p, what: str):
     if smap is not None:
         raise NotImplementedError(
             f"{what} has no shard map yet, and this leaf is sharded "
-            f"({tuple(p.shape)}, {p.placements}): the z kernels written on a "
-            "rank's shard are K1, K3 and X1's single-stream forms; K4/K5 "
-            "(fan-out), K6 (sphere's ‖z‖², a sum across ranks) and K7–K10 "
-            "(rows plans) wait in ROADMAP Queue 2")
+            f"({tuple(p.shape)}, {p.placements}): the rows plans (K7–K10, "
+            "and X1's bands and original bands) wait in ROADMAP Queue 2; "
+            "whole leaves take the shard routes of every other z kernel")
     return local
 
 
@@ -103,6 +102,53 @@ def rewrap(p, local):
     return DTensor.from_local(local, p.device_mesh, p.placements,
                               run_check=False, shape=p.shape,
                               stride=p.stride())
+
+
+def rewrap_stacked(p, out):
+    """``out`` — streams written from leaf ``p``'s shard, stacked on a new
+    leading axis — as ``p``'s kind: for a live DTensor ``p`` the DTensor of
+    the global ``(n, *p.shape)`` stack, each ``Shard(d)`` moved to
+    ``Shard(d + 1)`` and ``Replicate`` kept (``_build.stacked_dtensor``),
+    so ``out[j]`` is a DTensor with ``p``'s own placements; else ``out``."""
+    from repro_torch.kernels import _build
+    if not _build.live_dtensor(p):
+        return out
+    return _build.stacked_dtensor(p, out)
+
+
+class NormShare(NamedTuple):
+    """The sphere's ‖z‖² split over the ``parts`` ranks of the tensor-
+    parallel axes: this rank measures share ``rank`` of the norm's work
+    list, and ``gather`` all-gathers a 1-D tensor of partial sums over
+    those ranks, in rank order (``collectives.gather_over``)."""
+    rank: int
+    parts: int
+    gather: Callable
+
+
+def norm_share(params: PyTree) -> Optional[NormShare]:
+    """How the sphere's ‖z‖² is split: ``None`` — one process measures
+    every leaf — unless θ's leaves are DTensors (live, or a dry run's on
+    ``meta``) on a mesh whose tensor-parallel axes (``sharding.tp_axes``)
+    hold more than one rank.  z depends on the seed and the global index
+    only, never on θ, so the split need not follow θ's shards: each rank
+    takes a contiguous share of the work and the shares' partial sums are
+    gathered and folded in the one-process order on every rank."""
+    from repro_torch.tree_utils import tree_leaves
+    mesh = next((p.device_mesh for p in tree_leaves(params)
+                 if hasattr(p, "placements")), None)
+    if mesh is None:
+        return None
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import axes_group, gather_over
+    from repro_torch.distributed.sharding import axis_size, tp_axes
+    axes = tuple(a for a in tp_axes(mesh) if a in mesh.mesh_dim_names)
+    if not axes or axis_size(mesh, axes) == 1:
+        return None
+    group = axes_group(mesh, axes)
+    return NormShare(dist.get_rank(group), dist.get_world_size(group),
+                     lambda t: gather_over(t, mesh, axes))
 
 
 class PerturbBackend:

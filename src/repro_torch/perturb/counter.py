@@ -48,12 +48,16 @@ alone.  Non-floating and unselected leaves are left alone (in
 ``perturb_many`` they ride along as broadcast views).
 
 Under tensor parallelism a leaf is a DTensor, and each write goes to the
-rank's local shard (``base.shard_view``) with its ``ShardMap``: K1 and K3
-draw the whole leaf's z at the shard's global indices, so every rank's
-write is bitwise its slice of the one-device write.  A replicated leaf is
-written whole on every rank.  The kernels with no shard map yet — the
-fan-out K4 / K5, the sphere's ‖z‖² (K6, which needs a sum across ranks)
-and the rows plans' K7–K10 — raise on a sharded leaf (``base.unsharded``).
+rank's local shard (``base.shard_view``) with its ``ShardMap``: K1, K3 and
+the fan-out K4 / K5 draw the whole leaf's z at the shard's global indices,
+so every rank's write is bitwise its slice of the one-device write (the
+fan-out's stack a DTensor whose shard dims moved one to the right,
+``base.rewrap_stacked``).  A replicated leaf is written whole on every
+rank.  The sphere's ‖z‖² is split over the ranks of the tensor-parallel
+axes (``base.norm_share``): each sums its share of K6's tiles, the shares
+are all-gathered and folded in tile order, so every rank's scale is the
+one-device scale bit for bit.  The rows plans' K7–K10 have no shard map
+yet and raise on a sharded leaf (``base.unsharded``).
 """
 from __future__ import annotations
 
@@ -72,8 +76,8 @@ from repro_torch.kernels.zo_fused.rows import (zo_affine_chain_rows,
                                                zo_affine_rows,
                                                zo_sqnorm_rows_many)
 from repro_torch.perturb.base import (PerturbBackend, _check_many,
-                                      per_stream_scales, rewrap, shard_view,
-                                      unsharded)
+                                      norm_share, per_stream_scales, rewrap,
+                                      rewrap_stacked, shard_view, unsharded)
 from repro_torch.perturb.stream import StreamRef, leaf_seed
 from repro_torch.tree_utils import (PyTree, is_floating, tree_leaves,
                                     tree_map_with_index)
@@ -140,7 +144,8 @@ class CounterBackend(PerturbBackend):
         the sphere rescale: one K6 call for every whole leaf and one K10
         call for every partial rows plan (d counting its selected
         elements) on the gaussian counter stream the affine kernels read,
-        the norms folded in leaf order in f32."""
+        the norms folded in leaf order in f32.  Under tensor parallelism
+        the K6 call is split over the ranks (``base.norm_share``)."""
         seed = ref.counter_seed()
         mask, blocks = ref.selection_mask(params), ref.selection_blocks(params)
         d, device = 0, None
@@ -148,8 +153,9 @@ class CounterBackend(PerturbBackend):
         for i, p in enumerate(tree_leaves(params)):
             if not _active(p, mask, i):
                 continue
-            p = unsharded(p, "the sphere's ‖z‖² (K6, K10)")
             rb = _leaf_blocks(blocks, i)
+            if rb is not None:
+                p = unsharded(p, "a rows plan's ‖z‖² (K10)")
             leaf = (len(whole) + len(rows), p.numel(), leaf_seed(seed, i))
             device = p.device
             if rb is None:
@@ -166,8 +172,8 @@ class CounterBackend(PerturbBackend):
         parts = [None] * (len(whole) + len(rows))
         if whole:
             slots, ns, seeds = zip(*whole)
-            for slot, norm in zip(slots, zo_sqnorm_many(ns, seeds, "gaussian",
-                                                        device)):
+            for slot, norm in zip(slots, zo_sqnorm_many(
+                    ns, seeds, "gaussian", device, norm_share(params))):
                 parts[slot] = norm
         if rows:
             slots, ns, seeds, plans = zip(*rows)
@@ -261,19 +267,21 @@ class CounterBackend(PerturbBackend):
 
         def one(i, p):
             if not _active(p, mask, i):
+                # a DTensor's expand moves its shard dims one to the right
                 return p.expand((n,) + tuple(p.shape))
-            x = unsharded(p, "perturb_many's fan-out (K4, K5, K8)")
             seeds = [leaf_seed(s, i) for s in seeds0]
             rb = _leaf_blocks(blocks, i)
             if rb is not None:
-                return rewrap(p, zo_affine_multi_rows(
+                x = unsharded(p, "a rows plan's fan-out (K8)")
+                return rewrap_stacked(p, zo_affine_multi_rows(
                     x, seeds, [1.0] * n, b_list, rb.block_elems, rb.k,
                     rb.phase, kdist))
+            x, smap = shard_view(p)
             if per is None:
-                return rewrap(p, zo_affine_batched(x, seeds, 1.0,
-                                                   float(f32(scale)), kdist))
-            return rewrap(p, zo_affine_multi(x, seeds, [1.0] * n, b_list,
-                                             kdist))
+                return rewrap_stacked(p, zo_affine_batched(
+                    x, seeds, 1.0, float(f32(scale)), kdist, shard=smap))
+            return rewrap_stacked(p, zo_affine_multi(
+                x, seeds, [1.0] * n, b_list, kdist, shard=smap))
 
         return tree_map_with_index(one, params)
 

@@ -30,8 +30,13 @@ direction, as in JAX (its sphere callers pre-scale the coefficient).
 The backend writes in place; unselected and non-floating leaves are left
 alone.  A DTensor leaf (tensor parallelism) is written as the rank's
 shard, X1 drawing the whole leaf's z at the shard's global indices in
-either layout (``base.shard_view``); the sphere's ‖z‖², ``perturb_many``
-and rows plans raise on a sharded leaf (``base.unsharded``).
+either layout (``base.shard_view``), ``perturb_many``'s streams too (their
+stack a DTensor whose shard dims moved one to the right,
+``base.rewrap_stacked``).  The sphere's ‖z‖² is split over the ranks of
+the tensor-parallel axes (``base.norm_share``): each sums its share of the
+2²⁴-element chunks, the chunk sums are all-gathered and folded in the
+one-process order, so every rank's scale is the one-device scale bit for
+bit.  Rows plans raise on a sharded leaf (``base.unsharded``).
 
 The module also holds JAX's functional API, ``repro.perturb.xla``'s
 module-level functions (re-exported by ``repro_torch.core.perturb``):
@@ -54,9 +59,12 @@ from typing import Literal, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import host_array
+from repro_torch.kernels import _build
 from repro_torch.kernels.threefry.kernel import zo_affine_threefry
-from repro_torch.perturb.base import (PerturbBackend, per_stream_scales,
-                                      rewrap, shard_view, unsharded)
+from repro_torch.perturb.base import (PerturbBackend, norm_share,
+                                      per_stream_scales, rewrap,
+                                      rewrap_stacked, shard_view, unsharded)
 from repro_torch.perturb.counter import _active, _leaf_blocks
 from repro_torch.perturb.stream import StreamRef, fold_in
 from repro_torch.tree_utils import (PyTree, is_floating, tree_leaves,
@@ -76,21 +84,32 @@ def in_dtype(v, dtype: torch.dtype) -> float:
     return float(torch.tensor(float(f32(v)), dtype=torch.float32).to(dtype))
 
 
+def _chunks(ranges) -> list:
+    """The ``SQNORM_CHUNK``-element chunks ``(lo, hi)`` of a leaf's ranges."""
+    return [(lo, min(lo + SQNORM_CHUNK, hi0)) for lo0, hi0 in ranges
+            for lo in range(lo0, hi0, SQNORM_CHUNK)]
+
+
+def _chunk_sum(z: torch.Tensor) -> torch.Tensor:
+    """Σ z² of one chunk, squared in f32 and summed in f64 (0-d)."""
+    return torch.sum(z.float().square(), dtype=torch.float64)
+
+
 def leaf_sqnorm(p: torch.Tensor, key, bands=None) -> np.float32:
     """Σ z² (f32 z of the leaf's gaussian stream) over the leaf or its
-    bands, generated chunk by chunk with X1's ``z`` form."""
+    bands, generated chunk by chunk with X1's ``z`` form, the chunk sums
+    added in f64 in order."""
     ranges = [(0, p.numel())] if bands is None else bands
     acc = 0.0
     buf = None
     for lo0, hi0 in ranges:
-        for lo in range(lo0, hi0, SQNORM_CHUNK):
-            hi = min(lo + SQNORM_CHUNK, hi0)
+        for lo, hi in _chunks([(lo0, hi0)]):
             if buf is None or buf.numel() < hi - lo:
                 buf = torch.empty(min(SQNORM_CHUNK, hi0 - lo0),
                                   dtype=p.dtype, device=p.device)
             z = zo_affine_threefry(None, key, "z", out=buf[:hi - lo],
                                    offset=lo, total=p.numel())
-            acc += float(torch.sum(z.float().square(), dtype=torch.float64))
+            acc += float(_chunk_sum(z))
     return f32(acc)
 
 
@@ -99,22 +118,57 @@ def _sphere_scale(params: PyTree, key, mask: Optional[tuple] = None,
     """sqrt(d)/‖z(key)‖ over the selected floating leaves (d and ‖z‖
     counting selected row bands only under a rows plan); ‖z‖² regenerated
     leaf by leaf in chunks and summed in f32, as JAX's ``_sphere_scale``
-    does.  A host f32 (JAX returns a 0-d f32 array)."""
-    d, sq = 0, f32(0.0)
+    does.  A host f32 (JAX returns a 0-d f32 array).  Under tensor
+    parallelism the chunks are split over the ranks (``_shared_sqnorms``)."""
+    d, leaves = 0, []
     for i, p in enumerate(tree_leaves(params)):
         if not _active(p, mask, i):
             continue
-        p = unsharded(p, "the sphere's ‖z‖²")
         rb = _leaf_blocks(blocks, i)
+        if rb is not None:
+            p = unsharded(p, "a rows plan's ‖z‖² (X1's bands)")
         d += p.numel() if rb is None else rb.selected_elems()
-        sq = f32(sq + leaf_sqnorm(p, fold_in(key, i),
-                                  None if rb is None else rb.ranges()))
+        leaves.append((p, fold_in(key, i), None if rb is None
+                       else rb.ranges()))
     if d == 0:
         raise ValueError(
             "sphere perturbation needs at least one selected floating "
             "leaf (the sqrt(d)/‖z‖ rescale is undefined on an empty "
             "subspace)")
+    share = norm_share(params)
+    norms = (_shared_sqnorms(leaves, share) if share is not None
+             else [leaf_sqnorm(*leaf) for leaf in leaves])
+    sq = f32(0.0)
+    for norm in norms:
+        sq = f32(sq + norm)
     return f32(np.sqrt(f32(f32(d) / sq)))
+
+
+def _shared_sqnorms(leaves, share) -> list:
+    """Each leaf's ``leaf_sqnorm`` with the chunks of every leaf split over
+    ``share``'s ranks: this rank sums its share of the flat chunk list
+    (``_build.share_range``; X1's launches tagged ``norm_share``), the chunk
+    sums (f64) are all-gathered in rank order and read once, and each
+    leaf's are added in order from 0.0 — the one-process norms bit for
+    bit."""
+    work = [(k, lo, hi) for k, (p, _, bands) in enumerate(leaves)
+            for lo, hi in _chunks([(0, p.numel())] if bands is None
+                                  else bands)]
+    lo, hi = _build.share_range(len(work), share.rank, share.parts)
+    device = leaves[0][0].device
+    mine = torch.zeros(-(-len(work) // share.parts), dtype=torch.float64,
+                       device=device)
+    for slot, (k, c0, c1) in enumerate(work[lo:hi]):
+        p, key, _ = leaves[k]
+        z = zo_affine_threefry(None, key, "z", out=torch.empty(
+            c1 - c0, dtype=p.dtype, device=device), offset=c0,
+            total=p.numel(), tag="norm_share")
+        mine[slot] = _chunk_sum(z)
+    sums = host_array(share.gather(mine), np.float64)
+    accs = [0.0] * len(leaves)
+    for (k, _, _), s in zip(work, sums):
+        accs[k] += float(s)
+    return [f32(acc) for acc in accs]
 
 
 def _write(params: PyTree, key, form: str, a, b, e, dist: str, zs=None,
@@ -329,21 +383,27 @@ class XLABackend(PerturbBackend):
 
         def one(i, p):
             if not _active(p, mask, i):
+                # a DTensor's expand moves its shard dims one to the right
                 return p.expand((n,) + tuple(p.shape))
-            leaf, p = p, unsharded(p, "perturb_many's stacked streams")
             dt = p.dtype
             rb = _leaf_blocks(blocks, i)
-            # a rows plan writes its bands only: the rest of each slice is θ
-            out = (torch.empty((n,) + tuple(p.shape), dtype=dt,
-                               device=p.device) if rb is None
-                   else p.unsqueeze(0).repeat((n,) + (1,) * p.dim()))
+            if rb is None:
+                x, smap = shard_view(p)
+                out = _build.empty_streams(x, n)
+            else:
+                # a rows plan writes its bands only: the rest of each
+                # slice is θ
+                x, smap = unsharded(p, "a rows plan's stacked streams"), None
+                out = x.unsqueeze(0).repeat((n,) + (1,) * x.dim())
             for j, r in enumerate(refs):
                 zo_affine_threefry(
-                    p, fold_in(r.key, i), "xpbz", 0.0,
+                    x, fold_in(r.key, i), "xpbz", 0.0,
                     in_dtype(scales[j], dt), 0.0,
                     None if sphs[j] is None else in_dtype(sphs[j], dt),
                     kdist, out=out[j],
-                    bands=None if rb is None else rb.ranges())
-            return rewrap(leaf, out)
+                    bands=None if rb is None else rb.ranges(),
+                    total=None if smap is None else p.numel(), shard=smap,
+                    tag=None if smap is None else "shard/stacked")
+            return rewrap_stacked(p, out)
 
         return tree_map_with_index(one, params)

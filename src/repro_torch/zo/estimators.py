@@ -34,6 +34,9 @@ f32 = np.float32
 
 
 def _view(stacked, j: int):
+    # on a DTensor stack (tensor parallelism, ``base.rewrap_stacked``)
+    # DTensor's select drops the leading axis and moves each Shard(d + 1)
+    # back to Shard(d): the view has θ's placements, nothing is gathered
     return tree_map(lambda s: s[j], stacked)
 
 

@@ -417,6 +417,66 @@ def test_cuda_sqnorm_many_bitwise(cuda, ns, dist):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3, 4])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+def test_cuda_sqnorm_shares_fold_to_the_whole_norm(cuda, parts, dist):
+    """K6's ``share`` route: each rank's share of the tiles summed on the
+    card, the shares gathered and folded by the card's fold, bitwise the
+    one-call norms — also where a leaf's tiles straddle two shares and
+    where a share is empty."""
+    from repro_torch.kernels.zo_fused import multi as km
+    ns = [300_001, 7, 131_072, 1]
+    seeds = [977 + 31 * i for i in range(len(ns))]
+    whole = zo_sqnorm_many(ns, seeds, dist, cuda)
+    tiles = sum(-(-n // km.TILE_ELEMS) for n in ns)
+    per = -(-tiles // parts)
+    shares = [km.share_sums_plain(ns, seeds, dist, cuda,
+                                  *_build.share_range(tiles, r, parts))
+              for r in range(parts)]
+    every = torch.cat([torch.nn.functional.pad(sh, (0, per - len(sh)))
+                       for sh in shares])
+    for r in range(parts):
+        def gather(mine, r=r):
+            assert torch.equal(mine[:len(shares[r])], shares[r])
+            return every
+        _build.reset_launch_counts()
+        got = zo_sqnorm_many(ns, seeds, dist, cuda, (r, parts, gather))
+        assert _build.route_counts == {"zo_sqnorm/share": 1}
+        assert torch.equal(got, whole), (r, got, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dist", ["gaussian", "rademacher"])
+def test_cuda_fanout_shard_route_is_the_slice(cuda, dtype, dist):
+    """K4 and K5 on every rank's shard (``shard=``): bitwise their plain
+    versions' shard writes and the slices of the whole fan-out, on leaves
+    cut on each dim — shard rows of whole 16-byte vectors and not."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for shape in ((6, 13, 20), (4, 64, 96)):
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        whole5 = zo_affine_batched(x, SEEDS[:3], 0.999, -0.0123, dist)
+        whole4 = zo_affine_multi(x, SEEDS[:3], A[:3], B[:3], dist)
+        for dim in range(len(shape)):
+            for parts in (2, 4):
+                for r in range(parts):
+                    sl, smap = _build.shard_window(shape, dim, parts, r)
+                    loc = x[sl].contiguous()
+                    got5 = zo_affine_batched(loc, SEEDS[:3], 0.999, -0.0123,
+                                             dist, shard=smap)
+                    got4 = zo_affine_multi(loc, SEEDS[:3], A[:3], B[:3],
+                                           dist, shard=smap)
+                    cut = (slice(None),) + sl
+                    assert torch.equal(got5, whole5[cut].contiguous())
+                    assert torch.equal(got4, whole4[cut].contiguous())
+                    assert torch.equal(got5, zo_affine_batched_plain(
+                        loc, SEEDS[:3], 0.999, -0.0123, dist, smap))
+                    assert torch.equal(got4, zo_affine_multi_plain(
+                        loc, SEEDS[:3], A[:3], B[:3], dist, smap))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("dist", ["gaussian", "rademacher"])

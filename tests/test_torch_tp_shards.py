@@ -1,8 +1,11 @@
-"""The z kernels on a rank's shard of a leaf (tensor parallelism): K1, K3
-and X1 (both threefry layouts) written on every rank's window of a leaf
-under DTensor's ``Shard`` rule, each bitwise the same slice of the
-whole-leaf write — the plain versions, which the CUDA shard routes are held
-to on the card (``chip_smoke.py`` phase (tp)).
+"""The z kernels on a rank's shard of a leaf (tensor parallelism): K1, K3,
+the fan-out K4 / K5, X1 (both threefry layouts) and X1's stacked streams
+(``perturb_many``'s writes) on every rank's window of a leaf under
+DTensor's ``Shard`` rule, each bitwise the same slice of the whole-leaf
+write — the plain versions, which the CUDA shard routes are held to on the
+card (``chip_smoke.py`` phase (tp)); and the sphere's ‖z‖² split over P
+ranks (K6's tiles, X1's chunks), every rank's folded shares bitwise the
+one-process norms.
 
 Leaf kinds: a 1-D bias, the stacked (L, d, h) leaves cut on their column
 (dim 2) and row (dim 1), an ``embed`` (V, d) and a ``head`` (d, V) cut on
@@ -21,8 +24,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.threefry.kernel import zo_affine_threefry
-from repro_torch.kernels.zo_fused.kernel import zo_affine
-from repro_torch.kernels.zo_fused.multi import zo_affine_chain
+from repro_torch.kernels.zo_fused import multi as km
+from repro_torch.kernels.zo_fused.kernel import zo_affine, zo_affine_batched
+from repro_torch.kernels.zo_fused.multi import (zo_affine_chain,
+                                                zo_affine_multi)
+from repro_torch.perturb import base
+from repro_torch.perturb import xla as pxla
 from repro_torch.perturb.xla import in_dtype
 
 torch.set_num_threads(1)
@@ -34,20 +41,41 @@ LEAVES = (((13,), 0), ((3, 10, 12), 2), ((3, 10, 12), 1), ((22, 10), 1),
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
+#: the fan-outs' streams (B = 3): seeds, and per-stream (a, b) for K4
+SEEDS3 = [5, 2**31 + 9, 77]
+A3, B3 = [1.0, 0.5, 1.0], [1e-2, -3e-2, 2e-3]
+
+
+def _windowed(x, shard, offset):
+    # K1 / K4 / K5 take no offset: a window of a longer leaf is a shard map
+    # whose start is the window's
+    if not offset:
+        return shard
+    shard = shard or _build.ShardMap(x.numel(), x.numel(), 0)
+    return shard._replace(start=shard.start + offset)
+
+
 def _k1(x, shard=None, offset=0, total=None, dist="gaussian"):
     del total
-    if offset:
-        # K1 takes no offset: a window of a longer leaf is a shard map whose
-        # start is the window's
-        shard = shard or _build.ShardMap(x.numel(), x.numel(), 0)
-        shard = shard._replace(start=shard.start + offset)
-    return zo_affine(x.clone(), 12345, 0.75, 1e-2, dist, shard=shard)
+    return zo_affine(x.clone(), 12345, 0.75, 1e-2, dist,
+                     shard=_windowed(x, shard, offset))
 
 
 def _k3(x, shard=None, offset=0, total=None, dist="gaussian"):
     del offset, total
     return zo_affine_chain(x.clone(), [5, 2**31 + 9], [0.5, 1.0],
                            [1e-2, -3e-2], dist, shard=shard)
+
+
+def _k5(x, shard=None, offset=0, total=None, dist="gaussian"):
+    del total
+    return zo_affine_batched(x, SEEDS3, 0.75, 1e-2, dist,
+                             shard=_windowed(x, shard, offset))
+
+
+def _k4(x, shard=None, offset=0, total=None, dist="gaussian"):
+    del offset, total
+    return zo_affine_multi(x, SEEDS3, A3, B3, dist, shard=shard)
 
 
 def _x1(partitionable):
@@ -60,7 +88,24 @@ def _x1(partitionable):
     return run
 
 
-KERNELS = {"k1": _k1, "k3": _k3, "x1": _x1(True), "x1_original": _x1(False)}
+def _x1_stacked(x, shard=None, offset=0, total=None, dist="gaussian"):
+    """X1's stacked streams as ``XLABackend.perturb_many`` writes them:
+    stream j's ``xpbz`` from x into slice j of one stack."""
+    out = torch.empty((3,) + tuple(x.shape), dtype=x.dtype)
+    for j, key in enumerate(((7, 2**32 - 3), (1, 2), (2**31, 5))):
+        zo_affine_threefry(x, key, "xpbz", 0.0, in_dtype(B3[j], x.dtype), 0.0,
+                           None, dist, out=out[j], offset=offset, total=total,
+                           shard=shard)
+    return out
+
+
+KERNELS = {"k1": _k1, "k3": _k3, "k4": _k4, "k5": _k5, "x1": _x1(True),
+           "x1_original": _x1(False), "x1_stacked": _x1_stacked}
+
+
+def _slice(whole, x, sl):
+    """The window ``sl`` of x in ``whole`` (a fan-out's streams lead)."""
+    return whole[(slice(None),) * (whole.dim() - x.dim()) + sl].contiguous()
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -78,12 +123,12 @@ def test_every_shard_is_the_slice_of_the_whole_write(kernel, dtype):
                     loc = x[sl].contiguous()
                     got = fn(loc, shard=smap, total=x.numel(), dist=dist)
                     assert torch.equal(got.view(-1).view(torch.uint8),
-                                       whole[sl].contiguous().view(-1).view(
+                                       _slice(whole, x, sl).view(-1).view(
                                            torch.uint8)), \
                         (kernel, dtype, shape, dim, n, r, dist)
 
 
-@pytest.mark.parametrize("kernel", ["k1", "x1"])
+@pytest.mark.parametrize("kernel", ["k1", "k5", "x1"])
 def test_counters_crossing_2_32_inside_a_shard(kernel):
     """A leaf read as a window whose flat indices cross 2³² (K1's uint32
     counter wraps there, X1's threefry counter carries into its high
@@ -96,7 +141,65 @@ def test_counters_crossing_2_32_inside_a_shard(kernel):
         sl, smap = _build.shard_window(x.shape, 1, 4, r)
         got = fn(x[sl].contiguous(), shard=smap, offset=off,
                  total=off + x.numel())
-        assert torch.equal(got, whole[sl].contiguous()), r
+        assert torch.equal(got, _slice(whole, x, sl)), r
+
+
+#: leaf lists for the norm's shares: K6's in elements (tiles of 2¹⁷), X1's
+#: in elements under a chunk of 64 — a leaf shorter than one tile (chunk),
+#: leaves that straddle shares, and a two-tile list that P = 3, 4 outrun
+NORM_LISTS = {"k6": ([5, km.TILE_ELEMS + 9, 64], [3, 2**31 + 7, 11]),
+              "k6_short": ([5, 7], [1, 2]),
+              "x1": ([5, 200, 64, 130], None), "x1_short": ([5, 7], None)}
+
+
+def _gathered(shares, per):
+    return torch.cat([torch.cat([s, s.new_zeros(per - len(s))])
+                      for s in shares])
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", sorted(NORM_LISTS))
+def test_norm_shares_fold_to_the_one_process_norm(case, parts, monkeypatch):
+    """The sphere's ‖z‖² split over ``parts`` ranks: each rank's share of
+    the work list (K6's tiles, X1's chunks; ``_build.share_range``), the
+    shares gathered in rank order and folded, is on every rank bitwise the
+    one-process norm — for K6's plain version and for X1's chunk sums."""
+    ns, seeds = NORM_LISTS[case]
+    if case.startswith("k6"):
+        whole = km.zo_sqnorm_many(ns, seeds)
+        tiles = sum(-(-n // km.TILE_ELEMS) for n in ns)
+        shares = [km.share_sums_plain(ns, seeds, "gaussian", "cpu",
+                                      *_build.share_range(tiles, r, parts))
+                  for r in range(parts)]
+        every = _gathered(shares, -(-tiles // parts))
+        for r in range(parts):
+            def gather(mine, r=r):
+                assert torch.equal(mine[:len(shares[r])], shares[r])
+                return every
+            got = km.zo_sqnorm_many(ns, seeds, share=(r, parts, gather))
+            assert torch.equal(got, whole), (r, got, whole)
+        return
+    monkeypatch.setattr(pxla, "SQNORM_CHUNK", 64)
+    g = torch.Generator().manual_seed(4)
+    leaves = [(torch.randn(n, generator=g).to(dt), (i, 2**32 - 1 - i), bands)
+              for i, (n, dt, bands) in enumerate(zip(
+                  ns, (torch.float32, torch.bfloat16) * 2,
+                  (None, [(3, 70), (100, 190)], None, None)))]
+    want = [pxla.leaf_sqnorm(*leaf) for leaf in leaves]
+    chunks = sum(len(pxla._chunks([(0, p.numel())] if b is None else b))
+                 for p, _, b in leaves)
+    per = -(-chunks // parts)
+    shares = []
+    for r in range(parts):
+        def keep(mine):
+            shares.append(mine)
+            return torch.zeros(per * parts, dtype=torch.float64)
+        pxla._shared_sqnorms(leaves, base.NormShare(r, parts, keep))
+    every = torch.cat(shares)
+    for r in range(parts):
+        got = pxla._shared_sqnorms(leaves, base.NormShare(
+            r, parts, lambda mine: every))
+        assert [v.tobytes() for v in got] == [v.tobytes() for v in want], r
 
 
 @pytest.mark.parametrize("rows,stride", [(6, 20), (40, 64), (1, 3)])
